@@ -1,0 +1,588 @@
+"""Device-resident chunk index on one torch device (the port of
+``mobius_rag_tpu.index.store``).
+
+Layout (fixed-capacity tensors; capacity doubles on overflow, unused rows
+masked by ``valid``):
+
+  vectors      [C, D]   f32/bf16  L2-normalized chunk embeddings
+  vec_scales   [C]      f32       per-row dequant scales (1.0: no int8 yet)
+  valid        [C]      f32       1.0 = live row, 0.0 = hole/pad
+  doc_id       [C]      i32       int-coded document
+  authority    [C]      f32       authority_level normalized to [0, 1]
+  length_score [C]      f32       precomputed body-length signal
+  payer/state/program [C] i32     int-coded canonical metadata
+  j/d/p_tags   [C, TW]  i32       tag bitsets (u32 bit patterns)
+  phrase_bits  [C, PW]  i32       lexicon-phrase presence bitsets (u32 bits)
+  lexical      [H, C]   bf16      hashed-term BM25 weights, bucket-major
+
+torch has few uint32 kernels, so every bitset keeps the JAX package's u32
+bit pattern in an int32 tensor: AND/OR are the same bits, and the engine
+tests ``!= 0`` and masks every shift (``>>`` on int32 is arithmetic).
+
+The host keeps the row ↔ ChunkRecord map for assembly. Writes are
+publish-grain: ``publish_document`` = delete_by_document + append, and
+rows freed by deletes are recycled before the index grows. Writes are
+in-place row assignments; no padded write blocks are needed because
+nothing recompiles.
+
+Not ported yet (each raises NotImplementedError): int8 vectors, the
+sparse lexical layout, host vector residency (ROADMAP queue 1 items 6,
+9, 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Iterable, Sequence
+
+import numpy as np
+import torch
+
+from mobius_rag_tpu_torch.config import Config, get_config
+from mobius_rag_tpu_torch.utils import round_up
+
+# Capacity granularity; matches the JAX store's write block so that both
+# packages give the same capacity C (and so the same m = min(k·of, C)).
+_WRITE_BLOCK = 256
+
+BITSET_FIELDS = ("j_tags", "d_tags", "p_tags", "phrase_bits")
+
+
+def pack_bits(ids: Iterable[int], words: int) -> np.ndarray:
+    """Pack small-int ids into a uint32 bitset of `words` words."""
+    acc = 0
+    limit = words * 32
+    for i in ids:
+        if 0 <= i < limit:
+            acc |= 1 << int(i)  # int(): numpy scalars overflow at 1<<63
+    if acc == 0:
+        return np.zeros(words, dtype=np.uint32)
+    return np.frombuffer(acc.to_bytes(words * 4, "little"),
+                         dtype=np.uint32).copy()
+
+
+def unpack_bits(bits: np.ndarray) -> list[int]:
+    """Inverse of pack_bits; takes u32 words or their int32 bit patterns."""
+    out = []
+    for w, word in enumerate(np.asarray(bits).view(np.uint32)):
+        word = int(word)
+        b = 0
+        while word:
+            if word & 1:
+                out.append(w * 32 + b)
+            word >>= 1
+            b += 1
+    return out
+
+
+@dataclasses.dataclass
+class ChunkRecord:
+    """One published chunk: host-side record plus everything needed to
+    build its device row."""
+
+    chunk_id: str
+    doc_id: str
+    text: str
+    embedding: np.ndarray  # [D] (will be L2-normalized)
+    source_id: str = ""  # embeddable-unit id, for incremental resume
+    authority_level: int = 0  # 0..4 (higher = more authoritative)
+    payer: str = ""
+    state: str = ""
+    program: str = ""
+    filename: str = ""
+    section_path: str = ""
+    summary: str = ""
+    page: int = 0
+    j_tags: list[int] = dataclasses.field(default_factory=list)
+    d_tags: list[int] = dataclasses.field(default_factory=list)
+    p_tags: list[int] = dataclasses.field(default_factory=list)
+    phrase_ids: list[int] = dataclasses.field(default_factory=list)
+    lexical_weights: dict[int, float] = dataclasses.field(default_factory=dict)
+    neighbor_text: str = ""
+    extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def _check_supported(cfg: Config) -> None:
+    if cfg.vector_dtype == "int8":
+        raise NotImplementedError(
+            "MRAG_VECTOR_DTYPE=int8 is not ported yet (ROADMAP queue 1, item 9)")
+    if cfg.lexical_format != "dense":
+        raise NotImplementedError(
+            "MRAG_LEXICAL_FORMAT=sparse is not ported yet (ROADMAP queue 1, item 6)")
+    if cfg.vector_residency != "device":
+        raise NotImplementedError(
+            "MRAG_VECTOR_RESIDENCY=host is not ported yet (ROADMAP queue 1, item 12)")
+
+
+def _vec_dtype(cfg: Config) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.vector_dtype]
+
+
+class DeviceIndex:
+    """A plain container of the index tensors, all on one device."""
+
+    FIELDS = (
+        "vectors", "vec_scales", "valid", "doc_id", "authority", "length_score",
+        "payer", "state", "program",
+        "j_tags", "d_tags", "p_tags", "phrase_bits",
+        "lexical",
+    )
+
+    def __init__(self, **tensors: torch.Tensor):
+        if set(tensors) != set(self.FIELDS):
+            raise ValueError(
+                f"DeviceIndex needs exactly {self.FIELDS}, got {sorted(tensors)}")
+        self.fields = self.FIELDS
+        for f in self.FIELDS:
+            setattr(self, f, tensors[f])
+
+    @property
+    def capacity(self) -> int:
+        return self.valid.shape[0]
+
+    @classmethod
+    def empty(cls, capacity: int, cfg: Config, device) -> "DeviceIndex":
+        c = capacity
+        kw = dict(device=device)
+        return cls(
+            vectors=torch.zeros((c, cfg.embed_dim), dtype=_vec_dtype(cfg), **kw),
+            vec_scales=torch.ones((c,), dtype=torch.float32, **kw),
+            valid=torch.zeros((c,), dtype=torch.float32, **kw),
+            doc_id=torch.full((c,), -1, dtype=torch.int32, **kw),
+            authority=torch.zeros((c,), dtype=torch.float32, **kw),
+            length_score=torch.zeros((c,), dtype=torch.float32, **kw),
+            payer=torch.full((c,), -1, dtype=torch.int32, **kw),
+            state=torch.full((c,), -1, dtype=torch.int32, **kw),
+            program=torch.full((c,), -1, dtype=torch.int32, **kw),
+            j_tags=torch.zeros((c, cfg.tag_words), dtype=torch.int32, **kw),
+            d_tags=torch.zeros((c, cfg.tag_words), dtype=torch.int32, **kw),
+            p_tags=torch.zeros((c, cfg.tag_words), dtype=torch.int32, **kw),
+            phrase_bits=torch.zeros((c, cfg.phrase_words), dtype=torch.int32, **kw),
+            lexical=torch.zeros((cfg.lexical_buckets, c), dtype=torch.bfloat16, **kw),
+        )
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        """The fields in the JAX package's numpy form: bitsets as uint32,
+        bf16 as its uint16 bit pattern (numpy has no bfloat16). Copies:
+        later in-place writes to the index do not show through."""
+        out = {}
+        for f in self.fields:
+            t = getattr(self, f).detach().to("cpu", copy=True)
+            if t.dtype == torch.bfloat16:
+                out[f] = t.view(torch.int16).numpy().view(np.uint16)
+            elif f in BITSET_FIELDS:
+                out[f] = t.numpy().view(np.uint32)
+            else:
+                out[f] = t.numpy()
+        return out
+
+
+def _to_tensor(a: np.ndarray, field: str, device) -> torch.Tensor:
+    """One JAX-form numpy field → its port tensor (bit patterns kept)."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # np.load / jax.device_get arrays
+        a = a.copy()
+    if a.dtype.name == "bfloat16":  # ml_dtypes array: same bits as uint16
+        a = a.view(np.uint16)
+    if a.dtype == np.uint16 and field in ("vectors", "lexical"):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32)).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def index_from_numpy(arrays: dict[str, np.ndarray], device) -> DeviceIndex:
+    """Carry a JAX ``DeviceIndex`` (its fields fetched with
+    ``jax.device_get``) over to the port: u32 bitsets become int32 with
+    the same bits, bf16 (as ml_dtypes or a uint16 bit pattern) becomes
+    ``torch.bfloat16`` bitwise."""
+    return DeviceIndex(**{f: _to_tensor(arrays[f], f, device)
+                          for f in DeviceIndex.FIELDS})
+
+
+class _Interner:
+    """String → dense int id (payer/state/program/doc interning)."""
+
+    def __init__(self):
+        self.to_id: dict[str, int] = {}
+        self.to_str: list[str] = []
+
+    def intern(self, s: str) -> int:
+        if s not in self.to_id:
+            self.to_id[s] = len(self.to_str)
+            self.to_str.append(s)
+        return self.to_id[s]
+
+    def state_dict(self):
+        return {"to_str": self.to_str}
+
+    def load_state(self, st):
+        self.to_str = list(st["to_str"])
+        self.to_id = {s: i for i, s in enumerate(self.to_str)}
+
+
+# Authority levels normalize to [0,1] over a 0..4 scale.
+_AUTH_MAX = 4.0
+
+
+def _length_score(text: str) -> float:
+    """Body-length signal in [0,1]: ramps to 1.0 at ~600 chars, flat after."""
+    return min(len(text) / 600.0, 1.0)
+
+
+class ChunkStore:
+    """Mutable host handle around a :class:`DeviceIndex` on `device`."""
+
+    SNAPSHOT_VERSION = 1
+
+    def __init__(self, cfg: Config | None = None, capacity: int | None = None,
+                 device="cuda"):
+        self.cfg = cfg or get_config()
+        _check_supported(self.cfg)
+        self.device = torch.device(device)
+        cap = round_up(capacity or self.cfg.initial_capacity, _WRITE_BLOCK)
+        self.index = DeviceIndex.empty(cap, self.cfg, self.device)
+        self.records: list[ChunkRecord | None] = []
+        self.docs = _Interner()
+        self.payers = _Interner()
+        self.states = _Interner()
+        self.programs = _Interner()
+        self._doc_rows: dict[str, list[int]] = {}
+        self._source_ids: dict[str, set[str]] = {}  # doc → embedded source ids
+        self._free_rows: list[int] = []
+        self._lexical_stats_cache: tuple[dict[int, int], int] | None = None
+        # Every mutation bumps `generation`: the engine's prepared-query
+        # cache keys on it.
+        self.generation = 0
+
+    # -- sizing ----------------------------------------------------------
+
+    @property
+    def size(self) -> int:
+        return len(self.records) - len(self._free_rows)
+
+    @property
+    def capacity(self) -> int:
+        return self.index.capacity
+
+    def _ensure_capacity(self, extra: int) -> None:
+        needed = len(self.records) + extra
+        if needed <= self.capacity:
+            return
+        new_cap = self.capacity
+        while new_cap < needed:
+            new_cap *= 2
+        grown = DeviceIndex.empty(new_cap, self.cfg, self.device)
+        for f in grown.fields:
+            old = getattr(self.index, f)
+            if f == "lexical":  # bucket-major: rows are columns
+                grown.lexical[:, :old.shape[1]] = old
+            else:
+                getattr(grown, f)[:old.shape[0]] = old
+        self.index = grown
+        self.generation += 1
+
+    # -- writes ------------------------------------------------------------
+
+    def _stage(self, recs: Sequence[ChunkRecord], with_vectors: bool = True) -> dict:
+        """Host arrays (numpy) of every row field for `recs` except the
+        lexical weights; `vectors` (normalized embeddings) only when
+        `with_vectors`."""
+        cfg = self.cfg
+        n = len(recs)
+        st = {
+            "vec_scales": np.ones(n, np.float32),
+            "valid": np.ones(n, np.float32),
+            "doc_id": np.zeros(n, np.int32),
+            "authority": np.zeros(n, np.float32),
+            "length_score": np.zeros(n, np.float32),
+            "payer": np.zeros(n, np.int32),
+            "state": np.zeros(n, np.int32),
+            "program": np.zeros(n, np.int32),
+            "j_tags": np.zeros((n, cfg.tag_words), np.uint32),
+            "d_tags": np.zeros((n, cfg.tag_words), np.uint32),
+            "p_tags": np.zeros((n, cfg.tag_words), np.uint32),
+            "phrase_bits": np.zeros((n, cfg.phrase_words), np.uint32),
+        }
+        if with_vectors:
+            st["vectors"] = np.zeros((n, cfg.embed_dim), np.float32)
+        for i, r in enumerate(recs):
+            if with_vectors:
+                v = np.asarray(r.embedding, np.float32)
+                norm = float(np.linalg.norm(v))
+                st["vectors"][i] = v / norm if norm > 0 else v
+            st["doc_id"][i] = self.docs.intern(r.doc_id)
+            st["authority"][i] = min(max(r.authority_level, 0), _AUTH_MAX) / _AUTH_MAX
+            st["length_score"][i] = _length_score(r.text)
+            st["payer"][i] = self.payers.intern(r.payer) if r.payer else -1
+            st["state"][i] = self.states.intern(r.state) if r.state else -1
+            st["program"][i] = self.programs.intern(r.program) if r.program else -1
+            st["j_tags"][i] = pack_bits(r.j_tags, cfg.tag_words)
+            st["d_tags"][i] = pack_bits(r.d_tags, cfg.tag_words)
+            st["p_tags"][i] = pack_bits(r.p_tags, cfg.tag_words)
+            st["phrase_bits"][i] = pack_bits(r.phrase_ids, cfg.phrase_words)
+        return st
+
+    def _write_rows(self, rows: Sequence[int], recs: Sequence[ChunkRecord]) -> None:
+        """Overwrite every field of `rows` (which also clears what a
+        deleted previous occupant left behind). Runs in chunks of
+        _WRITE_BLOCK records so the staged [H, n] lexical block stays
+        small."""
+        h = self.cfg.lexical_buckets
+        for off in range(0, len(rows), _WRITE_BLOCK):
+            blk_rows = list(rows[off:off + _WRITE_BLOCK])
+            blk_recs = recs[off:off + _WRITE_BLOCK]
+            st = self._stage(blk_recs)
+            lex = np.zeros((h, len(blk_recs)), np.float32)  # bucket-major
+            for i, r in enumerate(blk_recs):
+                for bucket, w in r.lexical_weights.items():
+                    lex[bucket % h, i] += w
+            idx = torch.as_tensor(blk_rows, dtype=torch.long, device=self.device)
+            for f, a in st.items():
+                t = getattr(self.index, f)
+                t[idx] = _to_tensor(a, f, self.device).to(t.dtype)
+            self.index.lexical[:, idx] = torch.from_numpy(lex).to(
+                self.device).to(torch.bfloat16)
+
+    def add_chunks(self, recs: Sequence[ChunkRecord]) -> list[int]:
+        """Insert records; returns their rows. Embeddings are
+        L2-normalized here. Rows freed by deletes are recycled (lowest
+        first) before the record list grows."""
+        if not recs:
+            return []
+        cfg = self.cfg
+        # Validate before mutating any host state so a bad batch is atomic.
+        for r in recs:
+            emb = np.asarray(r.embedding, np.float32)
+            if emb.shape != (cfg.embed_dim,):
+                raise ValueError(
+                    f"embedding shape {emb.shape} != ({cfg.embed_dim},) "
+                    f"for chunk {r.chunk_id!r}")
+        n_rec = min(len(recs), len(self._free_rows))
+        self._free_rows.sort()
+        recycled, self._free_rows = self._free_rows[:n_rec], self._free_rows[n_rec:]
+        self._ensure_capacity(len(recs) - n_rec)
+        rows = []
+        for i, r in enumerate(recs):
+            if i < n_rec:
+                row = recycled[i]
+                self.records[row] = r
+            else:
+                row = len(self.records)
+                self.records.append(r)
+            rows.append(row)
+            self._doc_rows.setdefault(r.doc_id, []).append(row)
+            if r.source_id:
+                self._source_ids.setdefault(r.doc_id, set()).add(r.source_id)
+        self._write_rows(rows, recs)
+        self._lexical_stats_cache = None
+        self.generation += 1
+        return rows
+
+    def bulk_load(self, recs: Sequence[ChunkRecord], *, vectors=None,
+                  lexical=None) -> list[int]:
+        """Mass-ingest fast path on an empty store: one transfer per field.
+
+        `vectors` [N, D] (numpy, or a tensor on any device) and/or
+        `lexical` [N', H] numpy (N' ≤ N, row-major; rows past N' carry
+        no lexical weights) may be given directly, row-aligned with
+        `recs`; otherwise they come from the records. Vectors passed as
+        an array are assumed L2-normalized."""
+        if self.records:
+            raise ValueError("bulk_load requires an empty store")
+        cfg = self.cfg
+        n = len(recs)
+        cap = round_up(max(n, cfg.initial_capacity), _WRITE_BLOCK)
+        fresh = DeviceIndex.empty(cap, cfg, self.device)
+        for i, r in enumerate(recs):
+            self.records.append(r)
+            self._doc_rows.setdefault(r.doc_id, []).append(i)
+            if r.source_id:
+                self._source_ids.setdefault(r.doc_id, set()).add(r.source_id)
+        st = self._stage(recs, with_vectors=vectors is None)
+        if vectors is not None:
+            vt = vectors[:n] if isinstance(vectors, torch.Tensor) \
+                else torch.from_numpy(np.ascontiguousarray(vectors[:n], np.float32))
+            fresh.vectors[:n] = vt.to(self.device).to(fresh.vectors.dtype)
+        for f, a in st.items():
+            t = getattr(fresh, f)
+            t[:n] = _to_tensor(a, f, self.device).to(t.dtype)
+        if lexical is None:
+            last = max((i + 1 for i, r in enumerate(recs) if r.lexical_weights),
+                       default=0)
+            lexical = np.zeros((last, cfg.lexical_buckets), np.float32)
+            for i, r in enumerate(recs[:last]):
+                for bucket, w in r.lexical_weights.items():
+                    lexical[i, bucket % cfg.lexical_buckets] += w
+        if lexical.shape[0] > 0:
+            fresh.lexical[:, :lexical.shape[0]] = torch.from_numpy(
+                np.ascontiguousarray(lexical, np.float32)).to(
+                self.device).to(torch.bfloat16).T
+        self.index = fresh
+        self._lexical_stats_cache = None
+        self.generation += 1
+        return list(range(n))
+
+    def _clear_rows(self, rows: Sequence[int]) -> None:
+        idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
+        self.index.valid[idx] = 0.0
+
+    def delete_by_document(self, doc_id: str) -> int:
+        """Invalidate all live rows of a document."""
+        rows = [r for r in self._doc_rows.pop(doc_id, []) if self.records[r] is not None]
+        self._source_ids.pop(doc_id, None)
+        if not rows:
+            return 0
+        for r in rows:
+            self.records[r] = None
+            self._free_rows.append(r)
+        self._clear_rows(rows)
+        self._lexical_stats_cache = None
+        self.generation += 1
+        return len(rows)
+
+    def invalidate_rows(self, rows: Sequence[int]) -> int:
+        """Force-clear device rows regardless of host-record state."""
+        rows = [r for r in rows if 0 <= r < self.capacity]
+        if not rows:
+            return 0
+        for r in rows:
+            if r < len(self.records) and self.records[r] is not None:
+                rec = self.records[r]
+                self.records[r] = None
+                self._free_rows.append(r)
+                if r in self._doc_rows.get(rec.doc_id, []):
+                    self._doc_rows[rec.doc_id].remove(r)
+        self._clear_rows(rows)
+        self._lexical_stats_cache = None
+        self.generation += 1
+        return len(rows)
+
+    def publish_document(self, doc_id: str, recs: Sequence[ChunkRecord]) -> list[int]:
+        """Idempotent republish: DELETE+INSERT, then verify the document's
+        live row count equals the record count."""
+        self.delete_by_document(doc_id)
+        rows = self.add_chunks(recs)
+        live = [r for r in self._doc_rows.get(doc_id, [])
+                if self.records[r] is not None]
+        if len(live) != len(recs):
+            raise RuntimeError(
+                f"publish integrity: {doc_id!r} expected {len(recs)} live rows, "
+                f"found {len(live)}")
+        return rows
+
+    def lexical_stats(self) -> tuple[dict[int, int], int]:
+        """(bucket → live-chunk document frequency, live chunk count) for
+        query-side IDF. Cached; invalidated by add/delete."""
+        if self._lexical_stats_cache is None:
+            df: dict[int, int] = {}
+            n = 0
+            for r in self.records:
+                if r is None:
+                    continue
+                n += 1
+                for b in r.lexical_weights:
+                    key = b % self.cfg.lexical_buckets
+                    df[key] = df.get(key, 0) + 1
+            self._lexical_stats_cache = (df, n)
+        return self._lexical_stats_cache
+
+    # -- reads -------------------------------------------------------------
+
+    def record(self, row: int) -> ChunkRecord | None:
+        if 0 <= row < len(self.records):
+            return self.records[row]
+        return None
+
+    # -- snapshot / resume (the JAX package's format, both ways) -----------
+
+    def snapshot(self, path: str) -> None:
+        """Write ``index.npz`` + ``store.json`` exactly as the JAX store
+        does (bf16 fields as uint16 bit patterns, bitsets as uint32), so
+        either package restores the other's snapshots."""
+        os.makedirs(path, exist_ok=True)
+        arrays = self.index.to_numpy()
+        meta_dtypes = {f: "bfloat16" for f in arrays
+                       if getattr(self.index, f).dtype == torch.bfloat16}
+        np.savez_compressed(os.path.join(path, "index.npz"), **arrays)
+        recs = []
+        for r in self.records:
+            if r is None:
+                recs.append(None)
+            else:
+                d = dataclasses.asdict(r)
+                d["embedding"] = None  # lives in index.npz
+                d["lexical_weights"] = {str(k): v for k, v in d["lexical_weights"].items()}
+                recs.append(d)
+        state = {
+            "version": self.SNAPSHOT_VERSION,
+            "records": recs,
+            "free_rows": self._free_rows,
+            "doc_rows": self._doc_rows,
+            "source_ids": {k: sorted(v) for k, v in self._source_ids.items()},
+            "interners": {
+                "docs": self.docs.state_dict(),
+                "payers": self.payers.state_dict(),
+                "states": self.states.state_dict(),
+                "programs": self.programs.state_dict(),
+            },
+            "bf16_fields": meta_dtypes,
+            "config": {
+                "embed_dim": self.cfg.embed_dim,
+                "tag_words": self.cfg.tag_words,
+                "phrase_words": self.cfg.phrase_words,
+                "lexical_buckets": self.cfg.lexical_buckets,
+                "lexical_format": self.cfg.lexical_format,
+                "vector_residency": self.cfg.vector_residency,
+            },
+        }
+        with open(os.path.join(path, "store.json"), "w") as f:
+            json.dump(state, f)
+
+    @classmethod
+    def restore(cls, path: str, cfg: Config | None = None,
+                device="cuda") -> "ChunkStore":
+        """Read a snapshot written by either package."""
+        with open(os.path.join(path, "store.json")) as f:
+            state = json.load(f)
+        version = int(state.get("version", 0))  # v0 has v1's layout
+        if version > cls.SNAPSHOT_VERSION:
+            raise ValueError(
+                f"snapshot version {version} is newer than this build "
+                f"supports ({cls.SNAPSHOT_VERSION})")
+        cfg = cfg or get_config()
+        for key, val in state["config"].items():
+            if key == "lexical_format" and val != "dense":
+                raise NotImplementedError(
+                    "sparse-lexical snapshots are not ported yet "
+                    "(ROADMAP queue 1, item 6)")
+            if key == "vector_residency" and val != "device":
+                raise NotImplementedError(
+                    "host-residency snapshots are not ported yet "
+                    "(ROADMAP queue 1, item 12)")
+            if getattr(cfg, key) != val:
+                raise ValueError(f"snapshot {key}={val} != config {getattr(cfg, key)}")
+        with np.load(os.path.join(path, "index.npz")) as data:
+            arrays = {f: data[f] for f in data.files}
+        store = cls(cfg, capacity=arrays["valid"].shape[0], device=device)
+        store.index = index_from_numpy(arrays, store.device)
+        # Rehydrate record embeddings from the restored vectors: republish
+        # paths treat record embeddings as authoritative.
+        vecs = arrays["vectors"]
+        if state["bf16_fields"].get("vectors") == "bfloat16":
+            vecs = (vecs.astype(np.uint32) << 16).view(np.float32)
+        store.records = []
+        for i, d in enumerate(state["records"]):
+            if d is None:
+                store.records.append(None)
+                continue
+            d["embedding"] = vecs[i]
+            d["lexical_weights"] = {int(k): v for k, v in d["lexical_weights"].items()}
+            store.records.append(ChunkRecord(**d))
+        store._free_rows = list(state["free_rows"])
+        store._doc_rows = {k: list(v) for k, v in state["doc_rows"].items()}
+        store._source_ids = {k: set(v) for k, v in state["source_ids"].items()}
+        for name in ("docs", "payers", "states", "programs"):
+            getattr(store, name).load_state(state["interners"][name])
+        return store

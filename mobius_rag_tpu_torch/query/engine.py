@@ -1,0 +1,736 @@
+"""The hybrid retrieval pipeline ("strategy a"), exact dense path, in
+PyTorch (the port of ``mobius_rag_tpu.query.engine``).
+
+Per batch of queries:
+
+  prepare      host: lexicon expansion, tokenizing, IDF, bitsets
+  filter gate  [B, C] strict/relaxed/open masks with strict→relaxed
+               auto-relax → an additive penalty
+  vector arm   masked cosine top-m through ops.topk.masked_topk (the
+               Hopper kernel on a CUDA device; no [B, C] cosine matrix)
+  lexical arm  [B, U] × [U, C] over the batch's union of hashed buckets
+  d-tag arm    d-tag bitset overlap, authority-scored
+  signals      per-candidate gathers + bit tests
+  fusion       RRF k=60 over the candidate union, v1.3 weighted rerank
+  assembly     host: records, confidence labels, neighbours, traces
+
+Semantics follow the JAX engine line by line; where torch differs:
+
+- bitsets are int32 bit patterns (see index/store.py): bit tests use
+  ``!= 0``, and shifts are masked with ``& 1``;
+- every selection goes through ``ops.topk.topk_stable`` (or the kernel),
+  which keeps ``lax.top_k``'s lower-index-first order among ties;
+- queries are rounded to bf16 (round-to-nearest-even, as the JAX engine
+  sends them) and widened to float32 on the device;
+- each arm's candidate cosine is a gather of its rows, as the JAX
+  engine's ANN branch does (``_cand_cos``), since no dense cosine exists;
+- fusion skips the JAX engine's per-arm re-sort (``engine.py:620``): on
+  one device each arm's list is already in top-k order, so it is the
+  identity (the sharded merge that needs it is not ported);
+- the lexical bucket union ships at its exact size: the JAX engine's pads
+  (``_BUCKET_PADS``) only bounded recompiles.
+
+Float32 matmuls run in full float32 (TF32 is switched off in the
+package's ``__init__``).
+
+Not ported yet, each raising NotImplementedError: ANN vector backends,
+sharded serving, host re-rank (host residency), candidate-local gating,
+the cross-encoder stage and the telemetry store (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import OrderedDict
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from mobius_rag_tpu_torch.config import Config, get_config
+from mobius_rag_tpu_torch.index.store import ChunkStore, DeviceIndex, pack_bits
+from mobius_rag_tpu_torch.ingest.featurize import query_lexical_weights
+from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
+from mobius_rag_tpu_torch.query.gating import query_dtag_ids
+from mobius_rag_tpu_torch.query.lexicon import Lexicon, LexiconExpansion
+
+# Rerank weights, reranker v1.3 (see the JAX engine for their derivation).
+W_SIM, W_AUTH, W_LEN, W_JPD, W_COV = 0.25, 0.10, 0.05, 0.20, 0.55
+
+# Max coverage-phrase slots per query.
+MAX_PHRASE_SLOTS = 64
+
+_MODES = ("corpus", "precision", "recall")
+# Per-mode arm weights in RRF (vector, lexical, dtag): precision is
+# lexical-dominant, recall vector-dominant with no confidence floor.
+_MODE_ARM_WEIGHTS = {
+    "corpus": (1.0, 1.0, 0.5),
+    "precision": (0.5, 1.0, 0.7),
+    "recall": (1.0, 0.6, 0.3),
+}
+# Mode-default minimum confidence floor.
+MODE_MIN_LABEL = {"corpus": "low", "precision": "low", "recall": "abstain"}
+
+# Per-candidate signal channels carried through fusion:
+# cos, lex_raw, auth, len, jpd, cov.
+N_SIG = 6
+
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item {})"
+
+
+@dataclasses.dataclass
+class QueryRequest:
+    """One search request."""
+
+    query: str
+    embedding: np.ndarray | None = None  # [D]; required unless embed_fn is set
+    mode: str = "corpus"
+    payer: str = ""
+    state: str = ""
+    program: str = ""
+    min_similarity: float = 0.0
+    tag_mode: str = "strict"  # strict | relaxed | none
+    # a payer filter also admits payer-unaffiliated regulator rows
+    # (authority_level 4) when set
+    inherit_authority: bool = True
+
+
+@dataclasses.dataclass
+class SearchHit:
+    row: int
+    chunk_id: str
+    doc_id: str
+    text: str
+    score: float  # rerank score in [0, 1]
+    similarity: float  # best-arm cosine
+    signals: dict[str, float]
+    metadata: dict[str, Any]
+    # adjacent same-document chunks attached for synthesis context
+    neighbors: list[dict[str, Any]] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class SearchResult:
+    query: str
+    hits: list[SearchHit]
+    confidence_label: str
+    expansion: LexiconExpansion
+    telemetry: dict[str, Any]
+
+
+def _confidence_label(score: float, cfg: Config) -> str:
+    if score >= cfg.confidence_high:
+        return "high"
+    if score >= cfg.confidence_medium:
+        return "medium"
+    if score >= cfg.confidence_low:
+        return "low"
+    return "abstain"
+
+
+# ---------------------------------------------------------------------------
+# The device pipeline
+# ---------------------------------------------------------------------------
+
+def _unpack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[..., W] int32 bit patterns → [..., W, 32] int32 {0, 1}. The shift
+    is arithmetic on int32, so the `& 1` is what keeps bit 31 right."""
+    r = torch.arange(32, dtype=torch.int32, device=bits.device)
+    return (bits[..., None] >> r) & 1
+
+
+def _popcount(bits: torch.Tensor) -> torch.Tensor:
+    """Set bits per row: [..., W] int32 → [...] float32."""
+    return _unpack_bits(bits).sum(dim=(-2, -1)).float()
+
+
+def _overlap(bits: torch.Tensor, qbits: torch.Tensor) -> torch.Tensor:
+    """Any-bit overlap between chunk bitsets [C, W] and query bitsets
+    [B, W] → [B, C] {0, 1} float32. `!= 0`, not `> 0`: a word with bit 31
+    set is negative as int32. Loops over the small word axis: a single
+    [B, C, W] AND reduced over W took more device time on an H100 (its
+    reduction over an 8-wide inner axis; PERF.md) than the 3·W launches
+    of the loop."""
+    acc = torch.zeros((qbits.shape[0], bits.shape[0]), dtype=torch.bool,
+                      device=bits.device)
+    for w in range(bits.shape[1]):
+        acc |= (bits[:, w][None, :] & qbits[:, w][:, None]) != 0
+    return acc.float()
+
+
+def _any_bits(qbits: torch.Tensor) -> torch.Tensor:
+    """[B, W] → [B, 1] float32: 1 where any bit is set."""
+    return (qbits != 0).any(dim=1, keepdim=True).float()
+
+
+def filter_masks(index: DeviceIndex, q: dict):
+    """Eligibility masks [B, C]: (strict, relaxed, open, meta_ok).
+    strict = metadata AND j-tags (when the query has any); relaxed =
+    metadata AND d/p-tag join (the auto-relax target); open = validity."""
+    valid = index.valid  # [C] f32
+
+    def col_match(col, want):  # [C] i32 vs [B] i32 (-1 = any, -2 = none)
+        return torch.where(want[:, None] == -1, 1.0,
+                           (col[None, :] == want[:, None]).float())
+
+    payer_ok = col_match(index.payer, q["payer"])
+    # payer-unaffiliated regulator-grade rows pass a payer filter when the
+    # query allows inheritance
+    regulator = ((index.authority[None, :] >= 0.999)
+                 & (index.payer[None, :] < 0)).float()
+    payer_ok = torch.maximum(payer_ok, q["inherit_authority"][:, None] * regulator)
+    meta_ok = (payer_ok
+               * col_match(index.state, q["state"])
+               * col_match(index.program, q["program"]))  # [B, C]
+    has_j = _any_bits(q["j_bits"])
+    has_dp = torch.maximum(_any_bits(q["d_bits"]), _any_bits(q["p_bits"]))
+    j_ok = _overlap(index.j_tags, q["j_bits"])
+    dp_ok = torch.maximum(_overlap(index.d_tags, q["d_bits"]),
+                          _overlap(index.p_tags, q["p_bits"]))
+    strict = valid[None, :] * meta_ok * torch.where(has_j > 0, j_ok, 1.0)
+    relaxed = valid[None, :] * meta_ok * torch.where(has_dp > 0, dp_ok, 1.0)
+    open_mask = valid[None, :] * torch.ones_like(meta_ok)
+    return strict, relaxed, open_mask, meta_ok
+
+
+def gate_penalty(strict, relaxed, open_mask, q: dict, k: int, strict_total=None):
+    """Per-query tag_mode gating with strict→relaxed auto-relax → the
+    additive penalty [B, C] (0 eligible, NEG_INF gated)."""
+    if strict_total is None:
+        strict_total = strict.sum(dim=1, keepdim=True)
+    auto = torch.where(strict_total >= k, strict, torch.maximum(strict, relaxed))
+    tm = q["tag_mode"][:, None]
+    gate = torch.where(tm == 0, auto, torch.where(tm == 1, relaxed, open_mask))
+    return (1.0 - gate) * NEG_INF
+
+
+def lexical_raw(index: DeviceIndex, q: dict) -> torch.Tensor:
+    """Lexical arm raw scores [B, C]: gather the batch's union of touched
+    buckets [U, C] and contract with the per-query IDF weights [B, U]."""
+    bucket_rows = index.lexical[q["lex_buckets"].long()].float()  # [U, C]
+    return q["lex_weights"] @ bucket_rows
+
+
+def dtag_raw(index: DeviceIndex, q: dict, meta_ok) -> torch.Tensor:
+    """D-tag arm scores [B, C]: authority-ranked tag membership under the
+    metadata filter."""
+    member = _overlap(index.d_tags, q["d_bits"])
+    live = index.authority[None, :] + 1.0
+    return (torch.where(member > 0, live, NEG_INF)
+            + (1.0 - index.valid[None, :]) * NEG_INF
+            + (1.0 - meta_ok) * NEG_INF)
+
+
+def _bit_at(bits: torch.Tensor, word: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
+    """bits [B, M, W] int32, word/bit [B, S] → [B, M, S] float32 {0, 1}."""
+    b, m, _ = bits.shape
+    s = word.shape[1]
+    w = torch.gather(bits, 2, word.long()[:, None, :].expand(b, m, s))
+    return ((w >> bit[:, None, :]) & 1).float()
+
+
+def candidate_signals(index: DeviceIndex, q: dict, cand: torch.Tensor):
+    """Per-candidate rerank signals (auth, len, jpd, cov) for candidate
+    rows `cand` [B, M] (int64)."""
+    auth = index.authority[cand]
+    lsig = index.length_score[cand]
+
+    # jpd: fraction of the query's d-tags the chunk carries
+    inter = index.d_tags[cand] & q["d_bits"][:, None, :]  # [B, M, W]
+    jpd_hits = _popcount(inter)
+    q_dcount = _popcount(q["d_bits"])[:, None]
+    jpd = torch.where(q_dcount > 0,
+                      torch.minimum(jpd_hits / torch.clamp(q_dcount, min=1.0),
+                                    torch.ones_like(jpd_hits)),
+                      0.0)
+
+    # coverage: selectivity-weighted phrase presence with binary j-tag
+    # doc credit (v1.3 unified coverage)
+    phrase_present = _bit_at(index.phrase_bits[cand], q["slot_word"], q["slot_bit"])
+    jtag_present = _bit_at(index.j_tags[cand], q["slot_jword"], q["slot_jbit"])
+    s_isj = q["slot_isj"][:, None, :]
+    s_w = q["slot_weight"][:, None, :]  # 0 for inactive slots
+    present = torch.where(s_isj > 0, torch.maximum(jtag_present, phrase_present),
+                          phrase_present)
+    cov_num = (present * s_w).sum(dim=2)
+    cov_den = q["slot_weight"].sum(dim=1)[:, None]
+    cov = torch.where(cov_den > 0, cov_num / torch.clamp(cov_den, min=1e-6), 0.0)
+    return auth, lsig, jpd, cov
+
+
+def rerank_score(sim, auth, lsig, jpd, cov, has_jpd, has_cov):
+    """Reranker v1.3 weighted sum, normalized to [0, 1]."""
+    w_jpd = W_JPD * has_jpd
+    w_cov = W_COV * has_cov
+    max_w = W_SIM + W_AUTH + W_LEN + w_jpd + w_cov
+    return (W_SIM * sim + W_AUTH * auth + W_LEN * lsig + w_jpd * jpd
+            + w_cov * cov) / torch.clamp(max_w, min=1e-6)
+
+
+def _cand_cos(index: DeviceIndex, qvec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-candidate cosine via a row gather [B, m, D]."""
+    vecs = index.vectors[idx].float()
+    return torch.einsum("bmd,bd->bm", vecs, qvec)
+
+
+def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int):
+    """The three arms' top-m candidates and their rerank signals.
+    Returns (vals [3, B, m] f32, gidx [3, B, m] int32, sigs [3, B, m,
+    N_SIG] f32, strict_total [B, 1])."""
+    strict, relaxed, open_mask, meta_ok = filter_masks(index, q)
+    strict_total = strict.sum(dim=1, keepdim=True)
+    penalty = gate_penalty(strict, relaxed, open_mask, q, k, strict_total)
+
+    vec_vals, vec_idx = masked_topk(q["vec"], index.vectors, penalty,
+                                    q["min_sim"], m)
+    lex = lexical_raw(index, q)
+    lex_scores = torch.where(lex > 0, lex, NEG_INF) + penalty
+    lex_vals, lex_idx = topk_stable(lex_scores, m)
+    dtag_vals, dtag_idx = topk_stable(dtag_raw(index, q, meta_ok), m)
+
+    out_vals, out_idx, out_sigs = [], [], []
+    for vals, idx in ((vec_vals, vec_idx.long()), (lex_vals, lex_idx),
+                      (dtag_vals, dtag_idx)):
+        auth, lsig, jpd, cov = candidate_signals(index, q, idx)
+        sig = torch.stack([_cand_cos(index, q["vec"], idx),
+                           torch.gather(lex, 1, idx), auth, lsig, jpd, cov],
+                          dim=-1)  # [B, m, N_SIG]
+        out_vals.append(vals)
+        out_idx.append(idx)
+        out_sigs.append(sig)
+    return (torch.stack(out_vals), torch.stack(out_idx).to(torch.int32),
+            torch.stack(out_sigs), strict_total)
+
+
+def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int):
+    """RRF + rerank over the UNION of the per-arm candidate lists (no
+    [B, C] buffer: duplicates are summed through a [B, 3m, 3m] pairwise
+    match). vals/gidx [3, B, m] (each arm already in top-k order),
+    sigs [3, B, m, N_SIG]."""
+    n_arms, b, r = vals.shape
+    dev = vals.device
+    ranks = torch.arange(r, dtype=torch.float32, device=dev)[None, :]
+    cand_parts, contrib_parts = [], []
+    for a in range(n_arms):
+        live = (vals[a] > NEG_INF / 2).float()
+        w = q["arm_weights"][:, a:a + 1]
+        cand_parts.append(torch.where(
+            live > 0, gidx[a].long(), -1 - a * r - ranks.long()))  # dead ids never match
+        contrib_parts.append(live * w / (rrf_k + ranks + 1.0))
+    u_idx = torch.cat(cand_parts, dim=1)  # [B, 3r]
+    u_contrib = torch.cat(contrib_parts, dim=1)
+    u_sig = torch.cat(list(sigs), dim=1)  # [B, 3r, N_SIG]
+    u_live = (u_contrib > 0).float()
+
+    eq = (u_idx[:, :, None] == u_idx[:, None, :]).float()  # [B, 3r, 3r]
+    rrf_sum = torch.einsum("bij,bj->bi", eq, u_contrib)
+    first = torch.argmax(eq, dim=2)  # first occurrence of each id
+    is_first = (first == torch.arange(u_idx.shape[1], device=dev)[None, :]).float()
+    fused = torch.where(is_first * u_live > 0, rrf_sum, NEG_INF)
+
+    # rerank as many fused candidates as one arm over-fetches
+    cand_rrf, pos = topk_stable(fused, min(r, fused.shape[1]))
+    cand_idx = torch.gather(u_idx, 1, pos)
+    cand_sig = torch.gather(u_sig, 1, pos[..., None].expand(-1, -1, N_SIG))
+
+    cos_c, lex_c = cand_sig[..., 0], cand_sig[..., 1]
+    auth_c, len_c = cand_sig[..., 2], cand_sig[..., 3]
+    jpd_c, cov_c = cand_sig[..., 4], cand_sig[..., 5]
+    # lexical normalizer = best LIVE (gate-passing) lexical score
+    lex_best = torch.where(vals[1] > NEG_INF / 2, vals[1], 0.0).max(dim=1).values
+    lexn = torch.clamp(lex_c / torch.clamp(lex_best[:, None], min=1e-6), 0.0, 1.0)
+    sim = torch.clamp(torch.maximum(cos_c, lexn), 0.0, 1.0)
+
+    has_jpd = _any_bits(q["d_bits"])
+    has_cov = (q["slot_weight"].sum(dim=1) > 0).float()[:, None]
+    rerank = rerank_score(sim, auth_c, len_c, jpd_c, cov_c, has_jpd, has_cov)
+    rerank = torch.where(cand_rrf > NEG_INF / 2, rerank, NEG_INF)
+
+    top_vals, tpos = topk_stable(rerank, k)
+
+    def take(x):
+        return torch.gather(x, 1, tpos)
+
+    return {
+        "idx": take(cand_idx).to(torch.int32),
+        "rerank": top_vals,
+        "sim": take(sim),
+        "cos": take(cos_c),
+        "auth": take(auth_c),
+        "len": take(len_c),
+        "jpd": take(jpd_c),
+        "cov": take(cov_c),
+        "rrf": take(cand_rrf),
+        "lexn": take(lexn),
+    }
+
+
+@torch.inference_mode()
+def search_batch(index: DeviceIndex, q: dict, k: int, over_fetch: int,
+                 rrf_k: int) -> dict[str, torch.Tensor]:
+    """All arms, fusion and rerank for one prepared batch; the output
+    tensors stay on the index's device (see pack_out)."""
+    m = min(k * over_fetch, index.capacity)
+    # Queries arrive bf16-rounded (see prepare_batch); widen once.
+    q = dict(q, vec=q["vec"].float())
+    vals, gidx, sigs, strict_total = arm_candidates(index, q, k, m)
+    out = fuse_and_rerank(vals, gidx, sigs, q, k, rrf_k)
+    out.update({
+        "vec_idx": gidx[0][:, : k * 2],
+        "vec_vals": vals[0][:, : k * 2],
+        "lex_idx": gidx[1][:, : k * 2],
+        "lex_vals": vals[1][:, : k * 2],
+        "dtag_idx": gidx[2][:, : k * 2],
+        "dtag_vals": vals[2][:, : k * 2],
+        "strict_count": strict_total[:, 0],
+    })
+    return out
+
+
+# Output packing layout: (key, width-multiplier-of-k) per dtype class;
+# strict_count rides the int pack as an extra column.
+_OUT_F = (("rerank", 1), ("sim", 1), ("cos", 1), ("auth", 1), ("len", 1),
+          ("jpd", 1), ("cov", 1), ("rrf", 1), ("lexn", 1),
+          ("vec_vals", 2), ("lex_vals", 2), ("dtag_vals", 2))
+_OUT_I = (("idx", 1), ("vec_idx", 2), ("lex_idx", 2), ("dtag_idx", 2))
+
+
+def pack_out(out: dict) -> tuple[np.ndarray, np.ndarray]:
+    """Device outputs → two host arrays (one float32, one int32): two
+    device→host copies per batch instead of sixteen, each of which would
+    wait for the stream."""
+    packed_f = torch.cat([out[key] for key, _ in _OUT_F], dim=1)
+    packed_i = torch.cat([out[key] for key, _ in _OUT_I]
+                         + [out["strict_count"][:, None].to(torch.int32)], dim=1)
+    return packed_f.cpu().numpy(), packed_i.cpu().numpy()
+
+
+def unpack_out(fetched, k: int) -> dict[str, np.ndarray]:
+    """Host inverse of pack_out: numpy views under the JAX engine's key
+    schema."""
+    packed_f, packed_i = np.asarray(fetched[0]), np.asarray(fetched[1])
+    out: dict[str, np.ndarray] = {}
+    off = 0
+    for key, mult in _OUT_F:
+        out[key] = packed_f[:, off:off + mult * k]
+        off += mult * k
+    off = 0
+    for key, mult in _OUT_I:
+        out[key] = packed_i[:, off:off + mult * k]
+        off += mult * k
+    out["strict_count"] = packed_i[:, off]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Host orchestration
+# ---------------------------------------------------------------------------
+
+class SearchEngine:
+    """Host-side handle: prepares query arrays, runs the device pipeline
+    on the store's device, assembles results."""
+
+    def __init__(self, store: ChunkStore, lexicon: Lexicon | None = None,
+                 cfg: Config | None = None, embed_fn=None, telemetry=None,
+                 sharded=None, vector_backend: str | None = None,
+                 device="cuda"):
+        self.cfg = cfg or get_config()
+        backend = vector_backend or self.cfg.vector_backend
+        if backend != "exact":
+            raise NotImplementedError(
+                f"vector backend {backend!r} " + _NOT_PORTED.format("9-11"))
+        if sharded is not None:
+            raise NotImplementedError("sharded serving " + _NOT_PORTED.format(14))
+        if telemetry is not None:
+            raise NotImplementedError("the telemetry store " + _NOT_PORTED.format(15))
+        self.device = torch.device(device)
+        if store.device != self.device:
+            raise ValueError(f"engine device {self.device} != store device "
+                             f"{store.device}")
+        self.store = store
+        self.lexicon = lexicon
+        self.embed_fn = embed_fn  # (list[str]) -> np.ndarray [B, D]
+        # query-embedding LRU (repeated queries skip re-embedding)
+        self._embed_cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
+        self._embed_cache_max = 256
+        # prepared-query LRU, keyed on the request's string fields and
+        # invalidated by store writes and lexicon growth
+        self._prep_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._prep_cache_max = 1024
+
+    @property
+    def cross_encoder(self):
+        return None
+
+    @cross_encoder.setter
+    def cross_encoder(self, model) -> None:
+        if model is not None:
+            raise NotImplementedError("the cross-encoder stage " + _NOT_PORTED.format(13))
+
+    # -- host-side query prep ---------------------------------------------
+
+    def prepare_query(self, req: QueryRequest
+                      ) -> tuple[dict[str, np.ndarray], LexiconExpansion,
+                                 dict[int, float]]:
+        cfg = self.cfg
+        if req.mode not in _MODES:
+            raise ValueError(f"mode {req.mode!r} must be one of {_MODES}")
+        if req.tag_mode not in ("strict", "relaxed", "none"):
+            raise ValueError(f"tag_mode {req.tag_mode!r} must be strict|relaxed|none")
+        cache_key = (req.query, req.mode, req.payer, req.state, req.program,
+                     float(req.min_similarity), req.tag_mode, req.inherit_authority)
+        token = (self.store.generation,
+                 self.lexicon.num_phrases if self.lexicon else 0)
+        hit = self._prep_cache.get(cache_key)
+        if hit is not None and hit[0] == token:
+            self._prep_cache.move_to_end(cache_key)
+            return hit[1], hit[2], hit[3]
+        exp = self.lexicon.expand(req.query) if self.lexicon else LexiconExpansion()
+
+        df, n_live = self.store.lexical_stats()
+        lex_w = query_lexical_weights(req.query, exp.expansion_phrases, df, n_live,
+                                      cfg.lexical_buckets)
+
+        slots = exp.phrase_slots[:MAX_PHRASE_SLOTS]
+        s_word = np.zeros(MAX_PHRASE_SLOTS, np.int32)
+        s_bit = np.zeros(MAX_PHRASE_SLOTS, np.int32)
+        s_jword = np.zeros(MAX_PHRASE_SLOTS, np.int32)
+        s_jbit = np.zeros(MAX_PHRASE_SLOTS, np.int32)
+        s_isj = np.zeros(MAX_PHRASE_SLOTS, np.float32)
+        s_weight = np.zeros(MAX_PHRASE_SLOTS, np.float32)
+        for i, (pid, weight, jtag) in enumerate(slots):
+            if pid >= cfg.phrase_words * 32:
+                continue  # phrase id beyond bitset capacity: skip the slot
+            s_word[i] = pid // 32
+            s_bit[i] = pid % 32
+            s_weight[i] = weight
+            if 0 <= jtag < cfg.tag_words * 32:
+                s_isj[i] = 1.0
+                s_jword[i] = jtag // 32
+                s_jbit[i] = jtag % 32
+
+        def meta_id(interner, value):
+            # "" → -1 = no filter; an unknown value → -2, which matches no row
+            if not value:
+                return -1
+            return interner.to_id.get(value, -2)
+
+        q = {
+            "payer": np.int32(meta_id(self.store.payers, req.payer)),
+            "state": np.int32(meta_id(self.store.states, req.state)),
+            "program": np.int32(meta_id(self.store.programs, req.program)),
+            "j_bits": pack_bits(exp.tag_ids["j"], cfg.tag_words),
+            "d_bits": pack_bits(exp.tag_ids["d"], cfg.tag_words),
+            "p_bits": pack_bits(exp.tag_ids["p"], cfg.tag_words),
+            "min_sim": np.float32(req.min_similarity),
+            "inherit_authority": np.float32(1.0 if req.inherit_authority else 0.0),
+            "tag_mode": np.int32({"strict": 0, "relaxed": 1, "none": 2}[req.tag_mode]),
+            "arm_weights": np.asarray(_MODE_ARM_WEIGHTS[req.mode], np.float32),
+            "slot_word": s_word,
+            "slot_bit": s_bit,
+            "slot_jword": s_jword,
+            "slot_jbit": s_jbit,
+            "slot_isj": s_isj,
+            "slot_weight": s_weight,
+            "d_tag_ids": query_dtag_ids(exp.tag_ids["d"], cfg.tag_words),
+        }
+        if len(self._prep_cache) >= self._prep_cache_max:
+            self._prep_cache.popitem(last=False)
+        self._prep_cache[cache_key] = (token, q, exp, lex_w)
+        return q, exp, lex_w
+
+    def prepare_batch(self, reqs: Sequence[QueryRequest]):
+        """The batched query dict on the device: per-query arrays stacked
+        (u32 bitsets as int32 bit patterns), the queries rounded to bf16,
+        and the lexical contraction as the union bucket list [U] with
+        per-query weights [B, U]. Returns (dict, expansions)."""
+        vecs = self._embeddings(reqs)
+        prepared = [self.prepare_query(r) for r in reqs]
+        host = {key: np.stack([p[0][key] for p in prepared]) for key in prepared[0][0]}
+        union: dict[int, int] = {}
+        for _, _, lex_w in prepared:
+            for b in lex_w:
+                union.setdefault(b, len(union))
+        weights = np.zeros((len(reqs), len(union)), np.float32)
+        for bi, (_, _, lex_w) in enumerate(prepared):
+            for b, w in lex_w.items():
+                weights[bi, union[b]] = w
+        host["lex_buckets"] = np.fromiter(union, np.int32, len(union))
+        host["lex_weights"] = weights
+        dev = self.device
+        q = {key: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+             for key, a in host.items()}
+        # bf16 round-to-nearest-even, as the JAX engine ships its queries
+        q["vec"] = torch.from_numpy(vecs).to(dev).to(torch.bfloat16)
+        return q, [p[1] for p in prepared]
+
+    def _embeddings(self, reqs: Sequence[QueryRequest]) -> np.ndarray:
+        def cache_key(q: str) -> str:
+            return q.strip().lower()
+
+        need = [r.query for r in reqs
+                if r.embedding is None and cache_key(r.query) not in self._embed_cache]
+        if need and self.embed_fn is None:
+            raise ValueError("QueryRequest.embedding missing and no embed_fn attached")
+        if need:
+            for q, v in zip(need, self.embed_fn(need)):
+                if len(self._embed_cache) >= self._embed_cache_max:
+                    self._embed_cache.popitem(last=False)
+                self._embed_cache[cache_key(q)] = np.asarray(v, np.float32)
+        out = []
+        for r in reqs:
+            if r.embedding is not None:
+                v = np.asarray(r.embedding, np.float32)
+            else:
+                key = cache_key(r.query)
+                self._embed_cache.move_to_end(key)
+                v = self._embed_cache[key]
+            n = np.linalg.norm(v)
+            out.append(v / n if n > 0 else v)
+        return np.stack(out)
+
+    # -- public API ---------------------------------------------------------
+
+    def _run(self, reqs: Sequence[QueryRequest], k: int):
+        q, exps = self.prepare_batch(reqs)
+        t_prep = time.perf_counter()
+        out = unpack_out(pack_out(search_batch(
+            self.store.index, q, k, self.cfg.over_fetch, self.cfg.rrf_k)), k)
+        return exps, out, t_prep
+
+    def search(self, reqs: Sequence[QueryRequest] | QueryRequest, k: int | None = None
+               ) -> list[SearchResult]:
+        if isinstance(reqs, QueryRequest):
+            reqs = [reqs]
+        k = k or self.cfg.default_k
+        t0 = time.perf_counter()
+        exps, out, t_prep = self._run(reqs, k)
+        t_dev = time.perf_counter()
+        timings = {
+            "prepare": (t_prep - t0) * 1e3 / len(reqs),
+            "device": (t_dev - t_prep) * 1e3 / len(reqs),
+        }
+        return self._assemble(list(reqs), exps, out, k, timings)
+
+    def search_pipelined(self, batches: Sequence[Sequence[QueryRequest]],
+                         k: int | None = None) -> list[list[SearchResult]]:
+        """Bulk search: the same results as one `search` per batch (with
+        empty timings, as the JAX engine's pipelined path reports).
+        Overlapping batches on CUDA streams is later work."""
+        k = k or self.cfg.default_k
+        results = []
+        for batch in batches:
+            exps, out, _ = self._run(batch, k)
+            results.append(self._assemble(list(batch), exps, out, k))
+        return results
+
+    # Neighbor-expansion caps (per hit, per document).
+    MAX_NEIGHBORS_PER_HIT = 2
+    MAX_NEIGHBOR_CHUNKS_PER_DOC = 4
+
+    def _expand_with_neighbors(self, hits: list[SearchHit]) -> None:
+        """Attach adjacent same-document chunks to each hit: ±1 rows in
+        publish order within the same doc, deduped against hits already
+        present, capped per doc."""
+        hit_rows = {h.row for h in hits}
+        per_doc: dict[str, int] = {}
+        for h in hits:
+            rec = self.store.record(h.row)
+            if rec is None:
+                continue
+            doc_rows = self.store._doc_rows.get(h.doc_id, [])
+            try:
+                pos = doc_rows.index(h.row)
+            except ValueError:
+                continue
+            for npos in (pos - 1, pos + 1):
+                if not (0 <= npos < len(doc_rows)):
+                    continue
+                nrow = doc_rows[npos]
+                if nrow in hit_rows:
+                    continue
+                if per_doc.get(h.doc_id, 0) >= self.MAX_NEIGHBOR_CHUNKS_PER_DOC:
+                    break
+                nrec = self.store.record(nrow)
+                if nrec is None:
+                    continue
+                if len(h.neighbors) >= self.MAX_NEIGHBORS_PER_HIT:
+                    break
+                h.neighbors.append({
+                    "chunk_id": nrec.chunk_id, "text": nrec.text,
+                    "section_path": nrec.section_path, "page": nrec.page,
+                    "position": "before" if npos < pos else "after",
+                })
+                per_doc[h.doc_id] = per_doc.get(h.doc_id, 0) + 1
+
+    # Signal channels materialized per hit, in out-dict key order.
+    _SIGNAL_KEYS = (("sim", "sim"), ("cos", "cosine"), ("auth", "authority"),
+                    ("len", "length"), ("jpd", "jpd"), ("cov", "coverage"),
+                    ("rrf", "rrf"))
+
+    def _assemble(self, reqs: list[QueryRequest], exps, out, k: int,
+                  timings: dict | None = None) -> list[SearchResult]:
+        cfg = self.cfg
+        cols = {key: np.asarray(v).tolist() for key, v in out.items()}
+        results = []
+        for bi, req in enumerate(reqs):
+            # corpus/precision drop abstain-grade hits; recall keeps all
+            floor = 0.0 if MODE_MIN_LABEL.get(req.mode) == "abstain" \
+                else cfg.confidence_low
+            rerank_b = cols["rerank"][bi]
+            idx_b = cols["idx"][bi]
+            sig_b = [cols[src][bi] for src, _ in self._SIGNAL_KEYS]
+            hits = []
+            for j in range(k):
+                score = rerank_b[j]
+                if score <= NEG_INF / 2 or score < floor:
+                    continue
+                row = idx_b[j]
+                rec = self.store.record(row)
+                if rec is None:
+                    continue
+                hits.append(SearchHit(
+                    row=row,
+                    chunk_id=rec.chunk_id,
+                    doc_id=rec.doc_id,
+                    text=rec.text,
+                    score=score,
+                    similarity=sig_b[0][j],
+                    signals={name: col[j] for (_, name), col
+                             in zip(self._SIGNAL_KEYS, sig_b)},
+                    metadata={
+                        "payer": rec.payer, "state": rec.state,
+                        "program": rec.program, "filename": rec.filename,
+                        "section_path": rec.section_path, "page": rec.page,
+                        "authority_level": rec.authority_level,
+                    },
+                ))
+            self._expand_with_neighbors(hits)
+            label = _confidence_label(max(h.score for h in hits), cfg) \
+                if hits else "abstain"
+            exp = exps[bi]
+
+            def _arm_trace(name):
+                idxs = cols[f"{name}_idx"][bi]
+                vals = cols[f"{name}_vals"][bi]
+                return [{"row": i, "score": v}
+                        for i, v in zip(idxs, vals) if v > NEG_INF / 2][:k]
+
+            results.append(SearchResult(
+                query=req.query,
+                hits=hits,
+                confidence_label=label,
+                expansion=exp,
+                telemetry={
+                    "timings_ms": timings or {},
+                    "arms": {
+                        "vector": _arm_trace("vec"),
+                        "lexical": _arm_trace("lex"),
+                        "dtag": _arm_trace("dtag"),
+                    },
+                    "strict_count": int(cols["strict_count"][bi]),
+                    "expansion_log": exp.log,
+                    "mode": req.mode,
+                },
+            ))
+        return results

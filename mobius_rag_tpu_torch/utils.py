@@ -1,0 +1,10 @@
+"""Shape helpers (``mobius_rag_tpu.utils.shapes``)."""
+from __future__ import annotations
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    return cdiv(x, m) * m
