@@ -3,8 +3,8 @@ defaults read the same ``MRAG_*`` variables as ``mobius_rag_tpu.config``,
 so one environment sizes both packages alike.
 
 Only the knobs the port reads are here. The ones that select a layout or
-backend the port does not have yet (int8 vectors, sparse lexical, host
-residency, ANN backends) are kept so that asking for one raises
+backend the port does not have yet (int8 vectors, host residency, the
+ivf/packed/pq backends) are kept so that asking for one raises
 ``NotImplementedError`` instead of silently serving the default.
 """
 from __future__ import annotations
@@ -42,14 +42,34 @@ class Config:
     phrase_words: int = _env_int("MRAG_PHRASE_WORDS", 64)
     # Hashed-term buckets for the lexical (BM25-style) arm.
     lexical_buckets: int = _env_int("MRAG_LEXICAL_BUCKETS", 16384)
-    # "dense" (bucket-major [H, C]) is the only layout ported so far.
+    # "dense" (bucket-major [H, C]) or "sparse" (postings [H, P]).
     lexical_format: str = _env_str("MRAG_LEXICAL_FORMAT", "dense")
+    # Sparse postings per bucket: initial width (doubles on overflow) and
+    # cap (beyond it the lowest-weight postings are pruned).
+    lexical_postings_init: int = _env_int("MRAG_LEXICAL_POSTINGS_INIT", 64)
+    lexical_postings_max: int = _env_int("MRAG_LEXICAL_POSTINGS_MAX", 8192)
     # "float32" | "bfloat16" (int8 is not ported yet).
     vector_dtype: str = _env_str("MRAG_VECTOR_DTYPE", "float32")
-    # "exact" is the only vector-arm backend ported so far.
+    # Vector-arm backend: "exact" or "proj" (ivf/packed/pq not ported yet).
     vector_backend: str = _env_str("MRAG_VECTOR_BACKEND", "exact")
     # "device" is the only vector residency ported so far.
     vector_residency: str = _env_str("MRAG_VECTOR_RESIDENCY", "device")
+
+    # ---- ANN (proj backend) -------------------------------------------
+    # IVF clusters (0 = sqrt(live rows)) and probed clusters per query.
+    ivf_nlist: int = _env_int("MRAG_IVF_NLIST", 0)
+    ivf_nprobe: int = _env_int("MRAG_IVF_NPROBE", 32)
+    # Bytes per row of the projected-residual codes.
+    proj_p: int = _env_int("MRAG_PROJ_P", 256)
+    # Empty always-probed slabs appended at build for streaming inserts.
+    ann_reserve_slabs: int = _env_int("MRAG_ANN_RESERVE_SLABS", 2)
+    # Approximate final top-k in the probed scan: not ported, kept at 0.
+    ann_approx_topk: float = _env_float("MRAG_ANN_APPROX_TOPK", 0.0)
+    # Filter gate: "dense" [B, C] masks + penalty, "local" evaluated on the
+    # candidates (proj backend), "auto" = local under host residency only.
+    gating: str = _env_str("MRAG_GATING", "auto")
+    # Candidate-local d-tag arm: per-tag postings width.
+    dtag_postings: int = _env_int("MRAG_DTAG_POSTINGS", 4096)
 
     # ---- search tunables ------------------------------------------------
     rrf_k: int = _env_int("MRAG_RRF_K", 60)
@@ -85,6 +105,14 @@ class Config:
             problems.append(
                 f"MRAG_VECTOR_RESIDENCY={self.vector_residency!r} must be "
                 "device|host")
+        if not 8 <= self.lexical_postings_init <= self.lexical_postings_max:
+            problems.append(
+                "MRAG_LEXICAL_POSTINGS_INIT must be in "
+                f"[8, MRAG_LEXICAL_POSTINGS_MAX={self.lexical_postings_max}]")
+        if self.gating not in ("auto", "dense", "local"):
+            problems.append(f"MRAG_GATING={self.gating!r} must be auto|dense|local")
+        if self.dtag_postings < 8:
+            problems.append("MRAG_DTAG_POSTINGS must be >= 8")
         if self.tag_words <= 0 or self.phrase_words <= 0:
             problems.append("tag_words and phrase_words must be positive")
         if self.initial_capacity < 128:

@@ -14,6 +14,12 @@ masked by ``valid``):
   j/d/p_tags   [C, TW]  i32       tag bitsets (u32 bit patterns)
   phrase_bits  [C, PW]  i32       lexicon-phrase presence bitsets (u32 bits)
   lexical      [H, C]   bf16      hashed-term BM25 weights, bucket-major
+                                  (MRAG_LEXICAL_FORMAT=dense), or
+  lex_cols     [H, P]   i32       sparse postings: chunk rows (-1 pad) and
+  lex_wts      [H, P]   bf16      their weights (MRAG_LEXICAL_FORMAT=sparse);
+                                  P grows by doubling from
+                                  lexical_postings_init and is pruned by
+                                  impact at lexical_postings_max
 
 torch has few uint32 kernels, so every bitset keeps the JAX package's u32
 bit pattern in an int32 tensor: AND/OR are the same bits, and the engine
@@ -23,18 +29,19 @@ The host keeps the row ↔ ChunkRecord map for assembly. Writes are
 publish-grain: ``publish_document`` = delete_by_document + append, and
 rows freed by deletes are recycled before the index grows. Writes are
 in-place row assignments; no padded write blocks are needed because
-nothing recompiles.
+nothing recompiles. Every mutation bumps ``generation`` and tells the
+``listeners`` (event ``add``/``delete``/``grow``/``bulk`` with its rows), as
+the JAX store does; the engine's ANN maintenance listens.
 
-Not ported yet (each raises NotImplementedError): int8 vectors, the
-sparse lexical layout, host vector residency (ROADMAP queue 1 items 6,
-9, 12).
+Not ported yet (each raises NotImplementedError): int8 vectors and host
+vector residency (ROADMAP queue 1 items 9, 12).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Any, Iterable, Sequence
+from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +54,7 @@ from mobius_rag_tpu_torch.utils import round_up
 _WRITE_BLOCK = 256
 
 BITSET_FIELDS = ("j_tags", "d_tags", "p_tags", "phrase_bits")
+BF16_FIELDS = ("vectors", "lexical", "lex_wts")
 
 
 def pack_bits(ids: Iterable[int], words: int) -> np.ndarray:
@@ -107,9 +115,6 @@ def _check_supported(cfg: Config) -> None:
     if cfg.vector_dtype == "int8":
         raise NotImplementedError(
             "MRAG_VECTOR_DTYPE=int8 is not ported yet (ROADMAP queue 1, item 9)")
-    if cfg.lexical_format != "dense":
-        raise NotImplementedError(
-            "MRAG_LEXICAL_FORMAT=sparse is not ported yet (ROADMAP queue 1, item 6)")
     if cfg.vector_residency != "device":
         raise NotImplementedError(
             "MRAG_VECTOR_RESIDENCY=host is not ported yet (ROADMAP queue 1, item 12)")
@@ -120,7 +125,9 @@ def _vec_dtype(cfg: Config) -> torch.dtype:
 
 
 class DeviceIndex:
-    """A plain container of the index tensors, all on one device."""
+    """A plain container of the index tensors, all on one device. The
+    lexical layout is ``FIELDS`` (dense ``lexical``) or ``SPARSE_FIELDS``
+    (``lex_cols`` + ``lex_wts``); ``fields`` names the one in use."""
 
     FIELDS = (
         "vectors", "vec_scales", "valid", "doc_id", "authority", "length_score",
@@ -128,13 +135,16 @@ class DeviceIndex:
         "j_tags", "d_tags", "p_tags", "phrase_bits",
         "lexical",
     )
+    SPARSE_FIELDS = FIELDS[:-1] + ("lex_cols", "lex_wts")
 
     def __init__(self, **tensors: torch.Tensor):
-        if set(tensors) != set(self.FIELDS):
+        layout = self.FIELDS if "lexical" in tensors else self.SPARSE_FIELDS
+        if set(tensors) != set(layout):
             raise ValueError(
-                f"DeviceIndex needs exactly {self.FIELDS}, got {sorted(tensors)}")
-        self.fields = self.FIELDS
-        for f in self.FIELDS:
+                f"DeviceIndex needs exactly {self.FIELDS} or {self.SPARSE_FIELDS}, "
+                f"got {sorted(tensors)}")
+        self.fields = layout
+        for f in layout:
             setattr(self, f, tensors[f])
 
     @property
@@ -145,6 +155,13 @@ class DeviceIndex:
     def empty(cls, capacity: int, cfg: Config, device) -> "DeviceIndex":
         c = capacity
         kw = dict(device=device)
+        if cfg.lexical_format == "sparse":
+            h, p = cfg.lexical_buckets, cfg.lexical_postings_init
+            lex = dict(lex_cols=torch.full((h, p), -1, dtype=torch.int32, **kw),
+                       lex_wts=torch.zeros((h, p), dtype=torch.bfloat16, **kw))
+        else:
+            lex = dict(lexical=torch.zeros((cfg.lexical_buckets, c),
+                                           dtype=torch.bfloat16, **kw))
         return cls(
             vectors=torch.zeros((c, cfg.embed_dim), dtype=_vec_dtype(cfg), **kw),
             vec_scales=torch.ones((c,), dtype=torch.float32, **kw),
@@ -159,7 +176,7 @@ class DeviceIndex:
             d_tags=torch.zeros((c, cfg.tag_words), dtype=torch.int32, **kw),
             p_tags=torch.zeros((c, cfg.tag_words), dtype=torch.int32, **kw),
             phrase_bits=torch.zeros((c, cfg.phrase_words), dtype=torch.int32, **kw),
-            lexical=torch.zeros((cfg.lexical_buckets, c), dtype=torch.bfloat16, **kw),
+            **lex,
         )
 
     def to_numpy(self) -> dict[str, np.ndarray]:
@@ -185,7 +202,7 @@ def _to_tensor(a: np.ndarray, field: str, device) -> torch.Tensor:
         a = a.copy()
     if a.dtype.name == "bfloat16":  # ml_dtypes array: same bits as uint16
         a = a.view(np.uint16)
-    if a.dtype == np.uint16 and field in ("vectors", "lexical"):
+    if a.dtype == np.uint16 and field in BF16_FIELDS:
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     if a.dtype == np.uint32:
         return torch.from_numpy(a.view(np.int32)).to(device)
@@ -197,8 +214,8 @@ def index_from_numpy(arrays: dict[str, np.ndarray], device) -> DeviceIndex:
     ``jax.device_get``) over to the port: u32 bitsets become int32 with
     the same bits, bf16 (as ml_dtypes or a uint16 bit pattern) becomes
     ``torch.bfloat16`` bitwise."""
-    return DeviceIndex(**{f: _to_tensor(arrays[f], f, device)
-                          for f in DeviceIndex.FIELDS})
+    layout = DeviceIndex.FIELDS if "lexical" in arrays else DeviceIndex.SPARSE_FIELDS
+    return DeviceIndex(**{f: _to_tensor(arrays[f], f, device) for f in layout})
 
 
 class _Interner:
@@ -252,9 +269,19 @@ class ChunkStore:
         self._source_ids: dict[str, set[str]] = {}  # doc → embedded source ids
         self._free_rows: list[int] = []
         self._lexical_stats_cache: tuple[dict[int, int], int] | None = None
-        # Every mutation bumps `generation`: the engine's prepared-query
-        # cache keys on it.
+        # Every mutation bumps `generation` (the engine's prepared-query
+        # cache keys on it) and calls each listener with (event, rows).
         self.generation = 0
+        self.listeners: list[Callable[[str, list[int]], Any]] = []
+        self._sparse_lexical = self.cfg.lexical_format == "sparse"
+        if self._sparse_lexical:
+            h, p = self.cfg.lexical_buckets, self.cfg.lexical_postings_init
+            # host mirrors of lex_cols/lex_wts (postings packed left,
+            # -1-padded; weights in float32): writes mutate these, then
+            # the touched buckets are copied to the device
+            self._lex_cols_np = np.full((h, p), -1, np.int32)
+            self._lex_wts_np = np.zeros((h, p), np.float32)
+            self._lex_fill = np.zeros(h, np.int64)
 
     # -- sizing ----------------------------------------------------------
 
@@ -266,6 +293,11 @@ class ChunkStore:
     def capacity(self) -> int:
         return self.index.capacity
 
+    def _notify(self, event: str, rows: Sequence[int]) -> None:
+        self.generation += 1
+        for fn in self.listeners:
+            fn(event, list(rows))
+
     def _ensure_capacity(self, extra: int) -> None:
         needed = len(self.records) + extra
         if needed <= self.capacity:
@@ -276,12 +308,14 @@ class ChunkStore:
         grown = DeviceIndex.empty(new_cap, self.cfg, self.device)
         for f in grown.fields:
             old = getattr(self.index, f)
-            if f == "lexical":  # bucket-major: rows are columns
+            if f in ("lex_cols", "lex_wts"):  # postings do not scale with rows
+                setattr(grown, f, old)
+            elif f == "lexical":  # bucket-major: rows are columns
                 grown.lexical[:, :old.shape[1]] = old
             else:
                 getattr(grown, f)[:old.shape[0]] = old
         self.index = grown
-        self.generation += 1
+        self._notify("grow", [])
 
     # -- writes ------------------------------------------------------------
 
@@ -318,10 +352,14 @@ class ChunkStore:
             st["payer"][i] = self.payers.intern(r.payer) if r.payer else -1
             st["state"][i] = self.states.intern(r.state) if r.state else -1
             st["program"][i] = self.programs.intern(r.program) if r.program else -1
-            st["j_tags"][i] = pack_bits(r.j_tags, cfg.tag_words)
-            st["d_tags"][i] = pack_bits(r.d_tags, cfg.tag_words)
-            st["p_tags"][i] = pack_bits(r.p_tags, cfg.tag_words)
-            st["phrase_bits"][i] = pack_bits(r.phrase_ids, cfg.phrase_words)
+            # the arrays start zeroed: empty lists skip pack_bits, which
+            # matters at a million records
+            for f, ids, words in (("j_tags", r.j_tags, cfg.tag_words),
+                                  ("d_tags", r.d_tags, cfg.tag_words),
+                                  ("p_tags", r.p_tags, cfg.tag_words),
+                                  ("phrase_bits", r.phrase_ids, cfg.phrase_words)):
+                if ids:
+                    st[f][i] = pack_bits(ids, words)
         return st
 
     def _write_rows(self, rows: Sequence[int], recs: Sequence[ChunkRecord]) -> None:
@@ -334,14 +372,16 @@ class ChunkStore:
             blk_rows = list(rows[off:off + _WRITE_BLOCK])
             blk_recs = recs[off:off + _WRITE_BLOCK]
             st = self._stage(blk_recs)
-            lex = np.zeros((h, len(blk_recs)), np.float32)  # bucket-major
-            for i, r in enumerate(blk_recs):
-                for bucket, w in r.lexical_weights.items():
-                    lex[bucket % h, i] += w
             idx = torch.as_tensor(blk_rows, dtype=torch.long, device=self.device)
             for f, a in st.items():
                 t = getattr(self.index, f)
                 t[idx] = _to_tensor(a, f, self.device).to(t.dtype)
+            if self._sparse_lexical:
+                continue  # postings are written by bucket (_sparse_add)
+            lex = np.zeros((h, len(blk_recs)), np.float32)  # bucket-major
+            for i, r in enumerate(blk_recs):
+                for bucket, w in r.lexical_weights.items():
+                    lex[bucket % h, i] += w
             self.index.lexical[:, idx] = torch.from_numpy(lex).to(
                 self.device).to(torch.bfloat16)
 
@@ -362,6 +402,10 @@ class ChunkStore:
         n_rec = min(len(recs), len(self._free_rows))
         self._free_rows.sort()
         recycled, self._free_rows = self._free_rows[:n_rec], self._free_rows[n_rec:]
+        if recycled and self._sparse_lexical:
+            # stale postings still name the freed rows: scrub them before
+            # the rows get new occupants, or old weights would score them
+            self._sparse_scrub_rows(recycled)
         self._ensure_capacity(len(recs) - n_rec)
         rows = []
         for i, r in enumerate(recs):
@@ -376,9 +420,102 @@ class ChunkStore:
             if r.source_id:
                 self._source_ids.setdefault(r.doc_id, set()).add(r.source_id)
         self._write_rows(rows, recs)
+        if self._sparse_lexical:
+            postings: dict[int, list[tuple[int, float]]] = {}
+            for row, r in zip(rows, recs):
+                for bucket, w in r.lexical_weights.items():
+                    postings.setdefault(bucket % cfg.lexical_buckets, []).append(
+                        (row, float(w)))
+            self._sparse_add(postings)
         self._lexical_stats_cache = None
-        self.generation += 1
+        self._notify("add", rows)
         return rows
+
+    # -- sparse-lexical maintenance ----------------------------------------
+
+    def _sparse_scrub_rows(self, rows: Sequence[int]) -> None:
+        """Remove every posting that names `rows` (host mirrors, then the
+        touched buckets on the device). Until a freed row is recycled its
+        dead postings are harmless (the valid mask gates them)."""
+        mask = np.isin(self._lex_cols_np, np.asarray(sorted(rows), np.int32))
+        touched = np.nonzero(mask.any(axis=1))[0]
+        if len(touched) == 0:
+            return
+        self._lex_cols_np[mask] = -1
+        self._lex_wts_np[mask] = 0.0
+        # fill counts keep the holes; compaction reclaims them lazily
+        self._sync_sparse_device(list(touched))
+
+    def _sparse_compact(self, bucket: int) -> None:
+        """Repack a bucket's postings, dropping holes and rows deleted (and
+        not yet recycled)."""
+        fill = int(self._lex_fill[bucket])
+        cols = self._lex_cols_np[bucket, :fill]
+        wts = self._lex_wts_np[bucket, :fill]
+        live = np.array([0 <= c < len(self.records) and self.records[c] is not None
+                         for c in cols], dtype=bool)
+        keep = int(live.sum())
+        self._lex_cols_np[bucket, :keep] = cols[live]
+        self._lex_wts_np[bucket, :keep] = wts[live]
+        self._lex_cols_np[bucket, keep:] = -1
+        self._lex_wts_np[bucket, keep:] = 0.0
+        self._lex_fill[bucket] = keep
+
+    def _sparse_grow(self) -> None:
+        """Double the postings width P (host mirrors; the caller syncs)."""
+        h, p = self._lex_cols_np.shape
+        cols = np.full((h, p * 2), -1, np.int32)
+        wts = np.zeros((h, p * 2), np.float32)
+        cols[:, :p] = self._lex_cols_np
+        wts[:, :p] = self._lex_wts_np
+        self._lex_cols_np, self._lex_wts_np = cols, wts
+
+    def _sparse_add(self, postings: dict[int, list[tuple[int, float]]]) -> None:
+        """Append postings to their buckets: on overflow compact, then
+        double P; at the lexical_postings_max cap keep the heaviest
+        postings (impact-ordered truncation, ties to the earlier one)."""
+        if not postings:
+            return
+        p_max = self.cfg.lexical_postings_max
+        grew = False
+        for b, posts in postings.items():
+            need = int(self._lex_fill[b]) + len(posts)
+            if need > self._lex_cols_np.shape[1]:
+                self._sparse_compact(b)
+                need = int(self._lex_fill[b]) + len(posts)
+            while need > self._lex_cols_np.shape[1] and self._lex_cols_np.shape[1] < p_max:
+                self._sparse_grow()
+                grew = True
+            p = self._lex_cols_np.shape[1]
+            fill = int(self._lex_fill[b])
+            new_cols = np.fromiter((c for c, _ in posts), np.int32, len(posts))
+            new_wts = np.fromiter((w for _, w in posts), np.float32, len(posts))
+            if need > p:  # at the cap: keep the p heaviest
+                cols = np.concatenate([self._lex_cols_np[b, :fill], new_cols])
+                wts = np.concatenate([self._lex_wts_np[b, :fill], new_wts])
+                top = np.argsort(-wts, kind="stable")[:p]
+                self._lex_cols_np[b] = cols[top]
+                self._lex_wts_np[b] = wts[top]
+                self._lex_fill[b] = p
+            else:
+                self._lex_cols_np[b, fill:need] = new_cols
+                self._lex_wts_np[b, fill:need] = new_wts
+                self._lex_fill[b] = need
+        self._sync_sparse_device(None if grew else sorted(postings))
+
+    def _sync_sparse_device(self, buckets: Sequence[int] | None) -> None:
+        """Copy the host postings mirrors to the device: the given bucket
+        rows in place, or everything (None: P changed shape)."""
+        if buckets is None:
+            self.index.lex_cols = torch.from_numpy(self._lex_cols_np.copy()).to(self.device)
+            self.index.lex_wts = torch.from_numpy(self._lex_wts_np).to(
+                self.device).to(torch.bfloat16)
+            return
+        idx = np.asarray(buckets, np.int64)
+        tidx = torch.from_numpy(idx).to(self.device)
+        self.index.lex_cols[tidx] = torch.from_numpy(self._lex_cols_np[idx]).to(self.device)
+        self.index.lex_wts[tidx] = torch.from_numpy(self._lex_wts_np[idx]).to(
+            self.device).to(torch.bfloat16)
 
     def bulk_load(self, recs: Sequence[ChunkRecord], *, vectors=None,
                   lexical=None) -> list[int]:
@@ -408,20 +545,34 @@ class ChunkStore:
         for f, a in st.items():
             t = getattr(fresh, f)
             t[:n] = _to_tensor(a, f, self.device).to(t.dtype)
-        if lexical is None:
-            last = max((i + 1 for i, r in enumerate(recs) if r.lexical_weights),
-                       default=0)
-            lexical = np.zeros((last, cfg.lexical_buckets), np.float32)
-            for i, r in enumerate(recs[:last]):
-                for bucket, w in r.lexical_weights.items():
-                    lexical[i, bucket % cfg.lexical_buckets] += w
-        if lexical.shape[0] > 0:
-            fresh.lexical[:, :lexical.shape[0]] = torch.from_numpy(
-                np.ascontiguousarray(lexical, np.float32)).to(
-                self.device).to(torch.bfloat16).T
         self.index = fresh
+        if self._sparse_lexical:
+            h = cfg.lexical_buckets
+            postings: dict[int, list[tuple[int, float]]] = {}
+            if lexical is not None:
+                lex_np = np.asarray(lexical, np.float32)  # [N', H] row-major
+                rows_nz, buckets_nz = np.nonzero(lex_np)
+                for i, b in zip(rows_nz.tolist(), buckets_nz.tolist()):
+                    postings.setdefault(b % h, []).append((i, float(lex_np[i, b])))
+            else:
+                for i, r in enumerate(recs):
+                    for bucket, w in r.lexical_weights.items():
+                        postings.setdefault(bucket % h, []).append((i, float(w)))
+            self._sparse_add(postings)
+        else:
+            if lexical is None:
+                last = max((i + 1 for i, r in enumerate(recs) if r.lexical_weights),
+                           default=0)
+                lexical = np.zeros((last, cfg.lexical_buckets), np.float32)
+                for i, r in enumerate(recs[:last]):
+                    for bucket, w in r.lexical_weights.items():
+                        lexical[i, bucket % cfg.lexical_buckets] += w
+            if lexical.shape[0] > 0:
+                fresh.lexical[:, :lexical.shape[0]] = torch.from_numpy(
+                    np.ascontiguousarray(lexical, np.float32)).to(
+                    self.device).to(torch.bfloat16).T
         self._lexical_stats_cache = None
-        self.generation += 1
+        self._notify("bulk", range(n))
         return list(range(n))
 
     def _clear_rows(self, rows: Sequence[int]) -> None:
@@ -439,7 +590,7 @@ class ChunkStore:
             self._free_rows.append(r)
         self._clear_rows(rows)
         self._lexical_stats_cache = None
-        self.generation += 1
+        self._notify("delete", rows)
         return len(rows)
 
     def invalidate_rows(self, rows: Sequence[int]) -> int:
@@ -456,7 +607,7 @@ class ChunkStore:
                     self._doc_rows[rec.doc_id].remove(r)
         self._clear_rows(rows)
         self._lexical_stats_cache = None
-        self.generation += 1
+        self._notify("delete", rows)
         return len(rows)
 
     def publish_document(self, doc_id: str, recs: Sequence[ChunkRecord]) -> list[int]:
@@ -553,10 +704,6 @@ class ChunkStore:
                 f"supports ({cls.SNAPSHOT_VERSION})")
         cfg = cfg or get_config()
         for key, val in state["config"].items():
-            if key == "lexical_format" and val != "dense":
-                raise NotImplementedError(
-                    "sparse-lexical snapshots are not ported yet "
-                    "(ROADMAP queue 1, item 6)")
             if key == "vector_residency" and val != "device":
                 raise NotImplementedError(
                     "host-residency snapshots are not ported yet "
@@ -567,6 +714,12 @@ class ChunkStore:
             arrays = {f: data[f] for f in data.files}
         store = cls(cfg, capacity=arrays["valid"].shape[0], device=device)
         store.index = index_from_numpy(arrays, store.device)
+        if store._sparse_lexical:
+            # the host postings mirrors, from the restored arrays
+            store._lex_cols_np = np.array(arrays["lex_cols"], np.int32)
+            store._lex_wts_np = (np.asarray(arrays["lex_wts"]).view(np.uint16)
+                                 .astype(np.uint32) << 16).view(np.float32)
+            store._lex_fill = (store._lex_cols_np >= 0).sum(axis=1)
         # Rehydrate record embeddings from the restored vectors: republish
         # paths treat record embeddings as authoritative.
         vecs = arrays["vectors"]

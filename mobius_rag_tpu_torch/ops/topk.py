@@ -44,6 +44,25 @@ def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def merged_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,
+                approx_recall: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a flat candidate pool: vals/ids [B, S] → [B, k]
+    (``mobius_rag_tpu.ops.topk.merged_topk``). Pools narrower than k are
+    padded with (NEG_INF, id 0); among equal values the lower position
+    wins. ``approx_recall`` > 0 (the JAX package's ``approx_max_k``) is
+    not ported: the JAX configuration keeps it off by measurement."""
+    if approx_recall:
+        raise NotImplementedError(
+            "approximate top-k (MRAG_ANN_APPROX_TOPK > 0) is not ported; "
+            "the JAX configuration keeps it off by measurement (config.py:104-119)")
+    b, s = vals.shape
+    if s < k:
+        vals = torch.cat([vals, vals.new_full((b, k - s), NEG_INF)], dim=1)
+        ids = torch.cat([ids, ids.new_zeros((b, k - s))], dim=1)
+    v, pos = topk_stable(vals, k)
+    return v, torch.gather(ids, 1, pos)
+
+
 def masked_topk_reference(queries: torch.Tensor, vectors: torch.Tensor,
                           penalty: torch.Tensor, min_sim: torch.Tensor | None,
                           m: int) -> tuple[torch.Tensor, torch.Tensor]:

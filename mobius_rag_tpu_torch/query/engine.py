@@ -1,18 +1,27 @@
-"""The hybrid retrieval pipeline ("strategy a"), exact dense path, in
-PyTorch (the port of ``mobius_rag_tpu.query.engine``).
+"""The hybrid retrieval pipeline ("strategy a") in PyTorch (the port of
+``mobius_rag_tpu.query.engine``).
 
 Per batch of queries:
 
   prepare      host: lexicon expansion, tokenizing, IDF, bitsets
   filter gate  [B, C] strict/relaxed/open masks with strict→relaxed
-               auto-relax → an additive penalty
-  vector arm   masked cosine top-m through ops.topk.masked_topk (the
-               Hopper kernel on a CUDA device; no [B, C] cosine matrix)
+               auto-relax → an additive penalty (dense gating)
+  vector arm   exact backend: masked cosine top-m through
+               ops.topk.masked_topk (a Hopper kernel on a CUDA device);
+               proj backend: the probed int8 scan of ops.proj (Hopper
+               kernels in ops.proj_scan)
   lexical arm  [B, U] × [U, C] over the batch's union of hashed buckets
+               (dense layout) or a scatter-add over their postings (sparse)
   d-tag arm    d-tag bitset overlap, authority-scored
   signals      per-candidate gathers + bit tests
   fusion       RRF k=60 over the candidate union, v1.3 weighted rerank
   assembly     host: records, confidence labels, neighbours, traces
+
+Candidate-local gating (proj backend, ``MRAG_GATING=local``) replaces the
+[B, C] gate and arms: the gate is evaluated inside the gated probed scan,
+the lexical arm scores only its postings, the d-tag arm reads per-tag
+postings, and the strict count comes from a host cache
+(``query.gating``).
 
 Semantics follow the JAX engine line by line; where torch differs:
 
@@ -28,14 +37,19 @@ Semantics follow the JAX engine line by line; where torch differs:
   one device each arm's list is already in top-k order, so it is the
   identity (the sharded merge that needs it is not ported);
 - the lexical bucket union ships at its exact size: the JAX engine's pads
-  (``_BUCKET_PADS``) only bounded recompiles.
+  (``_BUCKET_PADS``) only bounded recompiles;
+- the sparse lexical arm sums each row's postings in float64, so its
+  float32 score does not depend on the order of the device's atomics;
+- the JAX engine's ``optimization_barrier`` sequencing of the ANN arms and
+  ``_sync_ann`` are dropped: eager PyTorch runs each arm once, in order,
+  and frees its transients through the stream-ordered allocator.
 
 Float32 matmuls run in full float32 (TF32 is switched off in the
 package's ``__init__``).
 
-Not ported yet, each raising NotImplementedError: ANN vector backends,
-sharded serving, host re-rank (host residency), candidate-local gating,
-the cross-encoder stage and the telemetry store (ROADMAP queue 1).
+Not ported yet, each raising NotImplementedError: the ivf, packed and
+pq vector backends, sharded serving, host re-rank (host residency), the
+cross-encoder stage and the telemetry store (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -50,7 +64,12 @@ import torch
 from mobius_rag_tpu_torch.config import Config, get_config
 from mobius_rag_tpu_torch.index.store import ChunkStore, DeviceIndex, pack_bits
 from mobius_rag_tpu_torch.ingest.featurize import query_lexical_weights
+from mobius_rag_tpu_torch.ops.proj import (PackedProj, ProjGate, encode_qmeta,
+                                           encode_reserved, invalidate_slots,
+                                           proj_search_gated, proj_search_packed,
+                                           scatter_slots)
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
+from mobius_rag_tpu_torch.query import gating
 from mobius_rag_tpu_torch.query.gating import query_dtag_ids
 from mobius_rag_tpu_torch.query.lexicon import Lexicon, LexiconExpansion
 
@@ -116,6 +135,15 @@ class SearchResult:
     confidence_label: str
     expansion: LexiconExpansion
     telemetry: dict[str, Any]
+
+
+def _check_backend(backend: str) -> None:
+    items = {"ivf": "9", "packed": "9", "pq": "10"}
+    if backend in items:
+        raise NotImplementedError(f"vector backend {backend!r} "
+                                  + _NOT_PORTED.format(items[backend]))
+    if backend not in ("exact", "proj"):
+        raise ValueError(f"vector backend {backend!r} must be exact|ivf|packed|pq|proj")
 
 
 def _confidence_label(score: float, cfg: Config) -> str:
@@ -205,9 +233,22 @@ def gate_penalty(strict, relaxed, open_mask, q: dict, k: int, strict_total=None)
 
 
 def lexical_raw(index: DeviceIndex, q: dict) -> torch.Tensor:
-    """Lexical arm raw scores [B, C]: gather the batch's union of touched
-    buckets [U, C] and contract with the per-query IDF weights [B, U]."""
-    bucket_rows = index.lexical[q["lex_buckets"].long()].float()  # [U, C]
+    """Lexical arm raw scores [B, C]. Dense layout: gather the batch's
+    union of touched buckets [U, C] and contract with the per-query IDF
+    weights [B, U]. Sparse layout: scatter-add the union buckets'
+    postings [U, P] into per-row scores, summed in float64 and rounded
+    once (the same value query.gating's local arm computes)."""
+    buckets = q["lex_buckets"].long()
+    if "lex_cols" in index.fields:
+        c = index.capacity
+        cols = index.lex_cols[buckets]  # [U, P]
+        wts = index.lex_wts[buckets]
+        seg = torch.where(cols >= 0, cols, c).reshape(-1).long()  # pads → bin c
+        vals = (q["lex_weights"][:, :, None] * wts[None].float()).reshape(
+            q["lex_weights"].shape[0], -1)
+        out = torch.zeros((vals.shape[0], c + 1), dtype=torch.float64, device=vals.device)
+        return out.index_add_(1, seg, vals.double())[:, :c].float()
+    bucket_rows = index.lexical[buckets].float()  # [U, C]
     return q["lex_weights"] @ bucket_rows
 
 
@@ -273,28 +314,78 @@ def _cand_cos(index: DeviceIndex, qvec: torch.Tensor, idx: torch.Tensor) -> torc
     return torch.einsum("bmd,bd->bm", vecs, qvec)
 
 
-def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int):
+def _min_sim_filter(vec_vals: torch.Tensor, q: dict) -> torch.Tensor:
+    """The vector arm's min_sim post-filter over an ANN result (for an
+    eligible row the returned value is its approximate cosine)."""
+    return vec_vals + torch.where(vec_vals < q["min_sim"][:, None], NEG_INF, 0.0)
+
+
+def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
+                   m_other: int | None = None, ann: PackedProj | None = None,
+                   nprobe: int = 32, approx: float = 0.0, local=None,
+                   tag_level: int = 2):
     """The three arms' top-m candidates and their rerank signals.
+
+    ``ann`` None is the exact backend (the masked cosine top-m); a
+    PackedProj runs the vector arm as the probed proj scan. ``local``
+    (proj only) is (ProjGate words, DTagPostings tuple): candidate-local
+    gating, with no [B, C] buffer; ``tag_level`` bounds the gate words
+    read. ``m_other`` (default m) caps the lexical and d-tag arm widths;
+    their lists are padded back to m with dead entries.
+
     Returns (vals [3, B, m] f32, gidx [3, B, m] int32, sigs [3, B, m,
     N_SIG] f32, strict_total [B, 1])."""
-    strict, relaxed, open_mask, meta_ok = filter_masks(index, q)
-    strict_total = strict.sum(dim=1, keepdim=True)
-    penalty = gate_penalty(strict, relaxed, open_mask, q, k, strict_total)
+    m_oth = min(m_other or m, m)
+    if local is not None:
+        if not isinstance(ann, PackedProj):
+            raise ValueError("candidate-local gating needs a PackedProj ann")
+        gate_words, dtag_t = local
+        # the host-cached count (SearchEngine._strict_totals) when present
+        strict_local = q["strict_total"] if "strict_total" in q \
+            else gating.strict_counts(index, q)
+        strict_total = strict_local[:, None]
+        qmeta, qbits = encode_qmeta(q, strict_local >= k)
+        vec_vals, vec_idx = proj_search_gated(
+            ann, gate_words, q["vec"], qmeta, qbits, m, nprobe, approx, tag_level,
+            tw=index.j_tags.shape[1])
+        vec_vals = _min_sim_filter(vec_vals, q)
+        lex_vals, lex_idx, _ = gating.lexical_candidates_local(
+            index, q, qmeta, qbits, m_oth, tag_level)
+        dtag_vals, dtag_idx = gating.dtag_candidates_local(dtag_t, q, qmeta, m_oth)
 
-    vec_vals, vec_idx = masked_topk(q["vec"], index.vectors, penalty,
-                                    q["min_sim"], m)
-    lex = lexical_raw(index, q)
-    lex_scores = torch.where(lex > 0, lex, NEG_INF) + penalty
-    lex_vals, lex_idx = topk_stable(lex_scores, m)
-    dtag_vals, dtag_idx = topk_stable(dtag_raw(index, q, meta_ok), m)
+        def lex_sig_of(idx):
+            return gating.lex_signal_join(idx, lex_idx, lex_vals)
+    else:
+        strict, relaxed, open_mask, meta_ok = filter_masks(index, q)
+        strict_total = strict.sum(dim=1, keepdim=True)
+        penalty = gate_penalty(strict, relaxed, open_mask, q, k, strict_total)
+        if ann is None:
+            vec_vals, vec_idx = masked_topk(q["vec"], index.vectors, penalty,
+                                            q["min_sim"], m)
+        else:
+            vec_vals, vec_idx = proj_search_packed(ann, q["vec"], penalty, m, nprobe,
+                                                   approx)
+            vec_vals = _min_sim_filter(vec_vals, q)
+        lex = lexical_raw(index, q)
+        lex_scores = torch.where(lex > 0, lex, NEG_INF) + penalty
+        lex_vals, lex_idx = topk_stable(lex_scores, m_oth)
+        dtag_vals, dtag_idx = topk_stable(dtag_raw(index, q, meta_ok), m_oth)
+
+        def lex_sig_of(idx):
+            return torch.gather(lex, 1, idx)
 
     out_vals, out_idx, out_sigs = [], [], []
-    for vals, idx in ((vec_vals, vec_idx.long()), (lex_vals, lex_idx),
-                      (dtag_vals, dtag_idx)):
+    for vals, idx in ((vec_vals, vec_idx), (lex_vals, lex_idx), (dtag_vals, dtag_idx)):
+        idx = idx.long()
         auth, lsig, jpd, cov = candidate_signals(index, q, idx)
-        sig = torch.stack([_cand_cos(index, q["vec"], idx),
-                           torch.gather(lex, 1, idx), auth, lsig, jpd, cov],
-                          dim=-1)  # [B, m, N_SIG]
+        sig = torch.stack([_cand_cos(index, q["vec"], idx), lex_sig_of(idx),
+                           auth, lsig, jpd, cov], dim=-1)  # [B, m', N_SIG]
+        pad = m - vals.shape[1]
+        if pad:  # an arm ran at m_other < m: dead-pad back to m
+            b = vals.shape[0]
+            vals = torch.cat([vals, vals.new_full((b, pad), NEG_INF)], dim=1)
+            idx = torch.cat([idx, idx.new_zeros((b, pad))], dim=1)
+            sig = torch.cat([sig, sig.new_zeros((b, pad, N_SIG))], dim=1)
         out_vals.append(vals)
         out_idx.append(idx)
         out_sigs.append(sig)
@@ -367,13 +458,19 @@ def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int):
 
 @torch.inference_mode()
 def search_batch(index: DeviceIndex, q: dict, k: int, over_fetch: int,
-                 rrf_k: int) -> dict[str, torch.Tensor]:
+                 rrf_k: int, ann: PackedProj | None = None, nprobe: int = 32,
+                 approx: float = 0.0, local=None,
+                 tag_level: int = 2) -> dict[str, torch.Tensor]:
     """All arms, fusion and rerank for one prepared batch; the output
-    tensors stay on the index's device (see pack_out)."""
+    tensors stay on the index's device (see pack_out). ``ann``/``nprobe``/
+    ``approx``/``local``/``tag_level`` select the vector backend and the
+    gating, as in :func:`arm_candidates`."""
     m = min(k * over_fetch, index.capacity)
     # Queries arrive bf16-rounded (see prepare_batch); widen once.
     q = dict(q, vec=q["vec"].float())
-    vals, gidx, sigs, strict_total = arm_candidates(index, q, k, m)
+    vals, gidx, sigs, strict_total = arm_candidates(
+        index, q, k, m, ann=ann, nprobe=nprobe, approx=approx, local=local,
+        tag_level=tag_level)
     out = fuse_and_rerank(vals, gidx, sigs, q, k, rrf_k)
     out.update({
         "vec_idx": gidx[0][:, : k * 2],
@@ -436,9 +533,7 @@ class SearchEngine:
                  device="cuda"):
         self.cfg = cfg or get_config()
         backend = vector_backend or self.cfg.vector_backend
-        if backend != "exact":
-            raise NotImplementedError(
-                f"vector backend {backend!r} " + _NOT_PORTED.format("9-11"))
+        _check_backend(backend)
         if sharded is not None:
             raise NotImplementedError("sharded serving " + _NOT_PORTED.format(14))
         if telemetry is not None:
@@ -457,6 +552,239 @@ class SearchEngine:
         # invalidated by store writes and lexicon growth
         self._prep_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._prep_cache_max = 1024
+        # Vector-arm backend: "exact" or "proj". ANN tables build lazily on
+        # the first search; store mutations after that are applied in place
+        # (_try_ann_incremental) or force a rebuild.
+        self.vector_backend = backend
+        self._ann: PackedProj | None = None
+        self._ann_generation = -1
+        self._ann_nprobe: int | None = None
+        self._ann_events: list[tuple[str, list[int]]] = []
+        self._ann_stale_hard = False
+        self._ann_slot_of_row: np.ndarray | None = None  # row → flat slot
+        self._ann_cursor = 0  # next free flat slot of the reserved region
+        # candidate-local gating structures (query/gating.py)
+        self._ann_gate: ProjGate | None = None
+        self._dtag_postings: gating.DTagPostings | None = None
+        self._dtag_stale = False
+        # host strict-count cache (filter signature → global count)
+        self._strict_cache: "OrderedDict[tuple, float]" = OrderedDict()
+        store.listeners.append(self._on_store_mutation)
+
+    # -- vector-arm backend -------------------------------------------------
+
+    def set_vector_backend(self, backend: str) -> None:
+        if backend not in ("exact", "ivf", "packed", "pq", "proj"):
+            raise ValueError(f"backend {backend!r} must be exact|ivf|packed|pq|proj")
+        _check_backend(backend)
+        if backend != self.vector_backend:
+            self.vector_backend = backend
+            self._ann = None
+            self._ann_generation = -1
+            self._reset_ann_incremental()
+
+    def _on_store_mutation(self, event: str, rows: list[int]) -> None:
+        """ChunkStore listener: queue row mutations for the incremental ANN
+        path. D-tag postings staleness is decided here, while the records
+        of deleted rows can still be checked: a mutated row that carries
+        d-tags (or cannot be checked) forces a lazy postings rebuild."""
+        if self._dtag_postings is not None and not self._dtag_stale \
+                and event in ("add", "delete", "bulk"):
+            for r in rows or [None]:
+                rec = self.store.record(r) if r is not None else None
+                if rec is None or rec.d_tags:
+                    self._dtag_stale = True
+                    break
+        if self._ann is None:
+            return
+        if event in ("add", "delete") and rows:
+            self._ann_events.append((event, rows))
+        elif event != "grow":  # "bulk" and anything else: whole-corpus rewrite
+            self._ann_stale_hard = True
+
+    def _reset_ann_incremental(self) -> None:
+        self._ann_events.clear()
+        self._ann_stale_hard = False
+        self._ann_slot_of_row = None
+        self._ann_cursor = 0
+        self._ann_gate = None
+        self._dtag_postings = None
+        self._dtag_stale = False
+
+    def _local_gating_active(self) -> bool:
+        """MRAG_GATING: "local" forces candidate-local gating (proj backend),
+        "dense" disables it, "auto" is local only under host residency,
+        which the port does not have: on a device-resident store auto is
+        dense, as in the JAX engine."""
+        return self.vector_backend == "proj" and self.cfg.gating == "local"
+
+    def _ensure_local_structs(self, ann):
+        """Build or refresh the ProjGate and DTagPostings for the current
+        ann tables. Returns the `local` tuple for arm_candidates, or None
+        when local gating is off."""
+        if not self._local_gating_active() or not isinstance(ann, PackedProj):
+            return None
+        if self._ann_gate is None:
+            self._ann_gate = ProjGate.build(ann, self.store.index)
+        if self._dtag_postings is None or self._dtag_stale:
+            self._dtag_postings = gating.DTagPostings.build(self.store.index,
+                                                            self.cfg.dtag_postings)
+            self._dtag_stale = False
+        return (self._ann_gate.words, self._dtag_postings.as_tuple())
+
+    @staticmethod
+    def _batch_tag_level(exps) -> int:
+        """Gate word rows a batch needs, from its lexicon expansions (an
+        over-approximation is safe: more words read, the same gate)."""
+        if any(exp.tag_ids["d"] or exp.tag_ids["p"] for exp in exps):
+            return 2
+        return 1 if any(exp.tag_ids["j"] for exp in exps) else 0
+
+    def _try_ann_incremental(self) -> bool:
+        """Apply queued adds/deletes to the live PackedProj tables in place:
+        adds encode into the reserved always-probed slabs, deletes clear
+        their slots. Returns False when the tables cannot absorb the
+        mutations (a bulk rewrite, no table mirrors, or the reserved
+        headroom is used up); the caller then rebuilds."""
+        ann = self._ann
+        if (self._ann_stale_hard or not isinstance(ann, PackedProj)
+                or ann.build_rowids is None or ann.reserve_start >= ann.nlist):
+            return False
+        events, self._ann_events = self._ann_events, []
+        if not events:  # generation moved without row mutations (a grow)
+            return True
+        pad = ann.pad
+        res_base = ann.reserve_start * pad
+        res_cap = (ann.nlist - ann.reserve_start) * pad
+        if self._ann_slot_of_row is None:
+            flat_rows = ann.build_rowids.reshape(-1)
+            flat_ok = ann.build_valid.reshape(-1) > 0
+            slot_of = np.full(self.store.capacity, -1, np.int64)
+            slot_of[flat_rows[flat_ok]] = np.flatnonzero(flat_ok)
+            self._ann_slot_of_row = slot_of
+            self._ann_cursor = int(flat_ok[res_base:res_base + res_cap].sum())
+        slot_of = self._ann_slot_of_row
+        if len(slot_of) < self.store.capacity:  # the store grew since the map
+            grown = np.full(self.store.capacity, -1, np.int64)
+            grown[: len(slot_of)] = slot_of
+            slot_of = self._ann_slot_of_row = grown
+
+        # Host pass: replay the events against the row → slot map, then
+        # reconcile to the final slot states (a row added and deleted in
+        # one batch must not come back). Running out of headroom drops the
+        # half-updated map and leaves the device tables to the rebuild.
+        freed: list[int] = []
+        placed: list[tuple[int, int]] = []  # (row, fresh reserved slot)
+        cursor = self._ann_cursor
+        for event, rows in events:
+            for r in rows:
+                old = int(slot_of[r]) if r < len(slot_of) else -1
+                if old >= 0:
+                    freed.append(old)
+                    slot_of[r] = -1
+                if event == "add":
+                    if cursor >= res_cap:
+                        self._ann_slot_of_row = None
+                        return False
+                    slot = res_base + cursor
+                    cursor += 1
+                    placed.append((r, slot))
+                    slot_of[r] = slot
+        self._ann_cursor = cursor
+        add_final = [(r, slot) for r, slot in placed if slot_of[r] == slot]
+        live_slots = {slot for _, slot in add_final}
+        del_slots = np.asarray(sorted({x for x in freed if x not in live_slots}), np.int64)
+        add_rows = np.asarray([r for r, _ in add_final], np.int64)
+        add_slots = np.asarray([slot for _, slot in add_final], np.int64)
+        fv = ann.build_valid.reshape(-1)
+        fr = ann.build_rowids.reshape(-1)
+        fv[del_slots] = 0.0
+        fr[add_slots] = add_rows
+        fv[add_slots] = 1.0
+
+        # Device pass: in-place scatters into the tables and the gate pack.
+        dev = self.device
+        if len(del_slots):
+            cells = torch.from_numpy(del_slots // pad).to(dev)
+            slots = torch.from_numpy(del_slots % pad).to(dev)
+            invalidate_slots(ann, cells, slots)
+            if self._ann_gate is not None:
+                self._ann_gate.invalidate(cells, slots)
+        if len(add_rows):
+            index = self.store.index
+            rows_t = torch.from_numpy(add_rows).to(dev)
+            cells = torch.from_numpy(add_slots // pad).to(dev)
+            slots = torch.from_numpy(add_slots % pad).to(dev)
+            codes, scales = encode_reserved(ann.proj, index.vectors[rows_t].float())
+            rid = rows_t.to(torch.int32)
+            scatter_slots(ann, cells, slots, codes, scales,
+                          torch.ones(len(add_rows), dtype=torch.float32, device=dev), rid)
+            if self._ann_gate is not None:
+                self._ann_gate.scatter(cells, slots, ProjGate.pack_rows(index, rows_t),
+                                       scales, rid)
+        return True
+
+    def ensure_ann(self) -> PackedProj | None:
+        """Build (or bring up to date after store mutations) the ANN tables
+        of the configured backend; None for exact. Row-level mutations go
+        through the incremental path; a bulk rewrite or exhausted insert
+        headroom re-runs the k-means build."""
+        if self.vector_backend == "exact":
+            return None
+        if self._ann is not None and self._ann_generation == self.store.generation:
+            return self._ann
+        if self._ann is not None and self._try_ann_incremental():
+            self._ann_generation = self.store.generation
+            return self._ann
+        self._reset_ann_incremental()
+        from mobius_rag_tpu_torch.index.ivf import IVFIndex
+
+        cfg = self.cfg
+        index = self.store.index
+        ivf = IVFIndex.build(index.vectors, index.valid.cpu().numpy(),
+                             nlist=cfg.ivf_nlist or None)
+        self._ann = PackedProj.from_ivf(ivf, index.vectors, p=cfg.proj_p,
+                                        reserve_slabs=cfg.ann_reserve_slabs)
+        self._ann_generation = self.store.generation
+        self._ann_nprobe = None
+        return self._ann
+
+    def save_ann(self, path: str) -> dict:
+        """Write the built ANN tables next to a store snapshot, in the JAX
+        package's ann_io format. Returns the meta header written."""
+        from mobius_rag_tpu_torch.index.ann_io import save_ann as _save
+
+        ann = self.ensure_ann()
+        if ann is None:
+            raise ValueError("exact backend has no ANN tables to save")
+        meta = {"backend": self.vector_backend, "rows": len(self.store.records),
+                "dim": self.cfg.embed_dim, "nprobe": self._ann_nprobe}
+        _save(ann, path, meta=meta)
+        return meta
+
+    def load_ann(self, path: str) -> dict:
+        """Adopt saved ANN tables for the current store (written by either
+        package's save_ann against the matching snapshot). Refuses on a
+        backend or row-count mismatch."""
+        from mobius_rag_tpu_torch.index.ann_io import load_ann as _load
+
+        ann, meta = _load(path, self.device)
+        if meta.get("backend") != self.vector_backend:
+            raise ValueError(f"ann file is for backend {meta.get('backend')!r}, "
+                             f"engine serves {self.vector_backend!r}")
+        if meta.get("rows") != len(self.store.records):
+            raise ValueError(
+                f"ann file indexed {meta.get('rows')} rows, store has "
+                f"{len(self.store.records)}: snapshot/ann pairing broken")
+        self._ann = ann
+        self._ann_generation = self.store.generation
+        self._ann_nprobe = meta.get("nprobe")
+        self._reset_ann_incremental()
+        return meta
+
+    @property
+    def effective_nprobe(self) -> int:
+        return self._ann_nprobe or self.cfg.ivf_nprobe
 
     @property
     def cross_encoder(self):
@@ -557,12 +885,46 @@ class SearchEngine:
                 weights[bi, union[b]] = w
         host["lex_buckets"] = np.fromiter(union, np.int32, len(union))
         host["lex_weights"] = weights
+        if self._local_gating_active() and self._ann is not None:
+            host["strict_total"] = self._strict_totals(prepared)
         dev = self.device
         q = {key: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
              for key, a in host.items()}
         # bf16 round-to-nearest-even, as the JAX engine ships its queries
         q["vec"] = torch.from_numpy(vecs).to(dev).to(torch.bfloat16)
         return q, [p[1] for p in prepared]
+
+    def _strict_totals(self, prepared) -> np.ndarray:
+        """Host-cached global strict-eligible counts per request (the
+        auto-relax branch's input), keyed on the filter signature and the
+        store generation; the misses of a batch go through one
+        gating.strict_counts call."""
+        gen = self.store.generation
+        counts = np.zeros(len(prepared), np.float32)
+        missing: list[tuple[int, tuple]] = []
+        for i, (qq, _, _) in enumerate(prepared):
+            sig = (gen, int(qq["payer"]), int(qq["state"]), int(qq["program"]),
+                   float(qq["inherit_authority"]), qq["j_bits"].tobytes())
+            hit = self._strict_cache.get(sig)
+            if hit is None:
+                missing.append((i, sig))
+            else:
+                self._strict_cache.move_to_end(sig)
+                counts[i] = hit
+        if missing:
+            dev = self.device
+            mq = {key: torch.from_numpy(np.stack(
+                [prepared[i][0][key] for i, _ in missing])).to(dev)
+                for key in ("payer", "state", "program", "inherit_authority")}
+            mq["j_bits"] = torch.from_numpy(np.stack(
+                [prepared[i][0]["j_bits"] for i, _ in missing]).view(np.int32)).to(dev)
+            vals = gating.strict_counts(self.store.index, mq).cpu().numpy()
+            for (i, sig), v in zip(missing, vals.tolist()):
+                counts[i] = v
+                if len(self._strict_cache) >= 4096:
+                    self._strict_cache.popitem(last=False)
+                self._strict_cache[sig] = v
+        return counts
 
     def _embeddings(self, reqs: Sequence[QueryRequest]) -> np.ndarray:
         def cache_key(q: str) -> str:
@@ -592,10 +954,16 @@ class SearchEngine:
     # -- public API ---------------------------------------------------------
 
     def _run(self, reqs: Sequence[QueryRequest], k: int):
+        # the tables exist before prepare: local gating bakes the host
+        # strict counts into the prepared batch
+        ann = self.ensure_ann()
         q, exps = self.prepare_batch(reqs)
         t_prep = time.perf_counter()
+        local = self._ensure_local_structs(ann)
         out = unpack_out(pack_out(search_batch(
-            self.store.index, q, k, self.cfg.over_fetch, self.cfg.rrf_k)), k)
+            self.store.index, q, k, self.cfg.over_fetch, self.cfg.rrf_k, ann=ann,
+            nprobe=self.effective_nprobe, approx=self.cfg.ann_approx_topk, local=local,
+            tag_level=self._batch_tag_level(exps) if local else 2)), k)
         return exps, out, t_prep
 
     def search(self, reqs: Sequence[QueryRequest] | QueryRequest, k: int | None = None

@@ -1,6 +1,8 @@
 """The port stands alone: it imports nothing of JAX, PyYAML, ml_dtypes or
-the JAX package — checked at run time in a fresh interpreter, and
-statically over every source file of the port and chip_smoke.py."""
+the JAX package — checked at run time in a fresh interpreter that drives
+the exact backend and the proj backend under both gatings (every module of
+the port is imported on the way), and statically over every source file
+of the port and chip_smoke.py."""
 import ast
 import os
 import subprocess
@@ -29,6 +31,21 @@ store.add_chunks(toy_corpus(lex, pad_docs=5))
 engine = SearchEngine(store, lex, embed_fn=hash_embed, device="cpu")
 res = engine.search(QueryRequest(query="timely filing deadline for Sunshine Health"), k=3)
 assert res[0].hits, "no hits"
+# the proj backend under both gatings, over the sparse lexical layout
+import dataclasses
+from mobius_rag_tpu_torch.config import get_config
+for gating in ("dense", "local"):
+    cfg = dataclasses.replace(get_config(), vector_backend="proj", lexical_format="sparse",
+                              ivf_nlist=4, proj_p=32, gating=gating)
+    store = ChunkStore(cfg, device="cpu")
+    store.add_chunks(toy_corpus(lex, pad_docs=20))
+    engine = SearchEngine(store, lex, cfg=cfg, embed_fn=hash_embed, device="cpu")
+    res = engine.search(QueryRequest(query="timely filing deadline for Sunshine Health"), k=3)
+    assert res[0].hits, "no proj hits"
+    import os, tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        engine.save_ann(os.path.join(tmp, "ann.npz"))
+        engine.load_ann(os.path.join(tmp, "ann.npz"))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print("FORBIDDEN", bad)

@@ -220,7 +220,8 @@ def test_append_near_capacity_keeps_earlier_rows():
     assert ts.index.doc_id[:260].tolist() == list(range(260))
 
 
-@pytest.mark.parametrize("env", [{"vector_dtype": "int8"}, {"lexical_format": "sparse"},
+@pytest.mark.parametrize("env", [{"vector_dtype": "int8"},
+                                 {"vector_dtype": "int8", "lexical_format": "sparse"},
                                  {"vector_residency": "host"}])
 def test_unported_layouts_raise(env):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
