@@ -2,10 +2,10 @@
 defaults read the same ``MRAG_*`` variables as ``mobius_rag_tpu.config``,
 so one environment sizes both packages alike.
 
-Only the knobs the port reads are here. The ones that select a layout or
-backend the port does not have yet (int8 vectors, host residency, the
-ivf/packed/pq backends) are kept so that asking for one raises
-``NotImplementedError`` instead of silently serving the default.
+Only the knobs the port reads are here. The ones that select a backend
+the port does not have yet (ivf/packed/pq) are kept so that asking for
+one raises ``NotImplementedError`` instead of silently serving the
+default.
 """
 from __future__ import annotations
 
@@ -48,11 +48,13 @@ class Config:
     # cap (beyond it the lowest-weight postings are pruned).
     lexical_postings_init: int = _env_int("MRAG_LEXICAL_POSTINGS_INIT", 64)
     lexical_postings_max: int = _env_int("MRAG_LEXICAL_POSTINGS_MAX", 8192)
-    # "float32" | "bfloat16" (int8 is not ported yet).
+    # "float32" | "bfloat16" | "int8" (symmetric per-row, scales in
+    # vec_scales).
     vector_dtype: str = _env_str("MRAG_VECTOR_DTYPE", "float32")
     # Vector-arm backend: "exact" or "proj" (ivf/packed/pq not ported yet).
     vector_backend: str = _env_str("MRAG_VECTOR_BACKEND", "exact")
-    # "device" is the only vector residency ported so far.
+    # "device": rows on the card; "host": int8 rows in host RAM serving an
+    # exact post-fusion re-rank, only ANN codes on the card (proj backend).
     vector_residency: str = _env_str("MRAG_VECTOR_RESIDENCY", "device")
 
     # ---- ANN (proj backend) -------------------------------------------
@@ -61,6 +63,10 @@ class Config:
     ivf_nprobe: int = _env_int("MRAG_IVF_NPROBE", 32)
     # Bytes per row of the projected-residual codes.
     proj_p: int = _env_int("MRAG_PROJ_P", 256)
+    # Host-residency funnel: the vector arm's top-W candidates handed, with
+    # their rerank signals, to the exact host re-rank on top of the fused
+    # top-(k·over_fetch) (0 = auto: max(512, k·over_fetch)).
+    host_funnel: int = _env_int("MRAG_HOST_FUNNEL", 0)
     # Empty always-probed slabs appended at build for streaming inserts.
     ann_reserve_slabs: int = _env_int("MRAG_ANN_RESERVE_SLABS", 2)
     # Approximate final top-k in the probed scan: not ported, kept at 0.
@@ -105,6 +111,14 @@ class Config:
             problems.append(
                 f"MRAG_VECTOR_RESIDENCY={self.vector_residency!r} must be "
                 "device|host")
+        if self.vector_residency == "host" and self.vector_backend not in ("pq", "proj"):
+            problems.append(
+                "MRAG_VECTOR_RESIDENCY=host requires MRAG_VECTOR_BACKEND=pq|proj "
+                "(no dense device matrix exists to scan exactly)")
+        if self.vector_residency == "host" and self.vector_dtype != "int8":
+            problems.append(
+                "MRAG_VECTOR_RESIDENCY=host requires MRAG_VECTOR_DTYPE=int8 "
+                "(the host payload is the int8 re-rank matrix)")
         if not 8 <= self.lexical_postings_init <= self.lexical_postings_max:
             problems.append(
                 "MRAG_LEXICAL_POSTINGS_INIT must be in "

@@ -1,17 +1,19 @@
-"""IVF (inverted-file) coarse clustering, device build (the port of
+"""IVF (inverted-file) coarse clustering (the port of
 ``mobius_rag_tpu.index.ivf``: ``_aligned_pad``, ``_kmeans``,
-``_topj_block``, ``_capacity_assign``, ``_fill_members``, ``IVFIndex``
-and ``IVFIndex.build``).
+``_topj_block``, ``_capacity_assign``, ``_fill_members``, ``IVFIndex``,
+``IVFIndex.build`` and ``IVFIndex.build_host``).
 
 k-means runs on the device as blockwise cosine Lloyd iterations; rows are
 then placed by the capacity-constrained multi-choice pass into padded
 member tables (cluster pad aligned to 512 slots), with a spill list for
 rows no choice could take. Random draws come from ``numpy`` with the JAX
 package's seed and draw order, so both packages start from the same rows.
+``build_host`` clusters a host-resident int8 matrix (host residency):
+k-means on an uploaded sample, then the assignment streams the matrix up
+block by block, so the device never holds more than one block of it.
 
-Not ported yet: ``build_host``, ``PackedIVF``, ``ivf_search*``,
-``calibrate_nprobe`` and the shard stacking (ROADMAP queue 1, items 9, 12
-and 14).
+Not ported yet: ``PackedIVF``, ``ivf_search*``, ``calibrate_nprobe`` and
+the shard stacking (ROADMAP queue 1, items 9 and 14).
 """
 from __future__ import annotations
 
@@ -24,6 +26,10 @@ from mobius_rag_tpu_torch.utils import round_up
 # Row-block width of the assignment product: bounds the [block, nlist]
 # score matrix and the block's float32 copy.
 _KM_BLOCK = 131072
+# Rows per stable sort in _topj_block: bounds the [rows, nlist] sort's
+# values, int64 ids and scratch (12 GB for a 250,000-row block at nlist
+# 4096 without it).
+_TOPJ_ROWS = 32768
 
 
 def _aligned_pad(raw: int) -> int:
@@ -63,9 +69,14 @@ def _kmeans(vectors: torch.Tensor, init_idx: torch.Tensor, nlist: int,
 
 def _topj_block(centroids: torch.Tensor, block: torch.Tensor, j: int):
     """Top-j nearest centroids per row of one block: ([B, j] scores, [B, j]
-    ids), the lower centroid id first on ties."""
-    vals, idx = topk_stable(block.float() @ centroids.T, j)
-    return vals, idx.to(torch.int32)
+    ids), the lower centroid id first on ties. Rows go through in
+    _TOPJ_ROWS pieces (a row's result does not depend on the others)."""
+    vals = torch.empty((block.shape[0], j), dtype=torch.float32, device=block.device)
+    idx = torch.empty((block.shape[0], j), dtype=torch.int32, device=block.device)
+    for lo in range(0, block.shape[0], _TOPJ_ROWS):
+        v, i = topk_stable(block[lo:lo + _TOPJ_ROWS].float() @ centroids.T, j)
+        vals[lo:lo + _TOPJ_ROWS], idx[lo:lo + _TOPJ_ROWS] = v, i
+    return vals, idx
 
 
 def _capacity_assign(choice_idx: np.ndarray, choice_val: np.ndarray,
@@ -173,6 +184,60 @@ class IVFIndex:
             vv, ii = _topj_block(centroids, vectors[off:off + _KM_BLOCK], j)
             ch_v[off:off + vv.shape[0]] = vv.cpu().numpy()
             ch_i[off:off + ii.shape[0]] = ii.cpu().numpy()
+        cells_live = _capacity_assign(ch_i[live_rows], ch_v[live_rows], nlist, pad)
+        members, member_valid, spill_arr, spill_val = _fill_members(
+            live_rows, cells_live, nlist, pad)
+        return cls(centroids, torch.from_numpy(members).to(dev),
+                   torch.from_numpy(member_valid).to(dev),
+                   torch.from_numpy(spill_arr).to(dev),
+                   torch.from_numpy(spill_val).to(dev), nlist=nlist, pad=pad)
+
+    @classmethod
+    def build_host(cls, host_vectors: np.ndarray, host_scales: np.ndarray,
+                   valid: np.ndarray | None = None, *, device, nlist: int | None = None,
+                   iters: int = 10, pad_factor: float = 2.0, seed: int = 0,
+                   sample: int = 500_000, block: int = 250_000,
+                   choices: int = 16) -> "IVFIndex":
+        """Cluster a host-resident int8 matrix [N, D] (with its per-row
+        scales) on `device`: k-means on an uploaded, dequantized row
+        sample, then the assignment streams the matrix up in `block`-row
+        pieces. The sample and the k-means init come from
+        ``np.random.default_rng(seed)`` in the JAX package's order (the
+        sample rows, then ``init``). Peak device memory is the sample plus
+        one block; host-to-device traffic is one pass over the int8 bytes
+        (page-locked arrays upload asynchronously)."""
+        n, d = host_vectors.shape
+        dev = torch.device(device)
+        valid_np = (np.asarray(valid) > 0) if valid is not None else np.ones(n, bool)
+        n_live = int(valid_np.sum())
+        nlist = nlist or max(16, int(np.sqrt(max(n_live, 1))))
+        if n_live == 0:
+            return cls.build(torch.zeros((8, d), dtype=torch.float32, device=dev),
+                             np.zeros(8), nlist=nlist)
+        nlist = min(nlist, n_live)
+        rng = np.random.default_rng(seed)
+        live_rows = np.flatnonzero(valid_np)
+        pick = np.sort(rng.choice(live_rows, size=min(sample, n_live), replace=False))
+
+        def up_f32(rows8: np.ndarray, scales: np.ndarray) -> torch.Tensor:
+            v = torch.from_numpy(rows8).to(dev, non_blocking=True).float()
+            return v * torch.from_numpy(scales).to(dev, non_blocking=True)[:, None]
+
+        sv = up_f32(host_vectors[pick], host_scales[pick])
+        init = rng.choice(len(pick), size=nlist, replace=len(pick) < nlist)
+        centroids = _kmeans(sv, torch.as_tensor(init, device=dev), nlist, iters)
+        del sv
+
+        pad = _aligned_pad(int(pad_factor * max(n_live, 1) / nlist))
+        j = int(min(choices, nlist))
+        ch_v = np.empty((n, j), np.float32)
+        ch_i = np.empty((n, j), np.int32)
+        for off in range(0, n, block):
+            hi = min(off + block, n)
+            vv, ii = _topj_block(centroids, up_f32(host_vectors[off:hi],
+                                                   host_scales[off:hi]), j)
+            ch_v[off:hi] = vv.cpu().numpy()
+            ch_i[off:hi] = ii.cpu().numpy()
         cells_live = _capacity_assign(ch_i[live_rows], ch_v[live_rows], nlist, pad)
         members, member_valid, spill_arr, spill_val = _fill_members(
             live_rows, cells_live, nlist, pad)

@@ -4,8 +4,9 @@
 Layout (fixed-capacity tensors; capacity doubles on overflow, unused rows
 masked by ``valid``):
 
-  vectors      [C, D]   f32/bf16  L2-normalized chunk embeddings
-  vec_scales   [C]      f32       per-row dequant scales (1.0: no int8 yet)
+  vectors      [C, D]   f32/bf16/int8  L2-normalized chunk embeddings
+                                  ([0, D] under host residency)
+  vec_scales   [C]      f32       per-row dequant scales (1.0 unless int8)
   valid        [C]      f32       1.0 = live row, 0.0 = hole/pad
   doc_id       [C]      i32       int-coded document
   authority    [C]      f32       authority_level normalized to [0, 1]
@@ -33,8 +34,19 @@ nothing recompiles. Every mutation bumps ``generation`` and tells the
 ``listeners`` (event ``add``/``delete``/``grow``/``bulk`` with its rows), as
 the JAX store does; the engine's ANN maintenance listens.
 
-Not ported yet (each raises NotImplementedError): int8 vectors and host
-vector residency (ROADMAP queue 1 items 9, 12).
+int8 rows (``MRAG_VECTOR_DTYPE=int8``) are symmetric per-row max-abs
+quantized: ``add_chunks`` quantizes each row on the host in numpy,
+``bulk_load`` on the device (``ops.quant.quantize_rows``), each with the
+JAX store's arithmetic, so both packages hold the same bytes.
+
+Host residency (``MRAG_VECTOR_RESIDENCY=host``, the 10M configuration):
+the int8 rows and their scales live in host RAM (``host_vectors
+[cap, D]`` int8, ``host_scales [cap]`` f32, numpy; page-locked when the
+store's device is CUDA, so uploads from them are asynchronous DMA) and
+serve the engine's exact post-fusion re-rank; the device index keeps a
+``[0, D]`` vectors tensor and the ANN codes are built from the host
+matrix. Host residency with the pq backend is not ported yet (ROADMAP
+queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -47,11 +59,16 @@ import numpy as np
 import torch
 
 from mobius_rag_tpu_torch.config import Config, get_config
+from mobius_rag_tpu_torch.ops.quant import _quantize_block, quantize_rows
 from mobius_rag_tpu_torch.utils import round_up
 
 # Capacity granularity; matches the JAX store's write block so that both
 # packages give the same capacity C (and so the same m = min(k·of, C)).
 _WRITE_BLOCK = 256
+
+# Rows quantized on the device per block when bulk_load takes a tensor
+# under host residency (bounds the float32 transient).
+_HOST_QUANT_BLOCK = 250_000
 
 BITSET_FIELDS = ("j_tags", "d_tags", "p_tags", "phrase_bits")
 BF16_FIELDS = ("vectors", "lexical", "lex_wts")
@@ -112,16 +129,36 @@ class ChunkRecord:
 
 
 def _check_supported(cfg: Config) -> None:
-    if cfg.vector_dtype == "int8":
+    if cfg.vector_residency == "host" and cfg.vector_backend == "pq":
         raise NotImplementedError(
-            "MRAG_VECTOR_DTYPE=int8 is not ported yet (ROADMAP queue 1, item 9)")
-    if cfg.vector_residency != "device":
-        raise NotImplementedError(
-            "MRAG_VECTOR_RESIDENCY=host is not ported yet (ROADMAP queue 1, item 12)")
+            "MRAG_VECTOR_RESIDENCY=host with the pq backend is not ported yet "
+            "(ROADMAP queue 1, item 10)")
 
 
 def _vec_dtype(cfg: Config) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.vector_dtype]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "int8": torch.int8}[cfg.vector_dtype]
+
+
+_TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.float32): torch.float32}
+
+
+def host_array(shape: tuple[int, ...], dtype, fill, device) -> np.ndarray:
+    """A numpy array filled with `fill`; on a CUDA store's host it lives in
+    page-locked memory (a pinned torch tensor, which the array keeps
+    alive), so copies from it to the card are asynchronous DMA."""
+    if torch.device(device).type == "cuda":
+        t = torch.empty(shape, dtype=_TORCH_DTYPE[np.dtype(dtype)], pin_memory=True)
+        return t.fill_(fill).numpy()
+    return np.full(shape, fill, dtype)
+
+
+def _quantize_host(v: np.ndarray) -> tuple[np.ndarray, float]:
+    """One normalized float32 row → (its int8 values as float32, scale):
+    the JAX store's add_chunks arithmetic (``store.py:475-479``)."""
+    max_abs = float(np.abs(v).max())
+    scale = max_abs / 127.0 if max_abs > 0 else 1.0
+    return np.clip(np.round(v / scale), -127, 127), scale
 
 
 class DeviceIndex:
@@ -154,6 +191,8 @@ class DeviceIndex:
     @classmethod
     def empty(cls, capacity: int, cfg: Config, device) -> "DeviceIndex":
         c = capacity
+        # host residency: no dense payload on the device
+        c_vec = 0 if cfg.vector_residency == "host" else c
         kw = dict(device=device)
         if cfg.lexical_format == "sparse":
             h, p = cfg.lexical_buckets, cfg.lexical_postings_init
@@ -163,7 +202,7 @@ class DeviceIndex:
             lex = dict(lexical=torch.zeros((cfg.lexical_buckets, c),
                                            dtype=torch.bfloat16, **kw))
         return cls(
-            vectors=torch.zeros((c, cfg.embed_dim), dtype=_vec_dtype(cfg), **kw),
+            vectors=torch.zeros((c_vec, cfg.embed_dim), dtype=_vec_dtype(cfg), **kw),
             vec_scales=torch.ones((c,), dtype=torch.float32, **kw),
             valid=torch.zeros((c,), dtype=torch.float32, **kw),
             doc_id=torch.full((c,), -1, dtype=torch.int32, **kw),
@@ -274,6 +313,11 @@ class ChunkStore:
         self.generation = 0
         self.listeners: list[Callable[[str, list[int]], Any]] = []
         self._sparse_lexical = self.cfg.lexical_format == "sparse"
+        self._host_residency = self.cfg.vector_residency == "host"
+        self.host_vectors: np.ndarray | None = None
+        self.host_scales: np.ndarray | None = None
+        if self._host_residency:
+            self.host_vectors, self.host_scales = self._host_rows(cap)
         if self._sparse_lexical:
             h, p = self.cfg.lexical_buckets, self.cfg.lexical_postings_init
             # host mirrors of lex_cols/lex_wts (postings packed left,
@@ -292,6 +336,11 @@ class ChunkStore:
     @property
     def capacity(self) -> int:
         return self.index.capacity
+
+    def _host_rows(self, cap: int) -> tuple[np.ndarray, np.ndarray]:
+        """Fresh host-residency arrays: zero rows, unit scales."""
+        return (host_array((cap, self.cfg.embed_dim), np.int8, 0, self.device),
+                host_array((cap,), np.float32, 1.0, self.device))
 
     def _notify(self, event: str, rows: Sequence[int]) -> None:
         self.generation += 1
@@ -315,14 +364,21 @@ class ChunkStore:
             else:
                 getattr(grown, f)[:old.shape[0]] = old
         self.index = grown
+        if self._host_residency:
+            hv, hs = self._host_rows(new_cap)
+            hv[: len(self.host_vectors)] = self.host_vectors
+            hs[: len(self.host_scales)] = self.host_scales
+            self.host_vectors, self.host_scales = hv, hs
         self._notify("grow", [])
 
     # -- writes ------------------------------------------------------------
 
-    def _stage(self, recs: Sequence[ChunkRecord], with_vectors: bool = True) -> dict:
+    def _stage(self, recs: Sequence[ChunkRecord], with_vectors: bool = True,
+               quantize: bool = False) -> dict:
         """Host arrays (numpy) of every row field for `recs` except the
         lexical weights; `vectors` (normalized embeddings) only when
-        `with_vectors`."""
+        `with_vectors`, int8-quantized per row (values held in float32,
+        scales in `vec_scales`) when `quantize`."""
         cfg = self.cfg
         n = len(recs)
         st = {
@@ -345,7 +401,10 @@ class ChunkStore:
             if with_vectors:
                 v = np.asarray(r.embedding, np.float32)
                 norm = float(np.linalg.norm(v))
-                st["vectors"][i] = v / norm if norm > 0 else v
+                v = v / norm if norm > 0 else v
+                if quantize:
+                    v, st["vec_scales"][i] = _quantize_host(v)
+                st["vectors"][i] = v
             st["doc_id"][i] = self.docs.intern(r.doc_id)
             st["authority"][i] = min(max(r.authority_level, 0), _AUTH_MAX) / _AUTH_MAX
             st["length_score"][i] = _length_score(r.text)
@@ -371,7 +430,10 @@ class ChunkStore:
         for off in range(0, len(rows), _WRITE_BLOCK):
             blk_rows = list(rows[off:off + _WRITE_BLOCK])
             blk_recs = recs[off:off + _WRITE_BLOCK]
-            st = self._stage(blk_recs)
+            st = self._stage(blk_recs, quantize=self.cfg.vector_dtype == "int8")
+            if self._host_residency:  # the rows go to host RAM, their scales both ways
+                self.host_vectors[blk_rows] = st.pop("vectors").astype(np.int8)
+                self.host_scales[blk_rows] = st["vec_scales"]
             idx = torch.as_tensor(blk_rows, dtype=torch.long, device=self.device)
             for f, a in st.items():
                 t = getattr(self.index, f)
@@ -525,12 +587,24 @@ class ChunkStore:
         `lexical` [N', H] numpy (N' ≤ N, row-major; rows past N' carry
         no lexical weights) may be given directly, row-aligned with
         `recs`; otherwise they come from the records. Vectors passed as
-        an array are assumed L2-normalized."""
+        an array are assumed L2-normalized. int8 rows are quantized on
+        the store's device (``quantize_rows``).
+
+        Under host residency `vectors` is one of: a tensor (quantized on
+        its device in 250,000-row blocks and copied down), a float numpy
+        matrix (quantized on the host), or an int8 numpy matrix, taken
+        as it is with unit scales (the caller sets ``host_scales``); an
+        int8 matrix of exactly [capacity, D] becomes the host matrix
+        itself, with no copy.
+
+        The store keeps the capacity it was built with when that exceeds
+        N (the JAX store sizes from N alone and so drops the headroom a
+        caller reserved for later inserts: ROADMAP queue 3)."""
         if self.records:
             raise ValueError("bulk_load requires an empty store")
         cfg = self.cfg
         n = len(recs)
-        cap = round_up(max(n, cfg.initial_capacity), _WRITE_BLOCK)
+        cap = round_up(max(n, cfg.initial_capacity, self.capacity), _WRITE_BLOCK)
         fresh = DeviceIndex.empty(cap, cfg, self.device)
         for i, r in enumerate(recs):
             self.records.append(r)
@@ -538,10 +612,23 @@ class ChunkStore:
             if r.source_id:
                 self._source_ids.setdefault(r.doc_id, set()).add(r.source_id)
         st = self._stage(recs, with_vectors=vectors is None)
-        if vectors is not None:
+        if vectors is None:
+            vectors = st.pop("vectors")
+        del st["vec_scales"]  # set below: ones unless int8
+        if self._host_residency:
+            # drop the empty arrays first: a pinned block freed here is
+            # reused by the allocation that replaces it
+            self.host_vectors = self.host_scales = None
+            self.host_vectors, self.host_scales = self._host_rows_from(vectors, n, cap)
+            fresh.vec_scales.copy_(torch.from_numpy(self.host_scales))
+        else:
             vt = vectors[:n] if isinstance(vectors, torch.Tensor) \
                 else torch.from_numpy(np.ascontiguousarray(vectors[:n], np.float32))
-            fresh.vectors[:n] = vt.to(self.device).to(fresh.vectors.dtype)
+            vt = vt.to(self.device)
+            if cfg.vector_dtype == "int8":
+                fresh.vectors[:n], fresh.vec_scales[:n] = quantize_rows(vt)
+            else:
+                fresh.vectors[:n] = vt.to(fresh.vectors.dtype)
         for f, a in st.items():
             t = getattr(fresh, f)
             t[:n] = _to_tensor(a, f, self.device).to(t.dtype)
@@ -574,6 +661,29 @@ class ChunkStore:
         self._lexical_stats_cache = None
         self._notify("bulk", range(n))
         return list(range(n))
+
+    def _host_rows_from(self, vectors, n: int, cap: int) -> tuple[np.ndarray, np.ndarray]:
+        """bulk_load's host matrix from its three kinds of input (the JAX
+        store's ``bulk_load`` host branch, ``store.py:714-741``)."""
+        d = self.cfg.embed_dim
+        if (isinstance(vectors, np.ndarray) and vectors.dtype == np.int8
+                and vectors.shape == (cap, d) and vectors.flags.c_contiguous):
+            return vectors, host_array((cap,), np.float32, 1.0, self.device)
+        hv, hs = self._host_rows(cap)
+        if isinstance(vectors, torch.Tensor):
+            for off in range(0, n, _HOST_QUANT_BLOCK):
+                hi = min(off + _HOST_QUANT_BLOCK, n)
+                q8, qs = _quantize_block(vectors[off:hi])
+                torch.from_numpy(hv[off:hi]).copy_(q8)
+                torch.from_numpy(hs[off:hi]).copy_(qs)
+        elif np.asarray(vectors).dtype == np.int8:
+            hv[:n] = np.asarray(vectors)[:n]
+        else:
+            v32 = np.asarray(vectors[:n], np.float32)
+            maxabs = np.abs(v32).max(axis=1)
+            hs[:n] = np.where(maxabs > 0, maxabs / 127.0, 1.0)
+            hv[:n] = np.clip(np.round(v32 / hs[:n, None]), -127, 127)
+        return hv, hs
 
     def _clear_rows(self, rows: Sequence[int]) -> None:
         idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
@@ -657,6 +767,11 @@ class ChunkStore:
         meta_dtypes = {f: "bfloat16" for f in arrays
                        if getattr(self.index, f).dtype == torch.bfloat16}
         np.savez_compressed(os.path.join(path, "index.npz"), **arrays)
+        if self.host_vectors is not None:
+            # the host matrix lives beside index.npz, uncompressed (np.save
+            # streams; zip compression of 15 GB at 10M rows would not)
+            np.save(os.path.join(path, "host_vectors.npy"), self.host_vectors)
+            np.save(os.path.join(path, "host_scales.npy"), self.host_scales)
         recs = []
         for r in self.records:
             if r is None:
@@ -704,25 +819,36 @@ class ChunkStore:
                 f"supports ({cls.SNAPSHOT_VERSION})")
         cfg = cfg or get_config()
         for key, val in state["config"].items():
-            if key == "vector_residency" and val != "device":
-                raise NotImplementedError(
-                    "host-residency snapshots are not ported yet "
-                    "(ROADMAP queue 1, item 12)")
             if getattr(cfg, key) != val:
-                raise ValueError(f"snapshot {key}={val} != config {getattr(cfg, key)}")
+                raise ValueError(f"snapshot {key}={val!r} != config {getattr(cfg, key)!r}")
         with np.load(os.path.join(path, "index.npz")) as data:
             arrays = {f: data[f] for f in data.files}
+        # capacity from valid: under host residency vectors has 0 rows
         store = cls(cfg, capacity=arrays["valid"].shape[0], device=device)
         store.index = index_from_numpy(arrays, store.device)
+        if store._host_residency:
+            hv_path = os.path.join(path, "host_vectors.npy")
+            if not os.path.exists(hv_path):
+                raise ValueError("host-residency snapshot is missing host_vectors.npy")
+            for name in ("host_vectors", "host_scales"):
+                saved = np.load(os.path.join(path, f"{name}.npy"), mmap_mode="r")
+                if saved.shape == getattr(store, name).shape:
+                    getattr(store, name)[:] = saved  # into the (pinned) arrays
+                else:
+                    setattr(store, name, np.array(saved))
         if store._sparse_lexical:
             # the host postings mirrors, from the restored arrays
             store._lex_cols_np = np.array(arrays["lex_cols"], np.int32)
             store._lex_wts_np = (np.asarray(arrays["lex_wts"]).view(np.uint16)
                                  .astype(np.uint32) << 16).view(np.float32)
             store._lex_fill = (store._lex_cols_np >= 0).sum(axis=1)
-        # Rehydrate record embeddings from the restored vectors: republish
-        # paths treat record embeddings as authoritative.
-        vecs = arrays["vectors"]
+        # Rehydrate record embeddings from the restored rows (the host
+        # matrix under host residency): republish paths treat record
+        # embeddings as authoritative. int8 rows dequantize.
+        if store._host_residency:
+            vecs, scales = store.host_vectors, store.host_scales
+        else:
+            vecs, scales = arrays["vectors"], arrays["vec_scales"]
         if state["bf16_fields"].get("vectors") == "bfloat16":
             vecs = (vecs.astype(np.uint32) << 16).view(np.float32)
         store.records = []
@@ -730,7 +856,10 @@ class ChunkStore:
             if d is None:
                 store.records.append(None)
                 continue
-            d["embedding"] = vecs[i]
+            if vecs.dtype == np.int8:
+                d["embedding"] = vecs[i].astype(np.float32) * float(scales[i])
+            else:
+                d["embedding"] = vecs[i]
             d["lexical_weights"] = {int(k): v for k, v in d["lexical_weights"].items()}
             store.records.append(ChunkRecord(**d))
         store._free_rows = list(state["free_rows"])

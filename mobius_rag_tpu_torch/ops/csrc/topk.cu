@@ -2,15 +2,26 @@
 //
 // Replaces mobius_rag_tpu/ops/topk.py:_topk_kernel, the Pallas fused
 // masked cosine top-k, and serves the JAX engine's exact vector arm
-// (query/engine.py:477-485):
+// (query/engine.py:277-279,477-485):
 //
-//   score[b, c] = q[b]·v[c] + penalty[b, c] (+ NEG_INF where q[b]·v[c] < min_sim[b])
+//   cos[b, c]   = (q[b]·v[c]) * s[c]            (s: int8 rows' scales, else 1)
+//   score[b, c] = cos[b, c] + penalty[b, c] (+ NEG_INF where cos[b, c] < min_sim[b])
 //   out[b]      = the top m of score[b, :], descending, lower row first on ties
+//
+// The rows are float32, bfloat16 or int8 (the store's
+// MRAG_VECTOR_DTYPE=int8 form, with its per-row scales); each widens
+// exactly to float32 as it is staged, so one pass-1 template serves all
+// three. The scale multiplies the row's full dot (one rounded product)
+// before the penalty and the min_sim test, as the JAX dense arm computes
+// cos and then compares it.
 //
 // What bounds it: at the main path's shape (B=32 queries, C=70,144 rows,
 // D=1536, m=40) it reads 431 MB of float32 rows for 6.9 GFLOP, i.e. 16
 // FLOP per byte, far below the card's compute-to-bandwidth ratio: it is
 // memory-bound, about 0.13 ms at the data-sheet 3.35 TB/s.
+// int8 rows read a quarter of those bytes (108 MB, ~0.03 ms at 3.35 TB/s),
+// which leaves the int8 form bound by pass 1's float32 FMAs (6.9 GFLOP)
+// and the merge.
 //
 // What the design does about it: like the TPU kernel it reads the chunk
 // matrix exactly once and never writes the [B, C] score matrix to device
@@ -75,7 +86,8 @@ __device__ __forceinline__ int key_row(uint64_t key) {
 }
 
 // Four consecutive elements as float32 (16-byte aligned for float, 8 for
-// bf16; bf16 widens exactly by a 16-bit shift).
+// bf16, 4 for int8; bf16 widens exactly by a 16-bit shift, int8 by an
+// integer-to-float conversion, exact for |v| <= 127).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -83,6 +95,11 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   uint2 u = *reinterpret_cast<const uint2*>(p);
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+}
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(static_cast<float>(c.x), static_cast<float>(c.y),
+                     static_cast<float>(c.z), static_cast<float>(c.w));
 }
 
 // Sort each of the total/n contiguous segments of s (n a power of two)
@@ -110,7 +127,8 @@ __device__ void bitonic_desc(uint64_t* s, int total, int n) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS1, BLOCKS1_PER_SM)
 topk_tiles(const float* __restrict__ q, const T* __restrict__ vec,
-           const float* __restrict__ pen, long long pen_stride,
+           const float* __restrict__ scales, const float* __restrict__ pen,
+           long long pen_stride,
            const float* __restrict__ min_sim, int B, int C, int D, int P,
            uint64_t* __restrict__ partial) {
   // The staging tiles and, after the dot loop, the sort keys share it.
@@ -177,7 +195,7 @@ topk_tiles(const float* __restrict__ q, const T* __restrict__ vec,
       int qi = q0 + qq;
       float s = -INFINITY;  // rows past C sort below every real score
       if (row < C && qi < B) {
-        float dot = acc[i][j];
+        float dot = scales != nullptr ? __fmul_rn(acc[i][j], scales[row]) : acc[i][j];
         s = dot + pen[static_cast<size_t>(qi) * pen_stride + row];
         if (dot < min_sim[qi]) s += NEG_INF;
       }
@@ -245,29 +263,37 @@ extern "C" long long mrag_topk_scratch_elems(int B, int C, int m) {
   return total;
 }
 
-// q [B, D] f32; vec [C, D] f32 (vec_bf16 = 0) or bf16 (1), row-major,
-// D a multiple of 4; pen f32 with row stride pen_stride (C for [B, C], 0
-// for [C]); min_sim [B] f32; scratch: mrag_topk_scratch_elems(B, C, m)
-// u64; out_vals [B, m] f32; out_idx [B, m] i32. Requires
-// 1 <= m <= min(C, 1024).
-extern "C" int mrag_masked_topk(const float* q, const void* vec, int vec_bf16,
-                                const float* pen, long long pen_stride,
+// q [B, D] f32; vec [C, D] row-major, f32 (vec_kind 0), bf16 (1) or int8
+// (2), D a multiple of 4; scales [C] f32 or null (no scaling); pen f32
+// with row stride pen_stride (C for [B, C], 0 for [C]); min_sim [B] f32;
+// scratch: mrag_topk_scratch_elems(B, C, m) u64; out_vals [B, m] f32;
+// out_idx [B, m] i32. Requires 1 <= m <= min(C, 1024).
+extern "C" int mrag_masked_topk(const float* q, const void* vec, int vec_kind,
+                                const float* scales, const float* pen,
+                                long long pen_stride,
                                 const float* min_sim, int B, int C, int D, int m,
                                 void* scratch, float* out_vals, int* out_idx,
                                 void* stream) {
-  if (B < 1 || m < 1 || m > C || m > 1024 || D < 4 || D % 4 != 0)
+  if (B < 1 || m < 1 || m > C || m > 1024 || D < 4 || D % 4 != 0 || vec_kind < 0 ||
+      vec_kind > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_tiles_of(C);
   const int P = partial_width(m);
   dim3 grid1(n_tiles, (B + QG - 1) / QG);
   uint64_t* src = static_cast<uint64_t*>(scratch);
-  if (vec_bf16)
+  if (vec_kind == 1)
     topk_tiles<__nv_bfloat16><<<grid1, THREADS1, 0, s>>>(
-        q, static_cast<const __nv_bfloat16*>(vec), pen, pen_stride, min_sim, B, C, D, P, src);
+        q, static_cast<const __nv_bfloat16*>(vec), scales, pen, pen_stride, min_sim, B, C,
+        D, P, src);
+  else if (vec_kind == 2)
+    topk_tiles<int8_t><<<grid1, THREADS1, 0, s>>>(
+        q, static_cast<const int8_t*>(vec), scales, pen, pen_stride, min_sim, B, C, D, P,
+        src);
   else
     topk_tiles<float><<<grid1, THREADS1, 0, s>>>(
-        q, static_cast<const float*>(vec), pen, pen_stride, min_sim, B, C, D, P, src);
+        q, static_cast<const float*>(vec), scales, pen, pen_stride, min_sim, B, C, D, P,
+        src);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int n_in = n_tiles * P;

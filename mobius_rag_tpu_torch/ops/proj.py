@@ -20,8 +20,8 @@ The probe selection, the int8 query projection and the final
 ``merged_topk`` are torch ops around the kernels, as the JAX package
 computes them outside its Pallas kernels. Bitsets and gate words are
 int32 bit patterns; every shift is masked (``>>`` on int32 is
-arithmetic). Host residency (numpy row matrices) is not ported yet
-(ROADMAP queue 1, item 12).
+arithmetic). Under host residency ``from_ivf`` gathers the rows from the
+host int8 matrix, uploads them and dequantizes on the device.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_gated_blocks
-from mobius_rag_tpu_torch.ops.quant import fill_cluster_packed
+from mobius_rag_tpu_torch.ops.quant import INV127, fill_cluster_packed
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, merged_topk, topk_stable
 
 # Fixed covariance blocking: the float32 summation order pins the eigh
@@ -85,29 +85,41 @@ class PackedProj:
         return obj
 
     @classmethod
-    def from_ivf(cls, ivf, vectors: torch.Tensor, *, p: int = 256, row_scales=None,
+    def from_ivf(cls, ivf, vectors, *, p: int = 256, row_scales=None,
                  sample: int = 200_000, seed: int = 0, block: int = 65536,
                  reserve_slabs: int = 0) -> "PackedProj":
-        """Fit the residual PCA and encode every slot cluster-contiguously,
-        on the device of `vectors` [N, D] (device residency; a host numpy
-        matrix is ROADMAP queue 1, item 12). `row_scales` dequantizes int8
-        rows. Overflow (spill) rows fold into synthetic always-probed
-        slabs; ``reserve_slabs`` appends that many empty always-probed
-        slabs (zero centroid, valid 0) as streaming-insert headroom."""
-        if not isinstance(vectors, torch.Tensor):
-            raise NotImplementedError(
-                "PackedProj from a host row matrix (MRAG_VECTOR_RESIDENCY=host) is "
-                "not ported yet (ROADMAP queue 1, item 12)")
-        dev = vectors.device
+        """Fit the residual PCA and encode every slot cluster-contiguously.
+        `vectors` [N, D] is a tensor on the tables' device, or the host
+        int8 matrix of host residency (numpy): its rows are gathered on
+        the host, uploaded and dequantized on the device of the IVF
+        tables. `row_scales` (a tensor, or numpy beside a host matrix)
+        dequantizes int8 rows. Overflow (spill) rows fold into synthetic
+        always-probed slabs; ``reserve_slabs`` appends that many empty
+        always-probed slabs (zero centroid, valid 0) as streaming-insert
+        headroom."""
         d = vectors.shape[1]
         p = int(min(p, d))
+        if isinstance(vectors, np.ndarray):
+            dev = ivf.centroids.device
+            host_rows = torch.from_numpy(vectors)
+            host_scales = None if row_scales is None else np.asarray(row_scales)
 
-        def rows_f32(idx: np.ndarray) -> torch.Tensor:
-            ti = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=dev)
-            out = vectors[ti].float()
-            if row_scales is not None:
-                out = out * row_scales[ti][:, None]
-            return out
+            def rows_f32(idx: np.ndarray) -> torch.Tensor:
+                idx = np.asarray(idx)
+                out = host_rows.index_select(0, torch.from_numpy(idx.astype(np.int64)))
+                out = out.to(dev).float()
+                if host_scales is not None:
+                    out = out * torch.from_numpy(host_scales[idx]).to(dev)[:, None]
+                return out
+        else:
+            dev = vectors.device
+
+            def rows_f32(idx: np.ndarray) -> torch.Tensor:
+                ti = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=dev)
+                out = vectors[ti].float()
+                if row_scales is not None:
+                    out = out * row_scales[ti][:, None]
+                return out
 
         members = ivf.members.cpu().numpy()
         mvalid = ivf.member_valid.cpu().numpy()
@@ -177,9 +189,10 @@ class PackedProj:
 
 def _quantize_projected(pr: torch.Tensor):
     """Symmetric per-row int8 of projected rows [n, p] → (int8 [n, p],
-    scales [n] f32): round half to even, as ``jnp.round``."""
+    scales [n] f32): round half to even, as ``jnp.round``; the scale is
+    the product with float32(1/127), as XLA computes ``mx / 127.0``."""
     mx = torch.clamp(pr.abs().amax(dim=1), min=1e-9)
-    scale = mx / 127.0
+    scale = mx * INV127
     return torch.round(pr / scale[:, None]).to(torch.int8), scale
 
 
@@ -376,7 +389,7 @@ def _probe_and_quantize(pp: PackedProj, queries: torch.Tensor, nprobe: int):
         spill_cells = torch.arange(pp.base_nlist, pp.nlist, device=probe.device)
         probe = torch.cat([probe, spill_cells[None, :].expand(b, n_spill)], dim=1)
     qp = q32 @ pp.proj.T
-    q_scale = torch.clamp(qp.abs().amax(dim=1), min=1e-9) / 127.0
+    q_scale = torch.clamp(qp.abs().amax(dim=1), min=1e-9) * INV127
     q8 = torch.round(qp / q_scale[:, None]).to(torch.int8)
     return cscores, probe.to(torch.int32).contiguous(), q8.contiguous(), q_scale
 

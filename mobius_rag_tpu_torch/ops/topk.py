@@ -4,10 +4,14 @@ The port of ``mobius_rag_tpu/ops/topk.py:_topk_kernel`` (the Pallas fused
 masked cosine top-k) and of the same math the JAX engine inlines in its
 vector arm (``engine.py:477-485``):
 
-    score[b, c] = q[b]·v[c] + penalty[b, c] + (NEG_INF if q[b]·v[c] < min_sim[b])
+    cos[b, c]   = (q[b]·v[c]) · s[c]
+    score[b, c] = cos[b, c] + penalty[b, c] + (NEG_INF if cos[b, c] < min_sim[b])
 
 and the top-``m`` of each row of ``score``, in descending order, the lower
-row index first among equal scores (``lax.top_k``'s order).
+row index first among equal scores (``lax.top_k``'s order). The rows are
+float32, bfloat16 or int8; ``s`` is the int8 rows' per-row dequant scale
+(``row_scales``, the store's ``vec_scales``), absent otherwise — the JAX
+dense arm's arithmetic (``engine.py:277-279``): cast, dot, then the scale.
 
 - :func:`masked_topk_reference` is the plain PyTorch version: one matmul
   in full float32 and a stable sort. The tests and the on-card comparison
@@ -65,11 +69,14 @@ def merged_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,
 
 def masked_topk_reference(queries: torch.Tensor, vectors: torch.Tensor,
                           penalty: torch.Tensor, min_sim: torch.Tensor | None,
-                          m: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: queries [B, D] f32, vectors [C, D] f32/bf16, penalty
-    [B, C] or [C] f32, min_sim [B] f32 or None → (vals [B, m] f32, idx
-    [B, m] int32)."""
+                          m: int, row_scales: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: queries [B, D] f32, vectors [C, D] f32/bf16/int8,
+    penalty [B, C] or [C] f32, min_sim [B] f32 or None, row_scales [C] f32
+    or None → (vals [B, m] f32, idx [B, m] int32)."""
     cos = queries.float() @ vectors.float().T  # [B, C], full float32
+    if row_scales is not None:
+        cos = cos * row_scales[None, :]
     scores = cos + penalty
     if min_sim is not None:
         scores = scores + torch.where(cos < min_sim[:, None], NEG_INF, 0.0)
@@ -86,7 +93,7 @@ def build_kernel() -> tuple[ctypes.CDLL, float]:
         lib = ctypes.CDLL(path)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.mrag_masked_topk.argtypes = [p, p, i, p, ctypes.c_longlong, p,
+        lib.mrag_masked_topk.argtypes = [p, p, i, p, p, ctypes.c_longlong, p,
                                          i, i, i, i, p, p, p, p]
         lib.mrag_masked_topk.restype = i
         lib.mrag_topk_scratch_elems.argtypes = [i, i, i]
@@ -95,15 +102,22 @@ def build_kernel() -> tuple[ctypes.CDLL, float]:
     return _LIB, seconds
 
 
-def _check(queries, vectors, penalty, min_sim, m):
+# vec_kind argument of mrag_masked_topk
+_VEC_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _check(queries, vectors, penalty, min_sim, m, row_scales):
     if queries.dim() != 2 or vectors.dim() != 2 or queries.shape[1] != vectors.shape[1]:
         raise ValueError(f"queries {tuple(queries.shape)} and vectors "
                          f"{tuple(vectors.shape)} must be [B, D] and [C, D]")
     b, c = queries.shape[0], vectors.shape[0]
     if queries.dtype != torch.float32:
         raise TypeError(f"queries must be float32, got {queries.dtype}")
-    if vectors.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"vectors must be float32 or bfloat16, got {vectors.dtype}")
+    if vectors.dtype not in _VEC_KIND:
+        raise TypeError(f"vectors must be float32, bfloat16 or int8, got {vectors.dtype}")
+    if row_scales is not None and (row_scales.dtype != torch.float32
+                                   or tuple(row_scales.shape) != (c,)):
+        raise ValueError("row_scales must be float32 [C]")
     if penalty.dtype != torch.float32 or tuple(penalty.shape) not in ((b, c), (c,)):
         raise ValueError(f"penalty must be float32 [B, C] or [C], got "
                          f"{penalty.dtype} {tuple(penalty.shape)}")
@@ -113,25 +127,28 @@ def _check(queries, vectors, penalty, min_sim, m):
     if not 1 <= m <= min(c, MAX_M) or b < 1:
         raise ValueError(f"need 1 <= m <= min(C, {MAX_M}) and B >= 1 "
                          f"(m={m}, C={c}, B={b})")
-    devices = {t.device for t in (queries, vectors, penalty, min_sim) if t is not None}
+    devices = {t.device for t in (queries, vectors, penalty, min_sim, row_scales)
+               if t is not None}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on several devices: {devices}")
 
 
 def masked_topk(queries: torch.Tensor, vectors: torch.Tensor,
                 penalty: torch.Tensor, min_sim: torch.Tensor | None,
-                m: int) -> tuple[torch.Tensor, torch.Tensor]:
+                m: int, row_scales: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked cosine top-m (see the module docstring). On CPU tensors the
     plain version; on CUDA tensors the Hopper kernel, launched on the
     current stream. Returns (vals [B, m] f32 descending, idx [B, m] int32)."""
-    _check(queries, vectors, penalty, min_sim, m)
+    _check(queries, vectors, penalty, min_sim, m, row_scales)
     device = queries.device
     if device.type == "cpu":
-        return masked_topk_reference(queries, vectors, penalty, min_sim, m)
+        return masked_topk_reference(queries, vectors, penalty, min_sim, m, row_scales)
     if device.type != "cuda":
         raise ValueError(f"masked_topk runs on cpu or cuda tensors, not {device}")
-    for name, t in (("queries", queries), ("vectors", vectors), ("penalty", penalty)):
-        if not t.is_contiguous():
+    for name, t in (("queries", queries), ("vectors", vectors), ("penalty", penalty),
+                    ("row_scales", row_scales)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if queries.shape[1] % 4:
         raise ValueError(f"the kernel needs D % 4 == 0, got D={queries.shape[1]}")
@@ -148,8 +165,8 @@ def masked_topk(queries: torch.Tensor, vectors: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.mrag_masked_topk(
-            queries.data_ptr(), vectors.data_ptr(),
-            int(vectors.dtype == torch.bfloat16),
+            queries.data_ptr(), vectors.data_ptr(), _VEC_KIND[vectors.dtype],
+            None if row_scales is None else row_scales.data_ptr(),
             penalty.data_ptr(), c if penalty.dim() == 2 else 0,
             min_sim.data_ptr(), b, c, d, m,
             scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream)

@@ -17,11 +17,22 @@ Per batch of queries:
   fusion       RRF k=60 over the candidate union, v1.3 weighted rerank
   assembly     host: records, confidence labels, neighbours, traces
 
-Candidate-local gating (proj backend, ``MRAG_GATING=local``) replaces the
-[B, C] gate and arms: the gate is evaluated inside the gated probed scan,
-the lexical arm scores only its postings, the d-tag arm reads per-tag
-postings, and the strict count comes from a host cache
-(``query.gating``).
+Candidate-local gating (proj backend, ``MRAG_GATING=local``, and
+``auto`` under host residency) replaces the [B, C] gate and arms: the
+gate is evaluated inside the gated probed scan, the lexical arm scores
+only its postings, the d-tag arm reads per-tag postings, and the strict
+count comes from a host cache (``query.gating``).
+
+Host residency (``MRAG_VECTOR_RESIDENCY=host``, the 10M configuration)
+serves in two stages. The device program runs at ``kd = k·over_fetch``
+fused candidates and widens the vector arm to a funnel of the top
+``MRAG_HOST_FUNNEL`` proj candidates, whose rerank signals ride the
+output (``wide_outputs``, bf16 pairs in float32 columns). With no dense
+rows on the device the vector arm's approximate score, clipped to
+[0, 1], stands in for the cosine in fusion. Then ``_host_rerank``
+recomputes the exact cosine of the fused and funnel candidates from the
+host int8 matrix (``utils.native.gather_cos``), rescores, dedups and
+keeps the top k — host numpy, line for line the JAX engine's.
 
 Semantics follow the JAX engine line by line; where torch differs:
 
@@ -48,8 +59,8 @@ Float32 matmuls run in full float32 (TF32 is switched off in the
 package's ``__init__``).
 
 Not ported yet, each raising NotImplementedError: the ivf, packed and
-pq vector backends, sharded serving, host re-rank (host residency), the
-cross-encoder stage and the telemetry store (ROADMAP queue 1).
+pq vector backends, sharded serving, the cross-encoder stage and the
+telemetry store (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -72,6 +83,7 @@ from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
 from mobius_rag_tpu_torch.query import gating
 from mobius_rag_tpu_torch.query.gating import query_dtag_ids
 from mobius_rag_tpu_torch.query.lexicon import Lexicon, LexiconExpansion
+from mobius_rag_tpu_torch.utils import native
 
 # Rerank weights, reranker v1.3 (see the JAX engine for their derivation).
 W_SIM, W_AUTH, W_LEN, W_JPD, W_COV = 0.25, 0.10, 0.05, 0.20, 0.55
@@ -309,9 +321,10 @@ def rerank_score(sim, auth, lsig, jpd, cov, has_jpd, has_cov):
 
 
 def _cand_cos(index: DeviceIndex, qvec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-candidate cosine via a row gather [B, m, D]."""
+    """Per-candidate cosine via a row gather [B, m, D], times the rows'
+    scales (1.0 unless int8)."""
     vecs = index.vectors[idx].float()
-    return torch.einsum("bmd,bd->bm", vecs, qvec)
+    return torch.einsum("bmd,bd->bm", vecs, qvec) * index.vec_scales[idx]
 
 
 def _min_sim_filter(vec_vals: torch.Tensor, q: dict) -> torch.Tensor:
@@ -360,8 +373,9 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
         strict_total = strict.sum(dim=1, keepdim=True)
         penalty = gate_penalty(strict, relaxed, open_mask, q, k, strict_total)
         if ann is None:
+            scales = index.vec_scales if index.vectors.dtype == torch.int8 else None
             vec_vals, vec_idx = masked_topk(q["vec"], index.vectors, penalty,
-                                            q["min_sim"], m)
+                                            q["min_sim"], m, row_scales=scales)
         else:
             vec_vals, vec_idx = proj_search_packed(ann, q["vec"], penalty, m, nprobe,
                                                    approx)
@@ -374,11 +388,23 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
         def lex_sig_of(idx):
             return torch.gather(lex, 1, idx)
 
+    # No dense rows on the device (host residency): the vector arm's
+    # approximate score, clipped to [0, 1], stands in for its candidates'
+    # cosine and the other arms' carry 0; the host re-rank recomputes the
+    # exact cosine of every fused candidate.
+    have_dense = index.vectors.shape[0] == index.valid.shape[0]
     out_vals, out_idx, out_sigs = [], [], []
-    for vals, idx in ((vec_vals, vec_idx), (lex_vals, lex_idx), (dtag_vals, dtag_idx)):
+    for arm, (vals, idx) in enumerate(((vec_vals, vec_idx), (lex_vals, lex_idx),
+                                       (dtag_vals, dtag_idx))):
         idx = idx.long()
         auth, lsig, jpd, cov = candidate_signals(index, q, idx)
-        sig = torch.stack([_cand_cos(index, q["vec"], idx), lex_sig_of(idx),
+        if have_dense:
+            cand_cos = _cand_cos(index, q["vec"], idx)
+        elif arm == 0:
+            cand_cos = torch.clamp(vals, 0.0, 1.0)
+        else:
+            cand_cos = torch.zeros_like(vals)
+        sig = torch.stack([cand_cos, lex_sig_of(idx),
                            auth, lsig, jpd, cov], dim=-1)  # [B, m', N_SIG]
         pad = m - vals.shape[1]
         if pad:  # an arm ran at m_other < m: dead-pad back to m
@@ -393,12 +419,17 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
             torch.stack(out_sigs), strict_total)
 
 
-def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int):
+def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int, m_global: int | None = None):
     """RRF + rerank over the UNION of the per-arm candidate lists (no
-    [B, C] buffer: duplicates are summed through a [B, 3m, 3m] pairwise
+    [B, C] buffer: duplicates are summed through a [B, 3r, 3r] pairwise
     match). vals/gidx [3, B, m] (each arm already in top-k order),
-    sigs [3, B, m, N_SIG]."""
-    n_arms, b, r = vals.shape
+    sigs [3, B, m, N_SIG]. Each arm contributes its first r = min(m_global,
+    m) candidates (m_global: the fusion pool under a funnel, default m)."""
+    n_arms, _, m = vals.shape
+    m_global = m if m_global is None else m_global
+    r = min(m_global, m)
+    lex_vals_all = vals[1]
+    vals, gidx, sigs = vals[:, :, :r], gidx[:, :, :r], sigs[:, :, :r]
     dev = vals.device
     ranks = torch.arange(r, dtype=torch.float32, device=dev)[None, :]
     cand_parts, contrib_parts = [], []
@@ -419,8 +450,8 @@ def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int):
     is_first = (first == torch.arange(u_idx.shape[1], device=dev)[None, :]).float()
     fused = torch.where(is_first * u_live > 0, rrf_sum, NEG_INF)
 
-    # rerank as many fused candidates as one arm over-fetches
-    cand_rrf, pos = topk_stable(fused, min(r, fused.shape[1]))
+    # rerank as many fused candidates as the fusion pool holds
+    cand_rrf, pos = topk_stable(fused, min(m_global, fused.shape[1]))
     cand_idx = torch.gather(u_idx, 1, pos)
     cand_sig = torch.gather(u_sig, 1, pos[..., None].expand(-1, -1, N_SIG))
 
@@ -428,7 +459,7 @@ def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int):
     auth_c, len_c = cand_sig[..., 2], cand_sig[..., 3]
     jpd_c, cov_c = cand_sig[..., 4], cand_sig[..., 5]
     # lexical normalizer = best LIVE (gate-passing) lexical score
-    lex_best = torch.where(vals[1] > NEG_INF / 2, vals[1], 0.0).max(dim=1).values
+    lex_best = torch.where(lex_vals_all > NEG_INF / 2, lex_vals_all, 0.0).max(dim=1).values
     lexn = torch.clamp(lex_c / torch.clamp(lex_best[:, None], min=1e-6), 0.0, 1.0)
     sim = torch.clamp(torch.maximum(cos_c, lexn), 0.0, 1.0)
 
@@ -459,19 +490,28 @@ def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int):
 @torch.inference_mode()
 def search_batch(index: DeviceIndex, q: dict, k: int, over_fetch: int,
                  rrf_k: int, ann: PackedProj | None = None, nprobe: int = 32,
-                 approx: float = 0.0, local=None,
-                 tag_level: int = 2) -> dict[str, torch.Tensor]:
+                 approx: float = 0.0, local=None, tag_level: int = 2,
+                 funnel: int = 0) -> dict[str, torch.Tensor]:
     """All arms, fusion and rerank for one prepared batch; the output
     tensors stay on the index's device (see pack_out). ``ann``/``nprobe``/
     ``approx``/``local``/``tag_level`` select the vector backend and the
-    gating, as in :func:`arm_candidates`."""
-    m = min(k * over_fetch, index.capacity)
+    gating, as in :func:`arm_candidates`.
+
+    ``funnel`` > 0 (host residency): `k` arrives already over-fetched
+    (the engine's ``_device_k``), so the fusion pool per arm is 2k, not
+    k·over_fetch again (the JAX engine measured what compounding costs,
+    ``engine.py:714-724``); the vector arm widens to the funnel and its
+    top-funnel candidates and signals join the outputs (wide_outputs)."""
+    c = index.capacity
+    m_fuse = min(2 * k if funnel else k * over_fetch, c)
+    w = min(funnel, c)
+    m = max(m_fuse, w)
     # Queries arrive bf16-rounded (see prepare_batch); widen once.
     q = dict(q, vec=q["vec"].float())
     vals, gidx, sigs, strict_total = arm_candidates(
-        index, q, k, m, ann=ann, nprobe=nprobe, approx=approx, local=local,
-        tag_level=tag_level)
-    out = fuse_and_rerank(vals, gidx, sigs, q, k, rrf_k)
+        index, q, k, m, m_other=m_fuse, ann=ann, nprobe=nprobe, approx=approx,
+        local=local, tag_level=tag_level)
+    out = fuse_and_rerank(vals, gidx, sigs, q, k, rrf_k, m_fuse)
     out.update({
         "vec_idx": gidx[0][:, : k * 2],
         "vec_vals": vals[0][:, : k * 2],
@@ -481,7 +521,27 @@ def search_batch(index: DeviceIndex, q: dict, k: int, over_fetch: int,
         "dtag_vals": vals[2][:, : k * 2],
         "strict_count": strict_total[:, 0],
     })
+    if w:
+        out.update(wide_outputs(vals, gidx, sigs, w))
     return out
+
+
+def wide_outputs(vals, gidx, sigs, w: int) -> dict:
+    """The funnel block: the vector arm's top-w ids and the host re-rank's
+    signal inputs (all but the exact cosine it recomputes). The vector
+    arm's list is already in score order, so its first w are the funnel."""
+    lex_best = torch.where(vals[1] > NEG_INF / 2, vals[1], 0.0).max(dim=1).values
+    wsig = sigs[0][:, :w]
+    return {
+        "wide_vals": vals[0][:, :w],
+        "wide_lexn": torch.clamp(wsig[..., 1] / torch.clamp(lex_best[:, None], min=1e-6),
+                                 0.0, 1.0),
+        "wide_auth": wsig[..., 2],
+        "wide_len": wsig[..., 3],
+        "wide_jpd": wsig[..., 4],
+        "wide_cov": wsig[..., 5],
+        "wide_idx": gidx[0][:, :w],
+    }
 
 
 # Output packing layout: (key, width-multiplier-of-k) per dtype class;
@@ -490,19 +550,44 @@ _OUT_F = (("rerank", 1), ("sim", 1), ("cos", 1), ("auth", 1), ("len", 1),
           ("jpd", 1), ("cov", 1), ("rrf", 1), ("lexn", 1),
           ("vec_vals", 2), ("lex_vals", 2), ("dtag_vals", 2))
 _OUT_I = (("idx", 1), ("vec_idx", 2), ("lex_idx", 2), ("dtag_idx", 2))
+# The funnel block appended under host residency (width w, not k-based).
+_WIDE_F = ("wide_vals", "wide_lexn", "wide_auth", "wide_len", "wide_jpd", "wide_cov")
 
 
-def pack_out(out: dict) -> tuple[np.ndarray, np.ndarray]:
+def _pack_wide(out: dict) -> torch.Tensor:
+    """The funnel's 6·w signals as bf16 (round to nearest even), element
+    2i in the low and 2i+1 in the high half of float32 column i: [B, 3w].
+    The JAX engine's layout bit for bit; the host re-rank's scores depend
+    on these bf16 values."""
+    wf = torch.cat([out[key] for key in _WIDE_F], dim=1).to(torch.bfloat16)
+    u16 = wf.view(torch.int16).to(torch.int32) & 0xFFFF
+    return (u16[:, 0::2] | (u16[:, 1::2] << 16)).view(torch.float32)
+
+
+def _unpack_wide(block: np.ndarray, w: int) -> dict[str, np.ndarray]:
+    """Host inverse of _pack_wide: [B, 3w] float32 → the six wide_*
+    arrays as float32 (each bf16 widened by a 16-bit shift)."""
+    u32 = np.ascontiguousarray(block).view(np.uint32)
+    u16 = np.empty((u32.shape[0], u32.shape[1] * 2), np.uint32)
+    u16[:, 0::2] = u32 & np.uint32(0xFFFF)
+    u16[:, 1::2] = u32 >> np.uint32(16)
+    flat = (u16 << np.uint32(16)).view(np.float32)  # [B, 6w]
+    return {key: flat[:, i * w:(i + 1) * w] for i, key in enumerate(_WIDE_F)}
+
+
+def pack_out(out: dict, w: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """Device outputs → two host arrays (one float32, one int32): two
     device→host copies per batch instead of sixteen, each of which would
-    wait for the stream."""
-    packed_f = torch.cat([out[key] for key, _ in _OUT_F], dim=1)
+    wait for the stream. With a funnel of width `w` its block rides both."""
+    packed_f = torch.cat([out[key] for key, _ in _OUT_F]
+                         + ([_pack_wide(out)] if w else []), dim=1)
     packed_i = torch.cat([out[key] for key, _ in _OUT_I]
-                         + [out["strict_count"][:, None].to(torch.int32)], dim=1)
+                         + [out["strict_count"][:, None].to(torch.int32)]
+                         + ([out["wide_idx"]] if w else []), dim=1)
     return packed_f.cpu().numpy(), packed_i.cpu().numpy()
 
 
-def unpack_out(fetched, k: int) -> dict[str, np.ndarray]:
+def unpack_out(fetched, k: int, w: int = 0) -> dict[str, np.ndarray]:
     """Host inverse of pack_out: numpy views under the JAX engine's key
     schema."""
     packed_f, packed_i = np.asarray(fetched[0]), np.asarray(fetched[1])
@@ -511,11 +596,15 @@ def unpack_out(fetched, k: int) -> dict[str, np.ndarray]:
     for key, mult in _OUT_F:
         out[key] = packed_f[:, off:off + mult * k]
         off += mult * k
+    if w:
+        out.update(_unpack_wide(packed_f[:, off:off + 3 * w], w))
     off = 0
     for key, mult in _OUT_I:
         out[key] = packed_i[:, off:off + mult * k]
         off += mult * k
     out["strict_count"] = packed_i[:, off]
+    if w:
+        out["wide_idx"] = packed_i[:, off + 1:off + 1 + w]
     return out
 
 
@@ -613,10 +702,13 @@ class SearchEngine:
 
     def _local_gating_active(self) -> bool:
         """MRAG_GATING: "local" forces candidate-local gating (proj backend),
-        "dense" disables it, "auto" is local only under host residency,
-        which the port does not have: on a device-resident store auto is
-        dense, as in the JAX engine."""
-        return self.vector_backend == "proj" and self.cfg.gating == "local"
+        "dense" disables it, "auto" is local under host residency (the 10M
+        configuration whose [B, C] buffers local gating exists to remove)
+        and dense on a device-resident store, as in the JAX engine."""
+        mode = self.cfg.gating
+        if mode == "dense" or self.vector_backend != "proj":
+            return False
+        return mode == "local" or self.store.host_vectors is not None
 
     def _ensure_local_structs(self, ann):
         """Build or refresh the ProjGate and DTagPostings for the current
@@ -715,7 +807,14 @@ class SearchEngine:
             rows_t = torch.from_numpy(add_rows).to(dev)
             cells = torch.from_numpy(add_slots // pad).to(dev)
             slots = torch.from_numpy(add_slots % pad).to(dev)
-            codes, scales = encode_reserved(ann.proj, index.vectors[rows_t].float())
+            if self.store.host_vectors is not None:  # the rows live in host RAM
+                x = torch.from_numpy(self.store.host_vectors[add_rows].astype(np.float32)
+                                     * self.store.host_scales[add_rows][:, None]).to(dev)
+            else:
+                x = index.vectors[rows_t].float()
+                if self.cfg.vector_dtype == "int8":
+                    x = x * index.vec_scales[rows_t][:, None]
+            codes, scales = encode_reserved(ann.proj, x)
             rid = rows_t.to(torch.int32)
             scatter_slots(ann, cells, slots, codes, scales,
                           torch.ones(len(add_rows), dtype=torch.float32, device=dev), rid)
@@ -741,10 +840,22 @@ class SearchEngine:
 
         cfg = self.cfg
         index = self.store.index
-        ivf = IVFIndex.build(index.vectors, index.valid.cpu().numpy(),
-                             nlist=cfg.ivf_nlist or None)
-        self._ann = PackedProj.from_ivf(ivf, index.vectors, p=cfg.proj_p,
-                                        reserve_slabs=cfg.ann_reserve_slabs)
+        store = self.store
+        if store.host_vectors is not None:
+            # cluster and encode from the host int8 matrix
+            ivf = IVFIndex.build_host(store.host_vectors, store.host_scales,
+                                      index.valid.cpu().numpy(), device=self.device,
+                                      nlist=cfg.ivf_nlist or None)
+            self._ann = PackedProj.from_ivf(ivf, store.host_vectors, p=cfg.proj_p,
+                                            row_scales=store.host_scales,
+                                            reserve_slabs=cfg.ann_reserve_slabs)
+        else:
+            ivf = IVFIndex.build(index.vectors, index.valid.cpu().numpy(),
+                                 nlist=cfg.ivf_nlist or None)
+            scales = index.vec_scales if cfg.vector_dtype == "int8" else None
+            self._ann = PackedProj.from_ivf(ivf, index.vectors, p=cfg.proj_p,
+                                            row_scales=scales,
+                                            reserve_slabs=cfg.ann_reserve_slabs)
         self._ann_generation = self.store.generation
         self._ann_nprobe = None
         return self._ann
@@ -785,6 +896,93 @@ class SearchEngine:
     @property
     def effective_nprobe(self) -> int:
         return self._ann_nprobe or self.cfg.ivf_nprobe
+
+    # -- the host re-rank (host residency) -----------------------------------
+
+    def _device_k(self, k: int) -> int:
+        """Result width of the device program: k, or k·over_fetch under
+        host residency, so the exact host re-rank has candidates to
+        reorder."""
+        if self.store.host_vectors is None:
+            return k
+        return min(k * self.cfg.over_fetch, self.store.capacity)
+
+    def _device_funnel(self, k: int) -> int:
+        """The vector arm's funnel width under host residency (0
+        elsewhere): MRAG_HOST_FUNNEL, auto = max(512, k·over_fetch)."""
+        if self.store.host_vectors is None:
+            return 0
+        w = self.cfg.host_funnel or max(512, k * self.cfg.over_fetch)
+        return int(min(w, self.store.capacity))
+
+    def _host_rerank(self, reqs, exps, out: dict, k: int) -> dict:
+        """Exact re-rank of the fused (and funnel) candidates from the host
+        int8 matrix: sim = max(exact cosine, normalized lexical), the v1.3
+        weighted score, a stable sort with an rrf epsilon, the first
+        occurrence of each row, the top k. Host numpy, line for line the
+        JAX engine's (``engine.py:1387-1461``); the cosines come from the
+        native gather (cpp/rerank.cc) or, without a C++ toolchain, the
+        numpy expression."""
+        hv, hs = self.store.host_vectors, self.store.host_scales
+        idx = np.asarray(out["idx"])
+        alive = np.asarray(out["rerank"]) > NEG_INF / 2
+        lexn = np.asarray(out["lexn"])
+        auth, lng = np.asarray(out["auth"]), np.asarray(out["len"])
+        jpd, cov = np.asarray(out["jpd"]), np.asarray(out["cov"])
+        rrf = np.asarray(out["rrf"])
+        if "wide_idx" in out:
+            # the funnel union: fused top-kd and the vector arm's top-W,
+            # each with its device signals; duplicates resolve after scoring
+            idx = np.concatenate([idx, out["wide_idx"]], axis=1)
+            alive = np.concatenate(
+                [alive, np.asarray(out["wide_vals"]) > NEG_INF / 2], axis=1)
+            lexn = np.concatenate([lexn, out["wide_lexn"]], axis=1)
+            auth = np.concatenate([auth, out["wide_auth"]], axis=1)
+            lng = np.concatenate([lng, out["wide_len"]], axis=1)
+            jpd = np.concatenate([jpd, out["wide_jpd"]], axis=1)
+            cov = np.concatenate([cov, out["wide_cov"]], axis=1)
+            rrf = np.concatenate(
+                [rrf, np.zeros_like(np.asarray(out["wide_vals"]))], axis=1)
+        qv = self._embeddings(reqs)  # [B, D] normalized float32
+        cos = native.gather_cos(hv, hs, idx, qv)
+        if cos is None:
+            safe = np.clip(idx, 0, hv.shape[0] - 1)
+            rows = hv[safe].astype(np.float32) * hs[safe][..., None]
+            cos = np.einsum("bwd,bd->bw", rows, qv.astype(np.float32))
+        sim = np.clip(np.maximum(cos, lexn), 0.0, 1.0)
+        has_jpd = np.array([1.0 if exp.tag_ids["d"] else 0.0 for exp in exps])[:, None]
+        has_cov = np.array([1.0 if exp.phrase_slots else 0.0 for exp in exps])[:, None]
+        w_jpd, w_cov = W_JPD * has_jpd, W_COV * has_cov
+        max_w = W_SIM + W_AUTH + W_LEN + w_jpd + w_cov
+        score = (W_SIM * sim + W_AUTH * auth + W_LEN * lng
+                 + w_jpd * jpd + w_cov * cov) / np.maximum(max_w, 1e-6)
+        score = np.where(alive, score, NEG_INF)
+        if "wide_idx" in out:
+            # a row in both sets: keep its first copy in score order (the
+            # epsilon breaks ties toward the rrf-carrying fused copy)
+            full = np.argsort(-(score + rrf * 1e-6), axis=1, kind="stable")
+            sid = np.take_along_axis(idx, full, axis=1)
+            order = np.empty((idx.shape[0], k), np.int64)
+            for i in range(idx.shape[0]):
+                _, first = np.unique(sid[i], return_index=True)
+                first.sort()
+                sel = first[:k]
+                if len(sel) < k:
+                    sel = np.concatenate([sel, np.full(k - len(sel), sel[-1])])
+                order[i] = full[i, sel]
+        else:
+            order = np.argsort(-score, axis=1)[:, :k]
+
+        def take(a):
+            return np.take_along_axis(np.asarray(a), order, axis=1)
+
+        new = {key: v for key, v in out.items() if not key.startswith("wide_")}
+        new.update({
+            "rerank": take(score), "sim": take(sim), "cos": take(cos), "idx": take(idx),
+            "auth": take(auth), "len": take(lng), "jpd": take(jpd), "cov": take(cov),
+            "rrf": take(rrf), "lexn": take(lexn),
+        })
+        return new
 
     @property
     def cross_encoder(self):
@@ -960,10 +1158,13 @@ class SearchEngine:
         q, exps = self.prepare_batch(reqs)
         t_prep = time.perf_counter()
         local = self._ensure_local_structs(ann)
+        kd, fw = self._device_k(k), self._device_funnel(k)
         out = unpack_out(pack_out(search_batch(
-            self.store.index, q, k, self.cfg.over_fetch, self.cfg.rrf_k, ann=ann,
+            self.store.index, q, kd, self.cfg.over_fetch, self.cfg.rrf_k, ann=ann,
             nprobe=self.effective_nprobe, approx=self.cfg.ann_approx_topk, local=local,
-            tag_level=self._batch_tag_level(exps) if local else 2)), k)
+            tag_level=self._batch_tag_level(exps) if local else 2, funnel=fw), fw), kd, fw)
+        if kd != k or fw:
+            out = self._host_rerank(reqs, exps, out, k)
         return exps, out, t_prep
 
     def search(self, reqs: Sequence[QueryRequest] | QueryRequest, k: int | None = None

@@ -90,10 +90,10 @@ def rows_gate(index, qmeta, qbits, rows: torch.Tensor, tag_level: int) -> torch.
     gate False."""
     packed = ProjGate.pack_rows(index, rows.reshape(-1))  # [n, 2+3TW]
     tw = index.j_tags.shape[1]
-    shape = tuple(rows.shape) + (-1,)
-    meta = packed[:, :2].reshape(shape)
-    jw = packed[:, 2:2 + tw].reshape(shape)
-    dpw = packed[:, 2 + tw:].reshape(shape)
+    lead = tuple(rows.shape)  # explicit widths: rows may be empty (no buckets)
+    meta = packed[:, :2].reshape(lead + (2,))
+    jw = packed[:, 2:2 + tw].reshape(lead + (tw,))
+    dpw = packed[:, 2 + tw:].reshape(lead + (2 * tw,))
     if rows.dim() == 1:  # shared rows: broadcast over the batch
         meta, jw, dpw = meta[None], jw[None], dpw[None]
     return _gate_blocks_xla(meta, jw, dpw, qmeta, qbits, tw, tag_level)

@@ -1,8 +1,9 @@
 """The port stands alone: it imports nothing of JAX, PyYAML, ml_dtypes or
 the JAX package — checked at run time in a fresh interpreter that drives
-the exact backend and the proj backend under both gatings (every module of
-the port is imported on the way), and statically over every source file
-of the port and chip_smoke.py."""
+the exact backend (float32 and int8 rows), the proj backend under both
+gatings, and host residency with its native re-rank (every module of the
+port is imported on the way), and statically over every source file of
+the port and chip_smoke.py."""
 import ast
 import os
 import subprocess
@@ -46,6 +47,19 @@ for gating in ("dense", "local"):
     with tempfile.TemporaryDirectory() as tmp:
         engine.save_ann(os.path.join(tmp, "ann.npz"))
         engine.load_ann(os.path.join(tmp, "ann.npz"))
+# int8 rows on the device, and host residency (int8 rows in host RAM, proj
+# codes, the funnel and the native exact re-rank)
+for kw in (dict(vector_dtype="int8"),
+           dict(vector_dtype="int8", vector_residency="host", vector_backend="proj",
+                ivf_nlist=4, proj_p=32, lexical_format="sparse")):
+    cfg = dataclasses.replace(get_config(), **kw)
+    store = ChunkStore(cfg, device="cpu")
+    store.add_chunks(toy_corpus(lex, pad_docs=20))
+    engine = SearchEngine(store, lex, cfg=cfg, embed_fn=hash_embed, device="cpu")
+    res = engine.search(QueryRequest(query="timely filing deadline for Sunshine Health"), k=3)
+    assert res[0].hits, ("no hits", kw)
+from mobius_rag_tpu_torch.utils import native
+assert native.gather_cos.native_calls or native.get_lib() is None
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print("FORBIDDEN", bad)

@@ -220,9 +220,13 @@ def test_append_near_capacity_keeps_earlier_rows():
     assert ts.index.doc_id[:260].tolist() == list(range(260))
 
 
-@pytest.mark.parametrize("env", [{"vector_dtype": "int8"},
-                                 {"vector_dtype": "int8", "lexical_format": "sparse"},
-                                 {"vector_residency": "host"}])
+_HOST_PQ = {"vector_residency": "host", "vector_dtype": "int8", "vector_backend": "pq"}
+
+
+@pytest.mark.parametrize("env", [_HOST_PQ, dict(_HOST_PQ, lexical_format="sparse"),
+                                 dict(_HOST_PQ, gating="local")])
 def test_unported_layouts_raise(env):
+    # int8 rows and host residency with proj are ported; host residency
+    # with the pq backend is not (ROADMAP queue 1, item 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TStore(dataclasses.replace(torch_config(), **env), device="cpu")
