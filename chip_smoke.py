@@ -46,6 +46,10 @@ N_CENTERS = 4096
 FEATURIZE_EVERY = 50
 HIT_TOL = 1e-3  # dense vs local rerank scores (test_gating.py's bound)
 SCRIPT_LIMIT_S = 1200  # the whole script's time limit, kernel builds included
+# Data-sheet peaks of one NVIDIA H100 SXM at 700 W: HBM bytes/s, and
+# operations/s by the inputs' type.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -173,130 +177,299 @@ def phase2_kernel() -> dict:
         if name.startswith("main"):
             t_k = _median_ms(lambda: masked_topk(q, v, pen, ms, m, row_scales=sc))
             t_p = _median_ms(lambda: masked_topk_reference(q, v, pen, ms, m, row_scales=sc))
-            timing[name] = (t_k, t_p)
-            line += f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median of 20)"
+            bound = _topk_bound(q, v, pen, m)
+            # the library route: one addmm over the rows widened to float32
+            # (the float32 rows as they are), then topk; its tie order is
+            # not stable. Two calls; a single call only for float32 rows.
+            vf = v.float() if sc is None else v.float() * sc[:, None]
+            t_l = _median_ms(lambda: torch.topk(torch.addmm(pen, q, vf.T), m, dim=1))
+            del vf
+            timing[name] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **bound}
+            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library addmm+topk "
+                     f"{t_l:.4f} ms (float32 rows{'' if v.dtype == torch.float32 else ', widened first'}; "
+                     f"median of 20); bound {bound['bound_ms']:.4f} ms by "
+                     f"{bound['bound_by']} (share {bound['bound_ms'] / t_k:.3f})")
         log(line)
     return {"max_abs_err": worst["fp"], "max_abs_err_int8": worst["int8"],
             "timing": timing}
 
 
-def _gate_inputs(g, b, n_probe, nlist, pad, p, tw=8, meta_ids=4):
-    """Random proj-scan inputs shaped like the 1M tables: codes over the
-    full int8 range, gate words with small metadata ids, the valid and
-    regulator flags, a float scale, a row id and sparse tag bits, and one
-    query per tag mode (plus "any"/"none" filters)."""
+def _bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM's rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _topk_bound(q, v, pen, m) -> dict:
+    """Rows, queries and penalty read once, m (value, id) pairs written;
+    2·B·C·D operations at the rows' type (int8 rows against bf16-rounded
+    queries are exact on the bf16 tensor cores)."""
+    b, d = q.shape
+    c = v.shape[0]
+    nbytes = c * d * v.element_size() + q.numel() * 4 + pen.numel() * 4 + b * m * 8
+    if v.dtype == torch.int8:
+        nbytes += c * 4  # row scales
+    kind = {torch.float32: "float32"}.get(v.dtype, "bfloat16")
+    return _bound(nbytes, 2.0 * b * c * d, kind)
+
+
+def _ri(g, lo, hi, shape):
+    return torch.randint(lo, hi, shape, device="cuda", generator=g,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def _gate_tables(g, nlist, pad, p, tw=8, meta_ids=4, step=32):
+    """Random proj tables: codes [nlist, pad, p] over the full int8 range
+    and the gate pack words [nlist, W, pad] with small metadata ids, the
+    valid and regulator flags, a float scale, a row id and sparse tag
+    bits. Made `step` clusters at a time, so that the int64 draws stay a
+    few hundred MB at the 10M tables' 4.0 GB of codes."""
     from mobius_rag_tpu_torch.ops.proj import gate_widths
 
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, device="cuda", generator=g,
-                             dtype=torch.int64).to(torch.int32)
-
-    probe = ri(0, nlist, (b, n_probe))
-    codes = ri(-127, 128, (nlist, pad, p)).to(torch.int8)
-    q8 = ri(-127, 128, (b, p)).to(torch.int8)
     w_full, _ = gate_widths(tw)
-    sparse_bits = ri(0, 1 << 30, (nlist, 3 * tw, pad)) & ri(0, 1 << 30, (nlist, 3 * tw, pad)) \
-        & ri(0, 1 << 30, (nlist, 3 * tw, pad))
+    codes = torch.empty((nlist, pad, p), dtype=torch.int8, device="cuda")
     words = torch.zeros((nlist, w_full, pad), dtype=torch.int32, device="cuda")
-    words[:, 0] = ri(0, meta_ids, (nlist, pad)) | (ri(0, 2, (nlist, pad)) << 16)
-    words[:, 1] = (ri(0, 3, (nlist, pad)) | (ri(0, 8, (nlist, pad)).clamp(max=1) << 16)
-                   | (ri(0, 2, (nlist, pad)) << 17))
-    words[:, 2] = (torch.rand((nlist, pad), device="cuda", generator=g) * 1e-2).view(torch.int32)
-    words[:, 3] = ri(0, 1 << 20, (nlist, pad))
-    words[:, 4:4 + 3 * tw] = sparse_bits
-    qmeta = torch.stack([ri(0, meta_ids, (b,)), ri(0, 2, (b,)), ri(0, 3, (b,)),
+    for lo in range(0, nlist, step):
+        n = min(step, nlist - lo)
+        codes[lo:lo + n] = _ri(g, -127, 128, (n, pad, p)).to(torch.int8)
+        wd = words[lo:lo + n]
+        wd[:, 0] = _ri(g, 0, meta_ids, (n, pad)) | (_ri(g, 0, 2, (n, pad)) << 16)
+        wd[:, 1] = (_ri(g, 0, 3, (n, pad)) | (_ri(g, 0, 8, (n, pad)).clamp(max=1) << 16)
+                    | (_ri(g, 0, 2, (n, pad)) << 17))
+        wd[:, 2] = (torch.rand((n, pad), device="cuda", generator=g) * 1e-2).view(torch.int32)
+        wd[:, 3] = _ri(g, 0, 1 << 20, (n, pad))
+        shape = (n, 3 * tw, pad)
+        wd[:, 4:4 + 3 * tw] = (_ri(g, 0, 1 << 30, shape) & _ri(g, 0, 1 << 30, shape)
+                               & _ri(g, 0, 1 << 30, shape))
+    return codes, words
+
+
+def _gate_queries(g, b, p, tw=8, meta_ids=4):
+    """One query per tag mode (plus "any"/"none" filters): qmeta [B, 8],
+    qbits [B, 3·tw], q8 [B, p]. Where B > 1, query 0 has a payer no slot
+    has, no inherited authority and strict/auto mode: every one of its
+    slots is gated."""
+    q8 = _ri(g, -127, 128, (b, p)).to(torch.int8)
+    qmeta = torch.stack([_ri(g, 0, meta_ids, (b,)), _ri(g, 0, 2, (b,)), _ri(g, 0, 3, (b,)),
                          torch.arange(b, device="cuda", dtype=torch.int32) % 3,
-                         ri(0, 2, (b,)), ri(0, 2, (b,)), ri(0, 2, (b,)), ri(0, 2, (b,))], 1)
+                         _ri(g, 0, 2, (b,)), _ri(g, 0, 2, (b,)), _ri(g, 0, 2, (b,)),
+                         _ri(g, 0, 2, (b,))], 1)
     qmeta[1::4, :3] = 0xFFFE  # "any" payer, state and program
-    # query 0: a payer no slot has, no inherited authority, strict/auto
-    # mode — every one of its slots is gated
-    qmeta[0, 0], qmeta[0, 3], qmeta[0, 5] = 0xFFFD, 0, 0
-    qbits = ri(0, 1 << 30, (b, 3 * tw)) & ri(0, 1 << 30, (b, 3 * tw))
-    return probe, qmeta.contiguous(), qbits.contiguous(), codes, words, q8
+    if b > 1:
+        qmeta[0, 0], qmeta[0, 3], qmeta[0, 5] = 0xFFFD, 0, 0
+    qbits = _ri(g, 0, 1 << 30, (b, 3 * tw)) & _ri(g, 0, 1 << 30, (b, 3 * tw))
+    return qmeta.contiguous(), qbits.contiguous(), q8
 
 
-def phase2_proj_kernels() -> dict:
-    """The two proj-scan kernels against their plain versions: raw dots
-    and row ids bitwise, gated scores bitwise (live slots and -1e30)."""
+def _probes(g, kind, b, n_probe, nlist):
+    """probe [B, P] int32. "random": uniform with duplicates; "one": every
+    probe on one cluster; "low": only clusters 0-9 (the rest unprobed);
+    "engine": as the engine probes, P-2 distinct base cells per query then
+    the 2 reserved slabs (the last two clusters) for every query."""
+    if kind == "random":
+        return _ri(g, 0, nlist, (b, n_probe))
+    if kind == "one":
+        return torch.full((b, n_probe), nlist // 2, dtype=torch.int32, device="cuda")
+    if kind == "low":
+        return _ri(g, 0, min(10, nlist), (b, n_probe))
+    base = nlist - 2
+    cells = torch.argsort(torch.rand((b, base), device="cuda", generator=g), dim=1)
+    reserved = torch.arange(base, nlist, device="cuda").expand(b, 2)
+    return torch.cat([cells[:, :n_probe - 2], reserved], 1).to(torch.int32).contiguous()
+
+
+def _w_rows(level: int, tw: int) -> int:
+    """Gate word rows the gated scan reads at a tag level."""
+    return 4 + (0, tw, 3 * tw)[level]
+
+
+def _proj_bound(probe, nlist, pad, p, level=None, tw=0) -> dict:
+    """Each distinct probed block read once (p code bytes, and gated the
+    level's word rows, per slot), the probes and queries once, each output
+    written once; 2·B·P·pad·p int8 operations. `level` None: proj_blocks."""
+    b, n_probe = probe.shape
+    distinct = int(torch.unique(probe.clamp(0, nlist - 1)).numel())
+    per_slot = p + (0 if level is None else 4 * _w_rows(level, tw))
+    nbytes = distinct * pad * per_slot + probe.numel() * 4 + b * p
+    nbytes += b * n_probe * pad * (4 if level is None else 8)
+    if level is not None:
+        nbytes += b * (8 + 3 * tw) * 4
+    return dict(_bound(nbytes, 2.0 * b * n_probe * pad * p, "int8"), distinct=distinct)
+
+
+def _check_proj(name, probe, qmeta, qbits, codes, words, q8, tw) -> tuple[float, list]:
+    """Both proj kernels against their plain versions: raw dots bitwise,
+    gated scores and row ids bitwise at tag levels 0, 1 and 2."""
+    from mobius_rag_tpu_torch.ops.proj_scan import (
+        group_probes, group_probes_reference, proj_blocks, proj_blocks_reference,
+        proj_gated_blocks, proj_gated_blocks_reference)
+
+    nlist = codes.shape[0]
+    for got, want in zip(group_probes(probe, nlist), group_probes_reference(probe, nlist)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"the grouping kernel disagrees with its plain twin ({name})")
+    raw = proj_blocks(probe, codes, q8)
+    torch.cuda.synchronize()
+    ref = proj_blocks_reference(probe, codes, q8)
+    worst = (raw - ref).abs().max().item()
+    if not torch.equal(raw, ref):
+        raise AssertionError(f"proj_blocks disagrees with its plain version ({name})")
+    del raw, ref
+    live = []
+    for level in (0, 1, 2):
+        score, rid = proj_gated_blocks(probe, qmeta, qbits, codes, words, q8,
+                                       tw=tw, tag_level=level)
+        torch.cuda.synchronize()
+        rs, rr = proj_gated_blocks_reference(probe, qmeta, qbits, codes, words, q8,
+                                             tw=tw, tag_level=level)
+        worst = max(worst, (score - rs).abs().max().item())
+        if not (torch.equal(score, rs) and torch.equal(rid, rr)):
+            raise AssertionError(f"proj_gated_blocks disagrees with its plain "
+                                 f"version ({name}, tag_level {level})")
+        if probe.shape[0] > 1 and (score[0] > -1e29).any():
+            raise AssertionError("a query whose every slot is gated has a live slot")
+        live.append(round((rs > -1e29).float().mean().item(), 4))
+    return worst, live
+
+
+def _device_ms_by_kernel(fn, n: int = 20) -> dict:
+    """Device ms per call of each kernel that fn launches (torch.profiler
+    over n calls): the CUDA-event time of a call also holds the host's
+    enqueue while the card waits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0]
+            by[name] = by.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
+    return by
+
+
+def _time_proj(probe, qmeta, qbits, codes, words, q8, tw, level, plain) -> dict:
+    """Median-of-20 CUDA-event times of both kernels (the gated one at
+    `level`), their device time by kernel (profiler), their plain
+    versions' event times when `plain`, and their bounds."""
     from mobius_rag_tpu_torch.ops.proj_scan import (
         proj_blocks, proj_blocks_reference, proj_gated_blocks,
         proj_gated_blocks_reference)
 
+    nlist, pad, p = codes.shape
+    calls = {"proj_blocks": (lambda: proj_blocks(probe, codes, q8), None),
+             "proj_gated_blocks": (lambda: proj_gated_blocks(
+                 probe, qmeta, qbits, codes, words, q8, tw=tw, tag_level=level), level)}
+    out = {}
+    for kern, (fn, lvl) in calls.items():
+        by = _device_ms_by_kernel(fn)
+        out[kern] = {"ms": _median_ms(fn), "device_ms": sum(by.values()), "by_kernel": by,
+                     **_proj_bound(probe, nlist, pad, p, lvl, tw)}
+    if plain:
+        out["proj_blocks"]["plain_ms"] = _median_ms(
+            lambda: proj_blocks_reference(probe, codes, q8))
+        out["proj_gated_blocks"]["plain_ms"] = _median_ms(
+            lambda: proj_gated_blocks_reference(probe, qmeta, qbits, codes, words, q8,
+                                                tw=tw, tag_level=level))
+    return out
+
+
+def _time_line(name, b, n_probe, level, t) -> str:
+    parts = []
+    for kern, r in t.items():
+        lv = f" (level {level})" if kern == "proj_gated_blocks" else ""
+        pl = f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else ""
+        by = ", ".join(f"{k} {v:.4f}" for k, v in r["by_kernel"].items())
+        parts.append(f"{kern}{lv} {r['ms']:.4f} ms{pl}, bound {r['bound_ms']:.4f} ms by "
+                     f"{r['bound_by']} (share {r['bound_ms'] / r['ms']:.3f}; device "
+                     f"{r['device_ms']:.4f} ms per call: {by}; share "
+                     f"{r['bound_ms'] / r['device_ms']:.3f})")
+    return (f"phase 2: proj {name} B={b} P={n_probe} ({t['proj_blocks']['distinct']} distinct "
+            f"clusters; event times median of 20): " + "; ".join(parts))
+
+
+# (name, B, P, nlist, pad, p, tw, probes): held bitwise, not timed. Ragged
+# pads, p=32/36/37/192/256, one cluster for every probe, duplicates inside
+# one query's list, clusters nobody probes, B=1, and B=33 (the reserved
+# slabs' group spans several member tiles).
+PROJ_CHECKS = [
+    ("p=192", 8, 10, 40, 512, 192, 8, "random"), ("p=36", 4, 6, 9, 300, 36, 8, "random"),
+    ("p=37", 3, 5, 7, 100, 37, 8, "random"), ("p=32", 6, 5, 10, 256, 32, 8, "random"),
+    ("pad=520", 5, 7, 11, 520, 64, 8, "random"),
+    ("one cluster for all", 8, 4, 6, 300, 64, 8, "one"),
+    ("duplicates in a list", 5, 8, 3, 260, 128, 8, "random"),
+    ("unprobed clusters", 4, 5, 50, 256, 64, 8, "low"),
+    ("B=1", 1, 7, 20, 384, 192, 4, "random"),
+    ("B=33", 33, 6, 12, 256, 256, 8, "engine"),
+]
+
+
+def phase2_proj_kernels() -> dict:
+    """The two proj-scan kernels against their plain versions, bitwise, on
+    every case; timed with bounds at the real tables' shapes under
+    engine-like probes (64 distinct base cells + the 2 reserved slabs per
+    query), at B=32 and B=1: main_1M (nlist 1,000 + 2, pad 2,048, p=256,
+    tw 8; the gated kernel at tag level 2) and main_10M (nlist 4,096 + 2,
+    pad 5,120, p=192, tw 4; level 1, the level a payer filter with j-tags
+    reads). The random-with-duplicates probes of the 1M shape and the
+    nlist=200 stand-in of the 10M shape are kept as continuity timings."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    # (name, B, P, nlist, pad, p): the 1M tables (1,000 clusters + 2
-    # reserved slabs, pad 2048, p 256, nprobe 64 + 2), the 10M config's
-    # p=192, p=36 (a 4-byte tail beyond 32), p=37 (rows not 4-aligned: the
-    # byte loop), and pads that are not a multiple of the 256-slot tile
-    cases = [("main_1M", BATCH, 66, 1002, 2048, 256), ("p=192", 8, 10, 40, 512, 192),
-             ("p=36", 4, 6, 9, 300, 36), ("p=37", 3, 5, 7, 100, 37),
-             ("pad=520", 5, 7, 11, 520, 64)]
-    timing = {}
     worst = 0.0
-    for name, b, n_probe, nlist, pad, p in cases:
-        probe, qmeta, qbits, codes, words, q8 = _gate_inputs(g, b, n_probe, nlist, pad, p)
-        raw = proj_blocks(probe, codes, q8)
+    for name, b, n_probe, nlist, pad, p, tw, kind in PROJ_CHECKS:
+        codes, words = _gate_tables(g, nlist, pad, p, tw)
+        qmeta, qbits, q8 = _gate_queries(g, b, p, tw)
+        probe = _probes(g, kind, b, n_probe, nlist)
+        err, live = _check_proj(name, probe, qmeta, qbits, codes, words, q8, tw)
+        worst = max(worst, err)
+        log(f"phase 2: proj {name} B={b} P={n_probe} nlist={nlist} pad={pad} p={p}: raw "
+            f"dots bitwise; gated scores and row ids bitwise at tag levels 0/1/2 (live "
+            f"share {live})")
+
+    timing = {}
+    # (shape, nlist, pad, p, tw, level, meta_ids, probe kinds)
+    shapes = [("1M", 1002, 2048, 256, 8, 2, 4), ("10M", 4098, 5120, 192, 4, 1, 3),
+              ("10M stand-in", 200, 5120, 192, 4, 1, 3)]
+    for shape, nlist, pad, p, tw, level, meta_ids in shapes:
+        t0 = time.perf_counter()
+        codes, words = _gate_tables(g, nlist, pad, p, tw, meta_ids)
         torch.cuda.synchronize()
-        ref = proj_blocks_reference(probe, codes, q8)
-        worst = max(worst, (raw - ref).abs().max().item())
-        if not torch.equal(raw, ref):
-            raise AssertionError(f"proj_blocks disagrees with its plain version ({name})")
-        live = []
-        for level in (0, 1, 2):
-            score, rid = proj_gated_blocks(probe, qmeta, qbits, codes, words, q8,
-                                           tw=8, tag_level=level)
-            torch.cuda.synchronize()
-            rs, rr = proj_gated_blocks_reference(probe, qmeta, qbits, codes, words, q8,
-                                                 tw=8, tag_level=level)
-            worst = max(worst, (score - rs).abs().max().item())
-            if not (torch.equal(score, rs) and torch.equal(rid, rr)):
-                raise AssertionError(f"proj_gated_blocks disagrees with its plain "
-                                     f"version ({name}, tag_level {level})")
-            if (score[0] > -1e29).any():
-                raise AssertionError("a query whose every slot is gated has a live slot")
-            live.append(round((rs > -1e29).float().mean().item(), 4))
-        line = (f"phase 2: proj {name} B={b} P={n_probe} nlist={nlist} pad={pad} p={p}: "
-                f"raw dots bitwise; gated scores and row ids bitwise at tag levels "
-                f"0/1/2 (live share {live})")
-        if name == "main_1M":
-            t_k = _median_ms(lambda: proj_blocks(probe, codes, q8))
-            t_p = _median_ms(lambda: proj_blocks_reference(probe, codes, q8))
-            g_k = _median_ms(lambda: proj_gated_blocks(probe, qmeta, qbits, codes, words,
-                                                       q8, tw=8, tag_level=2))
-            g_p = _median_ms(lambda: proj_gated_blocks_reference(
-                probe, qmeta, qbits, codes, words, q8, tw=8, tag_level=2))
-            timing = {"proj_blocks": (t_k, t_p), "proj_gated_blocks": (g_k, g_p)}
-            line += (f"; proj_blocks kernel {t_k:.4f} ms, plain {t_p:.4f} ms; "
-                     f"proj_gated_blocks (level 2) kernel {g_k:.4f} ms, plain "
-                     f"{g_p:.4f} ms (median of 20)")
-        log(line)
-    # the 10M tables' shape (nlist 4,096, pad 5,120, p=192, tag words 4,
-    # nprobe 64 + 2 reserved slabs) at tag level 1, the level a payer
-    # filter with j-tags reads; 200 clusters stand in for 4,096 (a block's
-    # cost does not depend on how many others exist)
-    b, n_probe, nlist, pad, p, tw = BATCH, 66, 200, 5120, 192, 4
-    probe, qmeta, qbits, codes, words, q8 = _gate_inputs(g, b, n_probe, nlist, pad, p, tw=tw,
-                                                         meta_ids=3)
-    score, rid = proj_gated_blocks(probe, qmeta, qbits, codes, words, q8, tw=tw, tag_level=1)
-    torch.cuda.synchronize()
-    rs, rr = proj_gated_blocks_reference(probe, qmeta, qbits, codes, words, q8, tw=tw,
-                                         tag_level=1)
-    if not (torch.equal(score, rs) and torch.equal(rid, rr)):
-        raise AssertionError("proj_gated_blocks disagrees with its plain version at the "
-                             "10M shape")
-    g_k = _median_ms(lambda: proj_gated_blocks(probe, qmeta, qbits, codes, words, q8, tw=tw,
-                                               tag_level=1))
-    g_p = _median_ms(lambda: proj_gated_blocks_reference(probe, qmeta, qbits, codes, words,
-                                                         q8, tw=tw, tag_level=1))
-    timing["proj_gated_blocks_10M"] = (g_k, g_p)
-    log(f"phase 2: proj 10M shape B={b} P={n_probe} pad={pad} p={p} tw={tw}: gated scores "
-        f"and row ids bitwise at tag level 1 (live share "
-        f"{(rs > -1e29).float().mean().item():.4f}); kernel {g_k:.4f} ms, plain "
-        f"{g_p:.4f} ms (median of 20)")
-    del probe, qmeta, qbits, codes, words, q8, score, rid, rs, rr
+        log(f"phase 2: proj tables {shape}: nlist {nlist}, pad {pad}, p {p}, tw {tw}: codes "
+            f"{codes.numel() / 1e9:.2f} GB, words {words.numel() * 4 / 1e9:.2f} GB, made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        runs = [("random_1M", BATCH, "random", True)] if shape == "1M" else []
+        if shape == "10M stand-in":
+            runs = [("stand-in_10M", BATCH, "random", False)]
+        else:
+            runs += [(f"main_{shape}", BATCH, "engine", True), (f"main_{shape} B=1", 1,
+                                                                 "engine", False)]
+        for name, b, kind, plain in runs:
+            qmeta, qbits, q8 = _gate_queries(g, b, p, tw, meta_ids)
+            probe = _probes(g, kind, b, 66, nlist)
+            err, live = _check_proj(name, probe, qmeta, qbits, codes, words, q8, tw)
+            worst = max(worst, err)
+            t = _time_proj(probe, qmeta, qbits, codes, words, q8, tw, level, plain)
+            timing[name] = t
+            log(f"phase 2: proj {name} nlist={nlist} pad={pad} p={p} tw={tw}: bitwise at "
+                f"tag levels 0/1/2 (live share {live})")
+            log(_time_line(name, b, 66, level, t))
+        del codes, words
+        torch.cuda.empty_cache()
+
+    from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks
+
     codes = torch.full((12, 32, 128), 127, dtype=torch.int8, device="cuda")
     q8 = torch.full((4, 128), -127, dtype=torch.int8, device="cuda")
-    probe = torch.randint(0, 12, (4, 5), device="cuda", generator=g, dtype=torch.int64)
-    raw = proj_blocks(probe.to(torch.int32), codes, q8)
+    probe = _ri(g, 0, 12, (4, 5))
+    raw = proj_blocks(probe, codes, q8)
     if not bool((raw == float(128 * 127 * -127)).all()):
         raise AssertionError("proj_blocks is not exact at the +-127 extremes")
     log("phase 2: proj_blocks exact at the +-127 extremes (p=128)")
@@ -595,7 +768,41 @@ def _device_busy_share(engine, reqs, dev, n: int = 4) -> tuple[float, float, dic
             name = name.split("<")[0].split("(")[0] or ev.name[:40]
             by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    return sum(by_name.values()), wall, top
+    proj_ms = sum(v for key, v in by_name.items() if key.startswith("proj_"))
+    return sum(by_name.values()), wall, top, proj_ms
+
+
+def _probed(engine, reqs) -> torch.Tensor:
+    """The probe array [B, P] the proj scan of one search of `reqs` takes
+    (its distinct clusters are what the scan must read, once each)."""
+    from mobius_rag_tpu_torch.ops import proj as proj_mod
+
+    probes = []
+    saved = (proj_mod.proj_blocks, proj_mod.proj_gated_blocks)
+
+    def recorded(fn):
+        def wrapped(probe, *a, **kw):
+            probes.append(probe.clone())
+            return fn(probe, *a, **kw)
+        return wrapped
+
+    proj_mod.proj_blocks, proj_mod.proj_gated_blocks = (recorded(f) for f in saved)
+    try:
+        engine.search(reqs, k=K)
+    finally:
+        proj_mod.proj_blocks, proj_mod.proj_gated_blocks = saved
+    return probes[0]
+
+
+def _path_bound(engine, reqs, level) -> str:
+    """The proj scan's bound on one search of `reqs` at the tables' shapes
+    (level None: proj_blocks), as phase 2 counts it."""
+    probe = _probed(engine, reqs)
+    ann = engine._ann
+    r = _proj_bound(probe, ann.nlist, ann.pad, ann.bytes_per_row, level, engine.cfg.tag_words)
+    lv = "proj_blocks" if level is None else f"proj_gated_blocks at tag level {level}"
+    return (f"the hybrid batch probes {r['distinct']} distinct clusters; {lv} bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
 
 
 def _drive_path(engine, recall_reqs, exact, self_reqs, self_rows, bench_reqs) -> dict:
@@ -830,7 +1037,10 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
 
     for path, engine in (("A", engine_a), ("B", engine_b)):
         r = runs[path]
-        busy, wall, top = _device_busy_share(engine, bench_reqs, dev)
+        busy, wall, top, proj_ms = _device_busy_share(engine, bench_reqs, dev)
+        level = None if path == "A" else engine_b._batch_tag_level(exps)
+        log(f"phase 4: path {path}: {_path_bound(engine, bench_reqs, level)}; proj kernels' "
+            f"device time {proj_ms:.4f} ms per batch")
         log(f"phase 4: path {path} ({engine.cfg.gating} gating): launches {r['launches']} "
             f"for {r['batches']} batches; vector-arm recall@{K} vs exact fp64 oracle "
             f"{r['recall']:.4f} ({nq} queries); self-hit@{K} {r['self_hit']:.4f} "
@@ -1257,7 +1467,8 @@ def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
             engine.search(bench_reqs, k=K)
     timed = {key: [(t1 - t0) * 1e3 for t0, t1 in spans]
              for key, spans in timed.spans.items()}
-    busy, wall, top = _device_busy_share(engine, bench_reqs, dev)
+    busy, wall, top, proj_ms = _device_busy_share(engine, bench_reqs, dev)
+    path_bound = _path_bound(engine, bench_reqs, engine._batch_tag_level(exps))
 
     log("phase 5: build stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     log(f"phase 5: host int8 matrix {store.host_vectors.nbytes / 1e9:.2f} GB "
@@ -1279,6 +1490,7 @@ def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
     log(f"phase 5: device busy {busy:.3f} of {wall:.3f} ms per batch "
         f"({100 * busy / wall:.1f}%), by kernel (ms/batch) "
         + ", ".join(f"{k} {v:.3f}" for k, v in top.items()) + f" on {smi}")
+    log(f"phase 5: {path_bound}; proj kernels' device time {proj_ms:.4f} ms per batch")
     log(f"phase 5: streaming ingest {INGEST_DOCS * INGEST_CHUNKS} chunks in {t_ing:.2f} s = "
         f"{INGEST_DOCS * INGEST_CHUNKS / t_ing:.1f} chunks/s with a search after each "
         f"document; every document served under its payer only, through the reserved "
@@ -1299,20 +1511,28 @@ def main() -> None:
     p5 = phase5_host(smi, build_s_per_m=p4["build_s_per_m"],
                      elapsed=time.perf_counter() - t_start)
     kernels = []
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     for name, timing, runs, err in (("masked_topk", "main_f32", s, "max_abs_err"),
                                     ("masked_topk_int8", "main_int8", s8, "max_abs_err_int8")):
-        t_k, t_p = k["timing"][timing]
+        t = k["timing"][timing]
         kernels.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                         "replaces": KERNEL_REPLACES, "launches": runs["launches"],
-                        "max_abs_err": k[err], "ms": t_k, "plain_ms": t_p})
+                        "max_abs_err": k[err], **{key: t[key] for key in keys},
+                        # one call on the same inputs only for float32 rows
+                        "library_ms": t["library_ms"] if name == "masked_topk" else None})
     launches = dict(p4["launches"])
     launches["proj_gated_blocks"] += p5["launches"]  # phase 4 path B and phase 5
     for name, replaces in (("proj_blocks", PROJ_REPLACES),
                            ("proj_gated_blocks", GATED_REPLACES)):
-        ms, plain_ms = kp["timing"][name]
-        kernels.append({"name": name, "route": "cuda", "source": PROJ_SOURCE,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": kp["max_abs_err"], "ms": ms, "plain_ms": plain_ms})
+        t = kp["timing"]["main_1M"][name]
+        entry = {"name": name, "route": "cuda", "source": PROJ_SOURCE,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": kp["max_abs_err"], **{key: t[key] for key in keys},
+                 "library_ms": None}  # no PyTorch call computes a gathered int8 block dot
+        t10 = kp["timing"]["main_10M"][name]
+        entry.update(device_ms=t["device_ms"], ms_10M=t10["ms"], plain_ms_10M=t10["plain_ms"],
+                     bound_ms_10M=t10["bound_ms"], device_ms_10M=t10["device_ms"])
+        kernels.append(entry)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

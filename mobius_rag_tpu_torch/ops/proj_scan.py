@@ -11,8 +11,14 @@
 
 Each dispatches on where the tensors lie: on the CPU it calls its plain
 PyTorch version (``*_reference``), on a CUDA device it launches the
-hand-written Hopper kernel (``ops/csrc/proj_scan.cu``) or raises; it never
-falls back. ``.launches`` on each wrapper counts kernel launches.
+hand-written Hopper kernels (``ops/csrc/proj_scan.cu``) or raises; it never
+falls back. ``.launches`` on each wrapper counts its calls that launched
+(each launches the grouping kernel, then the scan).
+
+On the card both scans first group the (b, j) probe pairs by cluster
+(:func:`group_probes`, whose plain twin is :func:`group_probes_reference`)
+into an int32 scratch tensor the wrapper allocates, so that each probed
+cluster tile is read once for every query that probes it.
 
 The plain versions are the arithmetic of the JAX package's XLA twins
 (``ops/proj.py:387-389,672-674``): int8 x int8 products summed in int32,
@@ -33,6 +39,8 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "proj_
 _LIB: ctypes.CDLL | None = None
 # Shared memory a block may use on Hopper (dynamic, after opting in).
 _MAX_SMEM = 232_448
+# (b, j) probe pairs one scan takes (the grouping's int32 scratch).
+_MAX_PAIRS = 1 << 22
 # Elements of the int32 product the plain version materialises at once.
 _REF_CHUNK = 1 << 27
 
@@ -80,6 +88,19 @@ def proj_gated_blocks_reference(probe, qmeta, qbits, codes, words, q8, *,
     return score, rid
 
 
+def group_probes_reference(probe: torch.Tensor, nlist: int):
+    """Plain version of the kernels' grouping: the flat (b, j) indices of
+    ``probe`` [B, P] sorted by clamped cluster id, stable in (b, j) order
+    (members [B·P]), the probed clusters in ascending order (cells [G]) and
+    each group's first member (starts [G + 1], the last is B·P); all
+    int32."""
+    flat = probe.reshape(-1).clamp(0, nlist - 1)
+    order = torch.argsort(flat, stable=True)
+    cells, counts = torch.unique_consecutive(flat[order], return_counts=True)
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return order.to(torch.int32), cells.to(torch.int32), starts.to(torch.int32)
+
+
 def build_kernel() -> tuple[ctypes.CDLL, float]:
     """Build (at first use) and load the kernel library. Returns (library,
     seconds spent compiling, 0.0 when it was already built)."""
@@ -88,13 +109,21 @@ def build_kernel() -> tuple[ctypes.CDLL, float]:
     if _LIB is None:
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mrag_proj_blocks.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.mrag_proj_blocks.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.mrag_proj_blocks.restype = i
-        lib.mrag_proj_gated_blocks.argtypes = [p, p, p, p, p, p, p, p,
+        lib.mrag_proj_gated_blocks.argtypes = [p, p, p, p, p, p, p, p, p,
                                                i, i, i, i, i, i, i, i, p]
         lib.mrag_proj_gated_blocks.restype = i
+        lib.mrag_proj_group.argtypes = [p, p, i, i, i, p]
+        lib.mrag_proj_group.restype = i
         lib.mrag_proj_smem_bytes.argtypes = [i, i, i]
         lib.mrag_proj_smem_bytes.restype = i
+        lib.mrag_proj_scratch_ints.argtypes = [i, i]
+        lib.mrag_proj_scratch_ints.restype = ctypes.c_longlong
+        lib.mrag_proj_max_nlist.argtypes = []
+        lib.mrag_proj_max_nlist.restype = i
+        lib.mrag_proj_record_ints.argtypes = []
+        lib.mrag_proj_record_ints.restype = i
         _LIB = lib
     return _LIB, seconds
 
@@ -114,7 +143,8 @@ def _check(probe, codes, q8):
     _expect("probe", probe, torch.int32, (b, n_probe))
     _expect("codes", codes, torch.int8, (nlist, pad, p))
     _expect("q8", q8, torch.int8, (b, p))
-    if min(b, n_probe, nlist, pad, p) < 1 or b > 65535 or n_probe > 65535:
+    if min(b, n_probe, nlist, pad, p) < 1 or b > 65535 or n_probe > 65535 \
+            or b * n_probe > _MAX_PAIRS:
         raise ValueError(f"empty or oversized scan: B={b} P={n_probe} nlist={nlist} "
                          f"pad={pad} p={p}")
 
@@ -132,12 +162,57 @@ def _device_of(*tensors) -> torch.device:
     return device
 
 
-def _lib_for(p: int, tw: int, gated: int) -> ctypes.CDLL:
+def _lib_for(p: int, tw: int, tag_level: int, nlist: int) -> ctypes.CDLL:
+    """The loaded library, after checking that the grouping's counters
+    (per cluster) and a scan block's shared memory (the staged tiles of
+    codes and word rows, the batch's query rows) fit; tag_level -1 for
+    proj_blocks."""
     lib = _LIB or build_kernel()[0]
-    smem = lib.mrag_proj_smem_bytes(p, tw, gated)
+    if nlist > lib.mrag_proj_max_nlist():
+        raise ValueError(f"nlist={nlist} is over the {lib.mrag_proj_max_nlist()} clusters "
+                         "the grouping kernel counts in shared memory")
+    smem = lib.mrag_proj_smem_bytes(p, tw, tag_level)
     if smem > _MAX_SMEM:
-        raise ValueError(f"p={p} needs {smem} bytes of shared memory, over {_MAX_SMEM}")
+        raise ValueError(f"p={p}, tw={tw}, tag_level={tag_level} needs {smem} bytes of "
+                         f"shared memory, over {_MAX_SMEM}")
     return lib
+
+
+def _scratch(lib, b: int, n_probe: int, device) -> torch.Tensor:
+    """The grouping's int32 scratch: group records [B·P, R] (cluster, first
+    member, member count, 0, the first members), members [B·P], the group
+    count."""
+    return torch.empty((lib.mrag_proj_scratch_ints(b, n_probe),), dtype=torch.int32,
+                       device=device)
+
+
+def group_probes(probe: torch.Tensor, nlist: int):
+    """The kernels' grouping of probe [B, P] int32 by clamped cluster id:
+    (members [B·P], cells [G], starts [G + 1]) int32, as
+    :func:`group_probes_reference` gives them. On a CUDA tensor it runs
+    the grouping kernel the scans launch first and reads its scratch back
+    (one synchronisation, for checks); on the CPU it is the plain
+    version."""
+    if probe.dtype != torch.int32 or probe.dim() != 2 or min(probe.shape) < 1 or nlist < 1:
+        raise ValueError(f"probe must be int32 [B, P] and nlist >= 1, got {probe.dtype} "
+                         f"{tuple(probe.shape)}, nlist={nlist}")
+    device = _device_of(probe)
+    if device.type == "cpu":
+        return group_probes_reference(probe, nlist)
+    b, n_probe = probe.shape
+    lib = _lib_for(1, 1, -1, nlist)
+    scratch = _scratch(lib, b, n_probe, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.mrag_proj_group(probe.data_ptr(), scratch.data_ptr(), b, n_probe, nlist,
+                                 stream)
+    if rc != 0:
+        raise RuntimeError(f"proj grouping kernel launch failed: CUDA error {rc}")
+    bp, recw = b * n_probe, lib.mrag_proj_record_ints()
+    n_groups = int(scratch[bp * (recw + 1)].item())
+    rec = scratch[:n_groups * recw].view(n_groups, recw)
+    starts = torch.cat([rec[:, 1], rec.new_full((1,), bp)])
+    return scratch[bp * recw:bp * (recw + 1)], rec[:, 0].contiguous(), starts
 
 
 def proj_blocks(probe: torch.Tensor, codes: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
@@ -150,12 +225,14 @@ def proj_blocks(probe: torch.Tensor, codes: torch.Tensor, q8: torch.Tensor) -> t
         return proj_blocks_reference(probe, codes, q8)
     b, n_probe = probe.shape
     nlist, pad, p = codes.shape
-    lib = _lib_for(p, 0, 0)
+    lib = _lib_for(p, 0, -1, nlist)
+    scratch = _scratch(lib, b, n_probe, device)
     out = torch.empty((b, n_probe, pad), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.mrag_proj_blocks(probe.data_ptr(), codes.data_ptr(), q8.data_ptr(),
-                                  out.data_ptr(), b, n_probe, nlist, pad, p, stream)
+                                  scratch.data_ptr(), out.data_ptr(), b, n_probe, nlist, pad,
+                                  p, stream)
     if rc != 0:
         raise RuntimeError(f"proj_blocks kernel launch failed: CUDA error {rc}")
     proj_blocks.launches += 1
@@ -188,15 +265,17 @@ def proj_gated_blocks(probe, qmeta, qbits, codes, words, q8, *, tw: int,
     if device.type == "cpu":
         return proj_gated_blocks_reference(probe, qmeta, qbits, codes, words, q8,
                                            tw=tw, tag_level=tag_level)
-    lib = _lib_for(p, tw, 1)
+    lib = _lib_for(p, tw, tag_level, nlist)
+    scratch = _scratch(lib, b, n_probe, device)
     score = torch.empty((b, n_probe, pad), dtype=torch.float32, device=device)
     rowid = torch.empty((b, n_probe, pad), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.mrag_proj_gated_blocks(
             probe.data_ptr(), qmeta.data_ptr(), qbits.data_ptr(), codes.data_ptr(),
-            words.data_ptr(), q8.data_ptr(), score.data_ptr(), rowid.data_ptr(),
-            b, n_probe, nlist, pad, p, words.shape[1], tw, tag_level, stream)
+            words.data_ptr(), q8.data_ptr(), scratch.data_ptr(), score.data_ptr(),
+            rowid.data_ptr(), b, n_probe, nlist, pad, p, words.shape[1], tw, tag_level,
+            stream)
     if rc != 0:
         raise RuntimeError(f"proj_gated_blocks kernel launch failed: CUDA error {rc}")
     proj_gated_blocks.launches += 1

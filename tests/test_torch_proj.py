@@ -31,7 +31,8 @@ from mobius_rag_tpu_torch.index import ann_io as tann_io
 from mobius_rag_tpu_torch.index.ivf import IVFIndex as TIVF
 from mobius_rag_tpu_torch.index.store import index_from_numpy
 from mobius_rag_tpu_torch.ops import proj as tproj
-from mobius_rag_tpu_torch.ops.proj_scan import (proj_blocks, proj_blocks_reference,
+from mobius_rag_tpu_torch.ops.proj_scan import (group_probes, group_probes_reference,
+                                                proj_blocks, proj_blocks_reference,
                                                 proj_gated_blocks,
                                                 proj_gated_blocks_reference)
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, merged_topk
@@ -391,22 +392,98 @@ def test_merged_topk_matches_jax(s, k):
 
 
 # ---------------------------------------------------------------------------
+# the kernels' grouping of (b, j) probe pairs by cluster: its plain twin
+# ---------------------------------------------------------------------------
+
+def _group_probe(kind, b, n_probe, nlist, rng):
+    """probe [B, P] int32 of one group shape: "random" (duplicates inside a
+    list), "one" (every probe on one cluster), "low" (clusters 0-2 only:
+    the others unprobed), "engine" (P-2 distinct base cells, then the 2
+    reserved slabs for every query), "outside" (ids past both ends)."""
+    if kind == "random":
+        return rng.integers(0, nlist, (b, n_probe)).astype(np.int32)
+    if kind == "one":
+        return np.full((b, n_probe), nlist // 2, np.int32)
+    if kind == "low":
+        return rng.integers(0, 3, (b, n_probe)).astype(np.int32)
+    if kind == "outside":
+        return rng.integers(-3, nlist + 3, (b, n_probe)).astype(np.int32)
+    base = np.stack([rng.permutation(nlist - 2)[:n_probe - 2] for _ in range(b)])
+    reserved = np.broadcast_to(np.arange(nlist - 2, nlist), (b, 2))
+    return np.concatenate([base, reserved], axis=1).astype(np.int32)
+
+
+GROUP_SHAPES = [("random", 8, 6, 12), ("one", 8, 4, 6), ("low", 4, 5, 50),
+                ("engine", 32, 66, 1002), ("engine", 1, 66, 4098), ("engine", 33, 6, 12),
+                ("random", 5, 8, 3), ("outside", 6, 7, 9)]
+
+
+@pytest.mark.parametrize("kind,b,n_probe,nlist", GROUP_SHAPES)
+def test_group_probes_reference_pins_the_grouping(kind, b, n_probe, nlist):
+    """Every (b, j) appears once; members are grouped by clamped cluster id
+    in ascending order; inside a group the (b, j) order is kept; a cluster
+    nobody probes has no group; on the CPU the wrapper is the twin."""
+    probe = _group_probe(kind, b, n_probe, nlist, np.random.default_rng(b * 131 + nlist))
+    members, cells, starts = (a.numpy() for a in group_probes_reference(_t(probe), nlist))
+    flat = np.clip(probe.reshape(-1), 0, nlist - 1)
+    assert members.dtype == cells.dtype == starts.dtype == np.int32
+    assert sorted(members.tolist()) == list(range(b * n_probe))
+    np.testing.assert_array_equal(cells, np.unique(flat))
+    assert starts[0] == 0 and starts[-1] == b * n_probe and np.all(np.diff(starts) > 0)
+    for gi, cell in enumerate(cells):
+        group = members[starts[gi]:starts[gi + 1]]
+        np.testing.assert_array_equal(group, np.flatnonzero(flat == cell))  # stable
+    for got, want in zip(group_probes(_t(probe), nlist),
+                         group_probes_reference(_t(probe), nlist)):
+        assert torch.equal(got, want)
+
+
+def test_group_probes_rejects_bad_inputs():
+    with pytest.raises(ValueError):
+        group_probes(torch.zeros((2, 3), dtype=torch.int64), 4)
+    with pytest.raises(ValueError):
+        group_probes(torch.zeros((2, 3), dtype=torch.int32), 0)
+
+
+def test_wrappers_reject_too_many_probe_pairs():
+    probe = torch.empty((65535, 1025), dtype=torch.int32)
+    codes = torch.zeros((1, 1, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match="oversized"):
+        proj_blocks(probe, codes, torch.zeros((65535, 4), dtype=torch.int8))
+
+
+# ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+# (p, pad, B, P, nlist, probe kind): the tables' widths, ragged pads, and
+# the group shapes the grouped kernels must get right: one cluster for all
+# queries, duplicates inside a list, clusters nobody probes, B=1, and B=33
+# (the reserved slabs' group spans three 16-member tiles).
+CARD_CASES = [(256, 2048, 8, 6, 12, "random"), (192, 520, 8, 6, 12, "random"),
+              (36, 300, 8, 6, 12, "random"), (37, 100, 8, 6, 12, "random"),
+              (32, 256, 8, 6, 12, "random"), (64, 300, 8, 4, 6, "one"),
+              (128, 260, 5, 8, 3, "random"), (64, 256, 4, 5, 50, "low"),
+              (192, 384, 1, 7, 20, "random"), (256, 256, 33, 6, 12, "engine"),
+              (192, 5120, 32, 66, 300, "engine")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,pad", [(256, 2048), (192, 520), (36, 300), (37, 100)])
-def test_kernels_match_plain_on_card(p, pad):
+@pytest.mark.parametrize("p,pad,b,n_probe,nlist,kind", CARD_CASES)
+def test_kernels_match_plain_on_card(p, pad, b, n_probe, nlist, kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(p)
-    b, n_probe, nlist, tw = 8, 6, 12, 8
+    tw = 8
 
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, device="cuda", generator=g,
                              dtype=torch.int64).to(torch.int32)
 
-    probe = ri(0, nlist, (b, n_probe))
+    probe = _t(_group_probe(kind, b, n_probe, nlist,
+                            np.random.default_rng(p + pad))).cuda().contiguous()
+    for got, want in zip(group_probes(probe, nlist), group_probes_reference(probe, nlist)):
+        assert torch.equal(got, want)
     codes = ri(-127, 128, (nlist, pad, p)).to(torch.int8)
     q8 = ri(-127, 128, (b, p)).to(torch.int8)
     before = (proj_blocks.launches, proj_gated_blocks.launches)
