@@ -116,79 +116,127 @@ def _median_ms(fn, runs: int = 20) -> float:
     return float(np.median(times))
 
 
+def topk_inputs(g, b, c, d, dtype, gate=0.3, live=None, pen_form="bc", min_sim=True,
+                dup=False):
+    """Masked top-k inputs on the card: unit rows (int8: quantized with the
+    store's per-row scales; `dup`: every row one row, so every score ties),
+    unit queries, a penalty gating `gate` of the rows (and every row from
+    `live` on), min_sim 0.02 on odd queries. Returns (q, v, pen, min_sim,
+    scales)."""
+    from mobius_rag_tpu_torch.ops.quant import quantize_rows
+    from mobius_rag_tpu_torch.ops.topk import NEG_INF
+
+    v = torch.randn(1 if dup else c, d, device="cuda", generator=g).expand(c, d)
+    v = v / v.norm(dim=1, keepdim=True)
+    scales = None
+    if dtype == torch.int8:
+        v, scales = quantize_rows(v)
+    v = v.to(dtype).contiguous()
+    q = torch.randn(b, d, device="cuda", generator=g)
+    q = q / q.norm(dim=1, keepdim=True)
+    shape = (b, c) if pen_form == "bc" else (c,)
+    pen = torch.where(torch.rand(shape, device="cuda", generator=g) < gate, NEG_INF, 0.0)
+    if live is not None:
+        pen[..., live:] = NEG_INF
+    ms = torch.where(torch.arange(b, device="cuda") % 2 == 1, 0.02, 0.0) \
+        if min_sim else None
+    return q, v, pen.contiguous(), ms, scales
+
+
+C_MAIN = 70_144  # capacity of the 70,000-row store
+
+
+def topk_cases(g) -> dict:
+    """name -> (inputs, m): the main paths' shapes (B=32 and B=1, float32,
+    bfloat16 and int8 rows) and the edges: C=1000 with one query whose every
+    row is gated, m=1024, fewer live rows than m, a [C] penalty, every row
+    one row (all scores tie), m=128 and m=129 on either side of pass 1's
+    partial width."""
+    cases = {}
+    for b in (BATCH, 1):
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"), (torch.int8, "int8")):
+            name = f"main_{tag}" + ("" if b == BATCH else " B=1")
+            cases[name] = (topk_inputs(g, b, C_MAIN, 1536, dt, live=N_CHUNKS), 40)
+    cases.update({
+        "C=1000": (topk_inputs(g, 4, 1000, 1536, torch.float32), 40),
+        "m=1024": (topk_inputs(g, 8, 4096, 1536, torch.float32), 1024),
+        "fewer_live_than_m": (topk_inputs(g, 4, 2048, 1536, torch.float32, live=25), 40),
+        "penalty[C]": (topk_inputs(g, 4, 3000, 1536, torch.float32, pen_form="c",
+                                   min_sim=False), 40),
+        "all scores tie": (topk_inputs(g, 4, 5000, 1536, torch.float32, gate=0.0,
+                                       dup=True), 40),
+        "m=128": (topk_inputs(g, 8, 20_000, 1536, torch.float32), 128),
+        "m=129": (topk_inputs(g, 8, 20_000, 1536, torch.float32), 129),
+        "int8 m=1024": (topk_inputs(g, 8, 4096, 1536, torch.int8), 1024),
+        "int8 penalty[C]": (topk_inputs(g, 4, 3000, 1536, torch.int8, pen_form="c",
+                                        min_sim=False), 40),
+        "int8 C=1000": (topk_inputs(g, 4, 1000, 1536, torch.int8), 40),
+    })
+    for name in ("C=1000", "int8 C=1000"):
+        cases[name][0][2][1] = -1e30  # one query with every row gated
+    return cases
+
+
+def check_topk(name, q, v, pen, ms, sc, m) -> float:
+    """The kernel against its plain version on one case; returns the max
+    |value difference|."""
+    from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, masked_topk_reference
+
+    kv, ki = masked_topk(q, v, pen, ms, m, row_scales=sc)
+    torch.cuda.synchronize()
+    rv, ri = masked_topk_reference(q, v, pen, ms, m, row_scales=sc)
+    err = _compare(kv, ki, rv, ri)
+    if name.endswith("C=1000") and bool((kv[1] > NEG_INF / 2).any()):
+        raise AssertionError(f"{name}: a query whose every row is gated has a live row")
+    if name == "all scores tie" and not torch.equal(
+            ki, torch.arange(m, dtype=torch.int32, device=ki.device).expand_as(ki)):
+        raise AssertionError(f"{name}: tied rows not in row order")
+    return err
+
+
+def time_topk(q, v, pen, ms, sc, m) -> dict:
+    """Median-of-20 event times of the kernel, its plain version and the
+    library route; the kernels' device time (profiler); the bound."""
+    from mobius_rag_tpu_torch.ops.topk import masked_topk, masked_topk_reference
+
+    def kern():
+        return masked_topk(q, v, pen, ms, m, row_scales=sc)
+
+    t_k = _median_ms(kern)
+    by = _device_ms_by_kernel(kern)
+    t_p = _median_ms(lambda: masked_topk_reference(q, v, pen, ms, m, row_scales=sc))
+    # the library route: one addmm over the rows widened to float32 (the
+    # float32 rows as they are), then topk; its tie order is not stable.
+    # Two calls; a single call only for float32 rows.
+    vf = v.float() if sc is None else v.float() * sc[:, None]
+    t_l = _median_ms(lambda: torch.topk(torch.addmm(pen, q, vf.T), m, dim=1))
+    del vf
+    return {"ms": t_k, "device_ms": sum(by.values()), "by_kernel": by, "plain_ms": t_p,
+            "library_ms": t_l, **_topk_bound(q, v, pen, m)}
+
+
 def phase2_kernel() -> dict:
     """The masked top-k kernel against its plain version: float32 and
     bfloat16 rows, and the int8-row form with real per-row scales (the
-    store's quantization), at the main paths' shapes and the edges."""
-    from mobius_rag_tpu_torch.ops.quant import quantize_rows
-    from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, masked_topk_reference
-
+    store's quantization), at the main paths' shapes and the edges; the
+    main shapes timed."""
     g = torch.Generator(device="cuda").manual_seed(0)
-
-    def inputs(b, c, d, dtype, gate=0.3, live=None, pen_form="bc", min_sim=True):
-        v = torch.randn(c, d, device="cuda", generator=g)
-        v = v / v.norm(dim=1, keepdim=True)
-        scales = None
-        if dtype == torch.int8:
-            v, scales = quantize_rows(v)
-        v = v.to(dtype).contiguous()
-        q = torch.randn(b, d, device="cuda", generator=g)
-        q = q / q.norm(dim=1, keepdim=True)
-        shape = (b, c) if pen_form == "bc" else (c,)
-        pen = torch.where(torch.rand(shape, device="cuda", generator=g) < gate,
-                          NEG_INF, 0.0)
-        if live is not None:
-            pen[..., live:] = NEG_INF
-        ms = torch.where(torch.arange(b, device="cuda") % 2 == 1, 0.02, 0.0) \
-            if min_sim else None
-        return q, v, pen.contiguous(), ms, scales
-
-    c_main = 70_144  # capacity of the 70,000-row store
-    cases = {
-        "main_f32": (inputs(BATCH, c_main, 1536, torch.float32, live=N_CHUNKS), 40),
-        "main_bf16": (inputs(BATCH, c_main, 1536, torch.bfloat16, live=N_CHUNKS), 40),
-        "main_int8": (inputs(BATCH, c_main, 1536, torch.int8, live=N_CHUNKS), 40),
-        "C=1000": (inputs(4, 1000, 1536, torch.float32), 40),
-        "m=1024": (inputs(8, 4096, 1536, torch.float32), 1024),
-        "fewer_live_than_m": (inputs(4, 2048, 1536, torch.float32, live=25), 40),
-        "penalty[C]": (inputs(4, 3000, 1536, torch.float32, pen_form="c",
-                              min_sim=False), 40),
-        "B=1": (inputs(1, c_main, 1536, torch.float32), 40),
-        "int8 m=1024": (inputs(8, 4096, 1536, torch.int8), 1024),
-        "int8 penalty[C]": (inputs(4, 3000, 1536, torch.int8, pen_form="c",
-                                   min_sim=False), 40),
-        "int8 C=1000": (inputs(4, 1000, 1536, torch.int8), 40),
-    }
-    for name in ("C=1000", "int8 C=1000"):
-        cases[name][0][2][1] = NEG_INF  # one query with every row gated
     worst = {"fp": 0.0, "int8": 0.0}
     timing = {}
-    for name, ((q, v, pen, ms, sc), m) in cases.items():
-        kv, ki = masked_topk(q, v, pen, ms, m, row_scales=sc)
-        torch.cuda.synchronize()
-        rv, ri = masked_topk_reference(q, v, pen, ms, m, row_scales=sc)
-        err = _compare(kv, ki, rv, ri)
-        if name.endswith("C=1000") and bool((kv[1] > NEG_INF / 2).any()):
-            raise AssertionError(f"{name}: a query whose every row is gated has a live row")
+    for name, ((q, v, pen, ms, sc), m) in topk_cases(g).items():
+        err = check_topk(name, q, v, pen, ms, sc, m)
         form = "int8" if v.dtype == torch.int8 else "fp"
         worst[form] = max(worst[form], err)
         line = f"phase 2: {name} B={q.shape[0]} C={v.shape[0]} m={m} " \
                f"{str(v.dtype)[6:]}: max_abs_err={err:.3g} ids agree"
         if name.startswith("main"):
-            t_k = _median_ms(lambda: masked_topk(q, v, pen, ms, m, row_scales=sc))
-            t_p = _median_ms(lambda: masked_topk_reference(q, v, pen, ms, m, row_scales=sc))
-            bound = _topk_bound(q, v, pen, m)
-            # the library route: one addmm over the rows widened to float32
-            # (the float32 rows as they are), then topk; its tie order is
-            # not stable. Two calls; a single call only for float32 rows.
-            vf = v.float() if sc is None else v.float() * sc[:, None]
-            t_l = _median_ms(lambda: torch.topk(torch.addmm(pen, q, vf.T), m, dim=1))
-            del vf
-            timing[name] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, **bound}
-            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library addmm+topk "
-                     f"{t_l:.4f} ms (float32 rows{'' if v.dtype == torch.float32 else ', widened first'}; "
-                     f"median of 20); bound {bound['bound_ms']:.4f} ms by "
-                     f"{bound['bound_by']} (share {bound['bound_ms'] / t_k:.3f})")
+            t = timing[name] = time_topk(q, v, pen, ms, sc, m)
+            by = ", ".join(f"{k} {x:.4f}" for k, x in t["by_kernel"].items())
+            line += (f"; kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}: {by}), plain "
+                     f"{t['plain_ms']:.4f} ms, library addmm+topk {t['library_ms']:.4f} ms "
+                     f"(float32 rows{'' if v.dtype == torch.float32 else ', widened first'}; "
+                     f"median of 20); bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+                     f"(share {t['bound_ms'] / t['ms']:.3f})")
         log(line)
     return {"max_abs_err": worst["fp"], "max_abs_err_int8": worst["int8"],
             "timing": timing}
@@ -344,16 +392,18 @@ def _device_ms_by_kernel(fn, n: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then returns no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if events:
+            break
     by: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0]
-            by[name] = by.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
+    for ev in events:
+        name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+        by[name] = by.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
     return by
 
 
@@ -410,6 +460,11 @@ PROJ_CHECKS = [
     ("unprobed clusters", 4, 5, 50, 256, 64, 8, "low"),
     ("B=1", 1, 7, 20, 384, 192, 4, "random"),
     ("B=33", 33, 6, 12, 256, 256, 8, "engine"),
+    # k-sliced items (p over 256 bytes; 768 was past the one-stage layout's
+    # shared memory for the gated scan) and the grouping's counters in
+    # scratch (nlist over the 19,349 it counts in shared memory)
+    ("p=1536", 4, 3, 5, 64, 1536, 8, "random"), ("p=768", 4, 3, 5, 256, 768, 8, "random"),
+    ("nlist=20000", 8, 6, 20_000, 32, 64, 8, "random"),
 ]
 
 
@@ -1514,12 +1569,16 @@ def main() -> None:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     for name, timing, runs, err in (("masked_topk", "main_f32", s, "max_abs_err"),
                                     ("masked_topk_int8", "main_int8", s8, "max_abs_err_int8")):
-        t = k["timing"][timing]
+        t, t1 = k["timing"][timing], k["timing"][f"{timing} B=1"]
+        f32 = name == "masked_topk"  # one library call on the same inputs only for f32 rows
         kernels.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                         "replaces": KERNEL_REPLACES, "launches": runs["launches"],
                         "max_abs_err": k[err], **{key: t[key] for key in keys},
-                        # one call on the same inputs only for float32 rows
-                        "library_ms": t["library_ms"] if name == "masked_topk" else None})
+                        "library_ms": t["library_ms"] if f32 else None,
+                        "device_ms": t["device_ms"], "ms_B1": t1["ms"],
+                        "device_ms_B1": t1["device_ms"], "plain_ms_B1": t1["plain_ms"],
+                        "bound_ms_B1": t1["bound_ms"],
+                        "library_ms_B1": t1["library_ms"] if f32 else None})
     launches = dict(p4["launches"])
     launches["proj_gated_blocks"] += p5["launches"]  # phase 4 path B and phase 5
     for name, replaces in (("proj_blocks", PROJ_REPLACES),

@@ -33,25 +33,33 @@
 //
 // What the design does about it:
 // - Grouping. A first one-block kernel sorts the B * P (b, j) pairs by
-//   clamped cluster id (a counting sort in shared memory, stable in (b, j)
-//   order) into scratch: the member list, the group count, and for each
-//   group a record (cluster, first member, member count, first 16
-//   members). A cluster nobody probes costs nothing; duplicates in one
+//   clamped cluster id (a counting sort, stable in (b, j) order) into
+//   scratch: the member list, the group count, and for each group a
+//   record (cluster, first member, member count, first 16 members). Its
+//   per-cluster counters live in shared memory up to GROUP_SMEM_NLIST
+//   clusters, past that in the int32 scratch (the same kernel, a template
+//   flag). A cluster nobody probes costs nothing; duplicates in one
 //   query's list are separate members with equal output rows. Batches
 //   over 32 queries go in chunks of 32, each grouped and scanned in turn.
 // - Work items. One item is (probed cluster, 128-slot tile); persistent
 //   blocks walk the items, so each probed tile is read once for all of
-//   its members, however many queries probe it.
+//   its members, however many queries probe it. An item's code rows come
+//   in k-slices of at most KS bytes, one ring stage each; the int32 sums
+//   of a slice go to the output element the same thread finishes at the
+//   last slice (as int32 bits, read back by that thread), so shared
+//   memory does not grow with p and every sum stays exact. Where one
+//   slice covers p (p <= 256), an item is one stage, as it was.
 // - Staging. Each block stages the launch's (at most 32) q8 rows and gate
-//   parameters once. An item's tile of codes (contiguous in the table),
-//   its W_lvl word rows (each contiguous) and its group's record come into
-//   one stage of a ring in shared memory through cp.async (16-byte
-//   copies; 4-byte ones, or plain byte loads, where p or the pointers are
-//   not aligned for them); the cluster id of the next item to issue loads
-//   an iteration early, so no dependent global load stands between items.
-//   The ring is double-buffered: a deeper one costs resident blocks per
-//   SM, and more blocks hide an item's latency chain (a few barriers)
-//   better than more tiles in flight.
+//   parameters once (the q8 rows whole where they fit beside the ring,
+//   else one k-slice per stage). An item's slice of codes, its W_lvl word
+//   rows (each contiguous; with the last slice) and its group's record
+//   come into one stage of a ring in shared memory through cp.async
+//   (16-byte copies; 4-byte ones, or plain byte loads, where p or the
+//   pointers are not aligned for them); the cluster id of the next item
+//   to issue loads an iteration early, so no dependent global load stands
+//   between items. The ring is double-buffered: a deeper one costs
+//   resident blocks per SM, and more blocks hide an item's latency chain
+//   (a few barriers) better than more tiles in flight.
 // - Dots on the int8 tensor cores. A = the staged codes (16 slots per
 //   warp x 32 bytes per step), B = up to 16 members' staged q8 rows (two
 //   8-wide n-tiles; each lane points ldmatrix at its member's row), both
@@ -77,6 +85,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -93,7 +102,10 @@ constexpr int GROUP_THREADS = 1024;
 // Hopper: the most shared memory one block may take.
 constexpr int SMEM_PER_BLOCK = 232448;
 constexpr int GROUP_STATIC_SMEM = 2 * (GROUP_THREADS / 32) * 4;
-constexpr int GROUP_CELL_BYTES = 12;  // shared bytes per cluster in the grouping
+constexpr int GROUP_CELL_BYTES = 12;  // bytes per cluster in the grouping: 3 ints
+// Most clusters the grouping counts in shared memory; past that in scratch.
+constexpr int GROUP_SMEM_NLIST = (SMEM_PER_BLOCK - GROUP_STATIC_SMEM) / GROUP_CELL_BYTES;
+constexpr int KS = 256;          // code bytes of one k-slice (a multiple of 32)
 constexpr float NEG_INF = -1e30f;
 constexpr int Q_PAYER = 0, Q_STATE = 1, Q_PROGRAM = 2, Q_TAGMODE = 3;
 constexpr int Q_STRICTOK = 4, Q_INHERIT = 5, Q_HASJ = 6, Q_HASDP = 7;
@@ -104,41 +116,62 @@ __host__ __device__ __forceinline__ int clamp_cell(int c, int nlist) {
 }
 
 // Shared memory of one scan block, in bytes: a ring of STAGES stages
-// (the tile's code rows, its word rows, its group's record), then the
-// launch's query rows (QMAX q8 rows and one zero row) and their gate
+// (one k-slice of the tile's code rows, its word rows, its group's
+// record; and, where the whole q8 rows do not fit beside the ring, the
+// same k-slice of the launch's query rows), then the launch's whole query
+// rows (QMAX q8 rows and one zero row) where they fit, and their gate
 // parameters. level -1: proj_blocks (no words, no gate parameters).
 struct Layout {
-  int kp, sb, wl, qmw, words_off, rec_off, stage, q_off, qm_off, total;
+  int kpf, ns, kp, sb, qsb, q_whole, wl, qmw, words_off, rec_off, stage_q_off, stage, q_off,
+      qm_off, total;
 };
 
 __host__ __device__ __forceinline__ Layout layout_of(int p, int tw, int level) {
   Layout L;
-  L.kp = (p + 31) & ~31;
-  L.sb = L.kp + 16;  // row stride: 4 mod 8 words
+  L.kpf = (p + 31) & ~31;           // p rounded up to an MMA step
+  L.ns = (L.kpf + KS - 1) / KS;     // k-slices of an item
+  L.kp = L.kpf < KS ? L.kpf : KS;   // code bytes of a staged slice
+  L.sb = L.kp + 16;                 // row stride: 4 mod 8 words
   L.wl = level < 0 ? 0 : 4 + (level == 0 ? 0 : (level == 1 ? tw : 3 * tw));
   L.qmw = level < 0 ? 0 : 8 + 3 * tw;
   L.words_off = TS * L.sb;
   L.rec_off = L.words_off + L.wl * TS * 4;
-  L.stage = L.rec_off + RECW * 4;
-  L.q_off = STAGES * L.stage;
-  L.qm_off = L.q_off + (QMAX + 1) * L.sb;
-  L.total = L.qm_off + QMAX * L.qmw * 4;
+  L.stage_q_off = L.rec_off + RECW * 4;
+  const int qm_bytes = QMAX * L.qmw * 4;
+  const int whole = STAGES * L.stage_q_off + (QMAX + 1) * (L.kpf + 16) + qm_bytes;
+  L.q_whole = whole <= SMEM_PER_BLOCK;
+  if (L.q_whole) {
+    L.qsb = L.kpf + 16;
+    L.stage = L.stage_q_off;
+    L.q_off = STAGES * L.stage;
+    L.qm_off = L.q_off + (QMAX + 1) * L.qsb;
+  } else {
+    L.qsb = L.sb;
+    L.stage = L.stage_q_off + (QMAX + 1) * L.sb;
+    L.q_off = 0;  // in each stage, at stage_q_off
+    L.qm_off = STAGES * L.stage;
+  }
+  L.total = L.qm_off + qm_bytes;
   return L;
 }
 
-// Scratch (int32): group records [BP][RECW] | members [BP] | group count.
-// A record: the cluster, its first member in `members`, its member count,
-// 0, and its first MT members (-1 past the count). Shared, per cluster:
-// the count, then the placement cursor; the first member slot; the group.
+// Scratch (int32): group records [BP][RECW] | members [BP] | group count
+// | (GLOBAL) the per-cluster ints [3][nlist]. A record: the cluster, its
+// first member in `members`, its member count, 0, and its first MT
+// members (-1 past the count). Per cluster, in shared memory or (GLOBAL)
+// in scratch: the count, then the placement cursor; the first member
+// slot; the group.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(GROUP_THREADS)
 proj_group_kernel(const int* __restrict__ probe, int bp, int nlist, int* __restrict__ scratch) {
-  extern __shared__ int cells[];
-  int* cursor = cells;
-  int* first = cells + nlist;
-  int* group_of = cells + 2 * nlist;
+  extern __shared__ int shared_cells[];
   __shared__ int warp_sum[GROUP_THREADS / 32], warp_nz[GROUP_THREADS / 32];
   int* rec = scratch;
   int* members = rec + static_cast<size_t>(bp) * RECW;
+  int* cells = GLOBAL ? members + bp + 1 : shared_cells;
+  int* cursor = cells;
+  int* first = cells + nlist;
+  int* group_of = cells + 2 * static_cast<size_t>(nlist);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int c = tid; c < nlist; c += GROUP_THREADS) cursor[c] = 0;
   __syncthreads();
@@ -300,9 +333,11 @@ __device__ __forceinline__ void for_chunks(int rows, int cols, F fn) {
 // LEVEL -1: raw dots into out (proj_blocks); 0..2: gated scores into out
 // and row ids into rowid, reading the level's W_lvl word rows. VEC: the
 // code copy width (16 or 4 bytes through cp.async; 1: plain byte loads,
-// where p or a pointer is not 4-byte aligned). One launch takes bq <=
-// QMAX queries.
-template <int LEVEL, int VEC>
+// where p or a pointer is not 4-byte aligned). SLICED: items in several
+// k-slices, or the q8 rows staged a slice at a time (false where one slice
+// covers p: the one-stage item, compiled without the slice bookkeeping).
+// One launch takes bq <= QMAX queries.
+template <int LEVEL, int VEC, bool SLICED>
 __global__ void __launch_bounds__(THREADS)
 proj_scan_kernel(const int* __restrict__ scratch, const int* __restrict__ qmeta,
                  const int* __restrict__ qbits, const int8_t* __restrict__ codes,
@@ -320,28 +355,34 @@ proj_scan_kernel(const int* __restrict__ scratch, const int* __restrict__ qmeta,
   int w = blockIdx.x;
   if (w >= total) return;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int8_t* q_all = reinterpret_cast<const int8_t*>(smem + L.q_off);
   const int* qm_all = reinterpret_cast<const int*>(smem + L.qm_off);
 
-  // zero the ring (the k tail [p, kp) of every code row stays zero), and
-  // stage the launch's queries once: q8 rows zero past p, row QMAX all
-  // zero (the B rows of members past a tile's count), gate parameters
-  for (int i = tid; i < L.q_off / 16; i += THREADS)
-    reinterpret_cast<int4*>(smem)[i] = make_int4(0, 0, 0, 0);
-  const int kw = L.kp >> 2;
-  for_chunks(QMAX + 1, kw, [&](int b, int k) {
-    int v = 0;
-    if (b < bq && 4 * k < p) {
-      const int8_t* qr = q8 + static_cast<size_t>(b) * p + 4 * k;
-      if (VEC != 1) {
-        v = __ldg(reinterpret_cast<const int*>(qr));
-      } else {
-        for (int e = 0; e < 4 && 4 * k + e < p; ++e)
-          v |= static_cast<int>(static_cast<uint8_t>(qr[e])) << (8 * e);
+  // q8 rows [k0, k0 + 4 * kw) of the launch's queries into dst (row
+  // stride qsb): zero past p, row QMAX all zero (the B rows of members
+  // past a tile's count)
+  auto stage_queries = [&](unsigned char* dst, int qsb, int k0, int kw) {
+    for_chunks(QMAX + 1, kw, [&](int b, int k) {
+      int v = 0;
+      const int kk = k0 + 4 * k;
+      if (b < bq && kk < p) {
+        const int8_t* qr = q8 + static_cast<size_t>(b) * p + kk;
+        if (VEC != 1) {
+          v = __ldg(reinterpret_cast<const int*>(qr));
+        } else {
+          for (int e = 0; e < 4 && kk + e < p; ++e)
+            v |= static_cast<int>(static_cast<uint8_t>(qr[e])) << (8 * e);
+        }
       }
-    }
-    reinterpret_cast<int*>(smem + L.q_off + b * L.sb)[k] = v;
-  });
+      reinterpret_cast<int*>(dst + b * qsb)[k] = v;
+    });
+  };
+  // zero the ring (a code row's bytes past p meet zero q8 bytes, so what
+  // a stage holds there is never summed; zeroed once all the same), and
+  // stage the launch's whole queries and gate parameters once
+  const int ring = L.q_whole ? L.q_off : L.qm_off;
+  for (int i = tid; i < ring / 16; i += THREADS)
+    reinterpret_cast<int4*>(smem)[i] = make_int4(0, 0, 0, 0);
+  if (L.q_whole) stage_queries(smem + L.q_off, L.qsb, 0, L.kpf >> 2);
   if (LEVEL >= 0) {
     for_chunks(bq, L.qmw, [&](int b, int k) {
       reinterpret_cast<int*>(smem + L.qm_off)[b * L.qmw + k] =
@@ -353,21 +394,25 @@ proj_scan_kernel(const int* __restrict__ scratch, const int* __restrict__ qmeta,
   auto cell_of = [&](int item) {
     return item < total ? __ldg(rec + static_cast<size_t>(item / n_tiles) * RECW) : 0;
   };
-  auto issue = [&](int item, int st, int cell) {
+  // one step: k-slice `sl` of an item into stage st (the word rows with
+  // the last slice, the record with every slice)
+  auto issue = [&](int item, int sl, int st, int cell) {
     unsigned char* sg = smem + st * L.stage;
     const int g = item / n_tiles, s0 = (item - g * n_tiles) * TS;
     const int n = min(TS, pad - s0);
-    const int8_t* src = codes + (static_cast<size_t>(cell) * pad + s0) * p;
+    const int k0 = sl * KS, width = SLICED ? min(KS, p - k0) : p;
+    const int8_t* src = codes + (static_cast<size_t>(cell) * pad + s0) * p + k0;
     if (VEC == 1) {
-      for_chunks(n, p, [&](int r, int k) {
+      for_chunks(n, width, [&](int r, int k) {
         sg[r * L.sb + k] = static_cast<unsigned char>(src[static_cast<size_t>(r) * p + k]);
       });
     } else {
-      for_chunks(n, p / VEC, [&](int r, int k) {
+      for_chunks(n, width / VEC, [&](int r, int k) {
         cp_async<VEC>(sg + r * L.sb + k * VEC, src + static_cast<size_t>(r) * p + k * VEC);
       });
     }
-    if (LEVEL >= 0) {
+    if (SLICED && !L.q_whole) stage_queries(sg + L.stage_q_off, L.qsb, k0, L.kp >> 2);
+    if (LEVEL >= 0 && (!SLICED || sl == L.ns - 1)) {
       int* ws = reinterpret_cast<int*>(sg + L.words_off);
       const int* wsrc = words + static_cast<size_t>(cell) * W * pad + s0;
       const int n4 = words16 ? n >> 2 : 0;  // 16-byte chunks per word row
@@ -382,27 +427,39 @@ proj_scan_kernel(const int* __restrict__ scratch, const int* __restrict__ qmeta,
       cp_async<16>(sg + L.rec_off + 16 * tid, rec + static_cast<size_t>(g) * RECW + 4 * tid);
   };
 
-  // the ring: STAGES - 1 items in flight ahead of the one computing; the
-  // cell of the next item to issue loads one iteration early
+  // the ring over this block's steps (its items w, w + grid, ..., each in
+  // ns k-slices): STAGES - 1 steps in flight ahead of the one computing;
+  // the cell of the next step to issue loads one iteration early
+  const int ns = SLICED ? L.ns : 1;
+  const int n_steps = (total - w + grid - 1) / grid * ns;
+  auto item_of = [&](int step) { return w + (SLICED ? step / ns : step) * grid; };
   for (int k = 0; k < STAGES - 1; ++k) {
-    if (w + k * grid < total) issue(w + k * grid, k, cell_of(w + k * grid));
+    if (k < n_steps) issue(item_of(k), SLICED ? k % ns : 0, k, cell_of(item_of(k)));
     cp_async_commit();
   }
-  int cell_ahead = cell_of(w + (STAGES - 1) * grid);
+  int cell_ahead = STAGES - 1 < n_steps ? cell_of(item_of(STAGES - 1)) : 0;
   const int row0 = warp * 16 + (lane >> 2), col = 2 * (lane & 3);
-  for (int it = 0; w < total; w += grid, ++it) {
-    const int ahead = w + (STAGES - 1) * grid;
-    if (ahead < total) issue(ahead, (it + STAGES - 1) % STAGES, cell_ahead);
-    cell_ahead = cell_of(ahead + grid);
+  for (int it = 0; it < n_steps; ++it) {
+    const int ahead = it + STAGES - 1;
+    if (ahead < n_steps)
+      issue(item_of(ahead), SLICED ? ahead % ns : 0, ahead % STAGES, cell_ahead);
+    cell_ahead = ahead + 1 < n_steps ? cell_of(item_of(ahead + 1)) : 0;
     cp_async_commit();
     cp_async_wait_oldest();
     __syncthreads();
+    const int item = item_of(it), sl = SLICED ? it % ns : 0;
+    const bool last = !SLICED || sl == ns - 1;
     unsigned char* sg = smem + (it % STAGES) * L.stage;
     const int* ws = reinterpret_cast<const int*>(sg + L.words_off);
     int* hdr = reinterpret_cast<int*>(sg + L.rec_off);  // cell, m0, count, 0, members
-    const int s0 = (w % n_tiles) * TS;
+    const int s0 = (item % n_tiles) * TS;
     const int n = min(TS, pad - s0);
     const int m0 = hdr[1], n_mem = hdr[2];
+    // this slice's MMA steps (the whole q8 rows end at kpf) and its query rows
+    const int kl = SLICED ? min(L.kp, L.kpf - sl * KS) : L.kp;
+    const int8_t* q_rows = reinterpret_cast<const int8_t*>(
+        !SLICED || L.q_whole ? smem + L.q_off + sl * KS : sg + L.stage_q_off);
+    int* partial = reinterpret_cast<int*>(out);  // the sums of earlier slices
     for (int mb = 0; mb < n_mem; mb += MT) {
       const int cnt = min(MT, n_mem - mb);
       if (mb) {  // a group's later member tiles
@@ -412,23 +469,53 @@ proj_scan_kernel(const int* __restrict__ scratch, const int* __restrict__ qmeta,
       }
       // ---- tensor-core dots: warp w owns slots [16w, 16w + 16); this
       // lane's B row is member (lane & 7) + (lane >> 4) * 8's query
-      int4 acc0 = make_int4(0, 0, 0, 0), acc1 = make_int4(0, 0, 0, 0);
+      // the fragment's elements: slots row0 and row0 + 8, members col,
+      // col + 1 (+ 8 in the second n-tile); after the first slice they
+      // start from the sums this thread stored at the earlier slices
+      int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+      if (SLICED && sl > 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int s = row0 + 8 * h, m = nt * 8 + col + e;
+              if (s < n && m < cnt)
+                acc[nt][2 * h + e] = partial[static_cast<size_t>(hdr[4 + m]) * pad + s0 + s];
+            }
+      }
+      int4 acc0 = make_int4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+      int4 acc1 = make_int4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
       const bool two = cnt > 8;
       const int mi = (lane & 7) + (lane >> 4) * 8;
       const int brow = mi < cnt ? hdr[4 + mi] / P : QMAX;
       const unsigned a_base = smem_addr(
           sg + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L.sb + (lane >> 4) * 16);
-      const unsigned b_base = smem_addr(q_all + brow * L.sb + ((lane >> 3) & 1) * 16);
-      for (int k0 = 0; k0 < L.kp; k0 += 32) {
+      const unsigned b_base = smem_addr(q_rows + brow * L.qsb + ((lane >> 3) & 1) * 16);
+      for (int k0 = 0; k0 < kl; k0 += 32) {
         unsigned a0, a1, a2, a3, b0, b1, b2, b3;
         ldmatrix_x4(a_base + k0, a0, a1, a2, a3);
         ldmatrix_x4(b_base + k0, b0, b1, b2, b3);
         mma_s8(acc0, a0, a1, a2, a3, b0, b1);
         if (two) mma_s8(acc1, a0, a1, a2, a3, b2, b3);
       }
-      // ---- epilogue from the fragment: slots row0 and row0 + 8, members
-      // col, col + 1 (+ 8 in the second n-tile)
-      const int acc[2][4] = {{acc0.x, acc0.y, acc0.z, acc0.w}, {acc1.x, acc1.y, acc1.z, acc1.w}};
+      acc[0][0] = acc0.x, acc[0][1] = acc0.y, acc[0][2] = acc0.z, acc[0][3] = acc0.w;
+      acc[1][0] = acc1.x, acc[1][1] = acc1.y, acc[1][2] = acc1.z, acc[1][3] = acc1.w;
+      if (SLICED && !last) {  // keep the sums for the next slice
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int s = row0 + 8 * h, m = nt * 8 + col + e;
+              if (s < n && m < cnt)
+                partial[static_cast<size_t>(hdr[4 + m]) * pad + s0 + s] = acc[nt][2 * h + e];
+            }
+        continue;
+      }
+      // ---- epilogue from the fragment
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int s = row0 + 8 * h;
@@ -506,11 +593,11 @@ int vec_of(const void* codes, const void* q8, int p) {
   return p % 16 == 0 && a % 16 == 0 ? 16 : 4;
 }
 
-template <int LEVEL, int VEC>
+template <int LEVEL, int VEC, bool SLICED>
 void launch_scan(cudaStream_t s, const int* scratch, const int* qmeta, const int* qbits,
                  const int8_t* codes, const int* words, const int8_t* q8, float* out,
                  int* rowid, int bq, int P, int nlist, int pad, int p, int W, int tw) {
-  auto kernel = proj_scan_kernel<LEVEL, VEC>;
+  auto kernel = proj_scan_kernel<LEVEL, VEC, SLICED>;
   const int smem = layout_of(p, tw, LEVEL).total;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -529,35 +616,58 @@ void launch_scan(cudaStream_t s, const int* scratch, const int* qmeta, const int
                                                        out, rowid, bq, P, pad, p, W, tw, words16);
 }
 
+template <int LEVEL, bool SLICED>
+void launch_vec(cudaStream_t s, const int* scratch, const int* qmeta, const int* qbits,
+                const int8_t* codes, const int* words, const int8_t* q8, float* out,
+                int* rowid, int bq, int P, int nlist, int pad, int p, int W, int tw) {
+  switch (vec_of(codes, q8, p)) {
+    case 16:
+      launch_scan<LEVEL, 16, SLICED>(s, scratch, qmeta, qbits, codes, words, q8, out, rowid,
+                                     bq, P, nlist, pad, p, W, tw);
+      break;
+    case 4:
+      launch_scan<LEVEL, 4, SLICED>(s, scratch, qmeta, qbits, codes, words, q8, out, rowid,
+                                    bq, P, nlist, pad, p, W, tw);
+      break;
+    default:
+      launch_scan<LEVEL, 1, SLICED>(s, scratch, qmeta, qbits, codes, words, q8, out, rowid,
+                                    bq, P, nlist, pad, p, W, tw);
+  }
+}
+
 template <int LEVEL>
 void launch_level(cudaStream_t s, const int* scratch, const int* qmeta, const int* qbits,
                   const int8_t* codes, const int* words, const int8_t* q8, float* out,
                   int* rowid, int bq, int P, int nlist, int pad, int p, int W, int tw) {
-  switch (vec_of(codes, q8, p)) {
-    case 16:
-      launch_scan<LEVEL, 16>(s, scratch, qmeta, qbits, codes, words, q8, out, rowid, bq, P,
+  const Layout L = layout_of(p, tw, LEVEL);
+  if (L.ns > 1 || !L.q_whole)
+    launch_vec<LEVEL, true>(s, scratch, qmeta, qbits, codes, words, q8, out, rowid, bq, P,
+                            nlist, pad, p, W, tw);
+  else
+    launch_vec<LEVEL, false>(s, scratch, qmeta, qbits, codes, words, q8, out, rowid, bq, P,
                              nlist, pad, p, W, tw);
-      break;
-    case 4:
-      launch_scan<LEVEL, 4>(s, scratch, qmeta, qbits, codes, words, q8, out, rowid, bq, P,
-                            nlist, pad, p, W, tw);
-      break;
-    default:
-      launch_scan<LEVEL, 1>(s, scratch, qmeta, qbits, codes, words, q8, out, rowid, bq, P,
-                            nlist, pad, p, W, tw);
-  }
+}
+
+// int32 scratch of a grouping of B x P pairs: the records, the members,
+// the group count and, past GROUP_SMEM_NLIST clusters, 3 ints a cluster.
+long long scratch_ints(long long B, long long P, long long nlist) {
+  return (RECW + 1LL) * B * P + 1 + (nlist > GROUP_SMEM_NLIST ? 3 * nlist : 0);
 }
 
 bool sizes_ok(int B, int P, int nlist, int pad, int p) {
   return B >= 1 && P >= 1 && nlist >= 1 && pad >= 1 && p >= 1 && B <= 65535 && P <= 65535 &&
-         static_cast<long long>(B) * P <= (1 << 22) &&
-         nlist * GROUP_CELL_BYTES + GROUP_STATIC_SMEM <= SMEM_PER_BLOCK;
+         static_cast<long long>(B) * P <= (1 << 22) && scratch_ints(B, P, nlist) <= INT_MAX;
 }
 
 int group(const int* probe, int* scratch, int B, int P, int nlist, cudaStream_t s) {
-  const int smem = nlist * GROUP_CELL_BYTES;
-  cudaFuncSetAttribute(proj_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  proj_group_kernel<<<1, GROUP_THREADS, smem, s>>>(probe, B * P, nlist, scratch);
+  if (nlist > GROUP_SMEM_NLIST) {
+    proj_group_kernel<true><<<1, GROUP_THREADS, 0, s>>>(probe, B * P, nlist, scratch);
+  } else {
+    const int smem = nlist * GROUP_CELL_BYTES;
+    cudaFuncSetAttribute(proj_group_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    proj_group_kernel<false><<<1, GROUP_THREADS, smem, s>>>(probe, B * P, nlist, scratch);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -569,14 +679,11 @@ extern "C" int mrag_proj_smem_bytes(int p, int tw, int tag_level) {
   return layout_of(p, tw, tag_level).total;
 }
 
-// Most clusters the grouping kernel takes (its counters live in shared memory).
-extern "C" int mrag_proj_max_nlist() {
-  return (SMEM_PER_BLOCK - GROUP_STATIC_SMEM) / GROUP_CELL_BYTES;
-}
-
-// int32 scratch of a grouping of B x P pairs: (RECW + 1) * B * P + 1.
-extern "C" long long mrag_proj_scratch_ints(int B, int P) {
-  return (RECW + 1LL) * B * P + 1;
+// int32 scratch of a grouping of B x P pairs over nlist clusters (-1 past
+// what int32 offsets reach; the wrapper raises then).
+extern "C" long long mrag_proj_scratch_ints(int B, int P, int nlist) {
+  const long long n = scratch_ints(B, P, nlist);
+  return n <= INT_MAX ? n : -1;
 }
 
 // ints per group record in the scratch (the wrapper reads records back).

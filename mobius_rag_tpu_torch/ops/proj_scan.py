@@ -118,10 +118,8 @@ def build_kernel() -> tuple[ctypes.CDLL, float]:
         lib.mrag_proj_group.restype = i
         lib.mrag_proj_smem_bytes.argtypes = [i, i, i]
         lib.mrag_proj_smem_bytes.restype = i
-        lib.mrag_proj_scratch_ints.argtypes = [i, i]
+        lib.mrag_proj_scratch_ints.argtypes = [i, i, i]
         lib.mrag_proj_scratch_ints.restype = ctypes.c_longlong
-        lib.mrag_proj_max_nlist.argtypes = []
-        lib.mrag_proj_max_nlist.restype = i
         lib.mrag_proj_record_ints.argtypes = []
         lib.mrag_proj_record_ints.restype = i
         _LIB = lib
@@ -162,15 +160,12 @@ def _device_of(*tensors) -> torch.device:
     return device
 
 
-def _lib_for(p: int, tw: int, tag_level: int, nlist: int) -> ctypes.CDLL:
-    """The loaded library, after checking that the grouping's counters
-    (per cluster) and a scan block's shared memory (the staged tiles of
-    codes and word rows, the batch's query rows) fit; tag_level -1 for
-    proj_blocks."""
+def _lib_for(p: int, tw: int, tag_level: int) -> ctypes.CDLL:
+    """The loaded library, after checking that a scan block's shared memory
+    fits (a k-slice of codes and the word rows per ring stage, the batch's
+    query rows: any p fits, a very wide tag pack may not); tag_level -1
+    for proj_blocks."""
     lib = _LIB or build_kernel()[0]
-    if nlist > lib.mrag_proj_max_nlist():
-        raise ValueError(f"nlist={nlist} is over the {lib.mrag_proj_max_nlist()} clusters "
-                         "the grouping kernel counts in shared memory")
     smem = lib.mrag_proj_smem_bytes(p, tw, tag_level)
     if smem > _MAX_SMEM:
         raise ValueError(f"p={p}, tw={tw}, tag_level={tag_level} needs {smem} bytes of "
@@ -178,12 +173,16 @@ def _lib_for(p: int, tw: int, tag_level: int, nlist: int) -> ctypes.CDLL:
     return lib
 
 
-def _scratch(lib, b: int, n_probe: int, device) -> torch.Tensor:
+def _scratch(lib, b: int, n_probe: int, nlist: int, device) -> torch.Tensor:
     """The grouping's int32 scratch: group records [B·P, R] (cluster, first
     member, member count, 0, the first members), members [B·P], the group
-    count."""
-    return torch.empty((lib.mrag_proj_scratch_ints(b, n_probe),), dtype=torch.int32,
-                       device=device)
+    count, and past the clusters the grouping counts in shared memory its
+    per-cluster counters [3, nlist]."""
+    n = lib.mrag_proj_scratch_ints(b, n_probe, nlist)
+    if n < 0:
+        raise ValueError(f"B={b}, P={n_probe}, nlist={nlist}: the grouping's scratch is past "
+                         "int32 offsets")
+    return torch.empty((n,), dtype=torch.int32, device=device)
 
 
 def group_probes(probe: torch.Tensor, nlist: int):
@@ -200,8 +199,8 @@ def group_probes(probe: torch.Tensor, nlist: int):
     if device.type == "cpu":
         return group_probes_reference(probe, nlist)
     b, n_probe = probe.shape
-    lib = _lib_for(1, 1, -1, nlist)
-    scratch = _scratch(lib, b, n_probe, device)
+    lib = _lib_for(1, 1, -1)
+    scratch = _scratch(lib, b, n_probe, nlist, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.mrag_proj_group(probe.data_ptr(), scratch.data_ptr(), b, n_probe, nlist,
@@ -225,8 +224,8 @@ def proj_blocks(probe: torch.Tensor, codes: torch.Tensor, q8: torch.Tensor) -> t
         return proj_blocks_reference(probe, codes, q8)
     b, n_probe = probe.shape
     nlist, pad, p = codes.shape
-    lib = _lib_for(p, 0, -1, nlist)
-    scratch = _scratch(lib, b, n_probe, device)
+    lib = _lib_for(p, 0, -1)
+    scratch = _scratch(lib, b, n_probe, nlist, device)
     out = torch.empty((b, n_probe, pad), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -265,8 +264,8 @@ def proj_gated_blocks(probe, qmeta, qbits, codes, words, q8, *, tw: int,
     if device.type == "cpu":
         return proj_gated_blocks_reference(probe, qmeta, qbits, codes, words, q8,
                                            tw=tw, tag_level=tag_level)
-    lib = _lib_for(p, tw, tag_level, nlist)
-    scratch = _scratch(lib, b, n_probe, device)
+    lib = _lib_for(p, tw, tag_level)
+    scratch = _scratch(lib, b, n_probe, nlist, device)
     score = torch.empty((b, n_probe, pad), dtype=torch.float32, device=device)
     rowid = torch.empty((b, n_probe, pad), dtype=torch.int32, device=device)
     with torch.cuda.device(device):

@@ -60,7 +60,8 @@ def _mk(nlist=12, pad=32, p=64, b=4, nprobe=5, seed=0):
 
 
 @pytest.mark.parametrize("kw", [{}, {"p": 36, "pad": 40, "seed": 1},
-                                {"p": 37, "pad": 24, "seed": 2}, {"p": 192, "seed": 3}])
+                                {"p": 37, "pad": 24, "seed": 2}, {"p": 192, "seed": 3},
+                                {"p": 1536, "pad": 16, "nprobe": 3, "seed": 4}])
 def test_proj_blocks_reference_matches_pallas(kw):
     codes, q8, probe = _mk(**kw)
     want = np.asarray(proj_blocks_pallas(jnp.asarray(probe), jnp.asarray(codes),
@@ -221,6 +222,25 @@ def test_gated_reference_matches_pallas(gw, level):
     live = want_s > NEG_INF / 2
     assert live.any() and (~live).any()
     np.testing.assert_array_equal(got_s.numpy(), want_s)  # live and -1e30 alike
+    np.testing.assert_array_equal(got_r.numpy(), want_r)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_gated_reference_matches_pallas_at_p1536(gw, level):
+    """p = D = 1536 (the widest MRAG_PROJ_P the config allows at the main
+    width), on the gate pack of test_gating.py's inputs and random codes."""
+    words = gw["gate"].words
+    nlist, _, pad = words.shape
+    rng = np.random.default_rng(level)
+    codes = rng.integers(-127, 128, size=(nlist, pad, 1536)).astype(np.int8)
+    q8 = rng.integers(-127, 128, size=(B_G, 1536)).astype(np.int8)
+    probe = rng.integers(0, nlist, size=(B_G, 3)).astype(np.int32)
+    want_s, want_r = (np.asarray(a) for a in proj_gated_blocks_pallas(
+        jnp.asarray(probe), gw["jqmeta"], gw["jqbits"], jnp.asarray(codes), words,
+        jnp.asarray(q8), tw=TW_G, tag_level=level))
+    got_s, got_r = proj_gated_blocks(_t(probe), gw["tqmeta"], gw["tqbits"], _t(codes),
+                                     _t(words), _t(q8), tw=TW_G, tag_level=level)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
     np.testing.assert_array_equal(got_r.numpy(), want_r)
 
 
@@ -415,7 +435,9 @@ def _group_probe(kind, b, n_probe, nlist, rng):
 
 GROUP_SHAPES = [("random", 8, 6, 12), ("one", 8, 4, 6), ("low", 4, 5, 50),
                 ("engine", 32, 66, 1002), ("engine", 1, 66, 4098), ("engine", 33, 6, 12),
-                ("random", 5, 8, 3), ("outside", 6, 7, 9)]
+                ("random", 5, 8, 3), ("outside", 6, 7, 9),
+                # past the clusters the kernel's grouping counts in shared memory
+                ("random", 8, 6, 20_000)]
 
 
 @pytest.mark.parametrize("kind,b,n_probe,nlist", GROUP_SHAPES)
@@ -459,13 +481,18 @@ def test_wrappers_reject_too_many_probe_pairs():
 # (p, pad, B, P, nlist, probe kind): the tables' widths, ragged pads, and
 # the group shapes the grouped kernels must get right: one cluster for all
 # queries, duplicates inside a list, clusters nobody probes, B=1, and B=33
-# (the reserved slabs' group spans three 16-member tiles).
+# (the reserved slabs' group spans three 16-member tiles); p past one
+# k-slice and nlist past the shared-memory grouping.
 CARD_CASES = [(256, 2048, 8, 6, 12, "random"), (192, 520, 8, 6, 12, "random"),
               (36, 300, 8, 6, 12, "random"), (37, 100, 8, 6, 12, "random"),
               (32, 256, 8, 6, 12, "random"), (64, 300, 8, 4, 6, "one"),
               (128, 260, 5, 8, 3, "random"), (64, 256, 4, 5, 50, "low"),
               (192, 384, 1, 7, 20, "random"), (256, 256, 33, 6, 12, "engine"),
-              (192, 5120, 32, 66, 300, "engine")]
+              (192, 5120, 32, 66, 300, "engine"),
+              # k-sliced items (p past 256; 768 was past the one-stage layout)
+              # and the grouping's counters in scratch (nlist past 19,349)
+              (1536, 64, 4, 3, 5, "random"), (768, 256, 4, 3, 5, "random"),
+              (64, 32, 8, 6, 20_000, "random")]
 
 
 @pytest.mark.cuda

@@ -138,23 +138,41 @@ def test_masked_topk_rejects(bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,c,m,pen_form", [(32, 70144, 40, "bc"), (4, 1000, 40, "bc"),
-                                            (8, 4096, 1024, "bc"), (1, 3000, 40, "c")])
-def test_kernel_matches_plain_on_card(dtype, b, c, m, pen_form):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b,c,m,pen_form,special", [
+    (32, 70144, 40, "bc", None), (4, 1000, 40, "bc", None), (8, 4096, 1024, "bc", None),
+    (1, 3000, 40, "c", None), (1, 70144, 40, "bc", None),
+    # every row one row (all scores tie); one query with every row gated;
+    # m on either side of pass 1's partial width (128)
+    (4, 5000, 40, "c", "ties"), (4, 20000, 40, "bc", "gated"),
+    (8, 20000, 128, "bc", None), (8, 20000, 129, "bc", None)])
+def test_kernel_matches_plain_on_card(dtype, b, c, m, pen_form, special):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(c)
-    v = torch.randn(c, 1536, device="cuda", generator=g)
-    v = (v / v.norm(dim=1, keepdim=True)).to(getattr(torch, dtype)).contiguous()
+    from mobius_rag_tpu_torch.ops.quant import quantize_rows
+
+    g = torch.Generator(device="cuda").manual_seed(c + m)
+    v = torch.randn(1 if special == "ties" else c, 1536, device="cuda", generator=g)
+    v = (v / v.norm(dim=1, keepdim=True)).expand(c, 1536)
+    scales = None
+    if dtype == "int8":
+        v, scales = quantize_rows(v)
+    v = v.to(getattr(torch, dtype)).contiguous()
     q = torch.randn(b, 1536, device="cuda", generator=g)
     q = q / q.norm(dim=1, keepdim=True)
     shape = (b, c) if pen_form == "bc" else (c,)
-    pen = torch.where(torch.rand(shape, device="cuda", generator=g) < 0.3, NEG_INF, 0.0)
+    gate = 0.0 if special == "ties" else 0.3
+    pen = torch.where(torch.rand(shape, device="cuda", generator=g) < gate, NEG_INF, 0.0)
+    if special == "gated":
+        pen[1] = NEG_INF
     min_sim = torch.where(torch.arange(b, device="cuda") % 2 == 1, 0.02, 0.0)
     before = masked_topk.launches
-    kv, ki = masked_topk(q, v, pen, min_sim, m)
+    kv, ki = masked_topk(q, v, pen, min_sim, m, row_scales=scales)
     torch.cuda.synchronize()
     assert masked_topk.launches == before + 1
-    rv, ri = masked_topk_reference(q, v, pen, min_sim, m)
+    rv, ri = masked_topk_reference(q, v, pen, min_sim, m, row_scales=scales)
     assert_topk_equal(kv.cpu(), ki.cpu(), rv.cpu(), ri.cpu(), tie=1e-5, atol=1e-4)
+    if special == "ties":  # equal rows score equal: the lower row first, exactly
+        assert torch.equal(ki.cpu(), torch.arange(m, dtype=torch.int32).expand(b, m))
+    if special == "gated":
+        assert (kv[1] <= NEG_INF / 2).all()
