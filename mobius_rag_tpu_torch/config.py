@@ -69,7 +69,9 @@ class Config:
     host_funnel: int = _env_int("MRAG_HOST_FUNNEL", 0)
     # Empty always-probed slabs appended at build for streaming inserts.
     ann_reserve_slabs: int = _env_int("MRAG_ANN_RESERVE_SLABS", 2)
-    # Approximate final top-k in the probed scan: not ported, kept at 0.
+    # Recall target of an approximate final top-k in the probed scan. The
+    # JAX package serves it approximately only on a TPU and exactly on every
+    # other backend; the port selects exactly, which meets any target.
     ann_approx_topk: float = _env_float("MRAG_ANN_APPROX_TOPK", 0.0)
     # Filter gate: "dense" [B, C] masks + penalty, "local" evaluated on the
     # candidates (proj backend), "auto" = local under host residency only.
@@ -84,6 +86,10 @@ class Config:
     confidence_high: float = _env_float("MRAG_CONFIDENCE_HIGH", 0.55)
     confidence_medium: float = _env_float("MRAG_CONFIDENCE_MEDIUM", 0.35)
     confidence_low: float = _env_float("MRAG_CONFIDENCE_LOW", 0.18)
+
+    # ---- host state -----------------------------------------------------
+    # Default directory of the host sqlite stores (telemetry, curator).
+    data_dir: str = _env_str("MRAG_DATA_DIR", os.path.expanduser("~/.mobius_rag_tpu"))
 
     def validate(self) -> list[str]:
         """Collect every problem at once."""

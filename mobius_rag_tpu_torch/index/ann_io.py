@@ -40,7 +40,7 @@ def load_ann(path: str, device) -> tuple[PackedProj, dict[str, Any]]:
         name = header["class"]
         if name in _NOT_PORTED:
             raise NotImplementedError(
-                f"{name} tables are not ported yet (ROADMAP queue 1, items 9-10)")
+                f"{name} tables are not ported yet (ROADMAP queue 1, items 2-3)")
         if name != "PackedProj":
             raise ValueError(f"unknown ANN table class {name!r}")
         arrays = {f: z[f] for f in PackedProj.FIELDS}

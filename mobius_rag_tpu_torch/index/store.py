@@ -132,7 +132,7 @@ def _check_supported(cfg: Config) -> None:
     if cfg.vector_residency == "host" and cfg.vector_backend == "pq":
         raise NotImplementedError(
             "MRAG_VECTOR_RESIDENCY=host with the pq backend is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+            "(ROADMAP queue 1, item 3)")
 
 
 def _vec_dtype(cfg: Config) -> torch.dtype:

@@ -429,7 +429,6 @@ def proj_search_gated(pp: PackedProj, gate_words: torch.Tensor, queries: torch.T
                                    tw=tw, tag_level=tag_level)
     cs = torch.gather(cscores, 1, probe.long())
     s = torch.where(gated > NEG_INF / 2,
-                    gated * q_scale[:, None, None] + cs[..., None],
-                    torch.tensor(NEG_INF, dtype=torch.float32, device=gated.device))
+                    gated * q_scale[:, None, None] + cs[..., None], NEG_INF)
     nv, ni = merged_topk(s.reshape(b, -1), rid.reshape(b, -1), k, approx)
     return nv, ni.to(torch.int32)

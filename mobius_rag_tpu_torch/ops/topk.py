@@ -53,12 +53,11 @@ def merged_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,
     """Exact top-k over a flat candidate pool: vals/ids [B, S] → [B, k]
     (``mobius_rag_tpu.ops.topk.merged_topk``). Pools narrower than k are
     padded with (NEG_INF, id 0); among equal values the lower position
-    wins. ``approx_recall`` > 0 (the JAX package's ``approx_max_k``) is
-    not ported: the JAX configuration keeps it off by measurement."""
-    if approx_recall:
-        raise NotImplementedError(
-            "approximate top-k (MRAG_ANN_APPROX_TOPK > 0) is not ported; "
-            "the JAX configuration keeps it off by measurement (config.py:104-119)")
+    wins. ``approx_recall`` > 0 asks for an approximate selection with
+    that recall target; it is served exactly, as the JAX package serves it
+    on every backend but a TPU (``approx_max_k`` there), and an exact
+    selection meets any target."""
+    del approx_recall
     b, s = vals.shape
     if s < k:
         vals = torch.cat([vals, vals.new_full((b, k - s), NEG_INF)], dim=1)

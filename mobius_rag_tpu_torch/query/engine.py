@@ -58,13 +58,25 @@ Semantics follow the JAX engine line by line; where torch differs:
 Float32 matmuls run in full float32 (TF32 is switched off in the
 package's ``__init__``).
 
+``search_pipelined`` overlaps batches on a card: it prepares and
+enqueues every batch's device program, packing and non-blocking copies
+of its two output arrays into page-locked host buffers, each batch
+closed by a CUDA event, before it waits for any; then it takes the
+batches in order (wait on the event, unpack, host re-rank, assemble), so
+one batch's host work runs while later batches run on the device.
+Nothing on that path reads a device value back: the prepared batch goes
+up as one non-blocking copy from page-locked memory, and the strict
+counts of candidate-local gating run on a stream of their own, whose
+event is the only thing the host waits for.
+
 Not ported yet, each raising NotImplementedError: the ivf, packed and
-pq vector backends, sharded serving, the cross-encoder stage and the
-telemetry store (ROADMAP queue 1).
+pq vector backends, sharded serving and the cross-encoder stage
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import sqlite3
 import time
 from collections import OrderedDict
 from typing import Any, Sequence
@@ -150,7 +162,7 @@ class SearchResult:
 
 
 def _check_backend(backend: str) -> None:
-    items = {"ivf": "9", "packed": "9", "pq": "10"}
+    items = {"ivf": "2", "packed": "2", "pq": "3"}
     if backend in items:
         raise NotImplementedError(f"vector backend {backend!r} "
                                   + _NOT_PORTED.format(items[backend]))
@@ -575,16 +587,46 @@ def _unpack_wide(block: np.ndarray, w: int) -> dict[str, np.ndarray]:
     return {key: flat[:, i * w:(i + 1) * w] for i, key in enumerate(_WIDE_F)}
 
 
-def pack_out(out: dict, w: int = 0) -> tuple[np.ndarray, np.ndarray]:
-    """Device outputs → two host arrays (one float32, one int32): two
-    device→host copies per batch instead of sixteen, each of which would
-    wait for the stream. With a funnel of width `w` its block rides both."""
+def pack_device(out: dict, w: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device outputs → two arrays on the same device (one float32, one
+    int32), so a batch needs two device→host copies instead of sixteen.
+    With a funnel of width `w` its block rides both."""
     packed_f = torch.cat([out[key] for key, _ in _OUT_F]
                          + ([_pack_wide(out)] if w else []), dim=1)
     packed_i = torch.cat([out[key] for key, _ in _OUT_I]
                          + [out["strict_count"][:, None].to(torch.int32)]
                          + ([out["wide_idx"]] if w else []), dim=1)
+    return packed_f, packed_i
+
+
+def pack_out(out: dict, w: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """pack_device, then both arrays to the host, waiting for them."""
+    packed_f, packed_i = pack_device(out, w)
     return packed_f.cpu().numpy(), packed_i.cpu().numpy()
+
+
+class PendingFetch:
+    """The two packed output arrays of a dispatched batch on their way to
+    the host. On a card: non-blocking copies into page-locked buffers,
+    enqueued on the current stream behind the batch's program, and an
+    event after them; :meth:`wait` waits for that event alone. On the CPU
+    the arrays are already on the host."""
+
+    def __init__(self, packed: tuple[torch.Tensor, torch.Tensor]):
+        self.done = None
+        self.host = packed
+        if packed[0].device.type == "cuda":
+            self.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                              for t in packed)
+            for h, t in zip(self.host, packed):
+                h.copy_(t, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record()
+
+    def wait(self) -> tuple[np.ndarray, np.ndarray]:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host[0].numpy(), self.host[1].numpy()
 
 
 def unpack_out(fetched, k: int, w: int = 0) -> dict[str, np.ndarray]:
@@ -608,6 +650,33 @@ def unpack_out(fetched, k: int, w: int = 0) -> dict[str, np.ndarray]:
     return out
 
 
+_TORCH_DTYPE = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}
+
+
+def _to_device(host: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
+    """Host arrays (int32, uint32 bit patterns or float32) → tensors on
+    `device`, uint32 as int32. On a card they travel as one block of
+    page-locked memory in one non-blocking copy on the current stream,
+    then are cut into views: the host does not wait for the device."""
+    arrays = {key: np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a)
+              for key, a in host.items()}
+    if device.type != "cuda":
+        return {key: torch.from_numpy(a).to(device) for key, a in arrays.items()}
+    buf = torch.empty(sum(a.nbytes for a in arrays.values()), dtype=torch.uint8,
+                      pin_memory=True)
+    flat = buf.numpy()
+    off = 0
+    for a in arrays.values():
+        flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        off += a.nbytes
+    dbuf = buf.to(device, non_blocking=True)
+    out, off = {}, 0
+    for key, a in arrays.items():  # every dtype is 4 bytes wide: views stay aligned
+        out[key] = dbuf[off:off + a.nbytes].view(_TORCH_DTYPE[a.dtype]).reshape(a.shape)
+        off += a.nbytes
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Host orchestration
 # ---------------------------------------------------------------------------
@@ -624,9 +693,7 @@ class SearchEngine:
         backend = vector_backend or self.cfg.vector_backend
         _check_backend(backend)
         if sharded is not None:
-            raise NotImplementedError("sharded serving " + _NOT_PORTED.format(14))
-        if telemetry is not None:
-            raise NotImplementedError("the telemetry store " + _NOT_PORTED.format(15))
+            raise NotImplementedError("sharded serving " + _NOT_PORTED.format(4))
         self.device = torch.device(device)
         if store.device != self.device:
             raise ValueError(f"engine device {self.device} != store device "
@@ -634,6 +701,8 @@ class SearchEngine:
         self.store = store
         self.lexicon = lexicon
         self.embed_fn = embed_fn  # (list[str]) -> np.ndarray [B, D]
+        # observability.TelemetryStore (or None): a search_events row per result
+        self.telemetry = telemetry
         # query-embedding LRU (repeated queries skip re-embedding)
         self._embed_cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
         self._embed_cache_max = 256
@@ -658,6 +727,8 @@ class SearchEngine:
         self._dtag_stale = False
         # host strict-count cache (filter signature → global count)
         self._strict_cache: "OrderedDict[tuple, float]" = OrderedDict()
+        # the stream of the strict counts on a card (made at first use)
+        self._count_stream: torch.cuda.Stream | None = None
         store.listeners.append(self._on_store_mutation)
 
     # -- vector-arm backend -------------------------------------------------
@@ -991,7 +1062,7 @@ class SearchEngine:
     @cross_encoder.setter
     def cross_encoder(self, model) -> None:
         if model is not None:
-            raise NotImplementedError("the cross-encoder stage " + _NOT_PORTED.format(13))
+            raise NotImplementedError("the cross-encoder stage " + _NOT_PORTED.format(5))
 
     # -- host-side query prep ---------------------------------------------
 
@@ -1065,11 +1136,14 @@ class SearchEngine:
         self._prep_cache[cache_key] = (token, q, exp, lex_w)
         return q, exp, lex_w
 
-    def prepare_batch(self, reqs: Sequence[QueryRequest]):
+    def prepare_batch(self, reqs: Sequence[QueryRequest], ready=None):
         """The batched query dict on the device: per-query arrays stacked
         (u32 bitsets as int32 bit patterns), the queries rounded to bf16,
         and the lexical contraction as the union bucket list [U] with
-        per-query weights [B, U]. Returns (dict, expansions)."""
+        per-query weights [B, U]. Returns (dict, expansions). Nothing here
+        waits for work already enqueued on the device; ``ready`` (a CUDA
+        event after the index's last write, default now) orders the
+        strict counts of local gating after the index."""
         vecs = self._embeddings(reqs)
         prepared = [self.prepare_query(r) for r in reqs]
         host = {key: np.stack([p[0][key] for p in prepared]) for key in prepared[0][0]}
@@ -1084,19 +1158,18 @@ class SearchEngine:
         host["lex_buckets"] = np.fromiter(union, np.int32, len(union))
         host["lex_weights"] = weights
         if self._local_gating_active() and self._ann is not None:
-            host["strict_total"] = self._strict_totals(prepared)
-        dev = self.device
-        q = {key: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
-             for key, a in host.items()}
+            host["strict_total"] = self._strict_totals(prepared, ready)
+        host["vec"] = vecs
+        q = _to_device(host, self.device)
         # bf16 round-to-nearest-even, as the JAX engine ships its queries
-        q["vec"] = torch.from_numpy(vecs).to(dev).to(torch.bfloat16)
+        q["vec"] = q["vec"].to(torch.bfloat16)
         return q, [p[1] for p in prepared]
 
-    def _strict_totals(self, prepared) -> np.ndarray:
+    def _strict_totals(self, prepared, ready=None) -> np.ndarray:
         """Host-cached global strict-eligible counts per request (the
         auto-relax branch's input), keyed on the filter signature and the
         store generation; the misses of a batch go through one
-        gating.strict_counts call."""
+        gating.strict_counts call (see _count_strict)."""
         gen = self.store.generation
         counts = np.zeros(len(prepared), np.float32)
         missing: list[tuple[int, tuple]] = []
@@ -1110,19 +1183,65 @@ class SearchEngine:
                 self._strict_cache.move_to_end(sig)
                 counts[i] = hit
         if missing:
-            dev = self.device
-            mq = {key: torch.from_numpy(np.stack(
-                [prepared[i][0][key] for i, _ in missing])).to(dev)
-                for key in ("payer", "state", "program", "inherit_authority")}
-            mq["j_bits"] = torch.from_numpy(np.stack(
-                [prepared[i][0]["j_bits"] for i, _ in missing]).view(np.int32)).to(dev)
-            vals = gating.strict_counts(self.store.index, mq).cpu().numpy()
+            vals = self._count_strict(
+                {key: np.stack([prepared[i][0][key] for i, _ in missing])
+                 for key in ("payer", "state", "program", "inherit_authority", "j_bits")},
+                ready)
             for (i, sig), v in zip(missing, vals.tolist()):
                 counts[i] = v
                 if len(self._strict_cache) >= 4096:
                     self._strict_cache.popitem(last=False)
                 self._strict_cache[sig] = v
         return counts
+
+    def _count_strict(self, host: dict, ready=None) -> np.ndarray:
+        """gating.strict_counts for the filter fields in `host`, on the
+        host. On a card the counts run on a stream of their own, after
+        `ready` (default: an event recorded now on the current stream): they
+        read only the index, so they need not wait for the batches enqueued
+        since, and the host waits for this stream's event alone."""
+        dev = self.device
+        if dev.type != "cuda":
+            return gating.strict_counts(self.store.index, _to_device(host, dev)).numpy()
+        if ready is None:
+            ready = torch.cuda.Event()
+            ready.record()
+        if self._count_stream is None:
+            self._count_stream = torch.cuda.Stream(device=dev)
+        side = self._count_stream
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            counts = gating.strict_counts(self.store.index, _to_device(host, dev))
+            out = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+            out.copy_(counts, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        done.synchronize()
+        return out.numpy()
+
+    def _logged_query_vectors(self, want: int) -> np.ndarray | None:
+        """Embeddings of up to `want` recent distinct queries from the
+        telemetry log (search_events), the served distribution for a
+        calibration sample. None without a telemetry store or an embedder,
+        or when the log is empty."""
+        if self.telemetry is None or self.embed_fn is None or want <= 0:
+            return None
+        try:
+            events = self.telemetry.recent_search_events(limit=max(200, want * 4))
+        except sqlite3.Error:
+            return None
+        seen: set[str] = set()
+        texts: list[str] = []
+        for ev in events:
+            qt = (ev.get("query") or "").strip()
+            if qt and qt.lower() not in seen:
+                seen.add(qt.lower())
+                texts.append(qt)
+            if len(texts) >= want:
+                break
+        if not texts:
+            return None
+        return self._embeddings([QueryRequest(query=t) for t in texts])
 
     def _embeddings(self, reqs: Sequence[QueryRequest]) -> np.ndarray:
         def cache_key(q: str) -> str:
@@ -1151,6 +1270,31 @@ class SearchEngine:
 
     # -- public API ---------------------------------------------------------
 
+    def _program(self, q: dict, exps, ann, local, k: int) -> dict[str, torch.Tensor]:
+        """Enqueue one prepared batch's device program: search_batch at the
+        device width (k, or k·over_fetch with a funnel under host residency)."""
+        return search_batch(
+            self.store.index, q, self._device_k(k), self.cfg.over_fetch, self.cfg.rrf_k,
+            ann=ann, nprobe=self.effective_nprobe, approx=self.cfg.ann_approx_topk,
+            local=local, tag_level=self._batch_tag_level(exps) if local else 2,
+            funnel=self._device_funnel(k))
+
+    def _dispatch(self, q: dict, exps, ann, local, k: int) -> PendingFetch:
+        """The device side of one batch of search_pipelined: its program,
+        the output packing and the copies of the two packed arrays to the
+        host, all enqueued; nothing here waits for the device."""
+        return PendingFetch(pack_device(self._program(q, exps, ann, local, k),
+                                        self._device_funnel(k)))
+
+    def _finish(self, reqs, exps, fetched, k: int) -> dict[str, np.ndarray]:
+        """The packed arrays of one batch, on the host → its output dict,
+        re-ranked exactly from the host rows under host residency."""
+        kd, fw = self._device_k(k), self._device_funnel(k)
+        out = unpack_out(fetched, kd, fw)
+        if kd != k or fw:
+            out = self._host_rerank(list(reqs), exps, out, k)
+        return out
+
     def _run(self, reqs: Sequence[QueryRequest], k: int):
         # the tables exist before prepare: local gating bakes the host
         # strict counts into the prepared batch
@@ -1158,13 +1302,8 @@ class SearchEngine:
         q, exps = self.prepare_batch(reqs)
         t_prep = time.perf_counter()
         local = self._ensure_local_structs(ann)
-        kd, fw = self._device_k(k), self._device_funnel(k)
-        out = unpack_out(pack_out(search_batch(
-            self.store.index, q, kd, self.cfg.over_fetch, self.cfg.rrf_k, ann=ann,
-            nprobe=self.effective_nprobe, approx=self.cfg.ann_approx_topk, local=local,
-            tag_level=self._batch_tag_level(exps) if local else 2, funnel=fw), fw), kd, fw)
-        if kd != k or fw:
-            out = self._host_rerank(reqs, exps, out, k)
+        out = self._finish(reqs, exps, pack_out(self._program(q, exps, ann, local, k),
+                                                self._device_funnel(k)), k)
         return exps, out, t_prep
 
     def search(self, reqs: Sequence[QueryRequest] | QueryRequest, k: int | None = None
@@ -1184,14 +1323,24 @@ class SearchEngine:
     def search_pipelined(self, batches: Sequence[Sequence[QueryRequest]],
                          k: int | None = None) -> list[list[SearchResult]]:
         """Bulk search: the same results as one `search` per batch (with
-        empty timings, as the JAX engine's pipelined path reports).
-        Overlapping batches on CUDA streams is later work."""
+        empty timings, as the JAX engine's pipelined path reports). Every
+        batch is prepared and dispatched before any is fetched (see the
+        module docstring), so on a card the host's fetch, re-rank and
+        assembly of one batch overlap the device work of the later ones."""
         k = k or self.cfg.default_k
-        results = []
+        ann = self.ensure_ann()
+        local = self._ensure_local_structs(ann)
+        ready = None
+        if self.device.type == "cuda":  # the index as it stands before the first batch
+            ready = torch.cuda.Event()
+            ready.record()
+        pending = []
         for batch in batches:
-            exps, out, _ = self._run(batch, k)
-            results.append(self._assemble(list(batch), exps, out, k))
-        return results
+            q, exps = self.prepare_batch(batch, ready)
+            pending.append((batch, exps, self._dispatch(q, exps, ann, local, k)))
+        return [self._assemble(list(batch), exps,
+                               self._finish(batch, exps, fetch.wait(), k), k)
+                for batch, exps, fetch in pending]
 
     # Neighbor-expansion caps (per hit, per document).
     MAX_NEIGHBORS_PER_HIT = 2
@@ -1302,4 +1451,16 @@ class SearchEngine:
                     "mode": req.mode,
                 },
             ))
+            if self.telemetry is not None:
+                result = results[-1]
+                self.telemetry.record_search_event(
+                    query=req.query, mode=req.mode,
+                    timings=result.telemetry["timings_ms"],
+                    arms={a: len(v) for a, v in result.telemetry["arms"].items()},
+                    expansion=exp.matched_codes,
+                    results=[{"chunk_id": h.chunk_id, "score": h.score,
+                              "signals": h.signals} for h in hits],
+                    extra={"strict_count": result.telemetry["strict_count"],
+                           "confidence": label},
+                )
         return results

@@ -148,9 +148,12 @@ def lexical_candidates_local(index, q: dict, qmeta, qbits, m: int, tag_level: in
     seg = torch.cumsum(first.to(torch.int64), 0) - 1  # group index per posting
     scores = torch.zeros((b, s), dtype=torch.float64, device=dev).index_add_(
         1, seg, contrib_s.double()).float()
-    # representative row per group; groups past the last hold c (dead)
-    grows = torch.full((s,), c, dtype=torch.int64, device=dev)
-    grows[seg[first]] = ids_s[first]
+    # representative row per group; groups past the last hold c (dead).
+    # A scatter, not a boolean-mask index, so the device never reports a
+    # count to the host: repeats write the dead id c to a spare slot s.
+    grows = torch.full((s + 1,), c, dtype=torch.int64, device=dev)
+    grows.scatter_(0, torch.where(first, seg, s), torch.where(first, ids_s, c))
+    grows = grows[:s]
     live = grows < c
     gate = rows_gate(index, qmeta, qbits, torch.clamp(grows, max=c - 1), tag_level)
     lex_scores = torch.where(live[None, :] & (scores > 0) & gate, scores, NEG_INF)

@@ -1,5 +1,6 @@
-"""Run the port's `cuda`-marked kernel tests on a CUDA card whose machine
-has no JAX. Those tests use only the torch side; their modules import the
+"""Run the port's `cuda`-marked tests (the kernels, and the pipelined
+engine's dispatch without a device-to-host wait) on a CUDA card whose
+machine has no JAX. Those tests use only the torch side; their modules import the
 JAX package for their CPU tests, so those imports become mocks here and
 only the `on_card` tests are collected.
 
@@ -10,10 +11,12 @@ import sys
 from unittest.mock import MagicMock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MOCKED = ["jax", "jax.numpy", "mobius_rag_tpu", "mobius_rag_tpu.index",
+MOCKED = ["jax", "jax.numpy", "mobius_rag_tpu", "mobius_rag_tpu.config", "mobius_rag_tpu.index",
           "mobius_rag_tpu.index.ann_io", "mobius_rag_tpu.index.ivf",
-          "mobius_rag_tpu.index.store", "mobius_rag_tpu.ops", "mobius_rag_tpu.ops.proj",
-          "mobius_rag_tpu.ops.pallas_proj", "mobius_rag_tpu.ops.quant", "mobius_rag_tpu.ops.topk"]
+          "mobius_rag_tpu.index.store", "mobius_rag_tpu.ingest",
+          "mobius_rag_tpu.ingest.featurize", "mobius_rag_tpu.ops", "mobius_rag_tpu.ops.proj",
+          "mobius_rag_tpu.ops.pallas_proj", "mobius_rag_tpu.ops.quant", "mobius_rag_tpu.ops.topk",
+          "mobius_rag_tpu.query", "mobius_rag_tpu.query.engine", "mobius_rag_tpu.testing"]
 
 
 def main() -> int:
@@ -25,7 +28,7 @@ def main() -> int:
     return pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest", "-m", "cuda",
                         "-k", "on_card", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
-                          for m in ("topk", "quant", "proj"))])
+                          for m in ("topk", "quant", "proj", "pipelined"))])
 
 
 if __name__ == "__main__":

@@ -309,8 +309,7 @@ def test_bench_results(bench, i):
     check_results(bench["jres"], bench["tres"], i)
 
 
-@pytest.mark.parametrize("kw", [{"vector_backend": "ivf"}, {"sharded": object()},
-                                {"telemetry": object()}])
+@pytest.mark.parametrize("kw", [{"vector_backend": "ivf"}, {"sharded": object()}])
 def test_unported_engine_options_raise(toy, kw):
     _, te = toy["engines"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,9 +1,10 @@
 """The port stands alone: it imports nothing of JAX, PyYAML, ml_dtypes or
 the JAX package — checked at run time in a fresh interpreter that drives
 the exact backend (float32 and int8 rows), the proj backend under both
-gatings, and host residency with its native re-rank (every module of the
-port is imported on the way), and statically over every source file of
-the port and chip_smoke.py."""
+gatings, host residency with its native re-rank, a micro-batcher drain
+through the pipelined engine and one agent run (every module of the port
+is imported on the way), and statically over every source file of the
+port and chip_smoke.py."""
 import ast
 import os
 import subprocess
@@ -60,6 +61,23 @@ for kw in (dict(vector_dtype="int8"),
     assert res[0].hits, ("no hits", kw)
 from mobius_rag_tpu_torch.utils import native
 assert native.gather_cos.native_calls or native.get_lib() is None
+# the served path: a micro-batcher drain (a queue deeper than one batch goes
+# through search_pipelined) and one agent run with its default clients
+import asyncio
+from mobius_rag_tpu_torch.clients import StaticFactStore
+from mobius_rag_tpu_torch.query.agent import AgentRequest, CorpusSearchAgent
+from mobius_rag_tpu_torch.query.microbatch import MicroBatcher
+store = ChunkStore(device="cpu")
+store.add_chunks(toy_corpus(lex, pad_docs=5))
+engine = SearchEngine(store, lex, embed_fn=hash_embed, device="cpu")
+batcher = MicroBatcher(engine, max_batch=2)
+async def drain():
+    return await asyncio.gather(*(batcher.search_one(QueryRequest(query=f"timely filing {{i}}"), 3)
+                                  for i in range(7)))
+assert all(r.hits for r in asyncio.run(drain())), "no hits through the batcher"
+agent = CorpusSearchAgent(engine, fact_store=StaticFactStore([]))
+res = agent.run(AgentRequest(query="What is the timely filing deadline for Sunshine Health?"))
+assert res.chunks and not res.refused, res.strategy_chain
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print("FORBIDDEN", bad)
