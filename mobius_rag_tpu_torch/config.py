@@ -87,9 +87,26 @@ class Config:
     confidence_medium: float = _env_float("MRAG_CONFIDENCE_MEDIUM", 0.35)
     confidence_low: float = _env_float("MRAG_CONFIDENCE_LOW", 0.18)
 
+    # ---- encoder model (models/encoder.py) -------------------------------
+    encoder_vocab_size: int = _env_int("MRAG_ENCODER_VOCAB", 32768)
+    encoder_layers: int = _env_int("MRAG_ENCODER_LAYERS", 12)
+    encoder_heads: int = _env_int("MRAG_ENCODER_HEADS", 12)
+    encoder_model_dim: int = _env_int("MRAG_ENCODER_MODEL_DIM", 768)
+    encoder_mlp_dim: int = _env_int("MRAG_ENCODER_MLP_DIM", 3072)
+    encoder_max_seq: int = _env_int("MRAG_ENCODER_MAX_SEQ", 512)
+
     # ---- host state -----------------------------------------------------
-    # Default directory of the host sqlite stores (telemetry, curator).
+    # Default directory of the host sqlite stores (telemetry, curator,
+    # job queues, eval runs, candidates) and of snapshots.
     data_dir: str = _env_str("MRAG_DATA_DIR", os.path.expanduser("~/.mobius_rag_tpu"))
+    # Curated lexicon loaded by the server entry points (JSON; a .yaml path
+    # loads through PyYAML). The 17-entry sample lexicon is for tests only.
+    lexicon_path: str = _env_str(
+        "MRAG_LEXICON_PATH",
+        os.path.join(os.path.dirname(__file__), "data", "lexicon_full.json"))
+    # Cross-encoder reranker checkpoint dir; the stage is not ported yet,
+    # so setting it makes AppContext.build raise.
+    cross_encoder_ckpt: str = _env_str("MRAG_CROSS_ENCODER_CKPT", "")
 
     def validate(self) -> list[str]:
         """Collect every problem at once."""

@@ -733,6 +733,22 @@ class ChunkStore:
                 f"found {len(live)}")
         return rows
 
+    @property
+    def free_row_count(self) -> int:
+        """Reusable (deleted) device rows — the vacuum report's free-slot
+        figure; add_chunks recycles these before growing the index."""
+        return len(self._free_rows)
+
+    def rows_for_document(self, doc_id: str) -> list[int]:
+        """Live device rows of a document (browse/facts surfaces)."""
+        return [r for r in self._doc_rows.get(doc_id, [])
+                if self.records[r] is not None]
+
+    def embedded_source_ids(self, doc_id: str) -> set[str]:
+        """Which embeddable-unit source_ids are already live for this doc —
+        the incremental-resume diff contract (embedding_worker.py:187-203)."""
+        return set(self._source_ids.get(doc_id, set()))
+
     def lexical_stats(self) -> tuple[dict[int, int], int]:
         """(bucket → live-chunk document frequency, live chunk count) for
         query-side IDF. Cached; invalidated by add/delete."""

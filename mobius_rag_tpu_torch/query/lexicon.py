@@ -126,7 +126,21 @@ class Lexicon:
     @classmethod
     def from_json(cls, path: str, **kw) -> "Lexicon":
         with open(path) as f:
-            raw = json.load(f) or {}
+            return cls._from_raw(json.load(f) or {}, **kw)
+
+    @classmethod
+    def load(cls, path: str, **kw) -> "Lexicon":
+        """A lexicon file in either format: JSON (the port's data files), or
+        YAML (the JAX package's), read through PyYAML imported here."""
+        if not path.endswith((".yaml", ".yml")):
+            return cls.from_json(path, **kw)
+        import yaml
+
+        with open(path) as f:
+            return cls._from_raw(yaml.safe_load(f) or {}, **kw)
+
+    @classmethod
+    def _from_raw(cls, raw: dict, **kw) -> "Lexicon":
         entries = []
         for item in raw.get("entries", []):
             entries.append(

@@ -1,8 +1,9 @@
-"""Run the port's `cuda`-marked tests (the kernels, and the pipelined
-engine's dispatch without a device-to-host wait) on a CUDA card whose
-machine has no JAX. Those tests use only the torch side; their modules import the
-JAX package for their CPU tests, so those imports become mocks here and
-only the `on_card` tests are collected.
+"""Run the port's `cuda`-marked tests (the kernels, the pipelined engine's
+dispatch without a device-to-host wait, and the encoder's bf16 against
+float32 activations) on a CUDA card whose machine has no JAX. Those tests
+use only the torch side; their modules import the JAX package for their
+CPU tests, so those imports become mocks here and only the `on_card`
+tests are collected.
 
     python3 scripts/card_tests.py            # from the root of a checkout
 """
@@ -16,7 +17,9 @@ MOCKED = ["jax", "jax.numpy", "mobius_rag_tpu", "mobius_rag_tpu.config", "mobius
           "mobius_rag_tpu.index.store", "mobius_rag_tpu.ingest",
           "mobius_rag_tpu.ingest.featurize", "mobius_rag_tpu.ops", "mobius_rag_tpu.ops.proj",
           "mobius_rag_tpu.ops.pallas_proj", "mobius_rag_tpu.ops.quant", "mobius_rag_tpu.ops.topk",
-          "mobius_rag_tpu.query", "mobius_rag_tpu.query.engine", "mobius_rag_tpu.testing"]
+          "mobius_rag_tpu.query", "mobius_rag_tpu.query.engine", "mobius_rag_tpu.testing",
+          "mobius_rag_tpu.models", "mobius_rag_tpu.models.checkpoint",
+          "mobius_rag_tpu.models.encoder", "mobius_rag_tpu.models.tokenizer"]
 
 
 def main() -> int:
@@ -28,7 +31,7 @@ def main() -> int:
     return pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest", "-m", "cuda",
                         "-k", "on_card", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
-                          for m in ("topk", "quant", "proj", "pipelined"))])
+                          for m in ("topk", "quant", "proj", "pipelined", "encoder"))])
 
 
 if __name__ == "__main__":

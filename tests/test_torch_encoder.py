@@ -1,0 +1,263 @@
+"""The port's encoder (mobius_rag_tpu_torch.models) against the JAX package's
+on the same parameters: the tokenizer, ``encode`` at EncoderConfig.tiny()
+with and without the hybrid anchor, sequence buckets, EncoderModel as an
+embed_fn, and the npz checkpoint both ways.
+
+The JAX parameters are drawn on the CPU with PRNGKey and carried across as
+numpy arrays (parity at init cannot hold: the RNGs differ). Tolerances:
+float32 activations agree within 1e-5 max abs (summation order only);
+bfloat16 activations within a per-row cosine of 0.999 and 3e-2 max abs on
+the unit-norm outputs (bf16 rounds each product to 8 bits of mantissa, and
+the two libraries round the intermediate results of elementwise chains in
+different places). The card case (marked ``cuda``, run by
+scripts/card_tests.py) holds bf16 against float32 on the card at the full
+width's layer shapes.
+"""
+import dataclasses
+import json
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobius_rag_tpu.models import checkpoint as jckpt
+from mobius_rag_tpu.models import encoder as jenc
+from mobius_rag_tpu.models.tokenizer import HashTokenizer as JaxTokenizer
+from mobius_rag_tpu_torch.models import checkpoint as tckpt
+from mobius_rag_tpu_torch.models import encoder as tenc
+from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
+
+F32_TOL = 1e-5
+BF16_COS = 0.999
+BF16_ABS = 3e-2
+
+TEXTS = [
+    "Timely filing deadline for Sunshine Health claims is 180 days.",
+    "Prior authorization is required for H0019 behavioral health services.",
+    "Molina corrected claims must be resubmitted within 90 days of the denial.",
+    "What is the appeals window for a denied Medicaid claim?",
+    "",
+    "A much longer paragraph about claims submission windows, corrected claim "
+    "resubmission requirements, coordination of benefits and the documentation "
+    "a participating provider keeps for retrospective review by the plan.",
+]
+
+
+def _cfgs(dtype: str, hybrid: bool):
+    jcfg = dataclasses.replace(jenc.EncoderConfig.tiny(), dtype=dtype, hybrid_anchor=hybrid)
+    return jcfg, tenc.EncoderConfig(**dataclasses.asdict(jcfg))
+
+
+def _jax_params(jcfg, seed: int = 3):
+    return jenc.init_params(jcfg, jax.random.PRNGKey(seed))
+
+
+def _numpy_tree(params):
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _tokens(cfg, texts=TEXTS, length=None):
+    toks = HashTokenizer(cfg.vocab_size, cfg.max_seq).encode_batch(texts)
+    return toks[:, :length] if length else toks
+
+
+def _rowwise_cos(a, b):
+    na, nb = np.linalg.norm(a, axis=1), np.linalg.norm(b, axis=1)
+    live = (na > 0) & (nb > 0)
+    return (a * b).sum(1)[live] / (na[live] * nb[live])
+
+
+def _port(tcfg, jparams):
+    return tenc.Encoder(tcfg, tenc.params_from_numpy(_numpy_tree(jparams)))
+
+
+@torch.no_grad()
+def _port_encode(tcfg, jparams, toks):
+    return _port(tcfg, jparams)(torch.from_numpy(toks)).numpy()
+
+
+@pytest.mark.parametrize("vocab,max_len", [(1024, 16), (32768, 512), (50, 8)])
+def test_tokenizer_ids_equal(vocab, max_len):
+    texts = TEXTS + ["timely filings deadlines for claim", "H0019 H0019 H0019 " * 200]
+    want = JaxTokenizer(vocab, max_len).encode_batch(texts)
+    got = HashTokenizer(vocab, max_len).encode_batch(texts)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["plain", "hybrid_anchor"])
+def test_encode_float32_matches_jax(hybrid):
+    jcfg, tcfg = _cfgs("float32", hybrid)
+    params = _jax_params(jcfg)
+    toks = _tokens(jcfg)
+    want = np.asarray(jenc.encode_jit(params, jnp.asarray(toks), jcfg))
+    got = _port_encode(tcfg, params, toks)
+    assert got.shape == want.shape == (len(TEXTS), jcfg.out_dim)
+    assert np.abs(got - want).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["plain", "hybrid_anchor"])
+def test_encode_bfloat16_matches_jax(hybrid):
+    jcfg, tcfg = _cfgs("bfloat16", hybrid)
+    params = _jax_params(jcfg, seed=5)
+    toks = _tokens(jcfg)
+    want = np.asarray(jenc.encode_jit(params, jnp.asarray(toks), jcfg))
+    got = _port_encode(tcfg, params, toks)
+    assert got.dtype == np.float32
+    assert _rowwise_cos(got, want).min() >= BF16_COS
+    assert np.abs(got - want).max() <= BF16_ABS
+
+
+def test_hybrid_anchor_alpha_zero_is_the_bag_of_tokens():
+    """At alpha=0 the hybrid encoder returns the normalized anchor bag (the
+    hash baseline), whatever the transformer computes."""
+    jcfg, tcfg = _cfgs("float32", True)
+    params = _numpy_tree(_jax_params(jcfg))
+    params["alpha"] = np.zeros((), np.float32)
+    toks = _tokens(jcfg)[:4]
+    got = tenc.Encoder(tcfg, tenc.params_from_numpy(params))(torch.from_numpy(toks))
+    mask = toks != 0
+    bag = (params["anchor_proj"][toks] * mask[..., None]).sum(1)
+    bag /= np.linalg.norm(bag, axis=1, keepdims=True)
+    np.testing.assert_allclose(got.detach().numpy(), bag, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_seq_bucket_equals_full_length(dtype, monkeypatch):
+    """Trimming PAD columns to a bucket is exact: PAD positions are masked
+    out of attention and pooling."""
+    monkeypatch.setattr(tenc, "_SEQ_BUCKETS", (8, 16, 32))
+    _, tcfg = _cfgs(dtype, False)
+    model = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(1)))
+    full = _tokens(tcfg, TEXTS[:4])
+    trimmed = tenc.seq_bucket(full)
+    assert trimmed.shape[1] < full.shape[1]
+    with torch.no_grad():
+        a = model(torch.from_numpy(full)).numpy()
+        b = model(torch.from_numpy(trimmed)).numpy()
+    np.testing.assert_allclose(b, a, atol=1e-6 if dtype == "float32" else 1e-2)
+    assert _rowwise_cos(a, b).min() >= 1 - 1e-6
+
+
+def test_pad_invariance_against_jax():
+    """The same text at two pad lengths gives one embedding, in both
+    packages."""
+    jcfg, tcfg = _cfgs("float32", False)
+    params = _jax_params(jcfg)
+    for length in (16, 64):
+        toks = _tokens(jcfg, TEXTS[:2], length)
+        want = np.asarray(jenc.encode_jit(params, jnp.asarray(toks), jcfg))
+        got = _port_encode(tcfg, params, toks)
+        assert np.abs(got - want).max() <= F32_TOL
+        if length == 16:
+            short = got
+    np.testing.assert_allclose(got, short, atol=F32_TOL)
+
+
+def test_encoder_model_matches_jax_across_batch_chunks(monkeypatch):
+    """EncoderModel (the embed_fn) on 40 texts, in chunks of 32 so a batch
+    boundary is crossed, against the JAX EncoderModel (bf16)."""
+    jcfg, tcfg = _cfgs("bfloat16", False)
+    params = _jax_params(jcfg, seed=7)
+    texts = [f"{TEXTS[i % len(TEXTS)]} variant {i} of the policy" for i in range(40)]
+    want = jenc.EncoderModel(jcfg, params)(texts)
+    monkeypatch.setattr(tenc, "_MAX_BATCH", 32)
+    model = tenc.EncoderModel(tcfg, tenc.params_from_numpy(_numpy_tree(params)), device="cpu")
+    got = model(texts)
+    assert got.shape == want.shape == (40, jcfg.out_dim) and got.dtype == np.float32
+    assert _rowwise_cos(got, want).min() >= BF16_COS
+    assert np.abs(got - want).max() <= BF16_ABS
+    assert model([]).shape == (0, jcfg.out_dim)
+
+
+def test_encoder_model_default_is_the_env_config_on_cuda():
+    """No config → EncoderConfig.from_env() (the served width), and the
+    device defaults to cuda."""
+    import inspect
+
+    assert inspect.signature(tenc.EncoderModel).parameters["device"].default == "cuda"
+    cfg = tenc.EncoderConfig.from_env()
+    assert (cfg.num_layers, cfg.num_heads, cfg.model_dim, cfg.mlp_dim, cfg.max_seq,
+            cfg.dtype) == (12, 12, 768, 3072, 512, "bfloat16")
+    assert tenc.flops_per_token(dataclasses.replace(cfg, out_dim=1536), 256) == 181_665_792
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["plain", "hybrid_anchor"])
+def test_checkpoint_from_jax_npz(tmp_path, monkeypatch, hybrid):
+    """JAX save_encoder (orbax hidden, so it writes its npz fallback) →
+    the port's load_encoder: the same parameters, bit for bit."""
+    jcfg, tcfg = _cfgs("bfloat16", hybrid)
+    params = _jax_params(jcfg)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    jckpt.save_encoder(str(tmp_path), params, jcfg)
+    assert json.load(open(tmp_path / "encoder.json"))["backend"] == "npz"
+    tree, cfg = tckpt.load_encoder(str(tmp_path))
+    assert cfg == tcfg
+    want = jax.tree_util.tree_leaves(_numpy_tree(params))
+    got = tenc.flatten_params(tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    model = tenc.Encoder(cfg, tree)
+    for p, w in zip(tenc.flatten_params(model.params_tree()), want):
+        np.testing.assert_array_equal(p.detach().numpy(), w)
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["plain", "hybrid_anchor"])
+def test_checkpoint_to_jax(tmp_path, hybrid):
+    """The port's save_encoder → JAX load_encoder: the same parameters, bit
+    for bit, and the same embeddings in float32."""
+    jcfg, tcfg = _cfgs("float32", hybrid)
+    model = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(9)))
+    tckpt.save_encoder(str(tmp_path), model.params_tree(), tcfg)
+    params, cfg = jckpt.load_encoder(str(tmp_path))
+    assert cfg == jcfg
+    got = jax.tree_util.tree_leaves(params)
+    want = tenc.flatten_params(model.params_tree())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w.detach().numpy())
+    toks = _tokens(jcfg)
+    with torch.no_grad():
+        mine = model(torch.from_numpy(toks)).numpy()
+    theirs = np.asarray(jenc.encode_jit(params, jnp.asarray(toks), jcfg))
+    assert np.abs(mine - theirs).max() <= F32_TOL
+
+
+def test_checkpoint_refuses_what_the_port_cannot_read(tmp_path):
+    _, tcfg = _cfgs("float32", False)
+    with open(tmp_path / "encoder.json", "w") as f:
+        json.dump({"backend": "orbax", "kind": "bi", "config": dataclasses.asdict(tcfg)}, f)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        tckpt.load_encoder(str(tmp_path))
+    with open(tmp_path / "encoder.json", "w") as f:
+        json.dump({"backend": "npz", "kind": "cross", "config": dataclasses.asdict(tcfg)}, f)
+    with pytest.raises(NotImplementedError, match="cross-encoder"):
+        tckpt.load_encoder(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="cross-encoder"):
+        tckpt.save_encoder(str(tmp_path / "x"), {}, tcfg, kind="cross")
+    with pytest.raises(ValueError, match="fewer leaves"):
+        tenc.unflatten_params(tcfg, [])
+
+
+@pytest.mark.cuda
+def test_bf16_matches_float32_on_card():
+    """On the card, at the served width's layer shapes (2 of 12 layers, to
+    keep the test short): bf16 activations hold a per-row cosine of 0.99
+    against float32 activations on the same parameters (chip_smoke.py's
+    phase 7 bound at all 12 layers)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = dataclasses.replace(tenc.EncoderConfig(), num_layers=2)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    bf = tenc.EncoderModel(cfg, params, device="cuda")
+    f32 = tenc.EncoderModel(dataclasses.replace(cfg, dtype="float32"), params, device="cuda")
+    texts = [f"{TEXTS[i % len(TEXTS)]} card case {i}" for i in range(200)]
+    a, b = bf(texts), f32(texts)
+    assert a.shape == b.shape == (200, cfg.out_dim)
+    assert np.isfinite(a).all() and np.isfinite(b).all()
+    assert _rowwise_cos(a, b).min() >= 0.99
+    assert torch.backends.cuda.matmul.allow_tf32 is False

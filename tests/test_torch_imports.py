@@ -1,10 +1,12 @@
-"""The port stands alone: it imports nothing of JAX, PyYAML, ml_dtypes or
-the JAX package — checked at run time in a fresh interpreter that drives
-the exact backend (float32 and int8 rows), the proj backend under both
-gatings, host residency with its native re-rank, a micro-batcher drain
-through the pipelined engine and one agent run (every module of the port
-is imported on the way), and statically over every source file of the
-port and chip_smoke.py."""
+"""The port stands alone: it imports nothing of JAX, ml_dtypes or the JAX
+package, and PyYAML and aiohttp only inside the functions that need them
+(a YAML file read, the HTTP app) — checked at run time in a fresh
+interpreter that drives the exact backend (float32 and int8 rows), the
+proj backend under both gatings, host residency with its native re-rank,
+a micro-batcher drain through the pipelined engine and one agent run
+(every module of the port is imported on the way), at run time for the
+front door's library entry points, and statically over every source file
+of the port and chip_smoke.py."""
 import ast
 import os
 import subprocess
@@ -15,6 +17,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mobius_rag_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "yaml", "ml_dtypes", "mobius_rag_tpu")
+# imported only inside a function body, never at module level
+LAZY = ("yaml", "aiohttp")
 
 SOURCES = sorted(
     os.path.relpath(os.path.join(root, f), REPO)
@@ -93,18 +97,76 @@ def test_port_runs_without_forbidden_modules():
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
 
 
-def _imported_roots(path: str) -> set[str]:
+def _imported_roots(path: str, module_level: bool = False) -> set[str]:
+    """Top-level packages a source imports: anywhere in it, or (with
+    `module_level`) outside every function body."""
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), path)
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)
+    nodes = [tree]
     roots = set()
-    for node in ast.walk(tree):
+    while nodes:
+        node = nodes.pop()
         if isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             roots.add(node.module.split(".")[0])
+        nodes.extend(child for child in ast.iter_child_nodes(node)
+                     if not (module_level and isinstance(child, funcs)))
     return roots
 
 
 @pytest.mark.parametrize("path", SOURCES)
 def test_source_imports_nothing_forbidden(path):
-    assert not _imported_roots(path) & set(FORBIDDEN)
+    assert not _imported_roots(path) & (set(FORBIDDEN) - set(LAZY))
+    assert not _imported_roots(path, module_level=True) & (set(FORBIDDEN) | set(LAZY))
+
+
+_FRONT_DOOR = """
+import sys
+from mobius_rag_tpu_torch.api.server import AppContext
+import mobius_rag_tpu_torch.providers
+import mobius_rag_tpu_torch.models.checkpoint
+assert AppContext.build
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print("FORBIDDEN", bad)
+"""
+
+
+def test_front_door_imports_no_jax_aiohttp_or_yaml():
+    """AppContext (the library entry point), the provider registry and the
+    encoder's checkpoints load without JAX, aiohttp or PyYAML."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _FRONT_DOOR.format(forbidden=set(FORBIDDEN) | {"aiohttp"})],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_NEW_MODULES = """
+import importlib, sys
+for name in {names!r}:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mobius_rag_tpu"))
+print("FORBIDDEN", bad)
+"""
+
+
+def test_front_door_modules_import_nothing_of_the_jax_package():
+    """Every module of the front door (ingest, encoder, providers, host
+    stores, the HTTP app and its route modules) imported in one fresh
+    interpreter, aiohttp included, loads no JAX and nothing of
+    mobius_rag_tpu."""
+    names = sorted(
+        "mobius_rag_tpu_torch." + os.path.relpath(os.path.join(root, f), PKG)[:-3]
+        .replace(os.sep, ".").removesuffix(".__init__")
+        for sub in ("api", "ingest", "models", "eval_harness")
+        for root, _, files in os.walk(os.path.join(PKG, sub)) for f in files
+        if f.endswith(".py")) + [f"mobius_rag_tpu_torch.{m}" for m in (
+            "providers", "blobstore", "candidates", "tenancy", "infra", "nightly")]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _NEW_MODULES.format(names=names)],
+                          capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
