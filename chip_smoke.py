@@ -24,7 +24,14 @@ texts into the context's store, bf16 against float32 activations,
 instant and queued uploads, queries without embeddings (the encoder
 inside prepare) and the agent, then tests/test_api.py's known answer on
 the card through the library calls and, where aiohttp is installed,
-through build_app.
+through build_app; phase 7d attaches a full-width bf16 cross-encoder
+from a seeded checkpoint through MRAG_CROSS_ENCODER_CKPT and reranks
+phase 7's queries with it. Phase 8 serves phase 4's 1M store with the
+ivf, packed (int8 cluster blocks scanned by proj_blocks at p = D) and pq
+backends at the JAX package's defaults, with their ann files and a packed
+engine calibrated to a target recall; phase 8b serves phase 5's
+host-residency store with the pq backend (dense gating, the funnel and
+the exact host re-rank).
 
     python3 chip_smoke.py
 
@@ -892,32 +899,39 @@ def _pipelined_check(engine, batches, name: str) -> tuple[list, list]:
     return rounds, 5 * len(batches)
 
 
-def _probed(engine, reqs) -> torch.Tensor:
-    """The probe array [B, P] the proj scan of one search of `reqs` takes
-    (its distinct clusters are what the scan must read, once each)."""
+def _scan_args(engine, reqs) -> tuple:
+    """The arguments of the first proj scan (proj_blocks or
+    proj_gated_blocks, from the proj or the packed backend) of one search
+    of `reqs`: its probe array's distinct clusters are what the scan must
+    read, once each."""
+    from mobius_rag_tpu_torch.index import ivf as ivf_mod
     from mobius_rag_tpu_torch.ops import proj as proj_mod
 
-    probes = []
-    saved = (proj_mod.proj_blocks, proj_mod.proj_gated_blocks)
+    calls = []
+    slots = [(proj_mod, "proj_blocks"), (proj_mod, "proj_gated_blocks"),
+             (ivf_mod, "proj_blocks")]
+    saved = [getattr(mod, name) for mod, name in slots]
 
     def recorded(fn):
-        def wrapped(probe, *a, **kw):
-            probes.append(probe.clone())
-            return fn(probe, *a, **kw)
+        def wrapped(*a, **kw):
+            calls.append(a)
+            return fn(*a, **kw)
         return wrapped
 
-    proj_mod.proj_blocks, proj_mod.proj_gated_blocks = (recorded(f) for f in saved)
+    for (mod, name), fn in zip(slots, saved):
+        setattr(mod, name, recorded(fn))
     try:
         engine.search(reqs, k=K)
     finally:
-        proj_mod.proj_blocks, proj_mod.proj_gated_blocks = saved
-    return probes[0]
+        for (mod, name), fn in zip(slots, saved):
+            setattr(mod, name, fn)
+    return calls[0]
 
 
 def _path_bound(engine, reqs, level) -> str:
     """The proj scan's bound on one search of `reqs` at the tables' shapes
     (level None: proj_blocks), as phase 2 counts it."""
-    probe = _probed(engine, reqs)
+    probe = _scan_args(engine, reqs)[0]
     ann = engine._ann
     r = _proj_bound(probe, ann.nlist, ann.pad, ann.bytes_per_row, level, engine.cfg.tag_words)
     lv = "proj_blocks" if level is None else f"proj_gated_blocks at tag level {level}"
@@ -1476,10 +1490,20 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
         "under another payer's, and gone after its delete, on both paths, through "
         "the reserved slabs (no rebuild)")
     log(f"phase 4: {time.perf_counter() - t_all:.1f} s")
+    # phase 8 on this store, before it is released
+    for engine in (engine_a, engine_b):
+        _release(engine)
+    del engine_a, engine_b, ann
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    p8 = phase8_ann(smi, store, lexicon, base,
+                    {"recall": recall_reqs, "exact": exact, "self": self_reqs,
+                     "self_rows": self_rows, "bench": bench_reqs, "pipe": pipe_batches}, dev)
     return {"launches": {"proj_blocks": ra["launches"]["proj_blocks"],
                          "proj_blocks_served": served_launches,
                          "proj_gated_blocks": rb["launches"]["proj_gated_blocks"]},
-            "build_s_per_m": (stages["records"] + stages["bulk_load"]) / (n_rows / 1e6)}
+            "build_s_per_m": (stages["records"] + stages["bulk_load"]) / (n_rows / 1e6),
+            "phase8": p8}
 
 
 # ---------------------------------------------------------------------------
@@ -1494,6 +1518,7 @@ INGEST_DOCS, INGEST_CHUNKS = 20, 50
 GEN_BLOCK = 250_000  # corpus rows made on the card per step
 ORACLE_BLOCK = 250_000  # rows per block of the exact oracle scan
 COS_TOL = 1e-6  # native re-rank cosines vs a numpy recompute
+PQ_S_PER_M = 10.0  # phase 8b per 1M rows: ~4 s measured on an H100 at 10M, the rest margin
 _TEXT_10M = "policy paragraph on claims and authorization."
 
 
@@ -1510,20 +1535,22 @@ def _mem_gib() -> tuple[float, float]:
 def _choose_n(build_s_per_m: float, elapsed: float) -> tuple[int, str]:
     """The largest of N_CUTS whose build fits the script's time and the
     host's RAM: records + bulk_load at phase 4's measured rate plus ~6 s
-    per 1M rows for corpus, oracle and the ANN build, and ~1.2 KB of
-    host RAM per record beside the int8 matrix (pinned, rounded up to a
-    power of two by the allocator)."""
+    per 1M rows for corpus, oracle and the proj build, and PQ_S_PER_M for
+    phase 8b (the pq build from the host matrix and its dense-gated
+    searches); ~1.2 KB of host RAM per record beside the int8 matrix
+    (pinned, rounded up to a power of two by the allocator)."""
     total, avail = _mem_gib()
     budget = 0.75 * SCRIPT_LIMIT_S - elapsed - 60.0
     why = []
     for n in N_CUTS:
-        t_need = n / 1e6 * (build_s_per_m + 6.0)
+        t_need = n / 1e6 * (build_s_per_m + 6.0 + PQ_S_PER_M)
         ram_need = (2 ** np.ceil(np.log2(n * 1536)) + n * (1200 + 130)) / 2**30 + 4.0
         if t_need <= budget and ram_need <= 0.9 * avail:
             reason = "" if n == N_CUTS[0] else "; ".join(why)
             return n, reason
-        why.append(f"N={n:,} needs ~{t_need:.0f} s of build (records + bulk_load at "
-                   f"{build_s_per_m:.1f} s per 1M rows, measured in phase 4) against "
+        why.append(f"N={n:,} needs ~{t_need:.0f} s of build and phase 8b (records + "
+                   f"bulk_load at {build_s_per_m:.1f} s per 1M rows, measured in phase 4) "
+                   f"against "
                    f"{budget:.0f} s left, and ~{ram_need:.0f} GiB of host RAM against "
                    f"{avail:.0f} GiB available of {total:.0f}")
     return N_CUTS[-1], "; ".join(why) + " (2M is the floor)"
@@ -1577,6 +1604,22 @@ def _oracle(hv, sca, qv, q_tgt, n: int, nb: int, dev: str):
         best_v = np.take_along_axis(allv, top, axis=1)
         best_i = np.take_along_axis(alli, top, axis=1)
     return best_v, best_i
+
+
+def _recall_10m(store, results, qv, best_v, best_i, nb: int) -> tuple[list, list, list]:
+    """recall@K (bench_10m.py:348-379) of each result's hits against the
+    exact oracle: by id, tie-aware (a hit whose exact score reaches the
+    oracle's K-th counts), and by family (row % nb)."""
+    rec_id, rec_tie, rec_fam = [], [], []
+    for qi, r in enumerate(results):
+        rows = np.asarray([h.row for h in r.hits], np.int64)
+        rec_id.append(len(set(rows.tolist()) & set(best_i[qi].tolist())) / K)
+        sc = (store.host_vectors[rows].astype(np.float32) @ qv[qi]) * store.host_scales[rows]
+        floor = best_v[qi, K - 1] - 1e-6 * abs(best_v[qi, K - 1])
+        rec_tie.append(float((np.isin(rows, best_i[qi]) | (sc >= floor)).sum()) / K)
+        fam_o = {int(x) % nb for x in best_i[qi]}
+        rec_fam.append(len({int(x) % nb for x in rows} & fam_o) / max(len(fam_o), 1))
+    return rec_id, rec_tie, rec_fam
 
 
 def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
@@ -1842,16 +1885,7 @@ def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
     if peak >= n * d:
         raise AssertionError(f"peak device memory {peak} >= the {n}x{d} int8 matrix")
 
-    # recall@K (bench_10m.py:348-379): by id, tie-aware, by family
-    rec_id, rec_tie, rec_fam = [], [], []
-    for qi, r in enumerate(recall_res):
-        rows = np.asarray([h.row for h in r.hits], np.int64)
-        rec_id.append(len(set(rows.tolist()) & set(best_i[qi].tolist())) / K)
-        sc = (store.host_vectors[rows].astype(np.float32) @ qv[qi]) * store.host_scales[rows]
-        floor = best_v[qi, K - 1] - 1e-6 * abs(best_v[qi, K - 1])
-        rec_tie.append(float((np.isin(rows, best_i[qi]) | (sc >= floor)).sum()) / K)
-        fam_o = {int(x) % nb for x in best_i[qi]}
-        rec_fam.append(len({int(x) % nb for x in rows} & fam_o) / max(len(fam_o), 1))
+    rec_id, rec_tie, rec_fam = _recall_10m(store, recall_res, qv, best_v, best_i, nb)
 
     # the host re-rank and merged_topk per batch, then the profiler
     with _Spans([(SearchEngine, "_host_rerank", "host re-rank"),
@@ -1889,7 +1923,260 @@ def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
         f"document; every document served under its payer only, through the reserved "
         f"slabs (no k-means rebuild); the deleted one gone")
     log(f"phase 5: {time.perf_counter() - t_all:.1f} s")
-    return {"launches": launches["proj_gated_blocks"], "n": n}
+    # phase 8b on this store, in place of the proj engine
+    _release(engine)
+    del engine, ann, local, kw
+    p8b = phase8b_host_pq(smi, store, lexicon, cfg, {
+        "recall": recall_reqs, "bench": bench_reqs, "qv": qv, "best_v": best_v,
+        "best_i": best_i, "n": n, "nb": nb}, dev)
+    return {"launches": launches["proj_gated_blocks"], "n": n, "phase8b": p8b}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the ivf, packed and pq backends at 1M (device residency), and
+# pq under host residency (8b)
+# ---------------------------------------------------------------------------
+
+ANN_BACKENDS = ("ivf", "packed", "pq")
+TARGET_RECALL = 0.95  # the calibrated packed engine's MRAG_IVF_TARGET_RECALL
+
+
+def _table_bytes(ann) -> int:
+    return sum(getattr(ann, f).numel() * getattr(ann, f).element_size()
+               for f in type(ann).FIELDS)
+
+
+def _release(engine) -> None:
+    """Detach an engine from its store (the store's listeners hold it) and
+    drop its tables, so their device memory is freed."""
+    engine.store.listeners.remove(engine._on_store_mutation)
+    engine._ann = None
+    engine._reset_ann_incremental()
+
+
+def _time_packed_scan(engine, reqs) -> dict:
+    """The packed engine's proj_blocks call of one search of `reqs`, as the
+    engine makes it: held bitwise against the plain version; its event
+    time (median of 20), device time (profiler), the plain version's time
+    and the bound (each distinct probed block's pad x D bytes read once)."""
+    from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_blocks_reference
+
+    probe, values, q8 = _scan_args(engine, reqs)
+    nlist, pad, p = values.shape
+    raw = proj_blocks(probe, values, q8)
+    torch.cuda.synchronize()
+    ref = proj_blocks_reference(probe, values, q8)
+    if not torch.equal(raw, ref):
+        raise AssertionError("phase 8: proj_blocks at the packed shape disagrees with its "
+                             "plain version")
+    del raw, ref
+    fn = (lambda: proj_blocks(probe, values, q8))
+    by = _device_ms_by_kernel(fn)
+    return {"ms": _median_ms(fn), "device_ms": sum(by.values()),
+            "plain_ms": _median_ms(lambda: proj_blocks_reference(probe, values, q8), runs=3),
+            "shape": f"B={probe.shape[0]} P={probe.shape[1]} nlist={nlist} pad={pad} p={p}",
+            **_proj_bound(probe, nlist, pad, p)}
+
+
+def phase8_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -> dict:
+    """Phase 8, on phase 4's 1M x 1536 bf16 store: engines with the ivf,
+    packed and pq backends at the JAX package's defaults (nlist sqrt(N),
+    nprobe 32, M 96, dense gating), each built through ensure_ann, its
+    tables saved to an ann file and served again by a fresh engine (the
+    same hits), then driven as phase 4 drives a path; and a packed engine
+    with MRAG_IVF_TARGET_RECALL whose calibration curve is printed.
+    Returns each backend's numbers and the packed scan's timing."""
+    import dataclasses
+    import tempfile
+
+    from mobius_rag_tpu_torch.query.engine import SearchEngine
+
+    cfg0 = dataclasses.replace(base, vector_backend="ivf", ivf_nlist=0, ivf_nprobe=32,
+                               pq_m=96, gating="dense", ivf_target_recall=0.0)
+    t_all = time.perf_counter()
+    out = {}
+    on_card = torch.device(dev).type == "cuda"
+    for backend in ANN_BACKENDS:
+        cfg = dataclasses.replace(cfg0, vector_backend=backend)
+        engine = SearchEngine(store, lexicon, cfg=cfg, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        ann = engine.ensure_ann()
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            engine.save_ann(f"{tmp}/ann.npz")
+            t_save = time.perf_counter() - t0
+            reloaded = SearchEngine(store, lexicon, cfg=cfg, device=dev)
+            t0 = time.perf_counter()
+            reloaded.load_ann(f"{tmp}/ann.npz")
+            _sync(dev)
+            t_load = time.perf_counter() - t0
+        if type(reloaded._ann) is not type(ann) or \
+                [_hits(r) for r in reloaded.search(reqs["bench"], k=K)] != \
+                [_hits(r) for r in engine.search(reqs["bench"], k=K)]:
+            raise AssertionError(f"phase 8 {backend}: the engine serving the ann file "
+                                 "gives other hits")
+        _release(reloaded)
+        del reloaded
+        r = _drive_path(engine, reqs["recall"], reqs["exact"], reqs["self"],
+                        reqs["self_rows"], reqs["bench"], reqs["pipe"])
+        want = {"proj_blocks": r["batches"] if backend == "packed" else 0,
+                "proj_gated_blocks": 0, "masked_topk": 0}
+        if on_card and r["launches"] != want:
+            raise AssertionError(f"phase 8 {backend}: launches {r['launches']} for "
+                                 f"{r['batches']} batches (want {want})")
+        for res in r["hybrid"]:
+            for h in res.hits:
+                if not (np.isfinite(h.score) and 0.0 <= h.score <= 1.0):
+                    raise AssertionError(f"phase 8 {backend}: bad rerank score {h.score}")
+        if not any(res.hits for res in r["hybrid"]):
+            raise AssertionError(f"phase 8 {backend}: no hybrid request has hits")
+        busy_line, (_, _, top, proj_ms) = _busy_line(engine, reqs["bench"], dev)
+        # (CUDA events: on the card only)
+        scan = _time_packed_scan(engine, reqs["bench"]) \
+            if backend == "packed" and on_card else None
+        extra = (f"pad={ann.pad}, spill slabs {ann.nlist - ann.base_nlist}"
+                 if hasattr(ann, "base_nlist") else
+                 f"pad={ann.pad}, spill rows {ann.spill_count}")
+        log(f"phase 8: {backend}: built in {build_s:.2f} s (IVF k-means + assignment"
+            f"{'' if backend == 'ivf' else ' + packing'}): {type(ann).__name__} nlist="
+            f"{getattr(ann, 'base_nlist', ann.nlist)}, {extra}, tables "
+            f"{_table_bytes(ann) / 1e9:.3f} GB on the card; ann file save {t_save:.2f} s, "
+            f"load {t_load:.2f} s, the reloaded engine's hits equal; on {smi}")
+        log(f"phase 8: {backend}: launches {r['launches']} for {r['batches']} batches; "
+            f"vector-arm recall@{K} vs exact fp64 oracle {r['recall']:.4f} "
+            f"({len(reqs['recall'])} queries); self-hit@{K} {r['self_hit']:.4f}; "
+            f"{r['qps']:.1f} queries/s at batch {BATCH} sync (rounds "
+            f"{[round(x, 1) for x in r['rounds']]}), {np.median(r['pipe_rounds']):.1f} "
+            f"pipelined (rounds {[round(x, 1) for x in r['pipe_rounds']]}; search_pipelined "
+            f"equals search batch by batch, ids and scores bitwise); single query "
+            f"{r['single_ms']:.3f} ms (median of 10); by kernel, sync (ms/batch) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in top.items()) + f" on {smi}")
+        log(f"phase 8: {backend}: {busy_line} on {smi}")
+        if scan:
+            log(f"phase 8: packed: proj_blocks at the packed shape ({scan['shape']}, "
+                f"{scan['distinct']} distinct clusters): {scan['ms']:.4f} ms event (median "
+                f"of 20), device {scan['device_ms']:.4f} ms, plain {scan['plain_ms']:.4f} ms "
+                f"(median of 3), bound {scan['bound_ms']:.4f} ms by {scan['bound_by']} "
+                f"(share of the device time {scan['bound_ms'] / scan['device_ms']:.3f}); "
+                f"bitwise with the plain version; proj kernels' device time {proj_ms:.4f} ms "
+                f"per batch on {smi}")
+        out[backend] = {"launches": r["launches"], "batches": r["batches"], "scan": scan,
+                        "recall": r["recall"], "qps": r["qps"]}
+        _release(engine)
+        del engine, ann
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # auto-nprobe: the packed backend calibrated to a target recall
+    cfg = dataclasses.replace(cfg0, vector_backend="packed", ivf_target_recall=TARGET_RECALL)
+    engine = SearchEngine(store, lexicon, cfg=cfg, device=dev)
+    t0 = time.perf_counter()
+    engine.ensure_ann()
+    _sync(dev)
+    cal = engine._ann_calibration
+    picked = next(p for p in cal["curve"] if p["nprobe"] == cal["nprobe"])
+    if picked["recall"] < TARGET_RECALL and cal["nprobe"] < engine._ann.base_nlist:
+        raise AssertionError(f"phase 8: auto-nprobe picked {cal['nprobe']} below the target")
+    recall_res = [x for off in range(0, len(reqs["recall"]), BATCH)
+                  for x in engine.search(reqs["recall"][off:off + BATCH], k=K)]
+    recall = float(np.mean([len({h["row"] for h in res.telemetry["arms"]["vector"][:K]}
+                                & set(map(int, reqs["exact"][i]))) / K
+                            for i, res in enumerate(recall_res)]))
+    log(f"phase 8: packed with MRAG_IVF_TARGET_RECALL={TARGET_RECALL}: build and calibration "
+        f"{time.perf_counter() - t0:.2f} s; curve (recall@{cal['k']} on {cal['sample_queries']} "
+        f"self-queries) {cal['curve']}; picked nprobe {cal['nprobe']}; served at it, vector-arm "
+        f"recall@{K} vs the fp64 oracle {recall:.4f} on the {len(reqs['recall'])} noisy "
+        f"queries; on {smi}")
+    _release(engine)
+    del engine
+    if on_card:
+        torch.cuda.empty_cache()
+    out["calibration"] = {"curve": cal["curve"], "nprobe": cal["nprobe"], "recall": recall}
+    log(f"phase 8: {time.perf_counter() - t_all:.1f} s on {smi}")
+    return out
+
+
+def phase8b_host_pq(smi: str, store, lexicon, cfg5, reqs: dict, dev: str) -> dict:
+    """Phase 8b, on phase 5's host-residency store at the N phase 5 chose:
+    the pq backend (residual PQ codes on the card, int8 rows in host RAM,
+    dense gating, the funnel and the exact host re-rank) built through
+    ensure_ann from the host matrix, then phase 5's recall requests and
+    hybrid batches. Peak device memory stays under N x D bytes."""
+    import dataclasses
+
+    from mobius_rag_tpu_torch.ops.pq import PackedPQ
+    from mobius_rag_tpu_torch.query.engine import SearchEngine
+
+    on_card = torch.device(dev).type == "cuda"
+    n, d = reqs["n"], cfg5.embed_dim
+    cfg = dataclasses.replace(cfg5, vector_backend="pq", pq_m=96)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    engine = SearchEngine(store, lexicon, cfg=cfg, device=dev)
+    with _Spans([(PackedPQ, "from_ivf", "train + encode")], dev) as sp:
+        ann = engine.ensure_ann()
+    build_s = time.perf_counter() - t_all
+    if not isinstance(ann, PackedPQ) or engine._local_gating_active():
+        raise AssertionError("phase 8b: not the pq backend under dense gating")
+    log(f"phase 8b: pq tables from the host matrix in {build_s:.2f} s (train + encode "
+        f"{sp.total('train + encode'):.2f} s): nlist={ann.base_nlist} (+{ann.nlist - ann.base_nlist}"
+        f" spill slabs), pad={ann.pad}, M={ann.bytes_per_row}, residual {ann.residual}, tables "
+        f"{_table_bytes(ann) / 1e9:.3f} GB on the card; gating {cfg.gating} = dense for pq; "
+        f"funnel {engine._device_funnel(K)}, device k {engine._device_k(K)}; on {smi}")
+    recall_res = engine.search(reqs["recall"], k=K)
+    hybrid = engine.search(reqs["bench"], k=K)
+    rec_id, rec_tie, rec_fam = _recall_10m(store, recall_res, reqs["qv"], reqs["best_v"],
+                                           reqs["best_i"], reqs["nb"])
+    for rq, results in ((reqs["recall"], recall_res), (reqs["bench"], hybrid)):
+        for req, r in zip(rq, results):
+            for h in r.hits:
+                if store.record(h.row).payer != req.payer:
+                    raise AssertionError(f"phase 8b: a hit of payer "
+                                         f"{store.record(h.row).payer!r} under {req.payer!r}")
+                if not (np.isfinite(h.score) and 0.0 <= h.score <= 1.0):
+                    raise AssertionError(f"phase 8b: bad rerank score {h.score}")
+    if not all(r.hits for r in hybrid):
+        raise AssertionError("phase 8b: a hybrid request has no hits")
+    rounds = []
+    with _Spans([(SearchEngine, "_host_rerank", "host re-rank")], dev) as timed:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(4):
+                engine.search(reqs["bench"], k=K)
+            rounds.append(BATCH * 4 / (time.perf_counter() - t0))
+    rerank_ms = [(t1 - t0) * 1e3 for t0, t1 in timed.spans["host re-rank"]]
+    one = [reqs["bench"][0]]
+    engine.search(one, k=K)
+    singles = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.search(one, k=K)
+        singles.append((time.perf_counter() - t0) * 1e3)
+    busy, wall, top, _ = _device_busy_share(
+        lambda: [engine.search(reqs["bench"], k=K) for _ in range(2)], 2, dev)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if peak >= n * d:
+        raise AssertionError(f"phase 8b: peak device memory {peak} >= the {n}x{d} int8 matrix")
+    log(f"phase 8b: recall@{K} vs the exact oracle: by id {np.mean(rec_id):.4f}, tie-aware "
+        f"{np.mean(rec_tie):.4f}, family {np.mean(rec_fam):.4f} ({len(recall_res)} filtered "
+        f"queries); every hit passes its payer filter")
+    log(f"phase 8b: {np.median(rounds):.1f} queries/s at batch {BATCH} sync (rounds "
+        f"{[round(x, 1) for x in rounds]}); single query {np.median(singles):.3f} ms (median "
+        f"of 5); host re-rank {np.median(rerank_ms):.3f} ms per batch (median of "
+        f"{len(rerank_ms)}, synchronised); device busy {busy:.3f} of {wall:.3f} ms per batch "
+        f"({100 * busy / wall:.1f}%); by kernel (ms/batch) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in top.items()) + f"; peak device memory "
+        f"{peak / 2**30:.2f} GiB (< the {n * d / 2**30:.2f} GiB an [N, D] int8 buffer would "
+        f"take) on {smi}")
+    _release(engine)
+    log(f"phase 8b: {time.perf_counter() - t_all:.1f} s on {smi}")
+    return {"recall_id": float(np.mean(rec_id)), "qps": float(np.median(rounds)),
+            "build_s": build_s, "peak_gib": peak / 2**30}
 
 
 # ---------------------------------------------------------------------------
@@ -1944,6 +2231,18 @@ def _front_doc(rng, i: int) -> tuple[bytes, str, dict]:
     for head, text in zip(sections, policy_texts(rng, len(sections), 40, 80)):
         body.append(f"{head}\n{payer} section {i}: {text}")
     return ("\n\n".join(body)).encode(), f"front_manual_{i}.txt", {"payer": payer, "state": "FL"}
+
+
+def _front_queries(n: int, tag: str) -> list:
+    """n front-door queries never asked before (the engine caches query
+    embeddings), with payer filters."""
+    from mobius_rag_tpu_torch.query.engine import QueryRequest
+
+    topics = ("timely filing deadline", "prior authorization rules",
+              "appeal a denied claim", "eligibility verification")
+    return [QueryRequest(query=f"{topics[i % 4]} for {_PAYERS_FRONT[i % 4]} {tag} {i}",
+                         payer=["sunshine_health", "aetna", "molina", ""][i % 4])
+            for i in range(n)]
 
 
 def phase7a_encoder(smi: str, model, dev: str = "cuda", n_rows: int = N_FRONT):
@@ -2086,15 +2385,7 @@ def phase7b_app(smi: str, ctx, model, texts, vectors, dev: str = "cuda") -> int:
         f"({sum(published.values())} rows; the drain ran {drained}) in {t_up:.2f} s, "
         f"{embed_s[1]} encoder calls {embed_s[0] * 1e3:.1f} ms; store now {store.size} rows")
 
-    topics = ("timely filing deadline", "prior authorization rules",
-              "appeal a denied claim", "eligibility verification")
-
-    def fresh(n, tag):
-        """n queries never asked before (the engine caches query embeddings)."""
-        return [QueryRequest(query=f"{topics[i % 4]} for {_PAYERS_FRONT[i % 4]} {tag} {i}",
-                             payer=["sunshine_health", "aetna", "molina", ""][i % 4])
-                for i in range(n)]
-
+    fresh = _front_queries
     masked_topk.launches = 0
     batches = 0
     engine.search(fresh(FRONT_QUERIES, "warm"), k=K)
@@ -2218,6 +2509,115 @@ def phase7c_known_answers(smi: str, dev: str = "cuda") -> tuple[int, str]:
     return launches, ran
 
 
+CROSS_REL = 0.02  # bf16 vs float32 logits, of the largest |float32 logit| (CPU test's bound)
+
+
+def phase7d_cross(smi: str, ctx, dev: str = "cuda") -> int:
+    """The cross-encoder on the front door: a seeded full-width cross
+    checkpoint (EncoderConfig.from_env()'s 12 x 768, bf16, kind="cross")
+    written into the run's data directory and named by
+    MRAG_CROSS_ENCODER_CKPT; AppContext.build() over phase 7's store; phase
+    7's 32 queries with and without the stage. Every hit carries the
+    cross_encoder signal, the hits are the stage-less hits in stable order
+    of it, and the bf16 logits agree with a float32 forward of the same
+    parameters within CROSS_REL. Returns the masked top-k launches."""
+    import dataclasses
+    import os
+
+    from mobius_rag_tpu_torch.api import server
+    from mobius_rag_tpu_torch.models.checkpoint import save_encoder
+    from mobius_rag_tpu_torch.models.cross_encoder import (
+        CrossEncoderConfig, CrossEncoderModel, init_cross_params)
+    from mobius_rag_tpu_torch.models.encoder import EncoderConfig
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = CrossEncoderConfig(EncoderConfig.from_env())
+    path = os.path.join(os.environ["MRAG_DATA_DIR"], "cross_encoder")
+    t0 = time.perf_counter()
+    params = init_cross_params(cfg, torch.Generator(device=dev).manual_seed(31))
+    save_encoder(path, params, cfg.base, kind="cross")
+    t_save = time.perf_counter() - t0
+    # the config is read once per process (its fields at import), as a
+    # server reads its environment at start: this run's resolved config
+    # gets the variable's value for the build
+    os.environ["MRAG_CROSS_ENCODER_CKPT"] = path
+    resolved = server.get_config
+    server.get_config = lambda: dataclasses.replace(resolved(), cross_encoder_ckpt=path)
+    try:
+        t0 = time.perf_counter()
+        ctx_ce = server.AppContext.build(store=ctx.store, device=dev)
+        t_build = time.perf_counter() - t0
+    finally:
+        server.get_config = resolved
+        del os.environ["MRAG_CROSS_ENCODER_CKPT"]
+    engine = ctx_ce.engine
+    model = engine.cross_encoder
+    if not isinstance(model, CrossEncoderModel) or model.cfg != cfg or \
+            model.device != torch.device(dev):
+        raise AssertionError(f"phase 7d: AppContext attached {model!r}")
+    n_params = sum(p.numel() for p in model.module.parameters())
+    log(f"phase 7d: cross checkpoint ({cfg.base.num_layers} x {cfg.base.model_dim}, "
+        f"{cfg.base.dtype}, {n_params / 1e6:.1f} M parameters from a seeded generator) "
+        f"written in {t_save:.2f} s; AppContext.build() with MRAG_CROSS_ENCODER_CKPT in "
+        f"{t_build:.2f} s over phase 7's {ctx.store.size}-row store; on {smi}")
+
+    reqs = _front_queries(FRONT_QUERIES, "cross")
+    masked_topk.launches = 0
+    batches = 0
+    engine.cross_encoder = None
+    plain = engine.search(reqs, k=K)  # embeds the queries once
+    engine.cross_encoder = model
+    ranked = engine.search(reqs, k=K)
+    batches += 2
+    for a, b in zip(plain, ranked):
+        ce = {h.chunk_id: h.signals.get("cross_encoder") for h in b.hits}
+        if not b.hits or any(v is None for v in ce.values()):
+            raise AssertionError(f"phase 7d: a hit without the cross_encoder signal ({b.query})")
+        want = [h.chunk_id for h in sorted(a.hits, key=lambda h: -ce[h.chunk_id])]
+        if [h.chunk_id for h in b.hits] != want:
+            raise AssertionError(f"phase 7d: the hits are not the stage-less hits in stable "
+                                 f"order of the logit ({b.query})")
+    f32 = CrossEncoderModel(dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, dtype="float32")), model.module.params_tree(), device=dev)
+    worst, scale = 0.0, 0.0
+    for res in ranked:
+        want = f32(res.query, [h.text for h in res.hits])
+        got = np.asarray([h.signals["cross_encoder"] for h in res.hits])
+        worst, scale = max(worst, float(np.abs(got - want).max())), max(scale, float(
+            np.abs(want).max()))
+    if not worst <= CROSS_REL * scale:
+        raise AssertionError(f"phase 7d: bf16 logits differ from float32 by {worst} > "
+                             f"{CROSS_REL} x {scale}")
+    del f32
+    ms = {}
+    for stage in (True, False):
+        engine.cross_encoder = model if stage else None
+        rounds = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            engine.search(reqs, k=K)
+            _sync(dev)
+            rounds.append((time.perf_counter() - t0) * 1e3 / FRONT_QUERIES)
+            batches += 1
+        ms[stage] = float(np.median(rounds))
+    engine.cross_encoder = model
+    launches = masked_topk.launches
+    if on_card and launches != batches:
+        raise AssertionError(f"phase 7d: masked_topk launched {launches} times for "
+                             f"{batches} engine batches")
+    pairs = sum(len(r.hits) for r in ranked)
+    log(f"phase 7d: {FRONT_QUERIES} queries at batch {FRONT_QUERIES}: {ms[True]:.3f} ms per "
+        f"query with the cross-encoder stage ({pairs} pairs, {pairs / FRONT_QUERIES:.1f} a "
+        f"query), {ms[False]:.3f} without; the stage's share "
+        f"{(ms[True] - ms[False]) / ms[True]:.3f} (medians of 3 batches); every hit carries "
+        f"the signal, in stable order of it; bf16 vs float32 logits max |diff| {worst:.5f} "
+        f"(bound {CROSS_REL} x {scale:.4f}); masked_topk launches {launches} == engine "
+        f"batches on {smi}")
+    return launches
+
+
 def phase7_front_door(smi: str, dev: str = "cuda", n_rows: int = N_FRONT) -> dict:
     """Phase 7: AppContext.build() with its defaults (the onchip encoder at
     EncoderConfig.from_env()'s width, the full lexicon, the exact backend,
@@ -2240,6 +2640,7 @@ def phase7_front_door(smi: str, dev: str = "cuda", n_rows: int = N_FRONT) -> dic
     texts, vectors = phase7a_encoder(smi, model, dev, n_rows)
     launches = phase7b_app(smi, ctx, model, texts, vectors, dev)
     known, ran = phase7c_known_answers(smi, dev)
+    cross = phase7d_cross(smi, ctx, dev)
     # release the context (it holds reference cycles, and 7b froze its
     # records out of the collector) before the later phases
     del ctx, model, texts, vectors
@@ -2250,7 +2651,7 @@ def phase7_front_door(smi: str, dev: str = "cuda", n_rows: int = N_FRONT) -> dic
     if on_card:
         torch.cuda.empty_cache()
     log(f"phase 7: {time.perf_counter() - t_all:.1f} s")
-    return {"launches": launches + known, "known_answers_via": ran}
+    return {"launches": launches + known, "launches_cross": cross, "known_answers_via": ran}
 
 
 def main() -> None:
@@ -2277,7 +2678,8 @@ def main() -> None:
     # launches by path: phase 3's counted run, phase 6's micro-batcher and agent
     by_path = {"masked_topk": {"phase 3": s["launches"], "phase 6 served 70k":
                                s["launches_served"], "phase 6 agent": s["launches_agent"],
-                               "phase 7 front door": p7["launches"]},
+                               "phase 7 front door": p7["launches"],
+                               "phase 7d cross-encoder": p7["launches_cross"]},
                "masked_topk_int8": {"phase 3b": s8["launches"]}}
     for name, timing, err in (("masked_topk", "main_f32", "max_abs_err"),
                               ("masked_topk_int8", "main_int8", "max_abs_err_int8")):
@@ -2292,8 +2694,12 @@ def main() -> None:
                         "device_ms_B1": t1["device_ms"], "plain_ms_B1": t1["plain_ms"],
                         "bound_ms_B1": t1["bound_ms"],
                         "library_ms_B1": t1["library_ms"] if f32 else None})
+    packed = p4["phase8"]["packed"]
     by_path["proj_blocks"] = {"phase 4 path A": p4["launches"]["proj_blocks"],
-                              "phase 6 served 1M": p4["launches"]["proj_blocks_served"]}
+                              "phase 6 served 1M": p4["launches"]["proj_blocks_served"],
+                              "phase 8 packed": packed["launches"]["proj_blocks"]}
+    if not packed["launches"]["proj_blocks"] > 0:
+        raise AssertionError("phase 8: the packed engine launched no proj_blocks")
     by_path["proj_gated_blocks"] = {"phase 4 path B": p4["launches"]["proj_gated_blocks"],
                                     "phase 5": p5["launches"]}
     for name, replaces in (("proj_blocks", PROJ_REPLACES),
@@ -2307,6 +2713,11 @@ def main() -> None:
         t10 = kp["timing"]["main_10M"][name]
         entry.update(device_ms=t["device_ms"], ms_10M=t10["ms"], plain_ms_10M=t10["plain_ms"],
                      bound_ms_10M=t10["bound_ms"], device_ms_10M=t10["device_ms"])
+        if name == "proj_blocks":  # the packed backend's scan, p = D (phase 8)
+            sc = packed["scan"]
+            entry.update(shape_packed=sc["shape"], ms_packed=sc["ms"],
+                         device_ms_packed=sc["device_ms"], plain_ms_packed=sc["plain_ms"],
+                         bound_ms_packed=sc["bound_ms"], bound_by_packed=sc["bound_by"])
         kernels.append(entry)
     shutil.rmtree(data_dir, ignore_errors=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")

@@ -8,9 +8,12 @@ The JAX package is the reference that tests/test_torch_*.py hold it to.
 
 Ported so far: the strategy-a hybrid query path on a device-resident
 store of float32/bfloat16/int8 vectors or under host residency, dense or
-sparse lexical layout, with the exact vector backend or the proj ANN
-backend (``ops.proj``, ``index.ivf``, ``index.ann_io``) under dense or
-candidate-local gating (``query.gating``); and the served path on top:
+sparse lexical layout, with the exact vector backend or an ANN backend
+(``index.ivf``: ivf and packed; ``ops.pq``: pq, also under host
+residency; ``ops.proj``: proj under dense or candidate-local gating,
+``query.gating``; tables saved and loaded by ``index.ann_io``) and an
+optional cross-encoder rescoring stage (``models.cross_encoder``); and
+the served path on top:
 the overlapped ``SearchEngine.search_pipelined``, the micro-batcher
 (``query.microbatch``), the telemetry store (``observability``) and the
 retrieval agent (``query.agent`` with ``query.classify``, ``query.gate``,

@@ -81,10 +81,6 @@ class AppContext:
 
         # Entrypoints load the curated production lexicon (MRAG_LEXICON_PATH,
         # default = packaged full lexicon) — never the toy test sample.
-        if get_config().cross_encoder_ckpt:
-            raise NotImplementedError(
-                "MRAG_CROSS_ENCODER_CKPT: the cross-encoder stage is not "
-                "ported yet (ROADMAP queue 1, item 5)")
         lexicon = lexicon or Lexicon.load(get_config().lexicon_path)
         embed_fn = embed_fn or get_embedding_provider(device=device).embed
         # serve a pre-built index when given
@@ -92,6 +88,14 @@ class AppContext:
         telemetry = TelemetryStore()
         engine = SearchEngine(store, lexicon, embed_fn=embed_fn,
                               telemetry=telemetry, device=store.device)
+        if get_config().cross_encoder_ckpt:
+            from mobius_rag_tpu_torch.models.checkpoint import load_encoder
+            from mobius_rag_tpu_torch.models.cross_encoder import (
+                CrossEncoderConfig, CrossEncoderModel)
+
+            ce_params, ce_cfg = load_encoder(get_config().cross_encoder_ckpt)
+            engine.cross_encoder = CrossEncoderModel(
+                CrossEncoderConfig(ce_cfg), ce_params, device=store.device)
         from mobius_rag_tpu_torch.candidates import CandidateStore
 
         curator = Curator()

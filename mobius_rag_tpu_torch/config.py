@@ -2,10 +2,7 @@
 defaults read the same ``MRAG_*`` variables as ``mobius_rag_tpu.config``,
 so one environment sizes both packages alike.
 
-Only the knobs the port reads are here. The ones that select a backend
-the port does not have yet (ivf/packed/pq) are kept so that asking for
-one raises ``NotImplementedError`` instead of silently serving the
-default.
+Only the knobs the port reads are here.
 """
 from __future__ import annotations
 
@@ -51,16 +48,25 @@ class Config:
     # "float32" | "bfloat16" | "int8" (symmetric per-row, scales in
     # vec_scales).
     vector_dtype: str = _env_str("MRAG_VECTOR_DTYPE", "float32")
-    # Vector-arm backend: "exact" or "proj" (ivf/packed/pq not ported yet).
+    # Vector-arm backend: "exact", or an ANN backend over IVF clusters:
+    # "ivf" (rows gathered from the chunk matrix), "packed" (int8 cluster
+    # blocks), "pq" (residual PQ codes), "proj" (int8 projected residuals).
     vector_backend: str = _env_str("MRAG_VECTOR_BACKEND", "exact")
     # "device": rows on the card; "host": int8 rows in host RAM serving an
-    # exact post-fusion re-rank, only ANN codes on the card (proj backend).
+    # exact post-fusion re-rank, only ANN codes on the card (pq or proj).
     vector_residency: str = _env_str("MRAG_VECTOR_RESIDENCY", "device")
 
-    # ---- ANN (proj backend) -------------------------------------------
+    # ---- ANN backends -------------------------------------------------
     # IVF clusters (0 = sqrt(live rows)) and probed clusters per query.
     ivf_nlist: int = _env_int("MRAG_IVF_NLIST", 0)
     ivf_nprobe: int = _env_int("MRAG_IVF_NPROBE", 32)
+    # Auto-nprobe (ivf and packed): when > 0, the ANN build picks the
+    # smallest nprobe whose recall@k against the exact scan, on a sample of
+    # self-queries and logged queries, clears this target.
+    ivf_target_recall: float = _env_float("MRAG_IVF_TARGET_RECALL", 0.0)
+    # Bytes per row of the pq backend's codes (subvectors; falls back to
+    # 16-dim subvectors when it does not divide the embedding width).
+    pq_m: int = _env_int("MRAG_PQ_M", 96)
     # Bytes per row of the projected-residual codes.
     proj_p: int = _env_int("MRAG_PROJ_P", 256)
     # Host-residency funnel: the vector arm's top-W candidates handed, with
@@ -104,8 +110,8 @@ class Config:
     lexicon_path: str = _env_str(
         "MRAG_LEXICON_PATH",
         os.path.join(os.path.dirname(__file__), "data", "lexicon_full.json"))
-    # Cross-encoder reranker checkpoint dir; the stage is not ported yet,
-    # so setting it makes AppContext.build raise.
+    # Cross-encoder reranker checkpoint dir (kind="cross"); when set,
+    # AppContext.build attaches the model as the engine's rescoring stage.
     cross_encoder_ckpt: str = _env_str("MRAG_CROSS_ENCODER_CKPT", "")
 
     def validate(self) -> list[str]:

@@ -1,7 +1,5 @@
-"""IVF (inverted-file) coarse clustering (the port of
-``mobius_rag_tpu.index.ivf``: ``_aligned_pad``, ``_kmeans``,
-``_topj_block``, ``_capacity_assign``, ``_fill_members``, ``IVFIndex``,
-``IVFIndex.build`` and ``IVFIndex.build_host``).
+"""IVF (inverted-file) index: coarse clustering and the probed scans (the
+port of ``mobius_rag_tpu.index.ivf``, all of it but the shard stacking).
 
 k-means runs on the device as blockwise cosine Lloyd iterations; rows are
 then placed by the capacity-constrained multi-choice pass into padded
@@ -12,15 +10,34 @@ package's seed and draw order, so both packages start from the same rows.
 k-means on an uploaded sample, then the assignment streams the matrix up
 block by block, so the device never holds more than one block of it.
 
-Not ported yet: ``PackedIVF``, ``ivf_search*``, ``calibrate_nprobe`` and
-the shard stacking (ROADMAP queue 1, items 9 and 14).
+- :func:`ivf_search` (backend ``ivf``): the row-gather scan. Each query
+  scores the rows of its probed clusters and the spill list, gathered
+  from the chunk matrix and widened to float32, in chunks of queries that
+  bound the gathered block.
+- :class:`PackedIVF` + :func:`ivf_search_packed` (backend ``packed``):
+  each cluster's rows re-quantized to int8 into one contiguous
+  ``[pad, D]`` block (spill rows folded into synthetic always-probed
+  slabs). The block dots are int8 x int8 summed exactly in int32, which is
+  ``ops.proj_scan.proj_blocks`` at p = D (the Hopper proj kernel on a
+  card); the epilogue and the selection follow the JAX package's order.
+- :func:`calibrate_nprobe`: the smallest nprobe of a ladder whose
+  recall@k against the exact scan clears a target (auto-nprobe).
+
+Both probed scans select as the JAX package's scan over probes does: its
+carry starts as k (NEG_INF, row 0) seeds and every step keeps the stable
+top-k of [carry ‖ block], which equals one stable top-k over [seeds ‖
+probe 0 ‖ probe 1 ‖ …]. A gated slot scores exactly NEG_INF or less and
+loses to the seeds, so where fewer than k rows are live the answer pads
+with row 0 at NEG_INF.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from mobius_rag_tpu_torch.ops.topk import topk_stable
+from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks
+from mobius_rag_tpu_torch.ops.quant import INV127, _quantize_block, fill_cluster_packed
+from mobius_rag_tpu_torch.ops.topk import NEG_INF, merged_topk, topk_stable
 from mobius_rag_tpu_torch.utils import round_up
 
 # Row-block width of the assignment product: bounds the [block, nlist]
@@ -30,6 +47,17 @@ _KM_BLOCK = 131072
 # values, int64 ids and scratch (12 GB for a 250,000-row block at nlist
 # 4096 without it).
 _TOPJ_ROWS = 32768
+# Bytes of gathered rows (native type plus their float32 copy) one chunk
+# of ivf_search's queries may hold: at 1M rows, nprobe 32 and pad 2,048 a
+# query gathers 65,536 rows, so the whole batch at once would be ~20 GB.
+_GATHER_BYTES = 1 << 31
+# Exact-oracle rows per block in calibrate_nprobe.
+_ORACLE_BLOCK = 131_072
+
+
+def _tensors(arrays: dict, fields, device) -> dict:
+    """numpy arrays by field name → tensors on `device` (copies)."""
+    return {f: torch.from_numpy(np.array(arrays[f])).to(device) for f in fields}
 
 
 def _aligned_pad(raw: int) -> int:
@@ -249,3 +277,264 @@ class IVFIndex:
     @property
     def spill_count(self) -> int:
         return int(self.spill_valid.sum().item())
+
+    @property
+    def aux(self) -> tuple[int, int]:
+        return (self.nlist, self.pad)
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, aux, device) -> "IVFIndex":
+        """Tables handed over as numpy arrays under the JAX package's field
+        names and pytree aux (nlist, pad): a ``jax.device_get`` of a JAX
+        ``IVFIndex`` or an ``ann_io`` file."""
+        return cls(**_tensors(arrays, cls.FIELDS, device), nlist=aux[0], pad=aux[1])
+
+
+class PackedIVF:
+    """Cluster-contiguous int8 rows (backend ``packed``): each cluster's
+    members re-quantized per row into one ``[pad, D]`` block, with the
+    row-id map back to global rows."""
+
+    FIELDS = ("centroids", "values", "scales", "valid", "rowids")
+
+    def __init__(self, centroids, values, scales, valid, rowids,
+                 nlist: int, pad: int, base_nlist: int | None = None):
+        self.centroids = centroids  # [nlist, D] f32
+        self.values = values  # [nlist, pad, D] int8
+        self.scales = scales  # [nlist, pad] f32
+        self.valid = valid  # [nlist, pad] f32
+        self.rowids = rowids  # [nlist, pad] i32 global row ids
+        self.nlist = int(nlist)
+        self.pad = int(pad)
+        # real (k-means) clusters; the cells past it are spill slabs every
+        # query probes
+        self.base_nlist = int(base_nlist if base_nlist is not None else nlist)
+
+    @property
+    def aux(self) -> tuple[int, int, int]:
+        return (self.nlist, self.pad, self.base_nlist)
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, aux, device) -> "PackedIVF":
+        """Tables handed over as numpy arrays under the JAX package's field
+        names and pytree aux (nlist, pad, base_nlist): a ``jax.device_get``
+        of a JAX ``PackedIVF`` or an ``ann_io`` file."""
+        return cls(**_tensors(arrays, cls.FIELDS, device), nlist=aux[0], pad=aux[1],
+                   base_nlist=aux[2])
+
+    @classmethod
+    def from_ivf(cls, ivf: IVFIndex, vectors: torch.Tensor, *, row_scales=None,
+                 block: int = 65536) -> "PackedIVF":
+        """Quantize and pack the member rows of `ivf` (rows of `vectors`
+        [N, D], on the tables' device). Spill rows fold into synthetic
+        slabs whose centroids are their members' normalized mean. When the
+        rows are already int8, pass their per-row scales as `row_scales`:
+        re-quantizing int8 patterns gives scale ~1 and would drop the rows'
+        magnitudes."""
+        dev = ivf.centroids.device
+        vectors = torch.as_tensor(vectors, device=dev)
+        d = vectors.shape[1]
+        rowids, valid, spill, extra = _slab_layout(ivf)
+        nlist, pad = ivf.nlist + extra, ivf.pad
+        flat_ids = torch.from_numpy(rowids.reshape(-1).astype(np.int64)).to(dev)
+        scl = (torch.as_tensor(row_scales, dtype=torch.float32, device=dev)
+               if row_scales is not None
+               else torch.ones((vectors.shape[0],), dtype=torch.float32, device=dev))
+
+        def quant_rows(lo: int, hi: int):
+            rows = flat_ids[lo:hi]
+            q, s = _quantize_block(vectors[rows])
+            return q, s * scl[rows]
+
+        values, scales = fill_cluster_packed(nlist, pad, quant_rows,
+                                             (torch.int8, torch.float32), (d, 0),
+                                             block=block)
+        # the spill slabs' centroids: the mean of their raw rows (float32,
+        # numpy's pairwise sum, as the JAX package takes it on the host)
+        cents = ivf.centroids.cpu().numpy().astype(np.float32)
+        extra_cents = []
+        for e in range(extra):
+            seg = torch.from_numpy(spill[e * pad:(e + 1) * pad].astype(np.int64)).to(dev)
+            mvec = vectors[seg].float().cpu().numpy().mean(axis=0)
+            extra_cents.append(mvec / max(np.linalg.norm(mvec), 1e-6))
+        if extra_cents:
+            cents = np.concatenate([cents, np.stack(extra_cents)], axis=0)
+        return cls(torch.from_numpy(np.ascontiguousarray(cents)).to(dev), values, scales,
+                   torch.from_numpy(valid).to(dev), torch.from_numpy(rowids).to(dev),
+                   nlist, pad, base_nlist=ivf.nlist)
+
+
+def _slab_layout(ivf: IVFIndex):
+    """The packed tables' slot layout from an IVFIndex: (rowids, valid)
+    [nlist + extra, pad] numpy with the spill rows folded into `extra`
+    synthetic slabs after the k-means cells, the live spill rows, extra."""
+    members = ivf.members.cpu().numpy()
+    mvalid = ivf.member_valid.cpu().numpy()
+    spill = ivf.spill.cpu().numpy()[ivf.spill_valid.cpu().numpy() > 0]
+    pad = ivf.pad
+    extra = int(np.ceil(len(spill) / pad)) if len(spill) else 0
+    nlist = ivf.nlist + extra
+    rowids = np.zeros((nlist, pad), np.int32)
+    valid = np.zeros((nlist, pad), np.float32)
+    rowids[: ivf.nlist] = members
+    valid[: ivf.nlist] = mvalid
+    for e in range(extra):
+        seg = spill[e * pad:(e + 1) * pad]
+        rowids[ivf.nlist + e, : len(seg)] = seg
+        valid[ivf.nlist + e, : len(seg)] = 1.0
+    return rowids, valid, spill, extra
+
+
+def probe_cells(q32: torch.Tensor, centroids: torch.Tensor, base_nlist: int,
+                nlist: int, nprobe: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(centroid scores [B, nlist], probed cells [B, P] int64): the
+    top-nprobe k-means cells (the lower cell first on ties), then every
+    spill slab past ``base_nlist``."""
+    b = q32.shape[0]
+    cscores = q32 @ centroids.T
+    _, probe = topk_stable(cscores[:, :base_nlist], min(nprobe, base_nlist))
+    if nlist > base_nlist:
+        spill_cells = torch.arange(base_nlist, nlist, device=probe.device)
+        probe = torch.cat([probe, spill_cells[None, :].expand(b, nlist - base_nlist)], dim=1)
+    return cscores, probe
+
+
+def seeded_topk(scores: torch.Tensor, rowids: torch.Tensor, k: int):
+    """The probe scans' selection: the stable top-k of [k (NEG_INF, row 0)
+    seeds ‖ scores] over [B, S] scores and their row ids (see the module
+    docstring). Returns (vals [B, k] f32, row ids [B, k] int32)."""
+    b = scores.shape[0]
+    vals = torch.cat([scores.new_full((b, k), NEG_INF), scores], dim=1)
+    ids = torch.cat([rowids.new_zeros((b, k)), rowids], dim=1)
+    v, pos = topk_stable(vals, k)
+    return v, torch.gather(ids, 1, pos).to(torch.int32)
+
+
+def ivf_search_packed(pivf: PackedIVF, queries: torch.Tensor, penalty: torch.Tensor,
+                      k: int, nprobe: int):
+    """Probed masked top-k over the packed int8 layout. penalty indexes
+    global row ids, [C] shared or [B, C] per query. The query is quantized
+    per row to int8; each probed block's dots are int8 x int8 summed in
+    int32 (``proj_blocks``), then scaled: acc · row scale · query scale +
+    penalty + (1 − valid) · NEG_INF, the JAX package's order. Returns
+    (scores [B, k] f32, row ids [B, k] int32)."""
+    b = queries.shape[0]
+    q32 = queries.float()
+    if penalty.dim() == 1:
+        penalty = penalty[None, :].expand(b, penalty.shape[0])
+    q_max = q32.abs().amax(dim=1)
+    q_scale = torch.where(q_max > 0, q_max * INV127, torch.ones_like(q_max))
+    q_int = torch.clamp(torch.round(q32 / q_scale[:, None]), -127, 127).to(torch.int8)
+    _, probe = probe_cells(q32, pivf.centroids, pivf.base_nlist, pivf.nlist, nprobe)
+    acc = proj_blocks(probe.to(torch.int32).contiguous(), pivf.values,
+                      q_int.contiguous())  # [B, P, pad]
+    sc, ok, rid = pivf.scales[probe], pivf.valid[probe], pivf.rowids[probe]
+    pen = torch.gather(penalty, 1, rid.reshape(b, -1).long()).reshape(rid.shape)
+    s = acc * sc * q_scale[:, None, None] + pen + (1.0 - ok) * NEG_INF
+    return seeded_topk(s.reshape(b, -1), rid.reshape(b, -1), k)
+
+
+def ivf_search(ivf: IVFIndex, vectors: torch.Tensor, queries: torch.Tensor,
+               penalty: torch.Tensor, k: int, nprobe: int,
+               row_scales: torch.Tensor | None = None):
+    """Probed masked top-k over the chunk matrix itself: each query scores
+    the rows of its nprobe nearest clusters and the spill list, gathered
+    from `vectors` [C, D] (any type) and widened to float32, times
+    `row_scales` for int8 rows, plus penalty ([C] or [B, C]), NEG_INF on
+    invalid slots. Queries go through in chunks so the gathered rows stay
+    within _GATHER_BYTES. Returns (scores [B, k] f32, row ids [B, k]
+    int32), the lower candidate position first on ties."""
+    b = queries.shape[0]
+    q32 = queries.float()
+    if penalty.dim() == 1:
+        penalty = penalty[None, :].expand(b, penalty.shape[0])
+    cscores = q32 @ ivf.centroids.T
+    _, probe = topk_stable(cscores, min(nprobe, ivf.nlist))
+    n_spill = ivf.spill.shape[0]
+    cand = torch.cat([ivf.members[probe].reshape(b, -1),
+                      ivf.spill[None, :].expand(b, n_spill)], dim=1)
+    cand_ok = torch.cat([ivf.member_valid[probe].reshape(b, -1),
+                         ivf.spill_valid[None, :].expand(b, n_spill)], dim=1)
+    s_len, d = cand.shape[1], vectors.shape[1]
+    step = max(1, _GATHER_BYTES // max(s_len * d * (vectors.element_size() + 4), 1))
+    vals, idx = [], []
+    for lo in range(0, b, step):
+        rows = cand[lo:lo + step].long()
+        s = torch.bmm(vectors[rows].float(), q32[lo:lo + step, :, None])[..., 0]
+        if row_scales is not None:
+            s = s * row_scales[rows]
+        s = s + torch.gather(penalty[lo:lo + step], 1, rows) \
+            + (1.0 - cand_ok[lo:lo + step]) * NEG_INF
+        v, i = merged_topk(s, rows, k)
+        vals.append(v)
+        idx.append(i)
+    return torch.cat(vals), torch.cat(idx).to(torch.int32)
+
+
+_NPROBE_LADDER = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def calibrate_nprobe(ann, vectors: torch.Tensor, queries, *, k: int = 10,
+                     target_recall: float = 0.95, row_scales=None,
+                     search_fn=None) -> dict:
+    """Probe-until-recall calibration: the smallest ladder nprobe whose
+    recall@k against the exact scan of the same matrix, on the given query
+    sample, clears `target_recall` (the full probe when none does).
+    Returns the pick and the whole curve. The exact oracle scans the
+    matrix in blocks (no float32 copy of the whole corpus) and merges them
+    on the host, first occurrence of a row kept, as the JAX package does."""
+    dev = vectors.device
+    q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    b, n = q.shape[0], vectors.shape[0]
+    ob = min(_ORACLE_BLOCK, n)
+    scl = (torch.as_tensor(row_scales, dtype=torch.float32, device=dev)
+           if row_scales is not None else None)
+    best_v = np.full((b, k), -np.inf, np.float32)
+    best_i = np.zeros((b, k), np.int64)
+    for lo in range(0, n, ob):
+        lo_c = min(lo, n - ob)  # the tail block re-reads an overlap
+        s = q @ vectors[lo_c:lo_c + ob].float().T
+        if scl is not None:
+            s = s * scl[lo_c:lo_c + ob][None, :]
+        v, i = topk_stable(s, k)
+        allv = np.concatenate([best_v, v.cpu().numpy()], axis=1)
+        alli = np.concatenate([best_i, i.cpu().numpy().astype(np.int64) + lo_c], axis=1)
+        order = np.argsort(-allv, axis=1)
+        for qi in range(b):
+            seen, vv, ii = set(), [], []
+            for oi in order[qi]:
+                row = alli[qi, oi]
+                if row in seen:
+                    continue
+                seen.add(row)
+                vv.append(allv[qi, oi])
+                ii.append(row)
+                if len(vv) == k:
+                    break
+            best_v[qi], best_i[qi] = vv, ii
+    exact_sets = [set(map(int, row)) for row in best_i]
+    penalty = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if search_fn is None:
+        if isinstance(ann, IVFIndex):
+            def search_fn(npx):
+                return ivf_search(ann, vectors, q, penalty, k, npx, scl)
+        else:
+            def search_fn(npx):
+                return ivf_search_packed(ann, q, penalty, k, npx)
+    nlist = getattr(ann, "base_nlist", ann.nlist)
+    curve = []
+    chosen = None
+    for npx in _NPROBE_LADDER:
+        npx = min(npx, nlist)
+        _, idx = search_fn(npx)
+        recall = float(np.mean([len(exact_sets[i] & set(map(int, row))) / k
+                                for i, row in enumerate(idx.cpu().numpy())]))
+        curve.append({"nprobe": npx, "recall": round(recall, 4)})
+        if recall >= target_recall and chosen is None:
+            chosen = npx
+        if npx >= nlist:
+            break
+    if chosen is None:  # the target is out of reach: the full probe
+        chosen = min(_NPROBE_LADDER[-1], nlist)
+    return {"nprobe": chosen, "target_recall": target_recall, "k": k,
+            "sample_queries": b, "curve": curve}

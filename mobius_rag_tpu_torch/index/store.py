@@ -44,9 +44,8 @@ the int8 rows and their scales live in host RAM (``host_vectors
 [cap, D]`` int8, ``host_scales [cap]`` f32, numpy; page-locked when the
 store's device is CUDA, so uploads from them are asynchronous DMA) and
 serve the engine's exact post-fusion re-rank; the device index keeps a
-``[0, D]`` vectors tensor and the ANN codes are built from the host
-matrix. Host residency with the pq backend is not ported yet (ROADMAP
-queue 1, item 10).
+``[0, D]`` vectors tensor and the ANN codes (proj or pq) are built from
+the host matrix.
 """
 from __future__ import annotations
 
@@ -126,13 +125,6 @@ class ChunkRecord:
     lexical_weights: dict[int, float] = dataclasses.field(default_factory=dict)
     neighbor_text: str = ""
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
-
-
-def _check_supported(cfg: Config) -> None:
-    if cfg.vector_residency == "host" and cfg.vector_backend == "pq":
-        raise NotImplementedError(
-            "MRAG_VECTOR_RESIDENCY=host with the pq backend is not ported yet "
-            "(ROADMAP queue 1, item 3)")
 
 
 def _vec_dtype(cfg: Config) -> torch.dtype:
@@ -295,7 +287,6 @@ class ChunkStore:
     def __init__(self, cfg: Config | None = None, capacity: int | None = None,
                  device="cuda"):
         self.cfg = cfg or get_config()
-        _check_supported(self.cfg)
         self.device = torch.device(device)
         cap = round_up(capacity or self.cfg.initial_capacity, _WRITE_BLOCK)
         self.index = DeviceIndex.empty(cap, self.cfg, self.device)

@@ -137,13 +137,18 @@ def flatten_params(tree) -> list:
     return [tree]
 
 
-def unflatten_params(cfg: EncoderConfig, leaves: list) -> dict:
-    """Inverse of :func:`flatten_params` for this config's tree."""
+def unflatten_params(cfg: EncoderConfig, leaves: list, kind: str = "bi") -> dict:
+    """Inverse of :func:`flatten_params` for this config's tree: the
+    encoder's (``kind="bi"``) or the cross-encoder's (``"cross"``: a
+    ``score_head`` in place of ``proj``)."""
     template = {
         "embed": 0, "pos": 0, "ln_f_scale": 0, "proj": 0,
         "layers": [dict.fromkeys(_layer_shapes(cfg), 0)
                    for _ in range(cfg.num_layers)],
     }
+    if kind == "cross":
+        del template["proj"]
+        template["score_head"] = 0
     if cfg.hybrid_anchor:
         template.update(anchor_proj=0, alpha=0)
     it = iter(leaves)
@@ -204,6 +209,8 @@ class _Block(nn.Module):
 class Encoder(nn.Module):
     """tokens [B, L] int → L2-normalized embeddings [B, out_dim] float32."""
 
+    HEAD = "proj"  # the output head's parameter (the tree's key)
+
     def __init__(self, cfg: EncoderConfig, params: dict | None = None,
                  device="cpu"):
         super().__init__()
@@ -212,7 +219,7 @@ class Encoder(nn.Module):
         self.embed = _param((cfg.vocab_size, dm), device)
         self.pos = _param((cfg.max_seq, dm), device)
         self.ln_f_scale = _param((dm,), device)
-        self.proj = _param((dm, cfg.out_dim), device)
+        self.register_parameter(self.HEAD, _param(self.head_shape(cfg), device))
         self.layers = nn.ModuleList(_Block(cfg, device) for _ in range(cfg.num_layers))
         if cfg.hybrid_anchor:
             self.anchor_proj = _param((cfg.vocab_size, cfg.out_dim), device)
@@ -220,9 +227,13 @@ class Encoder(nn.Module):
         if params is not None:
             self.load_tree(params)
 
+    @staticmethod
+    def head_shape(cfg: EncoderConfig) -> tuple[int, ...]:
+        return (cfg.model_dim, cfg.out_dim)
+
     def _named(self, tree: dict):
         """(parameter, tree leaf) pairs; raises on a missing or extra key."""
-        top = {"embed", "pos", "ln_f_scale", "proj", "layers"}
+        top = {"embed", "pos", "ln_f_scale", self.HEAD, "layers"}
         if self.cfg.hybrid_anchor:
             top |= {"anchor_proj", "alpha"}
         if set(tree) != top or len(tree["layers"]) != self.cfg.num_layers:
@@ -247,16 +258,17 @@ class Encoder(nn.Module):
     def params_tree(self) -> dict:
         """The parameters as the JAX package's tree (tensors, not copies)."""
         tree = {"embed": self.embed, "pos": self.pos,
-                "ln_f_scale": self.ln_f_scale, "proj": self.proj,
+                "ln_f_scale": self.ln_f_scale, self.HEAD: getattr(self, self.HEAD),
                 "layers": [{name: getattr(b, name) for name in _layer_shapes(self.cfg)}
                            for b in self.layers]}
         if self.cfg.hybrid_anchor:
             tree.update(anchor_proj=self.anchor_proj, alpha=self.alpha)
         return tree
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        dt = cfg.torch_dtype
+    def trunk(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The transformer blocks and the final norm: (states [B, L, dm] in
+        the config's dtype, mask [B, L] of non-PAD tokens)."""
+        dt = self.cfg.torch_dtype
         tokens = tokens.long()
         length = tokens.shape[1]
         mask = tokens != PAD_ID  # [B, L]
@@ -264,7 +276,12 @@ class Encoder(nn.Module):
         x = self.embed.to(dt)[tokens] + self.pos.to(dt)[None, :length]
         for block in self.layers:
             x = block(x, mask)
-        x = _rms_norm(x, self.ln_f_scale)
+        return _rms_norm(x, self.ln_f_scale), mask
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x, mask = self.trunk(tokens)
+        tokens = tokens.long()
         maskf = mask[..., None].float()
         denom = torch.clamp(mask.sum(dim=1, keepdim=True).float(), min=1.0)
         pooled = (x.float() * maskf).sum(dim=1) / denom

@@ -28,9 +28,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mobius_rag_tpu_torch.index.ivf import _slab_layout, probe_cells
 from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_gated_blocks
 from mobius_rag_tpu_torch.ops.quant import INV127, fill_cluster_packed
-from mobius_rag_tpu_torch.ops.topk import NEG_INF, merged_topk, topk_stable
+from mobius_rag_tpu_torch.ops.topk import NEG_INF, merged_topk
 
 # Fixed covariance blocking: the float32 summation order pins the eigh
 # input, so the projection does not depend on the encode `block`.
@@ -121,20 +122,12 @@ class PackedProj:
                     out = out * row_scales[ti][:, None]
                 return out
 
-        members = ivf.members.cpu().numpy()
-        mvalid = ivf.member_valid.cpu().numpy()
-        spill = ivf.spill.cpu().numpy()[ivf.spill_valid.cpu().numpy() > 0]
+        rowids, valid, spill, extra = _slab_layout(ivf)
         pad = ivf.pad
-        extra = int(np.ceil(len(spill) / pad)) if len(spill) else 0
         nlist = ivf.nlist + extra + reserve_slabs
-        rowids = np.zeros((nlist, pad), np.int32)
-        valid = np.zeros((nlist, pad), np.float32)
-        rowids[: ivf.nlist] = members
-        valid[: ivf.nlist] = mvalid
-        for e in range(extra):
-            seg = spill[e * pad:(e + 1) * pad]
-            rowids[ivf.nlist + e, : len(seg)] = seg
-            valid[ivf.nlist + e, : len(seg)] = 1.0
+        if reserve_slabs:
+            rowids = np.concatenate([rowids, np.zeros((reserve_slabs, pad), np.int32)])
+            valid = np.concatenate([valid, np.zeros((reserve_slabs, pad), np.float32)])
 
         cents = ivf.centroids.cpu().numpy().astype(np.float32)
         for e in range(extra):
@@ -379,15 +372,8 @@ def _probe_and_quantize(pp: PackedProj, queries: torch.Tensor, nprobe: int):
     """Centroid scores [B, nlist], probed cells [B, P] int32 (top-nprobe
     base cells, lower id first on ties, then every spill and reserved
     slab), the int8 query projection [B, p] and its scales [B]."""
-    b = queries.shape[0]
     q32 = queries.float()
-    cscores = q32 @ pp.centroids.T
-    p_eff = min(nprobe, pp.base_nlist)
-    _, probe = topk_stable(cscores[:, : pp.base_nlist], p_eff)
-    n_spill = pp.nlist - pp.base_nlist
-    if n_spill:
-        spill_cells = torch.arange(pp.base_nlist, pp.nlist, device=probe.device)
-        probe = torch.cat([probe, spill_cells[None, :].expand(b, n_spill)], dim=1)
+    cscores, probe = probe_cells(q32, pp.centroids, pp.base_nlist, pp.nlist, nprobe)
     qp = q32 @ pp.proj.T
     q_scale = torch.clamp(qp.abs().amax(dim=1), min=1e-9) * INV127
     q8 = torch.round(qp / q_scale[:, None]).to(torch.int8)

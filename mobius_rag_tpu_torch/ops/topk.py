@@ -41,11 +41,26 @@ _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "topk
 _LIB: ctypes.CDLL | None = None
 
 
+# Elements one stable sort of topk_stable takes: a [32, 10M] score matrix
+# sorts a few rows at a time, so the sort's keys, ids and scratch stay a
+# few GB instead of ~10.
+_SORT_ELEMS = 1 << 26
+
+
 def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, descending, the lower index first among
-    equal values (``jax.lax.top_k``'s order). Returns (values, int64 ids)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    equal values (``jax.lax.top_k``'s order). Returns contiguous (values,
+    int64 ids); rows are sorted in groups of at most _SORT_ELEMS elements
+    (each row's result depends on that row alone)."""
+    def one(rows):
+        vals, idx = torch.sort(rows, dim=-1, descending=True, stable=True)
+        return vals[..., :k].contiguous(), idx[..., :k].contiguous()
+
+    if x.dim() != 2 or x.numel() <= _SORT_ELEMS:
+        return one(x)
+    step = max(1, _SORT_ELEMS // x.shape[1])
+    parts = [one(x[lo:lo + step]) for lo in range(0, x.shape[0], step)]
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
 
 
 def merged_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,

@@ -8,8 +8,11 @@ Per batch of queries:
                auto-relax → an additive penalty (dense gating)
   vector arm   exact backend: masked cosine top-m through
                ops.topk.masked_topk (a Hopper kernel on a CUDA device);
-               proj backend: the probed int8 scan of ops.proj (Hopper
-               kernels in ops.proj_scan)
+               ANN backends: a probed scan of the store's IVF clusters —
+               ivf (rows gathered from the chunk matrix), packed (int8
+               cluster blocks, the proj_blocks Hopper kernel at p = D),
+               pq (residual PQ codes, ADC), proj (int8 projected
+               residuals, the Hopper kernels of ops.proj_scan)
   lexical arm  [B, U] × [U, C] over the batch's union of hashed buckets
                (dense layout) or a scatter-add over their postings (sparse)
   d-tag arm    d-tag bitset overlap, authority-scored
@@ -23,10 +26,11 @@ gate is evaluated inside the gated probed scan, the lexical arm scores
 only its postings, the d-tag arm reads per-tag postings, and the strict
 count comes from a host cache (``query.gating``).
 
-Host residency (``MRAG_VECTOR_RESIDENCY=host``, the 10M configuration)
-serves in two stages. The device program runs at ``kd = k·over_fetch``
-fused candidates and widens the vector arm to a funnel of the top
-``MRAG_HOST_FUNNEL`` proj candidates, whose rerank signals ride the
+Host residency (``MRAG_VECTOR_RESIDENCY=host``, the 10M configuration;
+backend proj or pq) serves in two stages. The device program runs at
+``kd = k·over_fetch`` fused candidates and widens the vector arm to a
+funnel of the top ``MRAG_HOST_FUNNEL`` ANN candidates, whose rerank
+signals ride the
 output (``wide_outputs``, bf16 pairs in float32 columns). With no dense
 rows on the device the vector arm's approximate score, clipped to
 [0, 1], stands in for the cosine in fusion. Then ``_host_rerank``
@@ -69,9 +73,13 @@ up as one non-blocking copy from page-locked memory, and the strict
 counts of candidate-local gating run on a stream of their own, whose
 event is the only thing the host waits for.
 
-Not ported yet, each raising NotImplementedError: the ivf, packed and
-pq vector backends, sharded serving and the cross-encoder stage
-(ROADMAP queue 1).
+An optional cross-encoder (``cross_encoder``, e.g.
+``models.cross_encoder.CrossEncoderModel``) rescores each result's hits
+on the host after assembly and re-sorts them stably by its logit; the
+confidence label still comes from the linear rerank score.
+
+Not ported yet: sharded serving (``sharded=`` raises
+NotImplementedError; ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -85,8 +93,11 @@ import numpy as np
 import torch
 
 from mobius_rag_tpu_torch.config import Config, get_config
+from mobius_rag_tpu_torch.index.ivf import (IVFIndex, PackedIVF, calibrate_nprobe,
+                                            ivf_search, ivf_search_packed)
 from mobius_rag_tpu_torch.index.store import ChunkStore, DeviceIndex, pack_bits
 from mobius_rag_tpu_torch.ingest.featurize import query_lexical_weights
+from mobius_rag_tpu_torch.ops.pq import PackedPQ, effective_m, pq_search_packed
 from mobius_rag_tpu_torch.ops.proj import (PackedProj, ProjGate, encode_qmeta,
                                            encode_reserved, invalidate_slots,
                                            proj_search_gated, proj_search_packed,
@@ -117,8 +128,6 @@ MODE_MIN_LABEL = {"corpus": "low", "precision": "low", "recall": "abstain"}
 # Per-candidate signal channels carried through fusion:
 # cos, lex_raw, auth, len, jpd, cov.
 N_SIG = 6
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item {})"
 
 
 @dataclasses.dataclass
@@ -161,12 +170,11 @@ class SearchResult:
     telemetry: dict[str, Any]
 
 
+_BACKENDS = ("exact", "ivf", "packed", "pq", "proj")
+
+
 def _check_backend(backend: str) -> None:
-    items = {"ivf": "2", "packed": "2", "pq": "3"}
-    if backend in items:
-        raise NotImplementedError(f"vector backend {backend!r} "
-                                  + _NOT_PORTED.format(items[backend]))
-    if backend not in ("exact", "proj"):
+    if backend not in _BACKENDS:
         raise ValueError(f"vector backend {backend!r} must be exact|ivf|packed|pq|proj")
 
 
@@ -218,30 +226,35 @@ def _any_bits(qbits: torch.Tensor) -> torch.Tensor:
 def filter_masks(index: DeviceIndex, q: dict):
     """Eligibility masks [B, C]: (strict, relaxed, open, meta_ok).
     strict = metadata AND j-tags (when the query has any); relaxed =
-    metadata AND d/p-tag join (the auto-relax target); open = validity."""
+    metadata AND d/p-tag join (the auto-relax target); open = validity.
+    Every mask is {0, 1} float32, so products and maxima are exact in any
+    order: the [B, C] buffers are multiplied in place and freed as soon as
+    they are read for the last time (at 10M rows and B = 32 each is 1.28
+    GB)."""
     valid = index.valid  # [C] f32
 
     def col_match(col, want):  # [C] i32 vs [B] i32 (-1 = any, -2 = none)
         return torch.where(want[:, None] == -1, 1.0,
                            (col[None, :] == want[:, None]).float())
 
-    payer_ok = col_match(index.payer, q["payer"])
     # payer-unaffiliated regulator-grade rows pass a payer filter when the
     # query allows inheritance
     regulator = ((index.authority[None, :] >= 0.999)
                  & (index.payer[None, :] < 0)).float()
-    payer_ok = torch.maximum(payer_ok, q["inherit_authority"][:, None] * regulator)
-    meta_ok = (payer_ok
-               * col_match(index.state, q["state"])
-               * col_match(index.program, q["program"]))  # [B, C]
+    meta_ok = torch.maximum(col_match(index.payer, q["payer"]),
+                            q["inherit_authority"][:, None] * regulator)
+    meta_ok.mul_(col_match(index.state, q["state"]))
+    meta_ok.mul_(col_match(index.program, q["program"]))  # [B, C]
     has_j = _any_bits(q["j_bits"])
     has_dp = torch.maximum(_any_bits(q["d_bits"]), _any_bits(q["p_bits"]))
-    j_ok = _overlap(index.j_tags, q["j_bits"])
-    dp_ok = torch.maximum(_overlap(index.d_tags, q["d_bits"]),
-                          _overlap(index.p_tags, q["p_bits"]))
-    strict = valid[None, :] * meta_ok * torch.where(has_j > 0, j_ok, 1.0)
-    relaxed = valid[None, :] * meta_ok * torch.where(has_dp > 0, dp_ok, 1.0)
-    open_mask = valid[None, :] * torch.ones_like(meta_ok)
+    strict = torch.where(has_j > 0, _overlap(index.j_tags, q["j_bits"]), 1.0)
+    strict.mul_(meta_ok).mul_(valid[None, :])
+    dp_ok = _overlap(index.d_tags, q["d_bits"])
+    dp_ok = torch.maximum(dp_ok, _overlap(index.p_tags, q["p_bits"]))
+    relaxed = torch.where(has_dp > 0, dp_ok, 1.0)
+    del dp_ok
+    relaxed.mul_(meta_ok).mul_(valid[None, :])
+    open_mask = valid[None, :].expand_as(meta_ok).contiguous()
     return strict, relaxed, open_mask, meta_ok
 
 
@@ -252,8 +265,11 @@ def gate_penalty(strict, relaxed, open_mask, q: dict, k: int, strict_total=None)
         strict_total = strict.sum(dim=1, keepdim=True)
     auto = torch.where(strict_total >= k, strict, torch.maximum(strict, relaxed))
     tm = q["tag_mode"][:, None]
-    gate = torch.where(tm == 0, auto, torch.where(tm == 1, relaxed, open_mask))
-    return (1.0 - gate) * NEG_INF
+    gate = torch.where(tm == 1, relaxed, open_mask)
+    gate = torch.where(tm == 0, auto, gate)
+    del auto
+    # (1 − gate) · NEG_INF, in place: gate is {0, 1}
+    return gate.neg_().add_(1.0).mul_(NEG_INF)
 
 
 def lexical_raw(index: DeviceIndex, q: dict) -> torch.Tensor:
@@ -281,9 +297,12 @@ def dtag_raw(index: DeviceIndex, q: dict, meta_ok) -> torch.Tensor:
     metadata filter."""
     member = _overlap(index.d_tags, q["d_bits"])
     live = index.authority[None, :] + 1.0
-    return (torch.where(member > 0, live, NEG_INF)
-            + (1.0 - index.valid[None, :]) * NEG_INF
-            + (1.0 - meta_ok) * NEG_INF)
+    out = torch.where(member > 0, live, NEG_INF)
+    del member
+    # the same three terms, summed in the same order, in place
+    out += (1.0 - index.valid[None, :]) * NEG_INF
+    out += (1.0 - meta_ok) * NEG_INF
+    return out
 
 
 def _bit_at(bits: torch.Tensor, word: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
@@ -339,6 +358,23 @@ def _cand_cos(index: DeviceIndex, qvec: torch.Tensor, idx: torch.Tensor) -> torc
     return torch.einsum("bmd,bd->bm", vecs, qvec) * index.vec_scales[idx]
 
 
+def ann_search(index: DeviceIndex, ann, qvec: torch.Tensor, penalty: torch.Tensor,
+               m: int, nprobe: int, approx: float = 0.0):
+    """The vector arm's probed top-m over the ANN tables (dense gating:
+    ``penalty`` [B, C]), by the tables' class, as the JAX engine
+    dispatches (``engine.py:509-531``). Returns (vals [B, m], ids [B, m]);
+    for an eligible row the value is its (approximate) cosine."""
+    if isinstance(ann, IVFIndex):
+        return ivf_search(ann, index.vectors, qvec, penalty, m, nprobe, index.vec_scales)
+    if isinstance(ann, PackedProj):
+        return proj_search_packed(ann, qvec, penalty, m, nprobe, approx)
+    if isinstance(ann, PackedPQ):
+        return pq_search_packed(ann, qvec, penalty, m, nprobe)
+    if isinstance(ann, PackedIVF):
+        return ivf_search_packed(ann, qvec, penalty, m, nprobe)
+    raise TypeError(f"unknown ANN tables {type(ann).__name__}")
+
+
 def _min_sim_filter(vec_vals: torch.Tensor, q: dict) -> torch.Tensor:
     """The vector arm's min_sim post-filter over an ANN result (for an
     eligible row the returned value is its approximate cosine)."""
@@ -346,13 +382,14 @@ def _min_sim_filter(vec_vals: torch.Tensor, q: dict) -> torch.Tensor:
 
 
 def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
-                   m_other: int | None = None, ann: PackedProj | None = None,
+                   m_other: int | None = None, ann=None,
                    nprobe: int = 32, approx: float = 0.0, local=None,
                    tag_level: int = 2):
     """The three arms' top-m candidates and their rerank signals.
 
-    ``ann`` None is the exact backend (the masked cosine top-m); a
-    PackedProj runs the vector arm as the probed proj scan. ``local``
+    ``ann`` None is the exact backend (the masked cosine top-m); ANN tables
+    (IVFIndex, PackedIVF, PackedPQ, PackedProj) run the vector arm as
+    their probed scan (:func:`ann_search`). ``local``
     (proj only) is (ProjGate words, DTagPostings tuple): candidate-local
     gating, with no [B, C] buffer; ``tag_level`` bounds the gate words
     read. ``m_other`` (default m) caps the lexical and d-tag arm widths;
@@ -384,17 +421,17 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
         strict, relaxed, open_mask, meta_ok = filter_masks(index, q)
         strict_total = strict.sum(dim=1, keepdim=True)
         penalty = gate_penalty(strict, relaxed, open_mask, q, k, strict_total)
+        # [B, C] each and read no more: freed before the arms' transients
+        del strict, relaxed, open_mask
         if ann is None:
             scales = index.vec_scales if index.vectors.dtype == torch.int8 else None
             vec_vals, vec_idx = masked_topk(q["vec"], index.vectors, penalty,
                                             q["min_sim"], m, row_scales=scales)
         else:
-            vec_vals, vec_idx = proj_search_packed(ann, q["vec"], penalty, m, nprobe,
-                                                   approx)
+            vec_vals, vec_idx = ann_search(index, ann, q["vec"], penalty, m, nprobe, approx)
             vec_vals = _min_sim_filter(vec_vals, q)
         lex = lexical_raw(index, q)
-        lex_scores = torch.where(lex > 0, lex, NEG_INF) + penalty
-        lex_vals, lex_idx = topk_stable(lex_scores, m_oth)
+        lex_vals, lex_idx = topk_stable(torch.where(lex > 0, lex, NEG_INF) + penalty, m_oth)
         dtag_vals, dtag_idx = topk_stable(dtag_raw(index, q, meta_ok), m_oth)
 
         def lex_sig_of(idx):
@@ -501,7 +538,7 @@ def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int, m_global: int | Non
 
 @torch.inference_mode()
 def search_batch(index: DeviceIndex, q: dict, k: int, over_fetch: int,
-                 rrf_k: int, ann: PackedProj | None = None, nprobe: int = 32,
+                 rrf_k: int, ann=None, nprobe: int = 32,
                  approx: float = 0.0, local=None, tag_level: int = 2,
                  funnel: int = 0) -> dict[str, torch.Tensor]:
     """All arms, fusion and rerank for one prepared batch; the output
@@ -693,7 +730,8 @@ class SearchEngine:
         backend = vector_backend or self.cfg.vector_backend
         _check_backend(backend)
         if sharded is not None:
-            raise NotImplementedError("sharded serving " + _NOT_PORTED.format(4))
+            raise NotImplementedError(
+                "sharded serving is not ported yet (ROADMAP queue 1, item 4)")
         self.device = torch.device(device)
         if store.device != self.device:
             raise ValueError(f"engine device {self.device} != store device "
@@ -710,13 +748,16 @@ class SearchEngine:
         # invalidated by store writes and lexicon growth
         self._prep_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._prep_cache_max = 1024
-        # Vector-arm backend: "exact" or "proj". ANN tables build lazily on
-        # the first search; store mutations after that are applied in place
-        # (_try_ann_incremental) or force a rebuild.
+        # Vector-arm backend (exact|ivf|packed|pq|proj). ANN tables build
+        # lazily on the first search; store mutations after that are applied
+        # in place (_try_ann_incremental, proj) or force a rebuild.
         self.vector_backend = backend
-        self._ann: PackedProj | None = None
+        self._ann = None
         self._ann_generation = -1
         self._ann_nprobe: int | None = None
+        self._ann_calibration: dict | None = None  # the last auto-nprobe run
+        # optional rescoring stage over each result's hits (see the setter)
+        self._cross_encoder = None
         self._ann_events: list[tuple[str, list[int]]] = []
         self._ann_stale_hard = False
         self._ann_slot_of_row: np.ndarray | None = None  # row → flat slot
@@ -734,8 +775,6 @@ class SearchEngine:
     # -- vector-arm backend -------------------------------------------------
 
     def set_vector_backend(self, backend: str) -> None:
-        if backend not in ("exact", "ivf", "packed", "pq", "proj"):
-            raise ValueError(f"backend {backend!r} must be exact|ivf|packed|pq|proj")
         _check_backend(backend)
         if backend != self.vector_backend:
             self.vector_backend = backend
@@ -894,11 +933,14 @@ class SearchEngine:
                                        scales, rid)
         return True
 
-    def ensure_ann(self) -> PackedProj | None:
+    def ensure_ann(self):
         """Build (or bring up to date after store mutations) the ANN tables
-        of the configured backend; None for exact. Row-level mutations go
-        through the incremental path; a bulk rewrite or exhausted insert
-        headroom re-runs the k-means build."""
+        of the configured backend; None for exact. Row-level mutations of
+        proj tables go through the incremental path; every other change
+        re-runs the k-means build. Under host residency the tables come
+        from the host int8 matrix (proj, or residual PQ for any other
+        backend). With MRAG_IVF_TARGET_RECALL > 0 the ivf and packed builds
+        calibrate nprobe (:meth:`_calibrate_nprobe`)."""
         if self.vector_backend == "exact":
             return None
         if self._ann is not None and self._ann_generation == self.store.generation:
@@ -912,23 +954,38 @@ class SearchEngine:
         cfg = self.cfg
         index = self.store.index
         store = self.store
+        m = effective_m(cfg.embed_dim, cfg.pq_m)
         if store.host_vectors is not None:
             # cluster and encode from the host int8 matrix
             ivf = IVFIndex.build_host(store.host_vectors, store.host_scales,
                                       index.valid.cpu().numpy(), device=self.device,
                                       nlist=cfg.ivf_nlist or None)
-            self._ann = PackedProj.from_ivf(ivf, store.host_vectors, p=cfg.proj_p,
-                                            row_scales=store.host_scales,
-                                            reserve_slabs=cfg.ann_reserve_slabs)
+            if self.vector_backend == "proj":
+                self._ann = PackedProj.from_ivf(ivf, store.host_vectors, p=cfg.proj_p,
+                                                row_scales=store.host_scales,
+                                                reserve_slabs=cfg.ann_reserve_slabs)
+            else:
+                self._ann = PackedPQ.from_ivf(ivf, store.host_vectors, m=m,
+                                              row_scales=store.host_scales)
         else:
             ivf = IVFIndex.build(index.vectors, index.valid.cpu().numpy(),
                                  nlist=cfg.ivf_nlist or None)
             scales = index.vec_scales if cfg.vector_dtype == "int8" else None
-            self._ann = PackedProj.from_ivf(ivf, index.vectors, p=cfg.proj_p,
-                                            row_scales=scales,
-                                            reserve_slabs=cfg.ann_reserve_slabs)
+            if self.vector_backend == "packed":
+                self._ann = PackedIVF.from_ivf(ivf, index.vectors, row_scales=scales)
+            elif self.vector_backend == "pq":
+                self._ann = PackedPQ.from_ivf(ivf, index.vectors, m=m, row_scales=scales)
+            elif self.vector_backend == "proj":
+                self._ann = PackedProj.from_ivf(ivf, index.vectors, p=cfg.proj_p,
+                                                row_scales=scales,
+                                                reserve_slabs=cfg.ann_reserve_slabs)
+            else:
+                self._ann = ivf
         self._ann_generation = self.store.generation
         self._ann_nprobe = None
+        # (host residency serves pq or proj only: no calibration there)
+        if cfg.ivf_target_recall > 0 and self.vector_backend in ("ivf", "packed"):
+            self._calibrate_nprobe(cfg.ivf_target_recall)
         return self._ann
 
     def save_ann(self, path: str) -> dict:
@@ -1057,12 +1114,17 @@ class SearchEngine:
 
     @property
     def cross_encoder(self):
-        return None
+        return self._cross_encoder
 
     @cross_encoder.setter
     def cross_encoder(self, model) -> None:
-        if model is not None:
-            raise NotImplementedError("the cross-encoder stage " + _NOT_PORTED.format(5))
+        """None, or a callable (query, [texts]) → scores [len(texts)] (e.g.
+        ``models.cross_encoder.CrossEncoderModel``) that rescores each
+        result's hits."""
+        if model is not None and not callable(model):
+            raise TypeError(f"a cross-encoder is called as model(query, texts); got "
+                            f"{type(model).__name__}")
+        self._cross_encoder = model
 
     # -- host-side query prep ---------------------------------------------
 
@@ -1242,6 +1304,40 @@ class SearchEngine:
         if not texts:
             return None
         return self._embeddings([QueryRequest(query=t) for t in texts])
+
+    def _calibrate_nprobe(self, target: float, sample: int = 32) -> dict:
+        """Per-corpus auto-nprobe (index.ivf.calibrate_nprobe) on a sample of
+        recent logged queries (with a telemetry store) and self-queries:
+        live rows drawn by ``np.random.default_rng(0)``, perturbed by 0.02
+        N(0, 1) per dimension and normalized. The JAX engine draws that
+        noise with ``jax.random.normal(PRNGKey(0))``; the port draws it
+        from a ``torch.Generator`` seeded 0, so the two samples differ."""
+        index = self.store.index
+        live = np.flatnonzero(index.valid.cpu().numpy() > 0)
+        if len(live) == 0:
+            return {}
+        logged = self._logged_query_vectors(sample // 2)
+        n_logged = 0 if logged is None else len(logged)
+        n_self = max(sample - n_logged, 1)
+        rng = np.random.default_rng(0)
+        rows = torch.from_numpy(rng.choice(live, size=min(n_self, len(live)),
+                                           replace=False)).to(self.device)
+        int8 = self.cfg.vector_dtype == "int8"
+        qv = index.vectors[rows].float()
+        if int8:
+            qv = qv * index.vec_scales[rows][:, None]
+        noise = torch.Generator(device=self.device).manual_seed(0)
+        qv = qv + 0.02 * torch.randn(qv.shape, generator=noise, device=self.device)
+        qv = qv / torch.linalg.norm(qv, dim=1, keepdim=True)
+        if n_logged:
+            qv = torch.cat([torch.from_numpy(logged).to(self.device), qv])
+        cal = calibrate_nprobe(self._ann, index.vectors, qv, k=self.cfg.default_k,
+                               target_recall=target,
+                               row_scales=index.vec_scales if int8 else None)
+        cal["logged_queries"] = n_logged
+        self._ann_nprobe = cal["nprobe"]
+        self._ann_calibration = cal
+        return cal
 
     def _embeddings(self, reqs: Sequence[QueryRequest]) -> np.ndarray:
         def cache_key(q: str) -> str:
@@ -1423,6 +1519,13 @@ class SearchEngine:
                         "authority_level": rec.authority_level,
                     },
                 ))
+            if self._cross_encoder is not None and hits:
+                ce = self._cross_encoder(req.query, [h.text for h in hits])
+                for h, s in zip(hits, ce):
+                    h.signals["cross_encoder"] = float(s)
+                # stable re-sort by the cross-encoder's logit; the confidence
+                # label keeps the linear rerank score
+                hits.sort(key=lambda h: -h.signals["cross_encoder"])
             self._expand_with_neighbors(hits)
             label = _confidence_label(max(h.score for h in hits), cfg) \
                 if hits else "abstain"

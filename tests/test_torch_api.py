@@ -325,14 +325,17 @@ def test_appcontext_build_defaults():
     assert len(Lexicon.load(path).entries) > 100
 
 
-def test_cross_encoder_checkpoint_raises(monkeypatch):
+def test_cross_encoder_checkpoint_raises(monkeypatch, tmp_path):
+    """MRAG_CROSS_ENCODER_CKPT naming no checkpoint fails the build (as in
+    the JAX package) instead of serving without the stage."""
     import dataclasses
 
     from mobius_rag_tpu_torch.api import server
 
-    cfg = dataclasses.replace(server.get_config(), cross_encoder_ckpt="/nonexistent")
+    cfg = dataclasses.replace(server.get_config(),
+                              cross_encoder_ckpt=str(tmp_path / "nonexistent"))
     monkeypatch.setattr(server, "get_config", lambda: cfg)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(FileNotFoundError, match="encoder.json"):
         server.AppContext.build(device="cpu")
 
 

@@ -1,0 +1,240 @@
+"""The cross-encoder's serving half in the port (models/cross_encoder.py,
+kind="cross" checkpoints, the engine's rescoring stage and
+MRAG_CROSS_ENCODER_CKPT in AppContext.build) against the JAX package.
+
+The JAX parameters are drawn with PRNGKey on the CPU and carried across as
+numpy arrays (the two RNGs differ). Tolerances: float32 logits within 1e-5
+(summation order only); bfloat16 logits within BF16_REL = 2% of the
+largest float32 logit's magnitude, against the JAX bf16 forward and
+against the port's own float32 forward of the same parameters (bf16 keeps
+8 bits of mantissa and the two libraries round elementwise chains in
+different places; at EncoderConfig.tiny() the gap measures under 0.5%,
+and chip_smoke.py holds the full width on the card to the same bound).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobius_rag_tpu import testing as jtesting
+from mobius_rag_tpu.models import checkpoint as jckpt
+from mobius_rag_tpu.models import cross_encoder as jce
+from mobius_rag_tpu.models import encoder as jenc
+from mobius_rag_tpu.models.tokenizer import HashTokenizer as JaxTokenizer
+from mobius_rag_tpu.query.engine import QueryRequest as JRequest, SearchEngine as JEngine
+from mobius_rag_tpu.index.store import ChunkStore as JStore
+from mobius_rag_tpu_torch import testing as ttesting
+from mobius_rag_tpu_torch.index.store import ChunkStore as TStore
+from mobius_rag_tpu_torch.models import checkpoint as tckpt
+from mobius_rag_tpu_torch.models import cross_encoder as tce
+from mobius_rag_tpu_torch.models import encoder as tenc
+from mobius_rag_tpu_torch.models.tokenizer import CLS_ID, SEP_ID, HashTokenizer
+from mobius_rag_tpu_torch.query.engine import QueryRequest, SearchEngine
+
+torch.set_num_threads(1)
+
+F32_TOL = 1e-5
+BF16_REL = 0.02
+
+QUERY = "What is the timely filing deadline for Sunshine Health claims?"
+DOCS = [
+    "Timely filing deadline for Sunshine Health claims is 180 days.",
+    "Prior authorization is required for H0019 behavioral health services.",
+    "",
+    "A much longer paragraph about claims submission windows, corrected claim "
+    "resubmission requirements, coordination of benefits and the documentation "
+    "a participating provider keeps for retrospective review by the plan. " * 3,
+    "molina",
+]
+
+
+def _cfgs(dtype: str):
+    jbase = dataclasses.replace(jenc.EncoderConfig.tiny(), dtype=dtype)
+    tbase = tenc.EncoderConfig(**dataclasses.asdict(jbase))
+    return jce.CrossEncoderConfig(jbase), tce.CrossEncoderConfig(tbase)
+
+
+def _np_tree(params):
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _pairs(max_len, query=QUERY, docs=DOCS):
+    tok = JaxTokenizer(jenc.EncoderConfig.tiny().vocab_size, max_len)
+    return np.stack([jce.encode_pair(tok, query, d) for d in docs])
+
+
+@pytest.mark.parametrize("max_len", [8, 32, 64, 512])
+@pytest.mark.parametrize("query", [QUERY, "", "x"])
+def test_encode_pair_bitwise(max_len, query):
+    jt, tt = JaxTokenizer(1024, max_len), HashTokenizer(1024, max_len)
+    for doc in DOCS:
+        want = jce.encode_pair(jt, query, doc)
+        got = tce.encode_pair(tt, query, doc)
+        assert got.dtype == want.dtype and got.shape == (max_len,)
+        np.testing.assert_array_equal(got, want)
+        assert got[0] == CLS_ID and SEP_ID in got
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_score_pairs_float32_matches_jax(seed):
+    jcfg, tcfg = _cfgs("float32")
+    params = jce.init_cross_params(jcfg, jax.random.PRNGKey(seed))
+    pairs = _pairs(jcfg.base.max_seq)
+    want = np.asarray(jce.score_pairs_jit(params, jnp.asarray(pairs), jcfg))
+    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(_np_tree(params)))
+    with torch.no_grad():
+        got = module(torch.from_numpy(pairs)).numpy()
+    assert got.shape == want.shape == (len(DOCS),) and got.dtype == np.float32
+    assert np.abs(got - want).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_score_pairs_bfloat16_matches_jax(seed):
+    jcfg, tcfg = _cfgs("bfloat16")
+    j32, t32 = _cfgs("float32")
+    params = jce.init_cross_params(jcfg, jax.random.PRNGKey(seed))
+    pairs = _pairs(jcfg.base.max_seq)
+    want = np.asarray(jce.score_pairs_jit(params, jnp.asarray(pairs), jcfg))
+    want32 = np.asarray(jce.score_pairs_jit(params, jnp.asarray(pairs), j32))
+    tree = tenc.params_from_numpy(_np_tree(params))
+    with torch.no_grad():
+        got = tce.CrossEncoder(tcfg, tree)(torch.from_numpy(pairs)).numpy()
+        got32 = tce.CrossEncoder(t32, tree)(torch.from_numpy(pairs)).numpy()
+    bound = BF16_REL * np.abs(want32).max()
+    assert np.abs(got - want).max() <= bound
+    assert np.abs(got - got32).max() <= bound
+
+
+def test_model_matches_jax_model():
+    """CrossEncoderModel (tokenize, trim to the sequence bucket, one
+    forward) against the JAX CrossEncoderModel (its batch padded to 8):
+    float32 within 1e-5; empty texts give an empty array."""
+    jcfg, tcfg = _cfgs("float32")
+    params = jce.init_cross_params(jcfg, jax.random.PRNGKey(7))
+    jm = jce.CrossEncoderModel(jcfg, params)
+    tm = tce.CrossEncoderModel(tcfg, tenc.params_from_numpy(_np_tree(params)), device="cpu")
+    want, got = jm(QUERY, DOCS), tm(QUERY, DOCS)
+    assert np.abs(got - want).max() <= F32_TOL
+    assert tm(QUERY, []).shape == (0,)
+    assert tm.module.score_head.dtype == torch.float32
+
+
+def test_init_cross_params_tree():
+    """The port's fresh tree has the JAX tree's keys and shapes (its values
+    come from another RNG)."""
+    jcfg, tcfg = _cfgs("bfloat16")
+    jp = _np_tree(jce.init_cross_params(jcfg, jax.random.PRNGKey(0)))
+    tp = tce.init_cross_params(tcfg, torch.Generator().manual_seed(0))
+    assert sorted(tp) == sorted(jp) and "proj" not in tp
+    for a, b in zip(tenc.flatten_params(tp), jax.tree_util.tree_leaves(jp)):
+        assert tuple(a.shape) == b.shape
+    assert tp["score_head"].shape == (tcfg.base.model_dim, 1)
+
+
+def test_cross_checkpoints_both_ways(tmp_path, monkeypatch):
+    """kind="cross" npz checkpoints: written by the JAX package, read by
+    the port (leaves in jax.tree_util order: embed, layers, ln_f_scale,
+    pos, score_head) and the other way, leaf for leaf."""
+    monkeypatch.setitem(__import__("sys").modules, "orbax.checkpoint", None)
+    jcfg, tcfg = _cfgs("float32")
+    params = jce.init_cross_params(jcfg, jax.random.PRNGKey(3))
+    jckpt.save_encoder(str(tmp_path / "j"), jax.device_get(params), jcfg.base, kind="cross")
+    got, cfg = tckpt.load_encoder(str(tmp_path / "j"))
+    assert cfg == tcfg.base
+    want = jax.tree_util.tree_leaves(_np_tree(params))
+    assert sorted(got) == ["embed", "layers", "ln_f_scale", "pos", "score_head"]
+    for g, w in zip(tenc.flatten_params(got), want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    module = tce.CrossEncoder(tcfg, got)
+    tckpt.save_encoder(str(tmp_path / "t"), module.params_tree(), tcfg.base, kind="cross")
+    back, bcfg = jckpt.load_encoder(str(tmp_path / "t"))
+    assert bcfg == jcfg.base
+    for g, w in zip(jax.tree_util.tree_leaves(_np_tree(back)), want):
+        np.testing.assert_array_equal(g, w)
+    pairs = _pairs(jcfg.base.max_seq)
+    with torch.no_grad():
+        mine = module(torch.from_numpy(pairs)).numpy()
+    assert np.abs(mine - np.asarray(jce.score_pairs_jit(back, jnp.asarray(pairs), jcfg))
+                  ).max() <= F32_TOL
+
+
+class _FlipCE:
+    """Scores the hits in ascending order of their position."""
+
+    def __call__(self, query, texts):
+        return np.arange(len(texts), dtype=np.float32)
+
+
+def test_engine_cross_rerank_hook():
+    """tests/test_cross_encoder.py::test_engine_cross_rerank_hook in both
+    packages: the stage reverses the hits, every hit carries the signal,
+    and the confidence label keeps the linear rerank score."""
+    out = {}
+    for name, (store, lex, engine, request, embed) in {
+            "jax": (JStore(), jtesting.sample_lexicon(), JEngine, JRequest,
+                    jtesting.hash_embed),
+            "port": (TStore(device="cpu"), ttesting.sample_lexicon(),
+                     lambda *a, **kw: SearchEngine(*a, device="cpu", **kw), QueryRequest,
+                     ttesting.hash_embed)}.items():
+        store.add_chunks((jtesting if name == "jax" else ttesting).toy_corpus(lex, pad_docs=20))
+        eng = engine(store, lex, embed_fn=embed)
+        base = eng.search(request(query="timely filing deadline"), k=5)[0]
+        eng.cross_encoder = _FlipCE()
+        flipped = eng.search(request(query="timely filing deadline"), k=5)[0]
+        eng.cross_encoder = None
+        assert [h.chunk_id for h in flipped.hits] == [h.chunk_id for h in reversed(base.hits)]
+        assert all("cross_encoder" in h.signals for h in flipped.hits)
+        assert flipped.confidence_label == base.confidence_label
+        out[name] = [(h.chunk_id, h.signals["cross_encoder"]) for h in flipped.hits]
+    assert out["port"] == out["jax"]
+
+
+def test_engine_stage_with_the_model_matches_jax():
+    """A float32 CrossEncoderModel on both engines: the same hits in the
+    same stable order of the model's logit, logits within 1e-5."""
+    jcfg, tcfg = _cfgs("float32")
+    params = jce.init_cross_params(jcfg, jax.random.PRNGKey(11))
+    jlex, tlex = jtesting.sample_lexicon(), ttesting.sample_lexicon()
+    js, ts = JStore(), TStore(device="cpu")
+    js.add_chunks(jtesting.toy_corpus(jlex, pad_docs=30))
+    ts.add_chunks(ttesting.toy_corpus(tlex, pad_docs=30))
+    je = JEngine(js, jlex, embed_fn=jtesting.hash_embed)
+    te = SearchEngine(ts, tlex, embed_fn=ttesting.hash_embed, device="cpu")
+    je.cross_encoder = jce.CrossEncoderModel(jcfg, params)
+    te.cross_encoder = tce.CrossEncoderModel(tcfg, tenc.params_from_numpy(_np_tree(params)),
+                                             device="cpu")
+    queries = ["timely filing deadline", "prior authorization for durable medical equipment"]
+    jres = je.search([JRequest(query=q) for q in queries], k=6)
+    tres = te.search([QueryRequest(query=q) for q in queries], k=6)
+    for a, b in zip(jres, tres):
+        assert [h.chunk_id for h in b.hits] == [h.chunk_id for h in a.hits] and b.hits
+        ce = [h.signals["cross_encoder"] for h in b.hits]
+        np.testing.assert_allclose(ce, [h.signals["cross_encoder"] for h in a.hits],
+                                   rtol=0, atol=F32_TOL)
+        assert ce == sorted(ce, reverse=True)
+
+
+def test_appcontext_attaches_cross_encoder_from_env(tmp_path, monkeypatch):
+    """MRAG_CROSS_ENCODER_CKPT (a checkpoint the JAX package wrote) wires
+    the model into AppContext's engine on the context's device; searches
+    then carry the signal on every hit."""
+    monkeypatch.setitem(__import__("sys").modules, "orbax.checkpoint", None)
+    from mobius_rag_tpu_torch.api import server
+
+    jcfg, _ = _cfgs("bfloat16")
+    params = jce.init_cross_params(jcfg, jax.random.PRNGKey(0))
+    ckpt = tmp_path / "ce"
+    jckpt.save_encoder(str(ckpt), jax.device_get(params), jcfg.base, kind="cross")
+    patched = dataclasses.replace(server.get_config(), cross_encoder_ckpt=str(ckpt))
+    monkeypatch.setattr(server, "get_config", lambda: patched)
+    ctx = server.AppContext.build(embed_fn=ttesting.hash_embed,
+                                  lexicon=ttesting.sample_lexicon(), device="cpu")
+    model = ctx.engine.cross_encoder
+    assert isinstance(model, tce.CrossEncoderModel) and model.device.type == "cpu"
+    assert model.cfg.base.dtype == "bfloat16"
+    ctx.store.add_chunks(ttesting.toy_corpus(ctx.engine.lexicon, pad_docs=5))
+    res = ctx.engine.search(QueryRequest(query="timely filing"), k=3)[0]
+    assert res.hits and all("cross_encoder" in h.signals for h in res.hits)

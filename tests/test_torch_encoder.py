@@ -233,12 +233,8 @@ def test_checkpoint_refuses_what_the_port_cannot_read(tmp_path):
         json.dump({"backend": "orbax", "kind": "bi", "config": dataclasses.asdict(tcfg)}, f)
     with pytest.raises(NotImplementedError, match="orbax"):
         tckpt.load_encoder(str(tmp_path))
-    with open(tmp_path / "encoder.json", "w") as f:
-        json.dump({"backend": "npz", "kind": "cross", "config": dataclasses.asdict(tcfg)}, f)
-    with pytest.raises(NotImplementedError, match="cross-encoder"):
-        tckpt.load_encoder(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="cross-encoder"):
-        tckpt.save_encoder(str(tmp_path / "x"), {}, tcfg, kind="cross")
+    with pytest.raises(ValueError, match="kind"):
+        tckpt.save_encoder(str(tmp_path / "x"), {}, tcfg, kind="mono")
     with pytest.raises(ValueError, match="fewer leaves"):
         tenc.unflatten_params(tcfg, [])
 

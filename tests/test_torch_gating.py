@@ -464,10 +464,14 @@ def test_set_vector_backend(stores):
     assert engine.ensure_ann() is None and engine._ann is None
     engine.set_vector_backend("proj")
     assert isinstance(engine.ensure_ann(), PackedProj)
-    for backend, err in (("ivf", NotImplementedError), ("pq", NotImplementedError),
-                         ("hnsw", ValueError)):
-        with pytest.raises(err):
-            engine.set_vector_backend(backend)
+    from mobius_rag_tpu_torch.index.ivf import IVFIndex, PackedIVF
+    from mobius_rag_tpu_torch.ops.pq import PackedPQ
+
+    for backend, cls in (("ivf", IVFIndex), ("packed", PackedIVF), ("pq", PackedPQ)):
+        engine.set_vector_backend(backend)
+        assert isinstance(engine.ensure_ann(), cls)
+    with pytest.raises(ValueError):
+        engine.set_vector_backend("hnsw")
 
 
 def test_incremental_survives_ann_file(stores, tmp_path):

@@ -3,9 +3,9 @@ in host RAM, proj codes on the device, funnel + exact host re-rank), held
 to the JAX package on the same numpy inputs.
 
 Mirrors the non-sharded cases of tests/test_host_residency.py (those that
-search with the pq backend run on proj here: the port's only ANN backend;
-pq is ROADMAP queue 1 item 10), tests/test_proj.py:120-231 and
-tests/test_ann_incremental.py:167, and adds:
+search with the pq backend run on proj here; host residency with pq is
+held to the JAX engine in tests/test_torch_pq.py), tests/test_proj.py:120-231
+and tests/test_ann_incremental.py:167, and adds:
 
 - ``IVFIndex.build_host`` against the JAX one (same seeded draws):
   centroids within 1e-4 (float32 summation order), member tables

@@ -3,6 +3,8 @@ package, and PyYAML and aiohttp only inside the functions that need them
 (a YAML file read, the HTTP app) — checked at run time in a fresh
 interpreter that drives the exact backend (float32 and int8 rows), the
 proj backend under both gatings, host residency with its native re-rank,
+the ivf, packed and pq backends (pq under host residency too) and the
+cross-encoder stage,
 a micro-batcher drain through the pipelined engine and one agent run
 (every module of the port is imported on the way), at run time for the
 front door's library entry points, and statically over every source file
@@ -65,6 +67,22 @@ for kw in (dict(vector_dtype="int8"),
     assert res[0].hits, ("no hits", kw)
 from mobius_rag_tpu_torch.utils import native
 assert native.gather_cos.native_calls or native.get_lib() is None
+# the ivf, packed and pq backends (pq under host residency too), and the
+# cross-encoder stage
+for kw in (dict(vector_backend="ivf"), dict(vector_backend="packed"),
+           dict(vector_backend="pq", pq_m=32),
+           dict(vector_dtype="int8", vector_residency="host", vector_backend="pq", pq_m=32,
+                ivf_nlist=4, lexical_format="sparse")):
+    cfg = dataclasses.replace(get_config(), **kw)
+    store = ChunkStore(cfg, device="cpu")
+    store.add_chunks(toy_corpus(lex, pad_docs=20))
+    engine = SearchEngine(store, lex, cfg=cfg, embed_fn=hash_embed, device="cpu")
+    res = engine.search(QueryRequest(query="timely filing deadline for Sunshine Health"), k=3)
+    assert res[0].hits, ("no hits", kw)
+from mobius_rag_tpu_torch.models.cross_encoder import CrossEncoderConfig, CrossEncoderModel
+engine.cross_encoder = CrossEncoderModel(CrossEncoderConfig.tiny(), device="cpu")
+res = engine.search(QueryRequest(query="timely filing deadline for Sunshine Health"), k=3)
+assert all("cross_encoder" in h.signals for h in res[0].hits), "no cross-encoder signal"
 # the served path: a micro-batcher drain (a queue deeper than one batch goes
 # through search_pipelined) and one agent run with its default clients
 import asyncio
@@ -154,8 +172,9 @@ print("FORBIDDEN", bad)
 
 
 def test_front_door_modules_import_nothing_of_the_jax_package():
-    """Every module of the front door (ingest, encoder, providers, host
-    stores, the HTTP app and its route modules) imported in one fresh
+    """Every module of the front door (ingest, encoder and cross-encoder,
+    providers, host stores, the HTTP app and its route modules) and the
+    ANN backends' modules (ops.pq, index.ann_io) imported in one fresh
     interpreter, aiohttp included, loads no JAX and nothing of
     mobius_rag_tpu."""
     names = sorted(
@@ -164,7 +183,8 @@ def test_front_door_modules_import_nothing_of_the_jax_package():
         for sub in ("api", "ingest", "models", "eval_harness")
         for root, _, files in os.walk(os.path.join(PKG, sub)) for f in files
         if f.endswith(".py")) + [f"mobius_rag_tpu_torch.{m}" for m in (
-            "providers", "blobstore", "candidates", "tenancy", "infra", "nightly")]
+            "providers", "blobstore", "candidates", "tenancy", "infra", "nightly",
+            "ops.pq", "index.ann_io")]
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NEW_MODULES.format(names=names)],
                           capture_output=True, text=True, timeout=300, env=env, cwd=REPO)

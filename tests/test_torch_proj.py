@@ -390,11 +390,21 @@ def test_ann_io_both_ways(built, tmp_path):
 
 
 def test_ann_io_rejects_unported_classes(tmp_path):
+    """Every table class the JAX package writes loads; a class neither
+    package has is refused, and so is an object that is no table."""
     v = _aniso(n=100)
     path = str(tmp_path / "ivf.npz")
     jann_io.save_ann(JIVF.build(jnp.asarray(v), nlist=4), path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tann_io.load_ann(path, "cpu")
+    assert type(tann_io.load_ann(path, "cpu")[0]).__name__ == "IVFIndex"
+    with np.load(path) as z:
+        arrays = dict(z)
+    arrays["__header__"] = np.frombuffer(
+        b'{"class": "HNSWGraph", "aux": [], "meta": {}}', dtype=np.uint8)
+    np.savez(str(tmp_path / "hnsw.npz"), **arrays)
+    with pytest.raises(ValueError, match="HNSWGraph"):
+        tann_io.load_ann(str(tmp_path / "hnsw.npz"), "cpu")
+    with pytest.raises(ValueError, match="unsupported"):
+        tann_io.save_ann(object(), str(tmp_path / "x.npz"))
 
 
 @pytest.mark.parametrize("s,k", [(30, 10), (6, 10), (10, 10)])
@@ -538,3 +548,29 @@ def test_kernels_match_plain_on_card(p, pad, b, n_probe, nlist, kind):
         assert torch.equal(s, rs) and torch.equal(r, rr)
     assert (proj_blocks.launches, proj_gated_blocks.launches) == (before[0] + 1,
                                                                    before[1] + 3)
+
+
+@pytest.mark.cuda
+def test_proj_blocks_at_the_packed_shape_on_card():
+    """The packed backend's scan (index.ivf.ivf_search_packed) is
+    proj_blocks with p = D: int8 rows of 1,536 bytes in blocks of 2,048
+    slots, 32 queries probing 32 clusters and 2 spill slabs, bitwise with
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(1536)
+    nlist, pad, p, b, n_probe = 42, 2048, 1536, 32, 32
+    codes = torch.randint(-127, 128, (nlist, pad, p), device="cuda", generator=g,
+                          dtype=torch.int64).to(torch.int8)
+    q8 = torch.randint(-127, 128, (b, p), device="cuda", generator=g,
+                       dtype=torch.int64).to(torch.int8)
+    probed = [torch.randperm(nlist - 2, device="cuda", generator=g)[:n_probe]
+              for _ in range(b)]
+    spill = torch.arange(nlist - 2, nlist, device="cuda").expand(b, 2)
+    probe = torch.cat([torch.stack(probed), spill], dim=1)
+    probe = probe.to(torch.int32).contiguous()
+    before = proj_blocks.launches
+    raw = proj_blocks(probe, codes, q8)
+    torch.cuda.synchronize()
+    assert proj_blocks.launches == before + 1
+    assert torch.equal(raw, proj_blocks_reference(probe, codes, q8))

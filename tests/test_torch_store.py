@@ -226,7 +226,10 @@ _HOST_PQ = {"vector_residency": "host", "vector_dtype": "int8", "vector_backend"
 @pytest.mark.parametrize("env", [_HOST_PQ, dict(_HOST_PQ, lexical_format="sparse"),
                                  dict(_HOST_PQ, gating="local")])
 def test_unported_layouts_raise(env):
-    # int8 rows and host residency with proj are ported; host residency
-    # with the pq backend is not (ROADMAP queue 1, item 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TStore(dataclasses.replace(torch_config(), **env), device="cpu")
+    """Every store layout is ported: host residency with the pq backend
+    builds a store whose rows live in host RAM, and a host residency with
+    a backend that has no host form is refused by the config check."""
+    cfg = dataclasses.replace(torch_config(), **env)
+    store = TStore(cfg, device="cpu")
+    assert store.host_vectors is not None and store.index.vectors.shape[0] == 0
+    assert any("pq|proj" in p for p in dataclasses.replace(cfg, vector_backend="ivf").validate())
