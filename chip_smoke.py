@@ -31,7 +31,14 @@ ivf, packed (int8 cluster blocks scanned by proj_blocks at p = D) and pq
 backends at the JAX package's defaults, with their ann files and a packed
 engine calibrated to a target recall; phase 8b serves phase 5's
 host-residency store with the pq backend (dense gating, the funnel and
-the exact host re-rank).
+the exact host re-rank). Phase 9, training and the eval harness, ingests
+the authored fixture corpus and 1,200 distractor documents, trains the
+encoder at full width (ms per step, train_mfu, peak memory; one tiny step
+held against its CPU twin), trains scripts/train_encoder.py's recipe,
+saves and reloads it, re-embeds the corpus with it and evaluates the
+cmhc_paraphrase bank through the agent with hash_embed and with the
+trained encoder, trains the cross-encoder at full width, and drives the
+eval routes through build_app.
 
     python3 chip_smoke.py
 
@@ -857,7 +864,9 @@ def _device_busy_share(run, n_batches: int, dev) -> tuple[float, float, dict, fl
         wall = (time.perf_counter() - t0) * 1e3 / n_batches
     by_name: dict = {}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        # a user annotation's device range (e.g. the optimizer's step) spans
+        # kernels that are counted on their own
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
             name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
             name = name.split("<")[0].split("(")[0] or ev.name[:40]
             by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n_batches
@@ -2654,6 +2663,417 @@ def phase7_front_door(smi: str, dev: str = "cuda", n_rows: int = N_FRONT) -> dic
     return {"launches": launches + known, "launches_cross": cross, "known_answers_via": ran}
 
 
+# Phase 9: training and the eval harness (the quality loop on the card).
+TRAIN_BATCH = 32  # pairs per full-width encoder step (9a)
+TRAIN_WARMUP = 2
+TRAIN_TIMED = 10
+CROSS_BATCH = 16  # pairs per full-width cross-encoder step (9c)
+N_DISTRACTORS = 1200  # scripts/train_encoder.py's distractor documents
+RECIPE_STEPS = 200  # scripts/train_encoder.py's steps and batch (9b)
+RECIPE_BATCH = 64
+# tests/test_torch_train.py's card-vs-CPU bounds: gradients within TWIN_GRAD
+# of each parameter's largest |gradient|; updates within TWIN_STEP (1% of the
+# learning rate) wherever |gradient| >= TWIN_FLOOR of that largest
+TWIN_GRAD = 1e-4
+TWIN_STEP = 1e-6
+TWIN_FLOOR = 1e-3
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def train_step_twin(dev: str = "cuda") -> tuple[float, float, float]:
+    """One step of train_demo's tiny config (float32 activations) on `dev`
+    and on the CPU copy of the same parameters and tokens: (gradients'
+    worst difference relative to each parameter's largest |gradient|, the
+    updates' worst difference above TWIN_FLOOR, the share of elements below
+    it)."""
+    import dataclasses
+
+    from mobius_rag_tpu_torch.models.encoder import EncoderConfig, init_params
+    from mobius_rag_tpu_torch.models.train import TrainConfig, demo_tokens, make_train_step
+
+    cfg = dataclasses.replace(EncoderConfig.tiny(), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    q, d = demo_tokens(cfg, 16, 0, dev)
+    out = {}
+    for where in (dev, "cpu"):
+        step, shard, _, init = make_train_step(cfg, TrainConfig(), device=where)
+        module = shard(_to(params, where))
+        before = [p.detach().clone() for p in module.parameters()]
+        opt = init(module)
+        module, opt, _ = step(module, opt, q.to(where), d.to(where))
+        out[where] = ([p.grad.detach().cpu() for p in module.parameters()],
+                      [(p.detach() - b).cpu() for p, b in zip(module.parameters(), before)])
+    grad_err, step_err, below, total = 0.0, 0.0, 0, 0
+    for gc, uc, gp, up in zip(*out[dev], *out["cpu"]):
+        scale = float(gp.abs().max())
+        grad_err = max(grad_err, float((gc - gp).abs().max()) / max(scale, 1e-30))
+        live = gp.abs() >= TWIN_FLOOR * scale
+        if live.any():
+            step_err = max(step_err, float((uc - up).abs()[live].max()))
+        below += int((~live).sum())
+        total += live.numel()
+    return grad_err, step_err, below / total
+
+
+def _timed_steps(step, n_warm: int, n_timed: int, dev) -> tuple[list, list]:
+    """Runs `step()` n_warm times, then n_timed times between CUDA events
+    (host clock off the card). Returns (ms per timed step, their metrics)."""
+    on_card = torch.device(dev).type == "cuda"
+    for _ in range(n_warm):
+        step()
+    _sync(dev)
+    times, metrics = [], []
+    for _ in range(n_timed):
+        if on_card:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            metrics.append(step())
+            b.record()
+            times.append((a, b))
+        else:
+            t0 = time.perf_counter()
+            metrics.append(step())
+            times.append((time.perf_counter() - t0) * 1e3)
+    _sync(dev)
+    ms = [a.elapsed_time(b) for a, b in times] if on_card else times
+    return ms, [{k: float(v) for k, v in m.items()} for m in metrics]
+
+
+def _peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if torch.device(dev).type == "cuda" else 0.0
+
+
+def _on_card(value: float, fmt: str, dev, unit: str = "") -> str:
+    """A device metric as measured, or "not measured" off the card."""
+    if torch.device(dev).type != "cuda":
+        return "not measured (CPU)"
+    return format(value, fmt) + unit
+
+
+def _reset_peak(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase9a_encoder_train(smi: str, store, pairs, cfg, dev: str = "cuda") -> dict:
+    """The encoder at `cfg`'s width (EncoderConfig.from_env() on the card)
+    trained on the fixture stack's ICT pairs: TRAIN_WARMUP steps, then
+    TRAIN_TIMED steps at TRAIN_BATCH pairs between CUDA events; ms per step,
+    pairs/s, peak device memory, each step's loss and accuracy, train_mfu
+    (3 x both towers' forward product FLOPs at their trimmed lengths / the
+    step time / 989 TFLOP/s), the profiler's top kernels of a step; then one
+    step of the tiny config against its CPU twin."""
+    from mobius_rag_tpu_torch.models.data import pretokenized_batches
+    from mobius_rag_tpu_torch.models.encoder import flops_per_token, init_params, seq_bucket
+    from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
+    from mobius_rag_tpu_torch.models.train import TrainConfig, make_train_step
+
+    on_card = torch.device(dev).type == "cuda"
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED + 2  # +2 profiled
+    tok = HashTokenizer(cfg.vocab_size, cfg.max_seq)
+    blocks = list(pretokenized_batches(pairs, tok, TRAIN_BATCH, steps=n_steps, seed=0))
+    step_fn, shard_params, shard_batch, init_opt = make_train_step(cfg, TrainConfig(),
+                                                                   device=dev)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    module = shard_params(init_params(cfg, torch.Generator(device=dev).manual_seed(0)))
+    opt = init_opt(module)
+    n_params = sum(p.numel() for p in module.parameters())
+    log(f"phase 9a: encoder {cfg.num_layers} x {cfg.model_dim} (heads {cfg.num_heads}, mlp "
+        f"{cfg.mlp_dim}, max_seq {cfg.max_seq}, out {cfg.out_dim}, {cfg.dtype} activations, "
+        f"float32 parameters), {n_params / 1e6:.1f} M parameters, AdamW set up in "
+        f"{time.perf_counter() - t0:.2f} s; {len(pairs)} ICT pairs from {store.size} chunks")
+    it = iter(blocks)
+    lengths = []
+
+    def step():
+        qs, ds = next(it)
+        lengths.append((seq_bucket(qs).shape[1], seq_bucket(ds).shape[1]))
+        return step_fn(module, opt, shard_batch(qs), shard_batch(ds))[2]
+
+    ms, metrics = _timed_steps(step, TRAIN_WARMUP, TRAIN_TIMED, dev)
+    timed_lengths = lengths[TRAIN_WARMUP:]
+    flops = [3 * TRAIN_BATCH * sum(n * flops_per_token(cfg, n) for n in pair)
+             for pair in timed_lengths]
+    mfu = sum(flops) / (sum(ms) / 1e3) / PEAK_OPS["bfloat16"]
+    peak = _peak_gib(dev)
+    if not all(np.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"phase 9a: a non-finite loss {metrics}")
+    busy, wall, top, _ = _device_busy_share(lambda: [step() for _ in range(2)], 2, dev)
+    med = float(np.median(ms))
+    log(f"phase 9a: {TRAIN_TIMED} steps at batch {TRAIN_BATCH} (after {TRAIN_WARMUP} "
+        f"warm-up): {med:.2f} ms per step (median; mean {np.mean(ms):.2f}, min {min(ms):.2f}, "
+        f"max {max(ms):.2f}), {TRAIN_BATCH / med * 1e3:.1f} pairs/s, train_mfu "
+        f"{_on_card(mfu, '.4f', dev)} "
+        f"(3 x forward product FLOPs, {sum(flops) / len(flops) / 1e12:.3f} TFLOP a step, "
+        f"of {PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 dense), trimmed lengths (query, "
+        f"doc) {timed_lengths}, peak device memory {_on_card(peak, '.2f', dev, ' GiB')} on {smi}")
+    log(f"phase 9a: loss by step {[round(m['loss'], 4) for m in metrics]}, accuracy "
+        f"{[round(m['accuracy'], 4) for m in metrics]}")
+    log(f"phase 9a: profiled step: device busy {busy:.2f} of {wall:.2f} ms "
+        f"({100 * busy / wall:.1f}%); top kernels (ms per step) "
+        f"{ {k[:60]: round(v, 3) for k, v in top.items()} }")
+    del module, opt
+    grad_err, step_err, below = train_step_twin(dev)
+    if on_card and not (grad_err <= TWIN_GRAD and step_err <= TWIN_STEP):
+        raise AssertionError(f"phase 9a: the card's step differs from its CPU twin: "
+                             f"gradients {grad_err} (bound {TWIN_GRAD}), updates {step_err} "
+                             f"(bound {TWIN_STEP})")
+    log(f"phase 9a: tiny float32 step on {dev} vs its CPU twin: gradients max rel diff "
+        f"{grad_err:.2e} (bound {TWIN_GRAD}), updates max |diff| {step_err:.2e} (bound "
+        f"{TWIN_STEP}) where |g| >= {TWIN_FLOOR} x max ({100 * below:.3f}% of elements below)")
+    return {"ms": ms, "mfu": mfu, "peak_gib": peak, "metrics": metrics}
+
+
+def vector_arm_citation_at_10(store, embed_fn, bank, dev) -> float:
+    """scripts/quality_loop.py:46-74: the share of bank queries whose golden
+    citation's document is in the exact cosine top-10 of the vector arm
+    alone (the store's rows, invalid rows masked)."""
+    from mobius_rag_tpu_torch.eval_harness.run import _citation_match
+
+    n = len(store.records)
+    vecs = store.index.vectors[:n].float()
+    valid = store.index.valid[:n] > 0
+    hits = []
+    for q in bank.queries:
+        gc = (q.expected.get("golden_citation") or {}).get("document")
+        if not gc:
+            continue
+        qv = torch.as_tensor(embed_fn([q.query])[0], device=dev).float()
+        sims = vecs @ (qv / torch.clamp(torch.linalg.vector_norm(qv), min=1e-9))
+        sims = torch.where(valid, sims, torch.full_like(sims, -1e30))
+        top = torch.topk(sims, min(10, sims.numel())).indices.tolist()
+        hits.append(any((rec := store.record(int(r))) is not None and (
+            _citation_match(gc, rec.filename) or _citation_match(gc, rec.doc_id))
+            for r in top))
+    return round(sum(hits) / len(hits), 4) if hits else 0.0
+
+
+def phase9b_recipe(smi: str, store, lexicon, dev: str = "cuda", steps: int = RECIPE_STEPS,
+                   batch: int = RECIPE_BATCH) -> dict:
+    """scripts/train_encoder.py's recipe (4 x 512, heads 8, mlp 2048, max_seq
+    128, vocab 16,384) trained on the fixture stack with its distractors,
+    saved, reloaded through load_encoder, the store re-embedded with it
+    (scripts/quality_loop.py:76-90), and run_eval on cmhc_paraphrase with
+    hash_embed and with the trained encoder: aggregates, vector-arm
+    citation@10, seconds per question, masked top-k launches."""
+    import os
+
+    from mobius_rag_tpu_torch.config import get_config
+    from mobius_rag_tpu_torch.eval_harness.bank import load_bank
+    from mobius_rag_tpu_torch.eval_harness.db import EvalDB
+    from mobius_rag_tpu_torch.eval_harness.fixture_corpus import derive_selectivity
+    from mobius_rag_tpu_torch.eval_harness.run import run_eval
+    from mobius_rag_tpu_torch.index.store import ChunkStore
+    from mobius_rag_tpu_torch.models.checkpoint import load_encoder, save_encoder
+    from mobius_rag_tpu_torch.models.encoder import EncoderModel
+    from mobius_rag_tpu_torch.models.train import recipe_config, train_encoder_on_corpus
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+    from mobius_rag_tpu_torch.query.agent import CorpusSearchAgent
+    from mobius_rag_tpu_torch.query.engine import SearchEngine
+    from mobius_rag_tpu_torch.testing import hash_embed
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = get_config()
+    enc_cfg = recipe_config(cfg.embed_dim)
+    _sync(dev)
+    t0 = time.perf_counter()
+    params, history = train_encoder_on_corpus(store, cfg=enc_cfg, steps=steps, batch=batch,
+                                              log_every=max(1, steps // 5), device=dev)
+    _sync(dev)
+    t_train = time.perf_counter() - t0
+    if not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"phase 9b: a non-finite loss {history}")
+    path = os.path.join(cfg.data_dir, "encoder_recipe")
+    save_encoder(path, params, enc_cfg)
+    loaded, cfg2 = load_encoder(path)
+    if cfg2 != enc_cfg:
+        raise AssertionError(f"phase 9b: the checkpoint's config {cfg2}")
+    model = EncoderModel(cfg2, loaded, device=dev)
+    log(f"phase 9b: recipe {enc_cfg.num_layers} x {enc_cfg.model_dim} trained {steps} steps "
+        f"at batch {batch} in {t_train:.2f} s ({t_train / steps * 1e3:.1f} ms a step); "
+        f"history {[(h['step'], round(h['loss'], 4), round(h['accuracy'], 4)) for h in history]}"
+        f"; saved and reloaded through load_encoder")
+
+    recs = [r for r in store.records if r is not None]
+    t0 = time.perf_counter()
+    embs = model([r.text for r in recs])
+    trained_store = ChunkStore(cfg, device=dev)
+    for r, e in zip(recs, embs):
+        r.embedding = np.asarray(e, np.float32)
+    trained_store.add_chunks(recs)
+    derive_selectivity(trained_store, lexicon)
+    log(f"phase 9b: re-embedded {len(recs)} chunks with the trained encoder and rebuilt the "
+        f"store in {time.perf_counter() - t0:.2f} s")
+
+    bank = load_bank("cmhc_paraphrase")
+    out = {}
+    for name, st, embed in (("hash_embed", store, hash_embed), ("trained", trained_store,
+                                                                 model)):
+        agent = CorpusSearchAgent(SearchEngine(st, lexicon, cfg=cfg, embed_fn=embed,
+                                               device=dev))
+        masked_topk.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = run_eval(agent, bank, db=EvalDB(os.path.join(cfg.data_dir, f"eval9b_{name}.sqlite")))
+        _sync(dev)
+        sec = (time.perf_counter() - t0) / (len(bank.queries) + 1)  # + the warm-up
+        launches = masked_topk.launches
+        unanswered = [r["query_id"] for r in res.results
+                      if not (r["refused"] or r["checks"]["answered"]["ok"])]
+        if unanswered:
+            raise AssertionError(f"phase 9b: no answer and no refusal for {unanswered}")
+        if on_card and not launches > 0:
+            raise AssertionError(f"phase 9b: the {name} eval launched no masked top-k")
+        cite = vector_arm_citation_at_10(st, embed, bank, dev)
+        agg = res.aggregates
+        keys = ("n", "accuracy", "answer_rate", "mean_chunk_recall", "mean_grounding",
+                "citation_rate", "routing_match_rate", "contour_match_rate",
+                "answer_forbidden_rate", "latency_ms_median", "latency_ms_p95")
+        log(f"phase 9b: run_eval cmhc_paraphrase with {name}: "
+            f"{ {k: agg.get(k) for k in keys} }; vector-arm citation@10 {cite}; "
+            f"{sec:.4f} s per question; masked_topk launches {launches} on {smi}")
+        out[name] = {"aggregates": agg, "citation_at_10": cite, "s_per_question": sec,
+                     "launches": launches}
+    return out
+
+
+def phase9c_cross_train(smi: str, pairs, cfg, dev: str = "cuda") -> dict:
+    """The cross-encoder at `cfg`'s width trained on the same pairs
+    (make_cross_train_step: margin loss, the batch shifted by one as
+    negatives): TRAIN_WARMUP steps, then TRAIN_TIMED at CROSS_BATCH between
+    CUDA events; ms per step, peak device memory, loss finite."""
+    from mobius_rag_tpu_torch.models.cross_encoder import (CrossEncoder, CrossEncoderConfig,
+                                                           cross_pairs, init_cross_params,
+                                                           make_cross_train_step)
+    from mobius_rag_tpu_torch.models.encoder import flops_per_token, seq_bucket
+    from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
+
+    ccfg = CrossEncoderConfig(cfg)
+    tok = HashTokenizer(cfg.vocab_size, cfg.max_seq)
+    step_fn, opt_init = make_cross_train_step(ccfg, device=dev)
+    _reset_peak(dev)
+    module = CrossEncoder(ccfg, init_cross_params(
+        ccfg, torch.Generator(device=dev).manual_seed(0)), device=dev).requires_grad_(True)
+    opt = opt_init(module)
+    # the pairs drawn as train_cross_encoder_on_corpus draws them, tokenized
+    # before the timed steps (as 9a's are)
+    rng = np.random.default_rng(0)
+    blocks = iter([cross_pairs(tok, pairs, rng.choice(len(pairs), CROSS_BATCH, replace=False))
+                   for _ in range(TRAIN_WARMUP + TRAIN_TIMED)])
+    lengths = []
+
+    def step():
+        pos, neg = next(blocks)
+        lengths.append((seq_bucket(pos).shape[1], seq_bucket(neg).shape[1]))
+        return step_fn(module, opt, pos, neg)[2]
+
+    ms, metrics = _timed_steps(step, TRAIN_WARMUP, TRAIN_TIMED, dev)
+    peak = _peak_gib(dev)
+    if not all(np.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"phase 9c: a non-finite loss {metrics}")
+    flops = [3 * CROSS_BATCH * sum(n * flops_per_token(cfg, n) for n in pair)
+             for pair in lengths[TRAIN_WARMUP:]]
+    mfu = sum(flops) / (sum(ms) / 1e3) / PEAK_OPS["bfloat16"]
+    med = float(np.median(ms))
+    log(f"phase 9c: cross-encoder {cfg.num_layers} x {cfg.model_dim} ({cfg.dtype}), "
+        f"{TRAIN_TIMED} steps at batch {CROSS_BATCH} pairs (+ as many negatives): {med:.2f} "
+        f"ms per step (median; min {min(ms):.2f}, max {max(ms):.2f}), train_mfu "
+        f"{_on_card(mfu, '.4f', dev)}, trimmed lengths (pos, neg) {lengths[TRAIN_WARMUP:]}, "
+        f"peak device memory {_on_card(peak, '.2f', dev, ' GiB')}; loss by step "
+        f"{[round(m['loss'], 4) for m in metrics]} on {smi}")
+    del module, opt
+    return {"ms": ms, "mfu": mfu, "peak_gib": peak}
+
+
+def phase9d_eval_routes(smi: str, dev: str = "cuda") -> str:
+    """POST /api/eval/run (toy bank) and GET /api/eval/bank through build_app
+    with aiohttp's TestServer, where aiohttp is installed."""
+    import asyncio
+
+    try:
+        from aiohttp.test_utils import TestClient, TestServer
+    except ImportError:
+        log("phase 9d: no aiohttp on this machine: the eval routes were not driven")
+        return "not driven (no aiohttp)"
+    from mobius_rag_tpu_torch.api.server import AppContext, build_app
+    from mobius_rag_tpu_torch.testing import hash_embed, sample_lexicon, toy_corpus
+
+    ctx = AppContext.build(embed_fn=hash_embed, lexicon=sample_lexicon(), device=dev)
+    ctx.store.add_chunks(toy_corpus(ctx.engine.lexicon))
+
+    async def scenario():
+        client = TestClient(TestServer(build_app(ctx)))
+        await client.start_server()
+        try:
+            r = await client.post("/api/eval/run", json={"bank": "toy"})
+            run = await r.json()
+            assert r.status == 200 and run["aggregates"]["n"] == 5, run
+            r = await client.get("/api/eval/bank?name=toy")
+            bank = await r.json()
+            assert r.status == 200 and bank["n_queries"] == len(bank["queries"]) == 5, bank
+            r = await client.get(f"/api/eval/runs/{run['run_id']}/grade_rollup")
+            assert r.status == 200, await r.text()
+            return run["aggregates"], bank
+        finally:
+            await client.close()
+
+    agg, bank = asyncio.run(scenario())
+    log(f"phase 9d: POST /api/eval/run (toy) 200: n {agg['n']}, accuracy {agg['accuracy']}, "
+        f"mean_chunk_recall {agg['mean_chunk_recall']}, citation_rate {agg['citation_rate']}; "
+        f"GET /api/eval/bank 200: {bank['name']} ({bank['version']}, sha {bank['sha']}, "
+        f"{bank['n_queries']} queries); grade_rollup 200")
+    return "build_app through aiohttp's TestServer"
+
+
+def phase9_train_eval(smi: str, dev: str = "cuda", cfg=None, n_distractors: int = N_DISTRACTORS,
+                      recipe_steps: int = RECIPE_STEPS) -> dict:
+    """Phase 9: the fixture stack (the authored corpus through the ingest
+    pipeline, hash_embed) plus distractor documents on `dev`; the encoder
+    trained at full width (9a), the repo's recipe trained and evaluated
+    through the agent against hash_embed (9b), the cross-encoder trained at
+    full width (9c), the eval routes (9d). `cfg` (default
+    EncoderConfig.from_env()), `n_distractors` and `recipe_steps` are cut
+    only to rehearse off the card."""
+    import gc
+
+    from mobius_rag_tpu_torch.config import get_config
+    from mobius_rag_tpu_torch.eval_harness.fixture_corpus import (build_fixture_stack,
+                                                                  distractor_corpus)
+    from mobius_rag_tpu_torch.models.data import mine_ict_pairs
+    from mobius_rag_tpu_torch.models.encoder import EncoderConfig
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or EncoderConfig.from_env()
+    t_all = time.perf_counter()
+    _, engine, store, _, info = build_fixture_stack(device=dev)
+    store.add_chunks(distractor_corpus(n_distractors, engine.lexicon, get_config()))
+    pairs = mine_ict_pairs(store, max_pairs=2 * TRAIN_BATCH * (TRAIN_WARMUP + TRAIN_TIMED + 2),
+                           seed=0)
+    log(f"phase 9: fixture stack ({info['documents']} documents, {info['chunks']} chunks) + "
+        f"{n_distractors} distractor documents = {store.size} chunks on {dev} in "
+        f"{time.perf_counter() - t_all:.2f} s")
+    a = phase9a_encoder_train(smi, store, pairs, cfg, dev)
+    b = phase9b_recipe(smi, store, engine.lexicon, dev, steps=recipe_steps)
+    c = phase9c_cross_train(smi, pairs, cfg, dev)
+    ran = phase9d_eval_routes(smi, dev)
+    del engine, store, pairs
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"phase 9: {time.perf_counter() - t_all:.1f} s")
+    return {"9a": a, "9b": b, "9c": c, "eval_routes": ran,
+            "launches": sum(v["launches"] for v in b.values())}
+
+
 def main() -> None:
     import os
     import shutil
@@ -2670,6 +3090,7 @@ def main() -> None:
     s = phase3_slice(smi)
     s8 = phase3_slice(smi, "int8")
     p7 = phase7_front_door(smi)
+    p9 = phase9_train_eval(smi)
     p4 = phase4_proj(smi)
     p5 = phase5_host(smi, build_s_per_m=p4["build_s_per_m"],
                      elapsed=time.perf_counter() - t_start)
@@ -2679,7 +3100,8 @@ def main() -> None:
     by_path = {"masked_topk": {"phase 3": s["launches"], "phase 6 served 70k":
                                s["launches_served"], "phase 6 agent": s["launches_agent"],
                                "phase 7 front door": p7["launches"],
-                               "phase 7d cross-encoder": p7["launches_cross"]},
+                               "phase 7d cross-encoder": p7["launches_cross"],
+                               "phase 9b eval": p9["launches"]},
                "masked_topk_int8": {"phase 3b": s8["launches"]}}
     for name, timing, err in (("masked_topk", "main_f32", "max_abs_err"),
                               ("masked_topk_int8", "main_int8", "max_abs_err_int8")):

@@ -156,7 +156,23 @@ def register_ops_routes(r, ctx) -> None:  # noqa: C901 — route table
     async def eval_fact_compare(request):
         """Judge two answers against the same rubric (reference
         POST /eval/fact_compare — the A/B answer comparison tool)."""
-        return not_ported("mobius_rag_tpu.eval_harness.judge", 6)
+        from mobius_rag_tpu_torch.eval_harness.judge import judge_answer
+
+        body = await request.json()
+        must = body.get("must_facts") or []
+        bonus = body.get("bonus_facts") or []
+        forbidden = body.get("forbidden_facts") or []
+        out = {}
+        for side in ("a", "b"):
+            ans = body.get(f"answer_{side}", "")
+            jr = judge_answer(ans, must, bonus, forbidden)
+            out[side] = {"score": jr.score, "verdict": jr.verdict,
+                         "must": jr.verdicts.must, "bonus": jr.verdicts.bonus,
+                         "forbidden": jr.verdicts.forbidden}
+        out["winner"] = ("a" if out["a"]["score"] > out["b"]["score"]
+                         else "b" if out["b"]["score"] > out["a"]["score"]
+                         else "tie")
+        return _json(out)
 
     async def eval_calibration_status(request):
         return _json({"active": ctx.extra_state.get("calibration_active"),

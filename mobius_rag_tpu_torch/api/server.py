@@ -421,10 +421,36 @@ def build_app(ctx: AppContext):
     # ---- eval --------------------------------------------------------------
 
     async def eval_run(request):
-        return not_ported("mobius_rag_tpu.eval_harness.run", 6)
+        body = await request.json()
+        from mobius_rag_tpu_torch.eval_harness.run import run_eval
+
+        bank = body.get("bank", "toy")
+        # GET /api/eval/active reads this while the run is in flight
+        ctx.extra_state["eval_active"] = {"bank": bank, "started_at": time.time()}
+        try:
+            out = run_eval(ctx.agent, bank,
+                           forced_mode=body.get("mode"),
+                           k=int(body.get("k", 10)), db=ctx.eval_db)
+        finally:
+            ctx.extra_state["eval_active"] = None
+        return _json({"run_id": out.run_id, "aggregates": out.aggregates})
 
     async def eval_calibrate(request):
-        return not_ported("mobius_rag_tpu.eval_harness.calibrate", 6)
+        body = await request.json()
+        from mobius_rag_tpu_torch.eval_harness.calibrate import calibrate
+
+        bank = body.get("bank", "toy")
+        ctx.extra_state["calibration_active"] = {"bank": bank,
+                                                 "started_at": time.time()}
+        try:
+            out = calibrate(ctx.agent, bank,
+                            k=int(body.get("k", 10)), db=ctx.eval_db)
+            ctx.extra_state["calibration_last"] = {
+                "bank": bank, "calib_id": out.get("calib_id"),
+                "finished_at": time.time()}
+        finally:
+            ctx.extra_state["calibration_active"] = None
+        return _json(out)
 
     async def eval_runs(request):
         return _json({"runs": ctx.eval_db.list_runs(
@@ -479,7 +505,33 @@ def build_app(ctx: AppContext):
         """Two-grade QA rollup per strategy (routers/eval.py:224):
         retrieval grade = chunk recall, synthesis grade = grounding,
         mean ± std, with the fact-checker σ noise band."""
-        return not_ported("mobius_rag_tpu.eval_harness.fact_checker", 6)
+        import statistics as stats
+
+        from mobius_rag_tpu_torch.eval_harness.fact_checker import (
+            FACT_CHECKER_SIGMA, FACT_CHECKER_VERSION)
+
+        run_id = request.match_info["run_id"]
+        results = ctx.eval_db.results(run_id)
+        if not results:
+            return _err("no results for run", 404)
+        by: dict[str, list] = {}
+        for r in results:
+            by.setdefault((r.get("strategy_chain") or ["?"])[-1], []).append(r)
+        strategies = {}
+        for sid, rows in sorted(by.items()):
+            ret = [r.get("chunk_recall", 0.0) for r in rows]
+            syn = [r.get("grounding", 0.0) for r in rows]
+            strategies[sid] = {
+                "n": len(rows),
+                "retrieval_mean": round(stats.mean(ret), 3),
+                "retrieval_std": round(stats.pstdev(ret), 3),
+                "synthesis_mean": round(stats.mean(syn), 3),
+                "synthesis_std": round(stats.pstdev(syn), 3),
+                "gap_mean": round(stats.mean(r - s for r, s in zip(ret, syn)), 3),
+            }
+        return _json({"run_id": run_id, "strategies": strategies,
+                      "sigma_noise": FACT_CHECKER_SIGMA,
+                      "fact_checker_version": FACT_CHECKER_VERSION})
 
     async def eval_verdict_patch(request):
         """Human-verdict override on one result (routers/eval.py:1151):
@@ -512,7 +564,25 @@ def build_app(ctx: AppContext):
         """Read a bank as JSON (routers/eval.py:902). `name` resolves
         through the standard loader (reference banks included, read-only);
         `path` reads an editable bank under data_dir/banks."""
-        return not_ported("mobius_rag_tpu.eval_harness.bank", 6)
+        from mobius_rag_tpu_torch.eval_harness.bank import load_bank
+
+        rel = request.query.get("path")
+        if rel:
+            try:
+                path = _editable_bank_path(rel)
+            except ValueError as e:
+                return _err(str(e), 403)
+            if not os.path.exists(path):
+                return _err("bank not found", 404)
+            bank = load_bank(path)
+        else:
+            try:
+                bank = load_bank(request.query.get("name", "toy"))
+            except FileNotFoundError as e:
+                return _err(str(e), 404)
+        return _json({"name": bank.name, "version": bank.version,
+                      "sha": bank.sha, "n_queries": len(bank.queries),
+                      "queries": [q.raw for q in bank.queries]})
 
     async def eval_bank_put(request):
         """Write an editable bank (routers/eval.py:928 PUT semantics):

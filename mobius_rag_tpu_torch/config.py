@@ -105,6 +105,9 @@ class Config:
     # Default directory of the host sqlite stores (telemetry, curator,
     # job queues, eval runs, candidates) and of snapshots.
     data_dir: str = _env_str("MRAG_DATA_DIR", os.path.expanduser("~/.mobius_rag_tpu"))
+    # Reference eval banks (YAML, read-only; the parity oracle). The port's
+    # own banks are JSON copies under data/ (eval_harness/bank.py).
+    eval_bank_dir: str = _env_str("MRAG_EVAL_BANK_DIR", "/root/reference/eval")
     # Curated lexicon loaded by the server entry points (JSON; a .yaml path
     # loads through PyYAML). The 17-entry sample lexicon is for tests only.
     lexicon_path: str = _env_str(

@@ -1,6 +1,5 @@
-"""Cross-encoder reranker on the card, its serving half (the port of
-``mobius_rag_tpu.models.cross_encoder``; training waits for the training
-slice).
+"""Cross-encoder reranker on the card (the port of
+``mobius_rag_tpu.models.cross_encoder``): serving and pairwise training.
 
 A transformer reads ``[CLS] query [SEP] chunk`` jointly and scores
 relevance from the CLS state: the encoder's blocks and parameter layout
@@ -15,6 +14,12 @@ bound XLA compiles; eager PyTorch compiles nothing, so the port scores the
 batch as it is (the padded rows are discarded there, so the result is the
 same). The pairs are trimmed to the encoder's sequence buckets: PAD
 columns are masked, so trimming them is exact.
+
+Training (``make_cross_train_step``, ``train_cross_encoder_on_corpus``)
+ranks each ICT pair above the same query with the next pair's document,
+by a margin loss. The JAX optimizer is ``optax.adamw(1e-4)`` with optax's
+default decay of 1e-4 and no clip; ``torch.optim.AdamW`` is given that
+decay (its own default is 0.01).
 """
 from __future__ import annotations
 
@@ -112,3 +117,75 @@ class CrossEncoderModel:
         if self.device.type == "cuda":
             host = host.pin_memory()
         return self.module(host.to(self.device, non_blocking=True)).cpu().numpy()
+
+
+CROSS_WEIGHT_DECAY = 1e-4  # optax.adamw's default
+
+
+def make_cross_train_step(cfg: CrossEncoderConfig, learning_rate: float = 1e-4, *,
+                          device="cuda"):
+    """Pairwise training: positives are ICT (query, source paragraph)
+    pairs, negatives the batch shifted by one; margin ranking loss
+    ``mean(max(0, 1 - s_pos + s_neg))``. Returns (step, opt_init):
+    ``opt_init(module) -> optimizer`` and ``step(module, opt, pos, neg) ->
+    (module, opt, {"loss", "accuracy"})`` over [B, max_len] numpy token
+    blocks, the metrics left on the device."""
+    from mobius_rag_tpu_torch.models.train import fill_missing_grads, to_device
+
+    device = torch.device(device)
+
+    def opt_init(module: CrossEncoder) -> torch.optim.AdamW:
+        return torch.optim.AdamW(module.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=CROSS_WEIGHT_DECAY)
+
+    def step(module: CrossEncoder, opt, pos_tokens: np.ndarray, neg_tokens: np.ndarray):
+        opt.zero_grad(set_to_none=True)
+        s_pos = module(to_device(pos_tokens, device))
+        s_neg = module(to_device(neg_tokens, device))
+        loss = torch.clamp(1.0 - s_pos + s_neg, min=0.0).mean()
+        loss.backward()
+        fill_missing_grads(module)
+        opt.step()
+        return module, opt, {"loss": loss.detach(),
+                             "accuracy": (s_pos > s_neg).float().mean()}
+
+    return step, opt_init
+
+
+def cross_pairs(tokenizer: HashTokenizer, pairs: list, idx: np.ndarray) -> tuple:
+    """(positive, negative) token blocks for the pairs ``idx``: each query
+    with its own document, and with the next pair's."""
+    pos = np.stack([encode_pair(tokenizer, pairs[i][0], pairs[i][1]) for i in idx])
+    neg = np.stack([encode_pair(tokenizer, pairs[i][0], pairs[idx[(j + 1) % len(idx)]][1])
+                    for j, i in enumerate(idx)])
+    return pos, neg
+
+
+def train_cross_encoder_on_corpus(store, *, cfg: CrossEncoderConfig | None = None,
+                                  steps: int = 50, batch: int = 16, seed: int = 0,
+                                  device="cuda"):
+    """Mine ICT pairs → pairwise margin training. Returns (parameter tree
+    on ``device``, history). The pairs drawn are the JAX package's for the
+    same store and seed; the initial parameters come from
+    ``torch.Generator(device).manual_seed(seed)``."""
+    from mobius_rag_tpu_torch.models.data import mine_ict_pairs
+    from mobius_rag_tpu_torch.models.train import detached_tree
+
+    cfg = cfg or CrossEncoderConfig.tiny()
+    device = torch.device(device)
+    tokenizer = HashTokenizer(cfg.base.vocab_size, cfg.base.max_seq)
+    pairs = mine_ict_pairs(store, max_pairs=steps * batch * 2, seed=seed)
+    if len(pairs) < batch:
+        raise ValueError(f"corpus too small ({len(pairs)} pairs)")
+    step, opt_init = make_cross_train_step(cfg, device=device)
+    params = init_cross_params(cfg, torch.Generator(device=device).manual_seed(seed))
+    module = CrossEncoder(cfg, params, device=device).requires_grad_(True)
+    opt = opt_init(module)
+    rng = np.random.default_rng(seed)
+    history = []
+    for s in range(steps):
+        idx = rng.choice(len(pairs), batch, replace=False)
+        module, opt, m = step(module, opt, *cross_pairs(tokenizer, pairs, idx))
+        if (s + 1) % 10 == 0 or s + 1 == steps:
+            history.append({"step": s + 1, **{k: float(v) for k, v in m.items()}})
+    return detached_tree(module.params_tree()), history

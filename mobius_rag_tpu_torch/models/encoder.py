@@ -176,6 +176,8 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _param(shape, device) -> nn.Parameter:
+    # serving needs no gradients; the trainer turns them on
+    # (models/train.py: module.requires_grad_(True))
     return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
 
 
@@ -289,7 +291,8 @@ class Encoder(nn.Module):
         out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True),
                                 min=1e-6)
         if cfg.hybrid_anchor:
-            bag = (self.anchor_proj[tokens] * maskf).sum(dim=1)  # tf-weighted
+            # a fixed projection: no gradient reaches it (JAX's stop_gradient)
+            bag = (self.anchor_proj.detach()[tokens] * maskf).sum(dim=1)  # tf-weighted
             bag = bag / torch.clamp(torch.linalg.vector_norm(bag, dim=-1, keepdim=True),
                                     min=1e-6)
             mix = bag + torch.abs(self.alpha) * out

@@ -1,0 +1,265 @@
+"""Contrastive training of the encoder on (query, chunk) pairs, on one card
+(the port of ``mobius_rag_tpu.models.train``).
+
+Fine-tunes the encoder on in-domain pairs mined from the corpus
+(``models/data.py``): symmetric InfoNCE over in-batch negatives at a logit
+scale of 20. The optimizer is the JAX package's optax chain,
+``clip_by_global_norm(1.0)`` then ``adamw(1e-4, weight_decay=0.01)``:
+the clip keeps optax's formula (``g / norm * max_norm`` when the norm
+reaches ``max_norm``; ``torch.nn.utils.clip_grad_norm_`` divides by
+``norm + 1e-6``) and ``torch.optim.AdamW`` computes optax's decoupled
+update. A parameter that no gradient reaches (the hybrid anchor, under
+JAX's ``stop_gradient``) gets a zero gradient, not None, so AdamW still
+decays it as optax does.
+
+The JAX trainer shards over a ("dp", "tp") mesh; the port runs on one
+device, and any other ``mesh`` raises (ROADMAP queue 1, item 4). JAX pads
+every batch to ``max_seq`` to bound compiles; eager PyTorch compiles
+nothing, so each token block is trimmed to the encoder's sequence buckets
+(``seq_bucket``): PAD columns are masked out of attention and pooling, so
+their gradients are zero either way.
+
+    python -m mobius_rag_tpu_torch.models.train [--steps 200] [--batch 64]
+        [--distractors 1200] [--out DIR] [--device cuda]
+
+trains ``scripts/train_encoder.py``'s recipe (the fixture stack plus
+distractor documents; 4 x 512, heads 8, mlp 2048, max_seq 128, vocab
+16,384) and saves an npz checkpoint that both packages load.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mobius_rag_tpu_torch.models.encoder import (Encoder, EncoderConfig, init_params,
+                                                 seq_bucket)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    temperature: float = 20.0  # logit scale (1 / 0.05)
+    grad_clip: float = 1.0
+
+
+def single_device(mesh) -> None:
+    """The port trains on one device: ``mesh=None`` means it."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "training over a device mesh is not ported yet (ROADMAP queue 1, item 4)")
+
+
+def make_optimizer(params, tc: TrainConfig) -> torch.optim.AdamW:
+    """optax.adamw's update (b1 0.9, b2 0.999, eps 1e-8, decoupled decay)."""
+    return torch.optim.AdamW(params, lr=tc.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=tc.weight_decay)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: each gradient is kept when the
+    global norm is below ``max_norm``, else becomes ``g / norm * max_norm``.
+    Stays on the device (no read-back). Returns the norm."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    div, mul = torch.where(keep, one, norm), torch.where(keep, one, max_norm * one)
+    for g in grads:
+        g.div_(div).mul_(mul)
+    return norm
+
+
+def contrastive_loss(module: Encoder, q_tokens: torch.Tensor, d_tokens: torch.Tensor,
+                     temperature: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric InfoNCE over in-batch negatives: (loss, accuracy)."""
+    qe = module(q_tokens)  # [B, out] normalized
+    de = module(d_tokens)
+    logits = (qe @ de.T) * temperature  # [B, B]
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    loss = 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
+    acc = (logits.argmax(dim=1) == labels).float().mean()
+    return loss, acc
+
+
+def fill_missing_grads(module: torch.nn.Module) -> None:
+    """A zero gradient for every parameter that none reached (JAX's zero
+    cotangent), so the optimizer updates it (weight decay) like optax."""
+    for p in module.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def detached_tree(tree):
+    """A parameter tree's tensors without their autograd history."""
+    if isinstance(tree, dict):
+        return {k: detached_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [detached_tree(v) for v in tree]
+    return tree.detach()
+
+
+def to_device(tokens: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A [B, L] token block on ``device`` as int64 (the embedding gather's
+    backward needs long indices), trimmed to its sequence bucket."""
+    host = torch.from_numpy(np.ascontiguousarray(seq_bucket(tokens)))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True).long()
+
+
+def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="cuda"):
+    """Returns (train_step, shard_params, shard_batch, init_opt_state), the
+    JAX package's four functions on one device:
+    ``shard_params(tree) -> Encoder`` (parameters on the device, taking
+    gradients), ``shard_batch(np tokens) -> tensor`` (trimmed),
+    ``init_opt_state(module) -> optimizer`` and
+    ``train_step(module, opt, q, d) -> (module, opt, {"loss", "accuracy"})``
+    with the metrics left on the device."""
+    single_device(mesh)
+    device = torch.device(device)
+
+    def shard_params(params: dict) -> Encoder:
+        return Encoder(cfg, params, device=device).requires_grad_(True)
+
+    def shard_batch(tokens: np.ndarray) -> torch.Tensor:
+        return to_device(tokens, device)
+
+    def init_opt_state(module: Encoder) -> torch.optim.AdamW:
+        return make_optimizer(module.parameters(), tc)
+
+    def train_step(module: Encoder, opt, q_tokens, d_tokens):
+        opt.zero_grad(set_to_none=True)
+        loss, acc = contrastive_loss(module, q_tokens, d_tokens, tc.temperature)
+        loss.backward()
+        fill_missing_grads(module)
+        clip_by_global_norm_([p.grad for p in module.parameters()], tc.grad_clip)
+        opt.step()
+        return module, opt, {"loss": loss.detach(), "accuracy": acc}
+
+    return train_step, shard_params, shard_batch, init_opt_state
+
+
+def train_encoder_on_corpus(
+    store,
+    *,
+    cfg: EncoderConfig | None = None,
+    params: dict | None = None,
+    steps: int = 100,
+    batch: int = 32,
+    mesh=None,
+    tc: TrainConfig | None = None,
+    seed: int = 0,
+    log_every: int = 10,
+    lexicon=None,
+    augment: float = 0.0,
+    device="cuda",
+):
+    """Fine-tune the encoder on ICT pairs mined from a ChunkStore (mine →
+    train → re-embed with the result). Returns (parameter tree on
+    ``device``, history). ``augment`` > 0 adds that multiple of
+    paraphrase-augmented pairs (``models/data.augment_pairs``). The pairs
+    and batches are the JAX package's for the same store and seed; the
+    initial parameters come from ``torch.Generator(device).manual_seed(seed)``
+    when ``params`` is None."""
+    from mobius_rag_tpu_torch.models.data import (augment_pairs, mine_ict_pairs,
+                                                  pretokenized_batches)
+    from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
+
+    single_device(mesh)
+    cfg = cfg or EncoderConfig.from_env()
+    tc = tc or TrainConfig()
+    device = torch.device(device)
+    tokenizer = HashTokenizer(cfg.vocab_size, cfg.max_seq)
+    pairs = mine_ict_pairs(store, max_pairs=steps * batch * 2, seed=seed)
+    if len(pairs) < batch:
+        raise ValueError(f"corpus too small to mine {batch}-pair batches "
+                         f"({len(pairs)} pairs)")
+    if augment > 0:
+        pairs = augment_pairs(pairs, lexicon=lexicon, factor=augment, seed=seed)
+
+    step_fn, shard_params, shard_batch, init_opt = make_train_step(cfg, tc, device=device)
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+    module = shard_params(params)
+    opt = init_opt(module)
+    history = []
+    for done, (qs, ds) in enumerate(
+            pretokenized_batches(pairs, tokenizer, batch, steps=steps, seed=seed), start=1):
+        module, opt, metrics = step_fn(module, opt, shard_batch(qs), shard_batch(ds))
+        if done % log_every == 0 or done == steps:
+            history.append({"step": done, **{k: float(v) for k, v in metrics.items()}})
+    return detached_tree(module.params_tree()), history
+
+
+def demo_tokens(cfg: EncoderConfig, batch: int, seed: int, device) -> tuple:
+    """train_demo's random pairs: queries of random ids, documents sharing
+    their first half (a learnable task)."""
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    base = torch.randint(2, cfg.vocab_size, (batch, cfg.max_seq), generator=g, device=device)
+    noise = torch.randint(2, cfg.vocab_size, (batch, cfg.max_seq), generator=g, device=device)
+    half = torch.arange(cfg.max_seq, device=device)[None, :] < cfg.max_seq // 2
+    return base, torch.where(half, base, noise)
+
+
+def train_demo(num_steps: int = 3, mesh=None, cfg: EncoderConfig | None = None,
+               batch: int = 16, seed: int = 0, device="cuda") -> list[dict]:
+    """Tiny smoke-train on random token pairs. Returns the metrics history."""
+    cfg = cfg or EncoderConfig.tiny()
+    device = torch.device(device)
+    step, shard_params, _, init_opt = make_train_step(cfg, TrainConfig(), mesh,
+                                                      device=device)
+    module = shard_params(init_params(cfg, torch.Generator(device=device).manual_seed(seed)))
+    opt = init_opt(module)
+    q_tokens, d_tokens = demo_tokens(cfg, batch, seed, device)
+    history = []
+    for _ in range(num_steps):
+        module, opt, metrics = step(module, opt, q_tokens, d_tokens)
+        history.append({k: float(v) for k, v in metrics.items()})
+    return history
+
+
+def recipe_config(out_dim: int) -> EncoderConfig:
+    """scripts/train_encoder.py's model: 4 x 512, heads 8, mlp 2048,
+    max_seq 128, vocab 16,384."""
+    return EncoderConfig(vocab_size=16384, num_layers=4, num_heads=8, model_dim=512,
+                         mlp_dim=2048, max_seq=128, out_dim=out_dim)
+
+
+def main(argv: list[str] | None = None) -> None:
+    import argparse
+    import os
+    import sys
+    import time
+
+    from mobius_rag_tpu_torch.config import get_config
+    from mobius_rag_tpu_torch.eval_harness.fixture_corpus import (build_fixture_stack,
+                                                                  distractor_corpus)
+    from mobius_rag_tpu_torch.models.checkpoint import save_encoder
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--distractors", type=int, default=1200)
+    ap.add_argument("--out", default=os.path.expanduser("~/.mobius_rag_tpu/encoder_r2"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_config()
+    _, engine, store, _, _ = build_fixture_stack(device=args.device)
+    store.add_chunks(distractor_corpus(args.distractors, engine.lexicon, cfg))
+    print(f"fixture stack with distractors: {store.size} chunks", file=sys.stderr)
+    enc_cfg = recipe_config(cfg.embed_dim)
+    t0 = time.perf_counter()
+    params, history = train_encoder_on_corpus(store, cfg=enc_cfg, steps=args.steps,
+                                              batch=args.batch, device=args.device)
+    print(f"train done in {time.perf_counter() - t0:.0f}s: {history[-1]}", file=sys.stderr)
+    save_encoder(args.out, params, enc_cfg)
+    print(f"saved to {args.out}", file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

@@ -118,11 +118,10 @@ class NightlyOrchestrator:
             st.finished_at = time.time()
 
     def _eval(self) -> dict[str, Any]:
-        # the eval steps fail (and the lift is skipped) until the runner is
-        # ported; the corpus steps run as in the JAX package
-        raise NotImplementedError(
-            "mobius_rag_tpu.eval_harness.run is not ported to "
-            "mobius_rag_tpu_torch yet (ROADMAP queue 1, item 6)")
+        from mobius_rag_tpu_torch.eval_harness.run import run_eval
+
+        out = run_eval(self.ctx.agent, self.bank, db=self.ctx.eval_db)
+        return {"run_id": out.run_id, **out.aggregates}
 
     def _run(self) -> None:
         ok = self._step("infra_up", self.infra_up)

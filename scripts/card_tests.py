@@ -1,6 +1,6 @@
 """Run the port's `cuda`-marked tests (the kernels, the pipelined engine's
-dispatch without a device-to-host wait, and the encoder's bf16 against
-float32 activations) on a CUDA card whose machine has no JAX. Those tests
+dispatch without a device-to-host wait, the encoder's bf16 against
+float32 activations, and a training step against its CPU twin) on a CUDA card whose machine has no JAX. Those tests
 use only the torch side; their modules import the JAX package for their
 CPU tests, so those imports become mocks here and only the `on_card`
 tests are collected.
@@ -19,7 +19,8 @@ MOCKED = ["jax", "jax.numpy", "mobius_rag_tpu", "mobius_rag_tpu.config", "mobius
           "mobius_rag_tpu.ops.pallas_proj", "mobius_rag_tpu.ops.quant", "mobius_rag_tpu.ops.topk",
           "mobius_rag_tpu.query", "mobius_rag_tpu.query.engine", "mobius_rag_tpu.testing",
           "mobius_rag_tpu.models", "mobius_rag_tpu.models.checkpoint",
-          "mobius_rag_tpu.models.encoder", "mobius_rag_tpu.models.tokenizer"]
+          "mobius_rag_tpu.models.encoder", "mobius_rag_tpu.models.tokenizer",
+          "mobius_rag_tpu.models.data", "mobius_rag_tpu.models.train", "optax"]
 
 
 def main() -> int:
@@ -31,7 +32,8 @@ def main() -> int:
     return pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest", "-m", "cuda",
                         "-k", "on_card", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
-                          for m in ("topk", "quant", "proj", "pipelined", "encoder"))])
+                          for m in ("topk", "quant", "proj", "pipelined", "encoder",
+                                    "train"))])
 
 
 if __name__ == "__main__":

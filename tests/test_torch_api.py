@@ -4,8 +4,10 @@ tests/test_api_{browse,extended,ops}.py's requests, sent through aiohttp's
 TestClient to both apps, built by ``AppContext.build(embed_fn=hash_embed,
 lexicon=sample_lexicon())`` over the toy corpus. The JSON bodies must be
 equal apart from time stamps, uuids, timings and version strings (floats
-within 1e-5). The handlers whose module the port has not ported yet answer
-501 and name the module; the JAX app answers them.
+within 1e-5). The eval routes run the ported harness (run_eval, calibrate,
+the bank loader, the judge and the fact checker's grade rollup) and answer
+alike. The handlers whose module the port has not ported yet answer 501
+and name the module; the JAX app answers them.
 
 Each package's app runs in a subprocess of its own (this file run as a
 script), so that each has its own data directory: both packages default
@@ -28,7 +30,7 @@ VOLATILE = {"agent_id", "run_id", "job_id", "chunking_job", "id", "ts", "ts_ms",
             "claimed_at", "last_tick", "at", "time", "mtime", "version", "sha",
             "latency_ms", "elapsed_ms", "timings", "stage_ms", "search_id",
             "decision_id", "trace_id", "total_ms", "device_ms", "wall_ms", "timings_ms",
-            "ms"}
+            "ms", "latency_ms_median", "latency_ms_p95", "calib_id"}
 # uuids under a key that elsewhere holds stable ids
 VOLATILE_IN = {"curator_add": {"source_id"}}
 
@@ -93,15 +95,13 @@ SCENARIO = [
     ("repository_audit", "get", "/admin/repository_audit", {}, "equal"),
     ("nightly_runs", "get", "/admin/nightly/runs", {}, "equal"),
     ("microbatch", "get", "/admin/microbatch", {}, "equal"),
-    ("eval_run", "post", "/api/eval/run", {"json": {"bank": "toy"}},
-     "501 mobius_rag_tpu.eval_harness.run"),
-    ("eval_calibrate", "post", "/api/eval/calibrate", {"json": {"bank": "toy"}},
-     "501 mobius_rag_tpu.eval_harness.calibrate"),
-    ("eval_bank", "get", "/api/eval/bank?name=toy", {},
-     "501 mobius_rag_tpu.eval_harness.bank"),
+    ("eval_run", "post", "/api/eval/run", {"json": {"bank": "toy"}}, "equal"),
+    ("grade_rollup", "get", "/api/eval/runs/{run_id}/grade_rollup", {}, "equal"),
+    ("eval_calibrate", "post", "/api/eval/calibrate", {"json": {"bank": "toy"}}, "equal"),
+    ("eval_bank", "get", "/api/eval/bank?name=toy", {}, "equal"),
     ("fact_compare", "post", "/api/eval/fact_compare",
      {"json": {"answer_a": "180 days", "answer_b": "no", "must_facts": ["180 days"]}},
-     "501 mobius_rag_tpu.eval_harness.judge"),
+     "equal"),
     ("pdf", "get", "/documents/{doc_id}/pdf", {}, "501 mobius_rag_tpu.export_pdf"),
     ("drive_status", "get", "/drive/status", {}, "501 mobius_rag_tpu.drive"),
     ("integrity", "get", "/admin/integrity", {}, "501 mobius_rag_tpu.integrity"),
@@ -149,7 +149,7 @@ def _scenario(pkg: str) -> list:
                 except (json.JSONDecodeError, UnicodeDecodeError):
                     body = raw.decode("utf-8", "replace")
                 if isinstance(body, dict):
-                    for key in ("doc_id", "agent_id"):
+                    for key in ("doc_id", "agent_id", "run_id"):
                         if key in body and key not in ids:
                             ids[key] = body[key]
                 out.append((name, r.status, body))
@@ -242,6 +242,14 @@ def test_scenario_known_answers(responses):
     assert all(h["doc_id"] != doc_id for h in port["query_after_delete"][1]["results"])
     assert [port[n][0] for n in ("bad_query", "bad_mode", "missing_doc", "ns_dup")] == \
         [400, 400, 404, 409]
+    run = port["eval_run"][1]
+    assert run["aggregates"]["n"] == 5 and run["aggregates"]["citation_rate"] == 1.0
+    assert port["grade_rollup"][1]["strategies"]
+    assert set(port["eval_calibrate"][1]["per_run"]) == {"a", "b", "c", "d", "s", "natural"}
+    bank = port["eval_bank"][1]
+    assert bank["name"] == "bank_toy.yaml" and bank["n_queries"] == 5
+    assert bank["sha"] == responses["jax"]["eval_bank"][1]["sha"]
+    assert port["fact_compare"][1]["winner"] == "a"
 
 
 def _context_under(tmp_path):

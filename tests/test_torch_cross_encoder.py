@@ -1,5 +1,5 @@
-"""The cross-encoder's serving half in the port (models/cross_encoder.py,
-kind="cross" checkpoints, the engine's rescoring stage and
+"""The cross-encoder in the port (models/cross_encoder.py: serving and the
+margin trainer, kind="cross" checkpoints, the engine's rescoring stage and
 MRAG_CROSS_ENCODER_CKPT in AppContext.build) against the JAX package.
 
 The JAX parameters are drawn with PRNGKey on the CPU and carried across as
@@ -10,6 +10,13 @@ against the port's own float32 forward of the same parameters (bf16 keeps
 8 bits of mantissa and the two libraries round elementwise chains in
 different places; at EncoderConfig.tiny() the gap measures under 0.5%,
 and chip_smoke.py holds the full width on the card to the same bound).
+The margin loss's gradients against ``jax.grad``: in float32 within
+GRAD_F32 = 5e-5 of each parameter's largest |gradient| (summation order;
+measured 9e-6: the CLS readout funnels every pair through one position);
+in bfloat16 test_torch_train.py's criterion (no further from the float32
+gradient than the JAX package's own bf16 gradient, within its factor and
+floor; both measure 3-13% here, most of it in the embedding table's bf16
+accumulation).
 """
 import dataclasses
 
@@ -38,6 +45,7 @@ torch.set_num_threads(1)
 
 F32_TOL = 1e-5
 BF16_REL = 0.02
+GRAD_F32 = 5e-5
 
 QUERY = "What is the timely filing deadline for Sunshine Health claims?"
 DOCS = [
@@ -238,3 +246,136 @@ def test_appcontext_attaches_cross_encoder_from_env(tmp_path, monkeypatch):
     ctx.store.add_chunks(ttesting.toy_corpus(ctx.engine.lexicon, pad_docs=5))
     res = ctx.engine.search(QueryRequest(query="timely filing"), k=3)[0]
     assert res.hits and all("cross_encoder" in h.signals for h in res.hits)
+
+
+# ---- training ---------------------------------------------------------------
+
+def _margin_grads(jcfg, params, pos, neg):
+    def loss_fn(p):
+        s_pos = jce.score_pairs(p, jnp.asarray(pos), jcfg)
+        s_neg = jce.score_pairs(p, jnp.asarray(neg), jcfg)
+        return jnp.mean(jnp.maximum(0.0, 1.0 - s_pos + s_neg)), \
+            jnp.mean((s_pos > s_neg).astype(jnp.float32))
+
+    (loss, acc), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    return float(loss), float(acc), [np.asarray(x) for x in jax.tree_util.tree_leaves(g)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_margin_loss_grads_match_jax(dtype):
+    """One step of make_cross_train_step from the same parameters and pairs:
+    the loss, accuracy and every parameter's gradient against jax.grad of
+    the JAX step's loss."""
+    from test_torch_train import assert_bf16_grads
+
+    jcfg, tcfg = _cfgs(dtype)
+    params = _np_tree(jce.init_cross_params(jcfg, jax.random.PRNGKey(4)))
+    tok = JaxTokenizer(jcfg.base.vocab_size, jcfg.base.max_seq)
+    pairs = [(QUERY, d) for d in DOCS] + [("prior authorization H0019", DOCS[1])]
+    idx = np.arange(len(pairs))
+    pos, neg = tce.cross_pairs(tok, pairs, idx)
+    jloss, jacc, want = _margin_grads(jcfg, params, pos, neg)
+    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(params)).requires_grad_(True)
+    step, opt_init = tce.make_cross_train_step(tcfg, device="cpu")
+    opt = opt_init(module)
+    grads = {}
+    orig = opt.step
+
+    def capture(*a, **kw):  # the gradients the optimizer is handed
+        grads["leaves"] = [p.grad.clone().numpy()
+                           for p in tenc.flatten_params(module.params_tree())]
+        return orig(*a, **kw)
+
+    opt.step = capture
+    _, _, m = step(module, opt, pos, neg)
+    assert float(m["accuracy"]) == jacc
+    assert len(grads["leaves"]) == len(want)
+    if dtype == "float32":
+        assert abs(float(m["loss"]) - jloss) <= GRAD_F32 * max(1.0, abs(jloss))
+        for g, w in zip(grads["leaves"], want):
+            assert np.abs(g - w).max() <= GRAD_F32 * max(np.abs(w).max(), 1e-30)
+    else:
+        j32 = dataclasses.replace(jcfg, base=dataclasses.replace(jcfg.base, dtype="float32"))
+        assert abs(float(m["loss"]) - jloss) <= 0.01 * max(1.0, abs(jloss))
+        assert_bf16_grads(grads["leaves"], want, _margin_grads(j32, params, pos, neg)[2])
+
+
+def test_cross_optimizer_is_optax_adamw_default():
+    """optax.adamw(1e-4): decay 1e-4 (torch's default is 0.01), no clip;
+    two steps on the same gradients agree within 4 float32 ulps."""
+    import optax
+
+    jcfg, tcfg = _cfgs("float32")
+    params = _np_tree(jce.init_cross_params(jcfg, jax.random.PRNGKey(2)))
+    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(params)).requires_grad_(True)
+    _, opt_init = tce.make_cross_train_step(tcfg, device="cpu")
+    opt = opt_init(module)
+    assert opt.defaults["weight_decay"] == tce.CROSS_WEIGHT_DECAY == 1e-4
+    jopt = optax.adamw(1e-4)
+    state, jp = jopt.init(params), params
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        grads = jax.tree_util.tree_map(  # large: no clip may shrink them
+            lambda x: np.asarray(30 * rng.standard_normal(x.shape), np.float32), params)
+        updates, state = jopt.update(grads, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for p, g in zip(tenc.flatten_params(module.params_tree()),
+                        jax.tree_util.tree_leaves(grads)):
+            p.grad = torch.from_numpy(np.array(g))
+        opt.step()
+    for p, w in zip(tenc.flatten_params(module.params_tree()), jax.tree_util.tree_leaves(jp)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(p.detach().numpy(), w, rtol=0,
+                                   atol=4 * np.spacing(np.abs(w).max()))
+
+
+def test_cross_training_pairs_match_jax():
+    """The pairs the trainer draws (rng.choice without replacement, the
+    batch shifted by one for negatives) and their token blocks are the
+    JAX trainer's for the same store and seed."""
+    from mobius_rag_tpu.models.data import mine_ict_pairs as jmine
+    from mobius_rag_tpu_torch.models.data import mine_ict_pairs
+
+    js, ts = JStore(), TStore(device="cpu")
+    js.add_chunks(jtesting.toy_corpus(jtesting.sample_lexicon()))
+    ts.add_chunks(ttesting.toy_corpus(ttesting.sample_lexicon()))
+    jpairs, tpairs = jmine(js, max_pairs=160, seed=3), mine_ict_pairs(ts, max_pairs=160, seed=3)
+    assert jpairs == tpairs
+    jt, tt = JaxTokenizer(1024, 64), HashTokenizer(1024, 64)
+    jr, tr = np.random.default_rng(3), np.random.default_rng(3)
+    for _ in range(5):
+        idx = jr.choice(len(jpairs), 8, replace=False)
+        assert (tr.choice(len(tpairs), 8, replace=False) == idx).all()
+        want_pos = np.stack([jce.encode_pair(jt, jpairs[i][0], jpairs[i][1]) for i in idx])
+        want_neg = np.stack([jce.encode_pair(jt, jpairs[i][0], jpairs[idx[(j + 1) % 8]][1])
+                             for j, i in enumerate(idx)])
+        pos, neg = tce.cross_pairs(tt, tpairs, idx)
+        np.testing.assert_array_equal(pos, want_pos)
+        np.testing.assert_array_equal(neg, want_neg)
+
+
+def test_cross_training_learns_pairwise_order(monkeypatch):
+    """tests/test_cross_encoder.py's training test, on the port, from the
+    JAX trainer's initial parameters for the same seed (init_cross_params
+    at PRNGKey(3), handed to the port's trainer in place of its own draw),
+    so both train the same model on the same pairs; the
+    minibatch losses follow the JAX trainer's loosely (within 0.15: 40
+    AdamW steps of a tiny model in bfloat16)."""
+    jstore, store = JStore(), TStore(device="cpu")
+    jstore.add_chunks(jtesting.toy_corpus(jtesting.sample_lexicon()))
+    store.add_chunks(ttesting.toy_corpus(ttesting.sample_lexicon()))
+    jcfg, tcfg = _cfgs("bfloat16")
+    _, want = jce.train_cross_encoder_on_corpus(jstore, cfg=jcfg, steps=40, batch=8, seed=3)
+    init = tenc.params_from_numpy(_np_tree(jce.init_cross_params(jcfg, jax.random.PRNGKey(3))))
+    monkeypatch.setattr(tce, "init_cross_params", lambda cfg, generator: init)
+    params, history = tce.train_cross_encoder_on_corpus(
+        store, cfg=tcfg, steps=40, batch=8, seed=3, device="cpu")
+    assert history[-1]["accuracy"] >= 0.75, history
+    assert history[-1]["loss"] < history[0]["loss"]
+    assert [h["step"] for h in history] == [h["step"] for h in want]
+    assert max(abs(h["loss"] - w["loss"]) for h, w in zip(history, want)) <= 0.15, \
+        (history, want)
+    assert set(params) == {"embed", "pos", "ln_f_scale", "score_head", "layers"}
+    with pytest.raises(ValueError, match="too small"):
+        tce.train_cross_encoder_on_corpus(TStore(device="cpu"), steps=2, batch=8,
+                                          device="cpu")

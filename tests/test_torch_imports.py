@@ -7,8 +7,10 @@ the ivf, packed and pq backends (pq under host residency too) and the
 cross-encoder stage,
 a micro-batcher drain through the pipelined engine and one agent run
 (every module of the port is imported on the way), at run time for the
-front door's library entry points, and statically over every source file
-of the port and chip_smoke.py."""
+front door's library entry points and for the training path and the eval
+harness (a few training steps of both encoders, an eval of the toy bank,
+a calibration, the fixture stack), and statically over every source file
+of the port and chip_smoke.py. The port imports no optax either."""
 import ast
 import os
 import subprocess
@@ -18,7 +20,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mobius_rag_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "yaml", "ml_dtypes", "mobius_rag_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "yaml", "ml_dtypes", "mobius_rag_tpu")
 # imported only inside a function body, never at module level
 LAZY = ("yaml", "aiohttp")
 
@@ -189,4 +191,38 @@ def test_front_door_modules_import_nothing_of_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _NEW_MODULES.format(names=names)],
                           capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_TRAIN_EVAL = """
+import sys
+from mobius_rag_tpu_torch.eval_harness import (bank, calibrate, derive_priors, fact_checker,
+                                               judge, lexical_oracle, matrix, run)
+from mobius_rag_tpu_torch.eval_harness.fixture_corpus import build_fixture_stack
+from mobius_rag_tpu_torch.models import cross_encoder, data, train
+from mobius_rag_tpu_torch.models.encoder import EncoderConfig
+agent, engine, store, _, info = build_fixture_stack(device="cpu")
+assert info["chunks"] > 50, info
+_, hist = train.train_encoder_on_corpus(store, cfg=EncoderConfig.tiny(), steps=2, batch=8,
+                                        log_every=1, device="cpu")
+assert len(hist) == 2, hist
+_, hist = cross_encoder.train_cross_encoder_on_corpus(store, steps=2, batch=4, device="cpu")
+out = run.run_eval(agent, "toy")
+assert out.aggregates["n"] == 5
+cal = calibrate.calibrate(agent, "toy")
+lexical_oracle.BM25Oracle(store).search("timely filing")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print("FORBIDDEN", bad)
+"""
+
+
+def test_training_and_eval_harness_import_nothing_forbidden():
+    """Training both encoders, evaluating and calibrating over the fixture
+    stack load no JAX, optax, PyYAML (the banks and the corpus manifest are
+    JSON) or JAX-package module."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_EVAL.format(forbidden=set(FORBIDDEN))],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
