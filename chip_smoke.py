@@ -38,7 +38,24 @@ held against its CPU twin), trains scripts/train_encoder.py's recipe,
 saves and reloads it, re-embeds the corpus with it and evaluates the
 cmhc_paraphrase bank through the agent with hash_embed and with the
 trained encoder, trains the cross-encoder at full width, and drives the
-eval routes through build_app.
+eval routes through build_app. Phase 10 serves sharded
+(``parallel.ShardedEngine``; every shard on this card, so it measures the
+launches and the merge, not an interconnect): 10a the exact backend over
+phase 4's 1M bf16 store at 8 shards (BASELINE.json config 4's layout) and
+at 1, and over phase 3's 70k store at 4 shards and a [2, 4] data x shard
+grid, each held to the dense engine; 10b the ivf (config 4 proper),
+packed, pq and proj backends per shard on the 1M store, with a live
+refresh; 10c phase 5's host-residency store over 4 shards with pq, the
+funnel and the exact host re-rank. Phase 11 drives the host wiring on
+the card: the stage profiler and a Chrome trace (phase 3's engine),
+integrity, the PDF export, a Drive folder import, data-parallel encode,
+an npz checkpoint round trip, the embedding worker CLI as a subprocess
+and, with aiohttp, the routes and the index RPC over a live server
+(phase 7's context). The phases run in the order 1, 2, 3 (with 6 and
+the 70k part of 10a and 11's profiler), 3b, 4 (with 6, 8, 10a and 10b),
+5 (with 8b and 10c), 7 (with 7d and 11), 9: phase 5 chooses its N from
+the time left, and the phases before it are the ones that must not take
+it.
 
     python3 chip_smoke.py
 
@@ -174,6 +191,7 @@ def topk_inputs(g, b, c, d, dtype, gate=0.3, live=None, pen_form="bc", min_sim=T
 
 
 C_MAIN = 70_144  # capacity of the 70,000-row store
+C_SHARD = 125_000  # rows of one of 8 shards of the 1M store (phase 10a)
 
 
 def topk_cases(g) -> dict:
@@ -187,6 +205,9 @@ def topk_cases(g) -> dict:
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"), (torch.int8, "int8")):
             name = f"main_{tag}" + ("" if b == BATCH else " B=1")
             cases[name] = (topk_inputs(g, b, C_MAIN, 1536, dt, live=N_CHUNKS), 40)
+    # one shard of phase 10a's sharded exact engine: 1M bf16 rows over 8 shards
+    cases["main_bf16 shard"] = (topk_inputs(g, BATCH, C_SHARD, 1536, torch.bfloat16,
+                                            live=C_SHARD), 40)
     cases.update({
         "C=1000": (topk_inputs(g, 4, 1000, 1536, torch.float32), 40),
         "m=1024": (topk_inputs(g, 8, 4096, 1536, torch.float32), 1024),
@@ -346,7 +367,11 @@ def _probes(g, kind, b, n_probe, nlist):
     """probe [B, P] int32. "random": uniform with duplicates; "one": every
     probe on one cluster; "low": only clusters 0-9 (the rest unprobed);
     "engine": as the engine probes, P-2 distinct base cells per query then
-    the 2 reserved slabs (the last two clusters) for every query."""
+    the 2 reserved slabs (the last two clusters) for every query;
+    "distinct": P distinct cells per query (a shard's tables, no slabs)."""
+    if kind == "distinct":
+        cells = torch.argsort(torch.rand((b, nlist), device="cuda", generator=g), dim=1)
+        return cells[:, :n_probe].to(torch.int32).contiguous()
     if kind == "random":
         return _ri(g, 0, nlist, (b, n_probe))
     if kind == "one":
@@ -495,6 +520,10 @@ PROJ_CHECKS = [
     # scratch (nlist over the 19,349 it counts in shared memory)
     ("p=1536", 4, 3, 5, 64, 1536, 8, "random"), ("p=768", 4, 3, 5, 256, 768, 8, "random"),
     ("nlist=20000", 8, 6, 20_000, 32, 64, 8, "random"),
+    # one shard's tables of phase 10b (1M over 8 shards: nlist 353, pad
+    # 1,024, no spill slabs), as the engine probes them: packed, then proj
+    ("shard packed S=8", BATCH, 32, 353, 1024, 1536, 8, "distinct"),
+    ("shard proj S=8", BATCH, 64, 353, 1024, 256, 8, "distinct"),
 ]
 
 
@@ -726,6 +755,8 @@ def phase3_slice(smi: str, vector_dtype: str = "float32", dev: str = "cuda",
         pool = [hybrid_req(i) for i in range(nq)]
         out["launches_served"] = phase6_served(engine, pool, "70k exact", masked_topk, smi, dev)
         out["launches_agent"] = phase6_agent(store, lexicon, cfg, smi, dev)
+        out["phase10"] = phase10_70k(smi, engine, bench_reqs, pipe_batches, dev)
+        out["phase11"] = phase11_profile(smi, engine, bench_reqs, dev)
     return out
 
 # ---------------------------------------------------------------------------
@@ -1505,14 +1536,17 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
     del engine_a, engine_b, ann
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
-    p8 = phase8_ann(smi, store, lexicon, base,
-                    {"recall": recall_reqs, "exact": exact, "self": self_reqs,
-                     "self_rows": self_rows, "bench": bench_reqs, "pipe": pipe_batches}, dev)
+    reqs = {"recall": recall_reqs, "exact": exact, "self": self_reqs, "self_rows": self_rows,
+            "bench": bench_reqs, "pipe": pipe_batches}
+    p8 = phase8_ann(smi, store, lexicon, base, reqs, dev)
+    # phase 10a-b on this store: sharded exact, then each ANN backend sharded
+    p10 = {"a": phase10a_sharded_exact(smi, store, lexicon, base, reqs, dev),
+           "b": phase10b_sharded_ann(smi, store, lexicon, base, reqs, dev)}
     return {"launches": {"proj_blocks": ra["launches"]["proj_blocks"],
                          "proj_blocks_served": served_launches,
                          "proj_gated_blocks": rb["launches"]["proj_gated_blocks"]},
             "build_s_per_m": (stages["records"] + stages["bulk_load"]) / (n_rows / 1e6),
-            "phase8": p8}
+            "phase8": p8, "phase10": p10}
 
 
 # ---------------------------------------------------------------------------
@@ -1935,10 +1969,12 @@ def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
     # phase 8b on this store, in place of the proj engine
     _release(engine)
     del engine, ann, local, kw
-    p8b = phase8b_host_pq(smi, store, lexicon, cfg, {
-        "recall": recall_reqs, "bench": bench_reqs, "qv": qv, "best_v": best_v,
-        "best_i": best_i, "n": n, "nb": nb}, dev)
-    return {"launches": launches["proj_gated_blocks"], "n": n, "phase8b": p8b}
+    reqs = {"recall": recall_reqs, "bench": bench_reqs, "qv": qv, "best_v": best_v,
+            "best_i": best_i, "n": n, "nb": nb}
+    p8b = phase8b_host_pq(smi, store, lexicon, cfg, reqs, dev)
+    p10c = phase10c_sharded_host(smi, store, lexicon, cfg, reqs, dev)
+    return {"launches": launches["proj_gated_blocks"], "n": n, "phase8b": p8b,
+            "phase10c": p10c}
 
 
 # ---------------------------------------------------------------------------
@@ -2650,11 +2686,13 @@ def phase7_front_door(smi: str, dev: str = "cuda", n_rows: int = N_FRONT) -> dic
     launches = phase7b_app(smi, ctx, model, texts, vectors, dev)
     known, ran = phase7c_known_answers(smi, dev)
     cross = phase7d_cross(smi, ctx, dev)
+    phase11_host_wiring(smi, ctx, model, dev)
     # release the context (it holds reference cycles, and 7b froze its
     # records out of the collector) before the later phases
     del ctx, model, texts, vectors
     import gc
 
+    _drop_aiohttp_handler_cache()
     gc.unfreeze()
     gc.collect()
     if on_card:
@@ -3074,7 +3112,622 @@ def phase9_train_eval(smi: str, dev: str = "cuda", cfg=None, n_distractors: int 
             "launches": sum(v["launches"] for v in b.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: sharded serving on one card (S shards of the store, every one on
+# this card: S times the launches and the real merge, no interconnect)
+# ---------------------------------------------------------------------------
+
+SHARDS_1M = 8  # BASELINE.json config 4's layout: the 1M bf16 store over 8 shards
+SHARDS_70K = 4
+SHARDS_HOST = 4
+
+
+def _same_results(name: str, got, want) -> float:
+    """Sharded results against the dense engine's, request by request: as
+    many hits, scores within TOL_VALS, chunk ids equal wherever neighbouring
+    scores differ by more than TIE_GAP. Returns the largest score gap."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        gs = np.array([h.score for h in g.hits])
+        ws = np.array([h.score for h in w.hits])
+        if len(gs) != len(ws):
+            raise AssertionError(f"{name}: request {i}: {len(gs)} hits against {len(ws)}")
+        if not len(ws):
+            continue
+        worst = max(worst, float(np.abs(gs - ws).max()))
+        tied = np.zeros(len(ws), bool)
+        gap = np.abs(np.diff(ws)) <= TIE_GAP
+        tied[1:] |= gap
+        tied[:-1] |= gap
+        if worst > TOL_VALS or any(g.hits[j].chunk_id != w.hits[j].chunk_id
+                                   for j in np.flatnonzero(~tied)):
+            raise AssertionError(f"{name}: request {i}: hits {_hits(g)} against the dense "
+                                 f"engine's {_hits(w)}")
+    return worst
+
+
+def _dense_reference(engine, reqs, pipe) -> dict:
+    """The dense engine's results for `reqs` and `pipe` (the reference of
+    the sharded runs) and its sync queries/s and busy share."""
+    want = engine.search(reqs, k=K)
+    want_pipe = engine.search_pipelined(pipe, k=K)
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(N_BATCHES):
+            engine.search(reqs, k=K)
+        rounds.append(BATCH * N_BATCHES / (time.perf_counter() - t0))
+    busy, _ = _busy_line(engine, reqs, engine.device)
+    return {"want": want, "want_pipe": want_pipe, "qps": float(np.median(rounds)),
+            "rounds": rounds, "busy": busy}
+
+
+def _sharded_path(name: str, ref: dict, serving, reqs, pipe, kernel, per_batch: int,
+                  smi: str, dev) -> dict:
+    """The counted run of a sharded engine: search and search_pipelined held
+    to the dense engine's results (_same_results), sync rounds; `kernel`
+    must launch `per_batch` times a batch (once per shard and data group).
+    Prints queries/s and the busy share beside the dense engine's."""
+    kernel.launches = 0
+    batches = 0
+    got = serving.search(reqs, k=K)
+    batches += 1
+    got_pipe = serving.search_pipelined(pipe, k=K)
+    batches += len(pipe)
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(N_BATCHES):
+            serving.search(reqs, k=K)
+        rounds.append(BATCH * N_BATCHES / (time.perf_counter() - t0))
+        batches += N_BATCHES
+    launches = kernel.launches
+    if torch.device(dev).type == "cuda" and launches != per_batch * batches:
+        raise AssertionError(f"{name}: {launches} launches of {kernel.__name__} for "
+                             f"{batches} batches x {per_batch}")
+    worst = _same_results(name, got, ref["want"])
+    for g, w in zip(got_pipe, ref["want_pipe"]):
+        worst = max(worst, _same_results(name + " pipelined", g, w))
+    busy, _ = _busy_line(serving, reqs, dev)
+    qps = float(np.median(rounds))
+    log(f"{name}: search and search_pipelined ({len(pipe)} batches) give the dense "
+        f"engine's hits (scores within {worst:.3g}); {kernel.__name__} launches {launches} "
+        f"== {per_batch} x {batches} batches; {qps:.1f} queries/s at batch {BATCH} sync "
+        f"(rounds {[round(x, 1) for x in rounds]}) against the dense engine's "
+        f"{ref['qps']:.1f}; sharded {busy} | dense {ref['busy']} on {smi}")
+    return {"launches": launches, "qps": qps, "max_score_gap": worst}
+
+
+def _release_sharded(tse) -> None:
+    """Detach a sharded engine from its store and drop its shard copies."""
+    tse.store.listeners.remove(tse._on_store_event)
+    tse.shards = tse._copies = tse._ann = None
+
+
+def phase10_70k(smi: str, engine, reqs, pipe, dev) -> dict:
+    """Phase 10a at 70k float32 rows (phase 3's store): the exact engine over
+    S=4 shards and over a [dp 2, S 4] grid, all on this card, held to the
+    dense engine."""
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+    from mobius_rag_tpu_torch.parallel import ShardedEngine, make_mesh, make_serve_mesh
+    from mobius_rag_tpu_torch.query.engine import SearchEngine
+
+    ref = _dense_reference(engine, reqs, pipe)
+    out = {}
+    for grid, mesh in (("S=4", make_mesh(SHARDS_70K, devices=[dev] * SHARDS_70K)),
+                       ("dp2xS4", make_serve_mesh(2, SHARDS_70K,
+                                                  devices=[dev] * (2 * SHARDS_70K)))):
+        tse = ShardedEngine(engine.store, mesh=mesh, cfg=engine.cfg)
+        serving = SearchEngine(engine.store, engine.lexicon, cfg=engine.cfg,
+                               embed_fn=engine.embed_fn, device=dev, sharded=tse)
+        per_batch = len(tse.groups) * tse.num_shards
+        out[grid] = _sharded_path(f"phase 10a: 70k float32 {grid}", ref, serving, reqs, pipe,
+                                  masked_topk, per_batch, smi, dev)
+        _release_sharded(tse)
+        serving.store.listeners.remove(serving._on_store_mutation)
+    return out
+
+
+def phase10a_sharded_exact(smi: str, store, lexicon, base, reqs: dict, dev: str) -> dict:
+    """Phase 10a at 1M: the exact backend over phase 4's 1M x 1536 bf16
+    store (BASELINE.json config 4's layout: 8 shards, here all on this
+    card), and S=1, held to the dense exact engine on the same store: the
+    first path that serves bf16 rows exactly."""
+    import dataclasses
+
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+    from mobius_rag_tpu_torch.parallel import ShardedEngine, make_mesh
+    from mobius_rag_tpu_torch.query.engine import SearchEngine
+
+    t_all = time.perf_counter()
+    cfg = dataclasses.replace(base, vector_backend="exact", gating="dense")
+    dense = SearchEngine(store, lexicon, cfg=cfg, device=dev)
+    ref = _dense_reference(dense, reqs["bench"], reqs["pipe"])
+    out = {}
+    for s in (1, SHARDS_1M):
+        t0 = time.perf_counter()
+        tse = ShardedEngine(store, mesh=make_mesh(s, devices=[dev] * s), cfg=cfg)
+        _sync(dev)
+        log(f"phase 10a: 1M bf16 over {s} shard(s) of {tse.c_local:,} rows: shard copies "
+            f"in {time.perf_counter() - t0:.2f} s")
+        serving = SearchEngine(store, lexicon, cfg=cfg, device=dev, sharded=tse)
+        out[s] = _sharded_path(f"phase 10a: 1M bf16 S={s}", ref, serving, reqs["bench"],
+                               reqs["pipe"], masked_topk, s, smi, dev)
+        _release_sharded(tse)
+        store.listeners.remove(serving._on_store_mutation)
+    _release(dense)
+    log(f"phase 10a: {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def phase10b_sharded_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -> dict:
+    """Phase 10b: phase 4's 1M store over 8 shards with each ANN backend per
+    shard: ivf at the JAX package's defaults (config 4 proper), packed, pq
+    (phase 8's settings) and proj (phase 4's, dense gating). Vector-arm
+    recall@10 against the exact top-10, queries/s, the kernels' launches;
+    for ivf a live refresh: a published document found among the hits."""
+    import dataclasses
+
+    from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+    from mobius_rag_tpu_torch.parallel import ShardedEngine, make_mesh
+    from mobius_rag_tpu_torch.query.engine import SearchEngine
+
+    on_card = torch.device(dev).type == "cuda"
+    t_all = time.perf_counter()
+    cfg8 = dataclasses.replace(base, ivf_nlist=0, ivf_nprobe=32, pq_m=96, gating="dense",
+                               ivf_target_recall=0.0)
+    out = {}
+    for backend in ("ivf", "packed", "pq", "proj"):
+        cfg = dataclasses.replace(cfg8 if backend != "proj" else base, vector_backend=backend,
+                                  gating="dense")
+        tse = ShardedEngine(store, mesh=make_mesh(SHARDS_1M, devices=[dev] * SHARDS_1M),
+                            cfg=cfg)
+        _sync(dev)
+        t0 = time.perf_counter()
+        tables = tse.ensure_ann()[0][0]
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        serving = SearchEngine(store, lexicon, cfg=cfg, device=dev, sharded=tse)
+        name = f"phase 10b: 1M {backend} S={SHARDS_1M}"
+        # ---- the counted run ----
+        proj_blocks.launches = masked_topk.launches = 0
+        batches = 0
+        recalls = []
+        for off in range(0, len(reqs["recall"]), BATCH):
+            q, _ = serving.prepare_batch(reqs["recall"][off:off + BATCH])
+            arrays = tse.search_arrays(q, K)
+            batches += 1
+            for bi, row in enumerate(arrays["vec_idx"][:, :K]):
+                recalls.append(len(set(map(int, row)) & set(map(int, reqs["exact"][off + bi])))
+                               / K)
+        hybrid = serving.search(reqs["bench"], k=K)
+        batches += 1
+        for res in hybrid:
+            for h in res.hits:
+                if not (np.isfinite(h.score) and 0.0 <= h.score <= 1.0):
+                    raise AssertionError(f"{name}: bad rerank score {h.score}")
+        rounds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(N_BATCHES // 2):
+                serving.search(reqs["bench"], k=K)
+            rounds.append(BATCH * (N_BATCHES // 2) / (time.perf_counter() - t0))
+            batches += N_BATCHES // 2
+        t0 = time.perf_counter()
+        piped = serving.search_pipelined(reqs["pipe"], k=K)
+        pipe_qps = BATCH * len(reqs["pipe"]) / (time.perf_counter() - t0)
+        batches += len(reqs["pipe"])
+        launches = {"proj_blocks": proj_blocks.launches, "masked_topk": masked_topk.launches}
+        # ---- end of the counted run ----
+        want = SHARDS_1M * batches if backend in ("packed", "proj") else 0
+        if on_card and (launches["proj_blocks"] != want or launches["masked_topk"]):
+            raise AssertionError(f"{name}: launches {launches} for {batches} batches")
+        if [_hits(x) for x in piped[0]] != [_hits(x) for x in serving.search(reqs["pipe"][0],
+                                                                               k=K)]:
+            raise AssertionError(f"{name}: search_pipelined disagrees with search")
+        r = {"recall": float(np.mean(recalls)), "qps": float(np.median(rounds)),
+             "pipe_qps": pipe_qps, "build_s": build_s, "launches": launches,
+             "batches": batches}
+        base_nlist = getattr(tables, "base_nlist", tables.nlist)
+        log(f"{name}: per-shard tables nlist={tables.nlist} (base {base_nlist}), "
+            f"pad={tables.pad}, "
+            f"{sum(_table_bytes(t) for t in tse._ann[0]) / 1e9:.3f} GB over the shards, "
+            f"built in {build_s:.2f} s; vector-arm recall@{K} vs the exact top-{K} "
+            f"{r['recall']:.4f} ({len(recalls)} noisy queries); {r['qps']:.1f} queries/s at "
+            f"batch {BATCH} sync (rounds of {N_BATCHES // 2} batches "
+            f"{[round(x, 1) for x in rounds]}), {pipe_qps:.1f} pipelined over "
+            f"{len(reqs['pipe'])} batches (its first batch equals search's, ids and scores "
+            f"bitwise); launches {launches} for {batches} batches on {smi}")
+        if backend == "ivf":
+            r["refresh"] = _sharded_refresh(name, store, serving, tse, cfg)
+        out[backend] = r
+        _release_sharded(tse)
+        store.listeners.remove(serving._on_store_mutation)
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"phase 10b: {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def _sharded_refresh(name, store, serving, tse, cfg) -> str:
+    """Publish one document into the store under a sharded engine: refresh()
+    brings the shards up to date (a re-shard under the sparse lexical
+    layout), the ANN tables rebuild for the new generation, and the
+    document is found among the hits; after its delete it is gone."""
+    from mobius_rag_tpu_torch.index.store import ChunkRecord
+    from mobius_rag_tpu_torch.query.engine import QueryRequest
+
+    rng = np.random.default_rng(41)
+    emb = rng.standard_normal(cfg.embed_dim).astype(np.float32)
+    emb /= np.linalg.norm(emb)
+    text = "Quetzal rider reimburses marimba tuning within 45 days."
+    gen = tse._ann_generation
+    store.publish_document("sharded-fresh", [ChunkRecord(
+        chunk_id="sharded-fresh-1", doc_id="sharded-fresh", source_id="sf1", text=text,
+        embedding=emb, payer="sunshine_health", state="FL")])
+    info = tse.refresh()
+    if not info.get("refreshed"):
+        raise AssertionError(f"{name}: refresh after a publish did nothing: {info}")
+    req = QueryRequest(query=text, embedding=emb, payer="sunshine_health", tag_mode="none")
+    if not any(h.chunk_id == "sharded-fresh-1" for h in serving.search([req], k=K)[0].hits):
+        raise AssertionError(f"{name}: the published document is not among the hits")
+    if tse._ann_generation == gen:
+        raise AssertionError(f"{name}: the ANN tables were not rebuilt")
+    store.delete_by_document("sharded-fresh")
+    if any(h.chunk_id == "sharded-fresh-1" for h in serving.search([req], k=K)[0].hits):
+        raise AssertionError(f"{name}: the deleted document is still served")
+    log(f"{name}: live refresh: a published document found among the hits after "
+        f"refresh() -> {info} and a rebuild of the per-shard tables; gone after its delete")
+    return info["mode"]
+
+
+def phase10c_sharded_host(smi: str, store, lexicon, cfg5, reqs: dict, dev: str) -> dict:
+    """Phase 10c, on phase 5's host-residency store at the N phase 5 chose:
+    S=4 shards with pq tables each built from its own rows of the host int8
+    matrix, dense gating, the funnel over the merged lists and the exact
+    host re-rank once after the merge. Recall@10 by id, queries/s. Then
+    the same program at S=1 (one shard: phase 8b's tables) as a witness of
+    the sharded path itself, and for both where the oracle's rows are lost
+    (``_stage_recall``)."""
+    import dataclasses
+
+    from mobius_rag_tpu_torch.parallel import ShardedEngine, make_mesh
+    from mobius_rag_tpu_torch.query.engine import SearchEngine
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = dataclasses.replace(cfg5, vector_backend="pq", pq_m=96, gating="dense")
+    out = {}
+    for shards in (SHARDS_HOST, 1):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t_all = time.perf_counter()
+        tse = ShardedEngine(store, mesh=make_mesh(shards, devices=[dev] * shards), cfg=cfg)
+        serving = SearchEngine(store, lexicon, cfg=cfg, device=dev, sharded=tse)
+        t0 = time.perf_counter()
+        tables = tse.ensure_ann()[0][0]
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        name = f"phase 10c: {reqs['n']:,} host pq S={shards}"
+        if serving._device_funnel(K) <= 0 or tse.shards[0][0].vectors.shape[0] != 0:
+            raise AssertionError(f"{name}: not the codes-only sharded path with a funnel")
+        recall_res = serving.search(reqs["recall"], k=K)
+        rec_id, rec_tie, rec_fam = _recall_10m(store, recall_res, reqs["qv"], reqs["best_v"],
+                                               reqs["best_i"], reqs["nb"])
+        probed, funneled = _stage_recall(serving, tse, reqs, dev)
+        r = {"recall_id": float(np.mean(rec_id)), "build_s": build_s,
+             "in_probed_cells": probed, "in_funnel": funneled}
+        line = (f"{name}: per-shard pq tables (nlist {tables.base_nlist} + "
+                f"{tables.nlist - tables.base_nlist} slabs, pad {tables.pad}) from the host "
+                f"matrix in {build_s:.2f} s; funnel {serving._device_funnel(K)}, device k "
+                f"{serving._device_k(K)}; recall@{K} vs the exact oracle: by id "
+                f"{np.mean(rec_id):.4f}, tie-aware {np.mean(rec_tie):.4f}, family "
+                f"{np.mean(rec_fam):.4f}; the oracle's rows inside a probed cell of their "
+                f"shard {probed:.4f}, inside the funnel {funneled:.4f}")
+        if shards == 1:  # the witness: recall only
+            log(line + f"; {time.perf_counter() - t_all:.1f} s on {smi}")
+        else:
+            hybrid = serving.search(reqs["bench"], k=K)
+            for rq, results in ((reqs["recall"], recall_res), (reqs["bench"], hybrid)):
+                for req, res in zip(rq, results):
+                    for h in res.hits:
+                        if store.record(h.row).payer != req.payer:
+                            raise AssertionError(
+                                f"{name}: a hit of payer {store.record(h.row).payer!r} "
+                                f"under {req.payer!r}")
+            if not all(res.hits for res in hybrid):
+                raise AssertionError(f"{name}: a hybrid request has no hits")
+            rounds = []
+            with _Spans([(SearchEngine, "_host_rerank", "host re-rank")], dev) as timed:
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for _ in range(4):
+                        serving.search(reqs["bench"], k=K)
+                    rounds.append(BATCH * 4 / (time.perf_counter() - t0))
+            rerank_ms = [(t1 - t0) * 1e3 for t0, t1 in timed.spans["host re-rank"]]
+            busy, wall, top, _ = _device_busy_share(
+                lambda: [serving.search(reqs["bench"], k=K) for _ in range(2)], 2, dev)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+            r["qps"] = float(np.median(rounds))
+            log(line + f"; every hit passes its payer filter; {np.median(rounds):.1f} "
+                f"queries/s at batch {BATCH} sync (rounds {[round(x, 1) for x in rounds]}); "
+                f"host re-rank {np.median(rerank_ms):.3f} ms per batch; device busy "
+                f"{busy:.3f} of {wall:.3f} ms per batch ({100 * busy / wall:.1f}%); by kernel "
+                f"(ms/batch) " + ", ".join(f"{k} {v:.3f}" for k, v in top.items())
+                + f"; peak device memory {peak:.2f} GiB; {time.perf_counter() - t_all:.1f} s "
+                f"on {smi}")
+        _release_sharded(tse)
+        store.listeners.remove(serving._on_store_mutation)
+        out[shards] = r
+    return out
+
+
+def _stage_recall(serving, tse, reqs: dict, dev: str) -> tuple[float, float]:
+    """Where the sharded host path loses the oracle's top-K rows of the
+    recall batch: the share inside a probed cell of their own shard's
+    tables (the IVF stage), and the share inside the funnel, the merged
+    vector arm's top-w that the exact host re-rank reorders."""
+    from mobius_rag_tpu_torch.index.ivf import probe_cells
+
+    best = reqs["best_i"]
+    q, _ = serving.prepare_batch(reqs["recall"])
+    inside = np.zeros(best.shape, bool)
+    for si, t in enumerate(tse.ensure_ann()[0]):
+        lo, cs = si * tse.c_local, tse.c_local
+        _, probe = probe_cells(q["vec"].float(), t.centroids, t.base_nlist, t.nlist,
+                               tse.cfg.ivf_nprobe)
+        live = t.valid > 0
+        cell_of = torch.full((cs,), -1, dtype=torch.long, device=t.rowids.device)
+        cells = torch.arange(t.nlist, device=t.rowids.device)[:, None].expand_as(t.rowids)
+        cell_of[t.rowids[live].long()] = cells[live]
+        mine = (best >= lo) & (best < lo + cs)
+        c = cell_of[torch.from_numpy(np.where(mine, best - lo, 0)).to(t.rowids.device)]
+        hit = ((c[:, :, None] == probe[:, None, :]).any(-1) & (c >= 0)).cpu().numpy()
+        inside |= mine & hit
+    wide = tse.run(q, serving._device_k(K), serving._device_funnel(K))["wide_idx"]
+    wide = wide.cpu().numpy()
+    funneled = np.mean([len(set(wide[i].tolist()) & set(best[i].tolist())) / K
+                        for i in range(len(best))])
+    return float(inside.mean()), float(funneled)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the host wiring on the card (the profiler, integrity, PDF,
+# Drive, data-parallel encode, checkpoints, the worker CLI, the index RPC)
+# ---------------------------------------------------------------------------
+
+PROFILE_STAGES = ("filters", "vector", "lexical", "dtag", "arms", "full_pipeline")
+
+
+def _drop_aiohttp_handler_cache() -> None:
+    """Forget the handlers aiohttp has served: it caches each handler's
+    middleware chain in a module-level LRU (``web_app._cached_build_middleware``
+    in aiohttp 3.x), and a handler's closure holds its app's context, so a
+    context that served a request would stay on the card after its server
+    stops."""
+    try:
+        from aiohttp import web_app
+    except ImportError:
+        return
+    cached = getattr(web_app, "_cached_build_middleware", None)
+    if cached is not None:
+        cached.cache_clear()
+
+
+def phase11_profile(smi: str, engine, reqs, dev: str) -> dict:
+    """profile_engine on phase 3's engine (every stage present and > 0) and
+    capture_trace's Chrome trace, which must name topk.cu's kernel."""
+    import os
+
+    from mobius_rag_tpu_torch.config import get_config
+    from mobius_rag_tpu_torch.profiling import capture_trace, profile_engine
+
+    p = profile_engine(engine, reqs, k=K, iters=5)
+    stages = p["device_stages_ms"]
+    if set(stages) != set(PROFILE_STAGES) or not all(v > 0 for v in stages.values()):
+        raise AssertionError(f"phase 11: profile_engine stages {stages}")
+    tr = capture_trace(engine, reqs, k=K, n_batches=2,
+                       logdir=os.path.join(get_config().data_dir, "profiles", "phase11"))
+    if not tr["ok"]:
+        raise AssertionError(f"phase 11: capture_trace failed: {tr}")
+    with open(tr["trace_file"]) as f:
+        names = {str(ev.get("name", "")) for ev in json.load(f).get("traceEvents", [])}
+    kernel = sorted(n for n in names if "topk_tiles" in n)
+    if torch.device(dev).type == "cuda" and not kernel:
+        raise AssertionError("phase 11: the Chrome trace names no topk.cu kernel "
+                             f"({len(names)} event names)")
+    log(f"phase 11: profile_engine on phase 3's engine (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; signals {p['signals_ms']:.3f}, fusion+rerank {p['fusion_rerank_ms']:.3f}, host "
+        f"prepare {p['host_prepare_ms']:.3f}, assemble {p['host_assemble_ms']:.3f}; "
+        f"capture_trace: {len(names)} event names, topk.cu's {kernel[:1]} on {smi}")
+    return {"stages": stages}
+
+
+def phase11_host_wiring(smi: str, ctx, model, dev: str) -> dict:
+    """On phase 7's context: integrity_report, the document PDF, an
+    InMemoryDrive folder imported into the on-card pipeline, MeshEncoderModel
+    over [card] * 2 against EncoderModel, an npz checkpoint round trip, the
+    embedding worker CLI as a subprocess (it embeds on the card and publishes
+    into a snapshot the serving side reloads), and, where aiohttp is
+    installed, the HTTP routes and RemoteIndexClient over a live server."""
+    import os
+    import sys
+
+    from mobius_rag_tpu_torch.drive import InMemoryDrive, import_folder
+    from mobius_rag_tpu_torch.export_pdf import markdown_to_pdf
+    from mobius_rag_tpu_torch.index.store import ChunkStore
+    from mobius_rag_tpu_torch.ingest.queue import JobQueue
+    from mobius_rag_tpu_torch.ingest.worker import EMBEDDING_KIND
+    from mobius_rag_tpu_torch.integrity import integrity_report
+    from mobius_rag_tpu_torch.models.checkpoint import load_encoder, save_encoder
+    from mobius_rag_tpu_torch.models.encoder import (EncoderConfig, EncoderModel,
+                                                     MeshEncoderModel, flatten_params)
+    from mobius_rag_tpu_torch.parallel import make_mesh
+    from mobius_rag_tpu_torch.query.engine import QueryRequest, SearchEngine
+
+    t_all = time.perf_counter()
+    data_dir = os.environ["MRAG_DATA_DIR"]
+    rep = integrity_report(ctx)
+    if not rep["ok"] or rep["counts"]["device_valid"] != rep["counts"]["host_records"]:
+        raise AssertionError(f"phase 11: integrity report {rep}")
+    doc = ctx.store.record(0).doc_id
+    recs = [ctx.store.record(i) for i in ctx.store.rows_for_document(doc)]
+    pdf = markdown_to_pdf(f"# {doc}\n\n" + "\n\n".join(r.text for r in recs), title=doc)
+    if not pdf.startswith(b"%PDF"):
+        raise AssertionError("phase 11: the PDF does not start with %PDF")
+
+    folder = {"f": [("Sunshine_FL_Provider_Manual.txt",
+                     b"TIMELY FILING\nDrive import claims are due within 97 days."),
+                    ("notes.txt", b"lunch")]}
+    imp = import_folder(ctx.pipeline, InMemoryDrive(folder), "f")
+    ctx.pipeline.drain()
+    rows = ctx.store.rows_for_document(imp.imported[0]) if len(imp.imported) == 1 else []
+    if not rows:
+        raise AssertionError(f"phase 11: drive import {imp} published no rows")
+    # the imported chunk's own embedding finds it first in the vector arm (the
+    # encoder is seeded, not trained, and the rerank weighs authority too)
+    rec = ctx.store.record(rows[0])
+    hit = ctx.engine.search(QueryRequest(query=rec.text, embedding=rec.embedding,
+                                         tag_mode="none"), k=K)[0]
+    if hit.telemetry["arms"]["vector"][0]["row"] not in rows:
+        raise AssertionError(f"phase 11: drive import {imp} not served: "
+                             f"{hit.telemetry['arms']['vector'][:3]}")
+
+    texts = [r.text for r in recs[:8]] + ["timely filing deadline", "prior authorization"] * 8
+    mesh = MeshEncoderModel(make_mesh(2, devices=[dev] * 2), model.cfg,
+                            model.module.params_tree())
+    a, b = mesh(texts), model(texts)
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    if cos.min() < PRECISION_COS or len(mesh.modules) != 2 or len({id(m) for m in
+                                                                    mesh.modules}) != 1:
+        raise AssertionError(f"phase 11: MeshEncoderModel rows: cosine {cos.min()}")
+    del mesh
+
+    tiny = EncoderModel(EncoderConfig.tiny(), device=dev, seed=3)
+    path = os.path.join(data_dir, "tiny_ckpt")
+    save_encoder(path, tiny.module.params_tree(), tiny.cfg)
+    tree, cfg = load_encoder(path)
+    back = EncoderModel(cfg, tree, device=dev)
+    same = all(torch.equal(x.cpu(), y.cpu()) for x, y in
+               zip(flatten_params(tree), flatten_params(tiny.module.params_tree())))
+    gap = float(np.abs(back(texts) - tiny(texts)).max())
+    if cfg != tiny.cfg or not same or gap > 1e-6:
+        raise AssertionError(f"phase 11: the npz checkpoint round trip changed the "
+                             f"encoder (parameters bitwise {same}, outputs within {gap})")
+
+    queue, snap = os.path.join(data_dir, "cli_jobs.sqlite"), os.path.join(data_dir, "cli_snap")
+    units = [{"source_id": f"cli-p{i}", "kind": "paragraph", "text": t, "section_path": "S",
+              "page": 1, "j_tags": [], "d_tags": [], "p_tags": []}
+             for i, t in enumerate(["Worker plan timely filing is 211 days from service.",
+                                    "Worker plan appeals are due in 45 days."])]
+    JobQueue(queue).enqueue(EMBEDDING_KIND, {"doc_id": "cli_doc", "units": units,
+                                             "meta": {"filename": "cli.txt"}})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mobius_rag_tpu_torch.ingest", "--kind",
+                           "embedding", "--once", "--queue", queue, "--snapshot", snap,
+                           "--device", dev], capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    t_cli = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 11: the worker CLI failed:\n{proc.stderr[-3000:]}")
+    restored = ChunkStore.restore(snap, device=dev)
+    reader = SearchEngine(restored, ctx.engine.lexicon, embed_fn=model, device=dev)
+    found = reader.search(QueryRequest(query=units[0]["text"], tag_mode="none"), k=K)[0]
+    if sorted(restored.embedded_source_ids("cli_doc")) != ["cli-p0", "cli-p1"] or \
+            not found.hits or found.hits[0].doc_id != "cli_doc":
+        raise AssertionError(f"phase 11: the CLI's chunks are not served: {_hits(found)}")
+    restored.listeners.clear()
+    del reader, restored
+    http = _phase11_http(dev)
+    log(f"phase 11: integrity ok ({rep['counts']}); PDF of {doc} {len(pdf)} bytes; drive "
+        f"import {len(imp.imported)} of {imp.scanned} files served; MeshEncoderModel over "
+        f"[{dev}] * 2 vs EncoderModel per-row cosine min {cos.min():.6f} (bound "
+        f"{PRECISION_COS}); npz round trip bitwise (outputs within {gap:.2g}); the worker CLI embedded and published "
+        f"2 chunks in {t_cli:.1f} s (a subprocess on {dev}), served from its snapshot; "
+        f"{http}; phase 11 {time.perf_counter() - t_all:.1f} s on {smi}")
+    return {"cli_s": t_cli}
+
+
+def _phase11_http(dev: str) -> str:
+    """The routes of the last modules through a live server on a local
+    socket, over a small context of its own on the card (phase 7c's: the
+    toy corpus, hash embeddings), and RemoteIndexClient publishing into it
+    (aiohttp only). An app keeps its context alive after its server stops,
+    so it is not given phase 7's."""
+    import asyncio
+    import threading
+    import urllib.request
+
+    try:
+        from aiohttp import web
+    except ImportError:
+        return "HTTP routes skipped (no aiohttp on this machine)"
+    from mobius_rag_tpu_torch.api.server import AppContext, build_app
+    from mobius_rag_tpu_torch.index.service import RemoteIndexClient
+    from mobius_rag_tpu_torch.index.store import ChunkRecord
+    from mobius_rag_tpu_torch.testing import hash_embed, sample_lexicon, toy_corpus
+
+    ctx = AppContext.build(embed_fn=hash_embed, lexicon=sample_lexicon(), device=dev)
+    ctx.store.add_chunks(toy_corpus(ctx.engine.lexicon))
+    model = hash_embed
+
+    state: dict = {}
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(build_app(ctx))
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(runner.setup())
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        loop.run_until_complete(site.start())
+        state["url"] = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+        loop.run_forever()
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    for _ in range(400):
+        if "url" in state:
+            break
+        time.sleep(0.05)
+    try:
+        url = state["url"]
+        client = RemoteIndexClient(url)
+        text = "Remote index plan covers harp lessons within 33 days."
+        rows = client.publish_document("rpc_doc", [ChunkRecord(
+            chunk_id="rpc-1", doc_id="rpc_doc", source_id="rpc-s1", text=text,
+            embedding=model([text])[0])])
+        if client.embedded_source_ids("rpc_doc") != {"rpc-s1"} or len(rows) != 1:
+            raise AssertionError("phase 11: RemoteIndexClient publish not in the live index")
+
+        def fetch(path, body=None):
+            req = urllib.request.Request(url + path, method="POST" if body is not None else "GET",
+                                         data=None if body is None else json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, r.read()
+
+        status = {}
+        for path, body in (("/admin/integrity", None), ("/documents/rpc_doc/pdf", None),
+                           ("/drive/status", None), ("/admin/profile", {"iters": 1, "k": 5})):
+            code, raw = fetch(path, body)
+            status[path] = code
+            if code != 200 or (path.endswith("pdf") and not raw.startswith(b"%PDF")):
+                raise AssertionError(f"phase 11: {path} answered {code}")
+        if client.delete_by_document("rpc_doc") != 1:
+            raise AssertionError("phase 11: RemoteIndexClient delete")
+    finally:
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=60)
+        loop.close()
+        _drop_aiohttp_handler_cache()
+    return f"RemoteIndexClient publish/delete and routes {status} through a live server"
+
+
 def main() -> None:
+    import gc
     import os
     import shutil
     import tempfile
@@ -3089,11 +3742,17 @@ def main() -> None:
     kp = phase2_proj_kernels()
     s = phase3_slice(smi)
     s8 = phase3_slice(smi, "int8")
-    p7 = phase7_front_door(smi)
-    p9 = phase9_train_eval(smi)
     p4 = phase4_proj(smi)
     p5 = phase5_host(smi, build_s_per_m=p4["build_s_per_m"],
                      elapsed=time.perf_counter() - t_start)
+    # phase 5 froze its records out of the collector: its store (pinned
+    # host matrix, device tables) sits in reference cycles that only a
+    # collection after unfreezing frees, before the phases after it
+    gc.unfreeze()
+    gc.collect()
+    torch.cuda.empty_cache()
+    p7 = phase7_front_door(smi)
+    p9 = phase9_train_eval(smi)
     kernels = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     # launches by path: phase 3's counted run, phase 6's micro-batcher and agent
@@ -3101,8 +3760,13 @@ def main() -> None:
                                s["launches_served"], "phase 6 agent": s["launches_agent"],
                                "phase 7 front door": p7["launches"],
                                "phase 7d cross-encoder": p7["launches_cross"],
-                               "phase 9b eval": p9["launches"]},
-               "masked_topk_int8": {"phase 3b": s8["launches"]}}
+                               "phase 9b eval": p9["launches"],
+                               "phase 10a sharded 70k S=4": s["phase10"]["S=4"]["launches"],
+                               "phase 10a sharded 70k dp2xS4":
+                                   s["phase10"]["dp2xS4"]["launches"]},
+               "masked_topk_int8": {"phase 3b": s8["launches"]},
+               "masked_topk_bf16": {f"phase 10a sharded 1M S={n}": p4["phase10"]["a"][n]["launches"]
+                                    for n in (1, SHARDS_1M)}}
     for name, timing, err in (("masked_topk", "main_f32", "max_abs_err"),
                               ("masked_topk_int8", "main_int8", "max_abs_err_int8")):
         t, t1 = k["timing"][timing], k["timing"][f"{timing} B=1"]
@@ -3116,10 +3780,23 @@ def main() -> None:
                         "device_ms_B1": t1["device_ms"], "plain_ms_B1": t1["plain_ms"],
                         "bound_ms_B1": t1["bound_ms"],
                         "library_ms_B1": t1["library_ms"] if f32 else None})
+    # bf16 rows, at one shard's shape of the 1M store (phase 10a's path)
+    t = k["timing"]["main_bf16 shard"]
+    kernels.append({"name": "masked_topk_bf16", "route": "cuda", "source": KERNEL_SOURCE,
+                    "replaces": KERNEL_REPLACES,
+                    "launches": sum(by_path["masked_topk_bf16"].values()),
+                    "launches_by_path": by_path["masked_topk_bf16"],
+                    "max_abs_err": k["max_abs_err"], **{key: t[key] for key in keys},
+                    "library_ms": None, "device_ms": t["device_ms"],
+                    "shape": f"B={BATCH} C={C_SHARD} m=40 bfloat16"})
     packed = p4["phase8"]["packed"]
     by_path["proj_blocks"] = {"phase 4 path A": p4["launches"]["proj_blocks"],
                               "phase 6 served 1M": p4["launches"]["proj_blocks_served"],
-                              "phase 8 packed": packed["launches"]["proj_blocks"]}
+                              "phase 8 packed": packed["launches"]["proj_blocks"],
+                              "phase 10b packed S=8":
+                                  p4["phase10"]["b"]["packed"]["launches"]["proj_blocks"],
+                              "phase 10b proj S=8":
+                                  p4["phase10"]["b"]["proj"]["launches"]["proj_blocks"]}
     if not packed["launches"]["proj_blocks"] > 0:
         raise AssertionError("phase 8: the packed engine launched no proj_blocks")
     by_path["proj_gated_blocks"] = {"phase 4 path B": p4["launches"]["proj_gated_blocks"],

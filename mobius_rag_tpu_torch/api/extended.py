@@ -27,7 +27,6 @@ from typing import Any
 import numpy as np
 
 from mobius_rag_tpu_torch import __version__
-from mobius_rag_tpu_torch.api.server import not_ported
 from mobius_rag_tpu_torch.config import get_config
 from mobius_rag_tpu_torch.ingest.featurize import featurize_chunk
 from mobius_rag_tpu_torch.ingest.worker import CHUNKING_KIND
@@ -345,6 +344,8 @@ def register_extended_routes(r, ctx) -> None:  # noqa: C901 — route table
 
     def _republish(doc_id: str, recs) -> int:
         rows = ctx.store.publish_document(doc_id, recs)
+        if ctx.engine.sharded is not None:
+            ctx.engine.sharded.refresh()
         return len(rows)
 
     async def doc_fact_put(request):
@@ -735,6 +736,8 @@ def register_extended_routes(r, ctx) -> None:  # noqa: C901 — route table
                 ctx.pipeline.docs.delete(doc_id)
                 n = ctx.store.delete_by_document(doc_id)
                 removed.append({"doc_id": doc_id, "index_rows": n})
+        if removed and ctx.engine.sharded is not None:
+            ctx.engine.sharded.refresh()
         return _json({"removed": removed})
 
     # ---- candidates bulk ------------------------------------------------------
@@ -785,7 +788,25 @@ def register_extended_routes(r, ctx) -> None:  # noqa: C901 — route table
         Runs the staged sub-program timings (profile_engine) and folds
         the result into search_events; trace=true additionally captures
         a profiler trace directory."""
-        return not_ported("mobius_rag_tpu.profiling", 6)
+        from mobius_rag_tpu_torch.profiling import capture_trace, profile_engine
+        from mobius_rag_tpu_torch.query.engine import QueryRequest
+
+        body = await request.json() if request.can_read_body else {}
+        queries = body.get("queries") or [
+            "timely filing deadline for claims",
+            "prior authorization requirements",
+        ]
+        k = int(body.get("k", 10))
+        iters = max(1, min(int(body.get("iters", 5)), 25))
+        reqs = [QueryRequest(query=q) for q in queries]
+        try:
+            profile = profile_engine(ctx.engine, reqs, k=k, iters=iters)
+        except ValueError as e:
+            return _err(str(e))
+        out = {"profile": profile}
+        if body.get("trace"):
+            out["trace"] = capture_trace(ctx.engine, reqs, k=k)
+        return _json(out)
 
     r.add_get("/version", version)
     r.add_get("/health/deep", health_deep)

@@ -14,8 +14,8 @@ Groups:
   /admin/{repository_audit,list_blocked_docs,block_*_pending,
       dedupe_policy_paragraphs,normalize-payer,reset_bloated_docs,
       backfill_chunk_tags,vector_search,retag-in-place*,nightly/runs*}
-  /drive/*                                  — Drive sync router (501:
-      the drive module is not ported yet)
+  /drive/*                                  — Drive sync router over
+      drive.HTTPDrive (OAuth url/callback, scan, import)
   /documents/import-from-html, import-scraped-pages
   /config/llm/{name}[,/test], /config/llm/providers,
       /config/prompts/{stage}/{version}, /config/prompts/names
@@ -29,11 +29,11 @@ Ported from ``mobius_rag_tpu.api.ops`` with the port's imports.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any
 
-from mobius_rag_tpu_torch.api.server import not_ported
 from mobius_rag_tpu_torch.ingest.featurize import featurize_chunk
 from mobius_rag_tpu_torch.ingest.worker import CHUNKING_KIND
 
@@ -649,10 +649,141 @@ def _register_admin_ops(r, ctx) -> None:  # noqa: C901 — route table
 
 
 def _register_drive_and_imports(r, ctx) -> None:  # noqa: C901 — route table
-    async def drive(request):
-        """The Drive sync router (reference /drive/*, /documents/
-        import-from-drive) needs the drive module."""
-        return not_ported("mobius_rag_tpu.drive", 6)
+    from mobius_rag_tpu_torch.drive import HTTPDrive, classify_file, import_folder
+
+    def _drive_client():
+        """Injected client first (tests / alternate backends), then an
+        env-configured HTTPDrive, else None (503 on use)."""
+        injected = ctx.extra_state.get("drive_client")
+        if injected is not None:
+            return injected
+        env = os.environ.get
+        if env("MRAG_DRIVE_ACCESS_TOKEN") or env("MRAG_DRIVE_REFRESH_TOKEN"):
+            return HTTPDrive()
+        return None
+
+    async def drive_status(request):
+        client = _drive_client()
+        env = os.environ.get
+        return _json({
+            "connected": client is not None,
+            "client": type(client).__name__ if client else None,
+            "auth_mode": ("static_token" if env("MRAG_DRIVE_ACCESS_TOKEN")
+                          else "refresh_token" if env("MRAG_DRIVE_REFRESH_TOKEN")
+                          else "injected" if client is not None else None),
+            "last_import": ctx.extra_state.get("drive_last_import"),
+        })
+
+    async def drive_auth_url(request):
+        """Build the OAuth consent URL (reference GET /drive/auth-url).
+        Needs only the client id — no egress."""
+        client_id = os.environ.get("MRAG_DRIVE_CLIENT_ID", "")
+        if not client_id:
+            return _err("MRAG_DRIVE_CLIENT_ID not configured", 503)
+        import urllib.parse
+
+        redirect = request.query.get(
+            "redirect_uri",
+            os.environ.get("MRAG_DRIVE_REDIRECT_URI",
+                           "http://localhost:8080/drive/callback"))
+        params = urllib.parse.urlencode({
+            "client_id": client_id,
+            "redirect_uri": redirect,
+            "response_type": "code",
+            "scope": "https://www.googleapis.com/auth/drive.readonly",
+            "access_type": "offline",
+            "prompt": "consent",
+        })
+        base = os.environ.get("MRAG_DRIVE_AUTH_URL",
+                              "https://accounts.google.com/o/oauth2/v2/auth")
+        return _json({"auth_url": f"{base}?{params}"})
+
+    async def drive_callback(request):
+        """Exchange the consent code for a refresh token (reference
+        GET /drive/callback) and hold it for this process."""
+        code = request.query.get("code", "")
+        if not code:
+            return _err("code parameter required")
+        import json as _j
+        import urllib.parse
+        import urllib.request
+
+        env = os.environ.get
+        body = urllib.parse.urlencode({
+            "client_id": env("MRAG_DRIVE_CLIENT_ID", ""),
+            "client_secret": env("MRAG_DRIVE_CLIENT_SECRET", ""),
+            "code": code,
+            "grant_type": "authorization_code",
+            "redirect_uri": request.query.get(
+                "redirect_uri", env("MRAG_DRIVE_REDIRECT_URI",
+                                    "http://localhost:8080/drive/callback")),
+        }).encode()
+        token_url = env("MRAG_DRIVE_TOKEN_URL",
+                        "https://oauth2.googleapis.com/token")
+        req = urllib.request.Request(token_url, data=body, method="POST")
+        req.add_header("Content-Type", "application/x-www-form-urlencoded")
+        try:
+            with urllib.request.urlopen(req, timeout=30.0) as resp:
+                tok = _j.loads(resp.read().decode())
+        except Exception as e:
+            return _err(f"token exchange failed: {e}", 502)
+        refresh = tok.get("refresh_token", "")
+        if refresh:
+            # process-scoped credential: HTTPDrive() picks it up from env
+            os.environ["MRAG_DRIVE_REFRESH_TOKEN"] = refresh
+        return _json({"connected": bool(refresh),
+                      "has_refresh_token": bool(refresh)})
+
+    async def drive_disconnect(request):
+        had = bool(os.environ.pop("MRAG_DRIVE_REFRESH_TOKEN", None))
+        had |= bool(os.environ.pop("MRAG_DRIVE_ACCESS_TOKEN", None))
+        ctx.extra_state.pop("drive_client", None)
+        return _json({"disconnected": had})
+
+    async def drive_folder_files(request):
+        client = _drive_client()
+        if client is None:
+            return _err("drive not connected", 503)
+        try:
+            files = client.list_folder(request.match_info["folder_id"])
+        except Exception as e:
+            return _err(f"drive list failed: {e}", 502)
+        return _json({"files": files})
+
+    async def drive_scan_folder(request):
+        """Classify a folder's files WITHOUT importing (reference
+        POST /drive/scan-folder — the import preview)."""
+        client = _drive_client()
+        if client is None:
+            return _err("drive not connected", 503)
+        body = await request.json()
+        folder_id = body.get("folder_id", "")
+        if not folder_id:
+            return _err("folder_id required")
+        try:
+            files = client.list_folder(folder_id)
+        except Exception as e:
+            return _err(f"drive list failed: {e}", 502)
+        return _json({"files": [
+            {**f, **classify_file(f["name"])} for f in files]})
+
+    async def drive_import_folder(request):
+        """Import a folder through the normal ingest path (reference
+        POST /drive/import-folder / /documents/import-from-drive)."""
+        client = _drive_client()
+        if client is None:
+            return _err("drive not connected", 503)
+        body = await request.json()
+        folder_id = body.get("folder_id", "")
+        if not folder_id:
+            return _err("folder_id required")
+        res = import_folder(ctx.pipeline, client, folder_id,
+                            manuals_only=bool(body.get("manuals_only", True)))
+        summary = {"scanned": res.scanned, "imported": res.imported,
+                   "skipped": res.skipped, "ts": time.time(),
+                   "folder_id": folder_id}
+        ctx.extra_state["drive_last_import"] = summary
+        return _json(summary)
 
     async def import_from_html(request):
         """Direct HTML ingestion (reference POST /documents/
@@ -698,14 +829,14 @@ def _register_drive_and_imports(r, ctx) -> None:  # noqa: C901 — route table
                         "deduped": res.deduped})
         return _json({"imported": out, "n": len(out)})
 
-    r.add_get("/drive/status", drive)
-    r.add_get("/drive/auth-url", drive)
-    r.add_get("/drive/callback", drive)
-    r.add_delete("/drive/disconnect", drive)
-    r.add_get("/drive/folders/{folder_id}/files", drive)
-    r.add_post("/drive/scan-folder", drive)
-    r.add_post("/drive/import-folder", drive)
-    r.add_post("/documents/import-from-drive", drive)
+    r.add_get("/drive/status", drive_status)
+    r.add_get("/drive/auth-url", drive_auth_url)
+    r.add_get("/drive/callback", drive_callback)
+    r.add_delete("/drive/disconnect", drive_disconnect)
+    r.add_get("/drive/folders/{folder_id}/files", drive_folder_files)
+    r.add_post("/drive/scan-folder", drive_scan_folder)
+    r.add_post("/drive/import-folder", drive_import_folder)
+    r.add_post("/documents/import-from-drive", drive_import_folder)
     r.add_post("/documents/import-from-html", import_from_html)
     r.add_post("/documents/import-scraped-pages", import_scraped_pages)
 

@@ -31,10 +31,11 @@ MRAG_ADMIN_KEY is set (main.py:548 middleware parity).
 
 The port imports aiohttp only in ``build_app``, ``main`` and the route
 modules, so ``AppContext`` (the library entry point) works without it.
-Handlers whose module is not ported yet answer HTTP 501 with a JSON error
-naming the module and its ROADMAP item (:func:`not_ported`); nothing
-stands in for them. Run: ``python -m mobius_rag_tpu_torch.api.server
---port 8000 [--provider hash] [--device cpu]``.
+Every handler of the JAX app is served. A ``parallel.ShardedEngine``
+attached as ``ctx.engine.sharded`` refreshes after publishes and deletes
+(through the store's listeners) and is rebuilt on a restore. Run:
+``python -m mobius_rag_tpu_torch.api.server --port 8000 [--provider hash]
+[--device cpu]``.
 """
 from __future__ import annotations
 
@@ -139,13 +140,6 @@ def _json(data: Any, status: int = 200):
 
 def _err(msg: str, status: int = 400):
     return _json({"error": msg}, status)
-
-
-def not_ported(module: str, item: int):
-    """The 501 answer of a handler whose module is not ported yet."""
-    return _json({"error": f"{module} is not ported to mobius_rag_tpu_torch "
-                           f"yet (ROADMAP queue 1, item {item})",
-                  "module": module, "roadmap": f"queue 1, item {item}"}, 501)
 
 
 async def admin_auth_middleware(request, handler):
@@ -729,7 +723,19 @@ def build_app(ctx: AppContext):
 
     async def document_pdf(request):
         """Consolidated document markdown → PDF (markdown_to_pdf.py parity)."""
-        return not_ported("mobius_rag_tpu.export_pdf", 6)
+        from mobius_rag_tpu_torch.export_pdf import markdown_to_pdf
+
+        doc_id = request.match_info["doc_id"]
+        rows = ctx.store._doc_rows.get(doc_id, [])
+        recs = [r for i in rows if (r := ctx.store.record(i)) is not None]
+        if not recs:
+            return _err("not found", 404)
+        md = "\n\n".join(
+            (f"## {r.section_path}\n\n{r.text}" if r.section_path else r.text)
+            for r in recs
+        )
+        pdf = markdown_to_pdf(f"# {doc_id}\n\n{md}", title=doc_id)
+        return web.Response(body=pdf, content_type="application/pdf")
 
     # ---- drive import ---------------------------------------------------------------
 
@@ -737,7 +743,17 @@ def build_app(ctx: AppContext):
         """Import a drive folder via the configured client (offline pods
         have none → 501 with the reason, matching the gated-feature
         pattern)."""
-        return not_ported("mobius_rag_tpu.drive", 6)
+        from mobius_rag_tpu_torch.drive import import_folder
+
+        client = getattr(ctx, "drive_client", None)
+        if client is None:
+            return _err("no drive client configured (set ctx.drive_client)", 501)
+        body = await request.json()
+        if not body.get("folder_id"):
+            return _err("missing 'folder_id'")
+        out = import_folder(ctx.pipeline, client, body["folder_id"],
+                            manuals_only=bool(body.get("manuals_only", True)))
+        return _json(dataclasses.asdict(out))
 
     # ---- admin DB console ---------------------------------------------------------
 
@@ -940,10 +956,14 @@ def build_app(ctx: AppContext):
     # ---- integrity / nightly -----------------------------------------------------
 
     async def integrity(request):
-        return not_ported("mobius_rag_tpu.integrity", 6)
+        from mobius_rag_tpu_torch.integrity import integrity_report
+
+        return _json(integrity_report(ctx))
 
     async def integrity_fix(request):
-        return not_ported("mobius_rag_tpu.integrity", 6)
+        from mobius_rag_tpu_torch.integrity import integrity_remediate
+
+        return _json(integrity_remediate(ctx))
 
     async def nightly_run(request):
         try:
@@ -1019,7 +1039,7 @@ def build_app(ctx: AppContext):
     async def restore(request):
         """Swap in a store restored from a snapshot (the durable-resume
         counterpart of /admin/snapshot). Every component holding the old
-        store is rebound."""
+        store is rebound; an attached sharded engine is rebuilt over it."""
         body = await request.json()
         try:
             path = _data_subpath(body.get("path"), "snapshot")
@@ -1035,6 +1055,8 @@ def build_app(ctx: AppContext):
         ctx.engine.store = new_store
         ctx.pipeline.store = new_store
         ctx.pipeline.embedding_worker.store = new_store
+        if ctx.engine.sharded is not None:
+            ctx.engine.sharded = ctx.engine.sharded.rebuilt(new_store)
         out = {"path": path, "chunks": new_store.size}
         ann_path = os.path.join(path, "ann.npz")
         if ctx.engine.vector_backend != "exact" and os.path.exists(ann_path):
@@ -1053,11 +1075,33 @@ def build_app(ctx: AppContext):
 
     async def internal_publish(request):
         """Remote publish from a worker process straight into the LIVE
-        device index (index/service.py wire format)."""
-        return not_ported("mobius_rag_tpu.index.service", 6)
+        device index (index/service.py wire format). An attached sharded
+        engine refreshes through the store's mutation listeners."""
+        from mobius_rag_tpu_torch.index.service import record_from_wire
+
+        body = await request.json()
+        doc_id = body.get("doc_id")
+        if not doc_id or not isinstance(body.get("records"), list):
+            return _err("need doc_id and records")
+        try:
+            recs = [record_from_wire(d) for d in body["records"]]
+            rows = ctx.store.publish_document(doc_id, recs)
+        except (KeyError, ValueError, RuntimeError) as e:
+            return _err(f"publish failed: {e}", 409)
+        return _json({"rows": rows})
 
     async def internal_add_chunks(request):
-        return not_ported("mobius_rag_tpu.index.service", 6)
+        from mobius_rag_tpu_torch.index.service import record_from_wire
+
+        body = await request.json()
+        if not isinstance(body.get("records"), list):
+            return _err("need records")
+        try:
+            recs = [record_from_wire(d) for d in body["records"]]
+            rows = ctx.store.add_chunks(recs)
+        except (KeyError, ValueError) as e:
+            return _err(f"add failed: {e}", 409)
+        return _json({"rows": rows})
 
     async def internal_delete(request):
         body = await request.json()

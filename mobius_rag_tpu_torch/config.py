@@ -93,6 +93,15 @@ class Config:
     confidence_medium: float = _env_float("MRAG_CONFIDENCE_MEDIUM", 0.35)
     confidence_low: float = _env_float("MRAG_CONFIDENCE_LOW", 0.18)
 
+    # ---- device grid (parallel/) -----------------------------------------
+    # Name of the corpus-shard axis.
+    shard_axis: str = _env_str("MRAG_SHARD_AXIS", "shard")
+    # Number of corpus shards; 0 → one shard per visible device.
+    num_shards: int = _env_int("MRAG_NUM_SHARDS", 0)
+    # Query data-parallel groups for sharded serving (>1: a [dp, shards]
+    # grid; the corpus is replicated over dp and the batch split over it).
+    serve_dp: int = _env_int("MRAG_SERVE_DP", 1)
+
     # ---- encoder model (models/encoder.py) -------------------------------
     encoder_vocab_size: int = _env_int("MRAG_ENCODER_VOCAB", 32768)
     encoder_layers: int = _env_int("MRAG_ENCODER_LAYERS", 12)

@@ -1,5 +1,5 @@
 """IVF (inverted-file) index: coarse clustering and the probed scans (the
-port of ``mobius_rag_tpu.index.ivf``, all of it but the shard stacking).
+port of ``mobius_rag_tpu.index.ivf``).
 
 k-means runs on the device as blockwise cosine Lloyd iterations; rows are
 then placed by the capacity-constrained multi-choice pass into padded
@@ -22,6 +22,8 @@ block by block, so the device never holds more than one block of it.
   card); the epilogue and the selection follow the JAX package's order.
 - :func:`calibrate_nprobe`: the smallest nprobe of a ladder whose
   recall@k against the exact scan clears a target (auto-nprobe).
+- :func:`pad_shard_ivf`, :func:`pad_shard_packed` and their ``stack_shard_*``
+  forms: per-shard tables on one common layout, for the sharded engine.
 
 Both probed scans select as the JAX package's scan over probes does: its
 carry starts as k (NEG_INF, row 0) seeds and every step keeps the stable
@@ -538,3 +540,92 @@ def calibrate_nprobe(ann, vectors: torch.Tensor, queries, *, k: int = 10,
         chosen = min(_NPROBE_LADDER[-1], nlist)
     return {"nprobe": chosen, "target_recall": target_recall, "k": k,
             "sample_queries": b, "curve": curve}
+
+
+# ---------------------------------------------------------------------------
+# Per-shard tables (parallel/sharded.py)
+# ---------------------------------------------------------------------------
+
+def rehome_cells(t: torch.Tensor, nb: int, base: int, nlist: int,
+                 pad: int | None = None) -> torch.Tensor:
+    """A shard's per-cell table [n, ...] (or [n, sh_pad, ...] with ``pad``)
+    on the common layout of a shard stack: zeros of [nlist(, pad), ...]
+    with its first ``nb`` (k-means) cells at [0, nb) and its synthetic
+    slabs re-homed at [base, base + n − nb)."""
+    lead = (nlist,) if pad is None else (nlist, pad)
+    out = t.new_zeros(lead + tuple(t.shape[len(lead):]))
+    cols = slice(None) if pad is None else slice(0, t.shape[1])
+    out[:nb, cols] = t[:nb]
+    out[base:base + t.shape[0] - nb, cols] = t[nb:]
+    return out
+
+
+def stack_tables(padded: list, **aux):
+    """Per-shard tables of one class, already on a common layout, stacked
+    along a leading shard axis on the first shard's device."""
+    cls = type(padded[0])
+    dev = padded[0].centroids.device
+    return cls(**{f: torch.stack([getattr(p, f).to(dev) for p in padded])
+                  for f in cls.FIELDS}, **aux)
+
+
+def pad_shard_ivf(shards: "list[IVFIndex]") -> "list[IVFIndex]":
+    """Each shard's IVF tables padded to the shards' common (nlist, pad,
+    spill length), on its own device: padded centroids are zero (score 0
+    against any query, so a padded cell can take a probe from a real cell
+    that scores below 0), padded member slots and spill entries invalid,
+    so probing them returns NEG_INF, never a wrong row. The sharded scan
+    serves the padded tables, as the JAX package's stacked tables do."""
+    nlist = max(s.nlist for s in shards)
+    pad = max(s.pad for s in shards)
+    n_spill = max(s.spill.shape[0] for s in shards)
+    out = []
+    for sh in shards:
+        c = rehome_cells(sh.centroids, sh.nlist, sh.nlist, nlist)
+        m = rehome_cells(sh.members, sh.nlist, sh.nlist, nlist, pad)
+        mv = rehome_cells(sh.member_valid, sh.nlist, sh.nlist, nlist, pad)
+        sp = sh.spill.new_zeros(n_spill)
+        sp[: sh.spill.shape[0]] = sh.spill
+        sv = sh.spill_valid.new_zeros(n_spill)
+        sv[: sh.spill_valid.shape[0]] = sh.spill_valid
+        out.append(IVFIndex(c, m, mv, sp, sv, nlist=nlist, pad=pad))
+    return out
+
+
+def stack_shard_ivf(shards: "list[IVFIndex]") -> IVFIndex:
+    """Per-shard IVF tables stacked along a leading shard axis, padded as
+    :func:`pad_shard_ivf` pads them (the JAX package's ``stack_shard_ivf``)."""
+    padded = pad_shard_ivf(shards)
+    return stack_tables(padded, nlist=padded[0].nlist, pad=padded[0].pad)
+
+
+def _packed_dims(shards) -> tuple[int, int, int]:
+    """(base, nlist, pad) of a stack of packed tables: the largest k-means
+    cell count, then room for the most synthetic slabs any shard has."""
+    base = max(s.base_nlist for s in shards)
+    extra = max(s.nlist - s.base_nlist for s in shards)
+    return base, base + extra, max(s.pad for s in shards)
+
+
+def pad_shard_packed(shards: "list[PackedIVF]") -> "list[PackedIVF]":
+    """Each shard's packed tables on the common layout (see
+    :func:`pad_shard_ivf`): base_nlist unifies to the largest, each shard's
+    spill slabs move to [base, base + extra); cells a shard does not have
+    are zero centroids over invalid slots."""
+    base, nlist, pad = _packed_dims(shards)
+    out = []
+    for sh in shards:
+        nb = sh.base_nlist
+        out.append(PackedIVF(rehome_cells(sh.centroids, nb, base, nlist),
+                             *(rehome_cells(getattr(sh, f), nb, base, nlist, pad)
+                               for f in ("values", "scales", "valid", "rowids")),
+                             nlist=nlist, pad=pad, base_nlist=base))
+    return out
+
+
+def stack_shard_packed(shards: "list[PackedIVF]") -> PackedIVF:
+    """Per-shard packed tables stacked along a leading shard axis (the JAX
+    package's ``stack_shard_packed``)."""
+    padded = pad_shard_packed(shards)
+    p0 = padded[0]
+    return stack_tables(padded, nlist=p0.nlist, pad=p0.pad, base_nlist=p0.base_nlist)

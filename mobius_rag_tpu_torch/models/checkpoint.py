@@ -1,5 +1,5 @@
-"""Encoder parameter checkpoints in the JAX package's npz layout (the port
-of ``mobius_rag_tpu.models.checkpoint``).
+"""Encoder parameter checkpoints in the JAX package's layouts (the port of
+``mobius_rag_tpu.models.checkpoint``).
 
 A checkpoint directory holds ``encoder.json`` ({"backend", "kind",
 "config"}) and, for the npz backend, ``params.npz`` with the leaves as
@@ -8,8 +8,12 @@ A checkpoint directory holds ``encoder.json`` ({"backend", "kind",
 checkpoint passes between the two packages either way, for the encoder
 (``kind="bi"``) and the cross-encoder (``kind="cross"``: leaves ``embed,
 layers, ln_f_scale, pos, score_head``; the config saved is its base
-encoder config). It writes npz only; an orbax checkpoint (the JAX
-package's first choice) raises.
+encoder config). It writes npz only. It also reads an orbax checkpoint
+(``backend: "orbax"``, the JAX package's first choice where orbax is
+installed) without JAX: ``params/_METADATA`` names each leaf's key path,
+and ``tensorstore`` opens the leaf as a zarr array inside the directory's
+OCDBT key-value store. Where ``tensorstore`` is missing, an orbax
+checkpoint raises and says so.
 """
 from __future__ import annotations
 
@@ -48,13 +52,40 @@ def load_encoder(path: str) -> tuple[dict, EncoderConfig]:
     ``CrossEncoderConfig``)."""
     with open(os.path.join(path, "encoder.json")) as f:
         meta = json.load(f)
-    if meta.get("backend") != "npz":
-        raise NotImplementedError(
-            f"{path}: {meta.get('backend')!r} checkpoints are not readable "
-            "without orbax; re-save it with the npz backend")
     cfg = EncoderConfig(**meta["config"])
-    with np.load(os.path.join(path, "params.npz")) as data:
-        n = len(data.files)
-        leaves = [torch.from_numpy(np.array(data[f"p{i}"], np.float32))
-                  for i in range(n)]
+    if meta.get("backend") == "orbax":
+        arrays = _orbax_leaves(path)
+    elif meta.get("backend") == "npz":
+        with np.load(os.path.join(path, "params.npz")) as data:
+            arrays = [data[f"p{i}"] for i in range(len(data.files))]
+    else:
+        raise NotImplementedError(
+            f"{path}: {meta.get('backend')!r} checkpoints are not readable; "
+            "re-save it with the npz backend")
+    leaves = [torch.from_numpy(np.array(a, np.float32)) for a in arrays]
     return unflatten_params(cfg, leaves, meta.get("kind", "bi")), cfg
+
+
+def _orbax_leaves(path: str) -> list[np.ndarray]:
+    """The leaves of an orbax PyTree checkpoint in ``jax.tree_util`` order
+    (dict keys sorted, sequences in order), read through tensorstore."""
+    try:
+        import tensorstore as ts
+    except ImportError:
+        raise NotImplementedError(
+            f"{path}: an orbax checkpoint is read through the tensorstore "
+            "package, which is not installed; re-save it with the npz backend")
+    params = os.path.join(os.path.abspath(path), "params")
+    with open(os.path.join(params, "_METADATA")) as f:
+        tree_meta = json.load(f)["tree_metadata"]
+    base = "file://" + params + "/"
+    keyed = []
+    for entry in tree_meta.values():
+        # key_type 1 is a sequence index, 2 a dict key
+        key = tuple((int(k["key"]), "") if k["key_type"] == 1 else (0, k["key"])
+                    for k in entry["key_metadata"])
+        keyed.append((key, ".".join(k["key"] for k in entry["key_metadata"])))
+    keyed.sort()
+    return [ts.open({"driver": "zarr", "kvstore": {"driver": "ocdbt", "base": base},
+                     "path": leaf}).result().read().result()
+            for _, leaf in keyed]

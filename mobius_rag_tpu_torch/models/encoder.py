@@ -371,3 +371,55 @@ class EncoderModel:
                     self.tokenizer.encode_batch(texts[off:off + _MAX_BATCH])))
                 for off in range(0, len(texts), _MAX_BATCH)]
         return torch.cat(outs).cpu().numpy()
+
+
+class MeshEncoderModel:
+    """Data-parallel encode over a device grid (``parallel.mesh.Mesh``): one
+    process splits each token batch contiguously over the grid's first
+    axis and runs the same forward on each part, where the reference ran N
+    embedding workers over a row-locked queue. The parameters go once to
+    each distinct device of that axis (a device listed twice holds one
+    replica); batch-parallel encode needs no communication, so each row
+    equals EncoderModel's for the same parameters. A drop-in ``embed_fn``,
+    like EncoderModel."""
+
+    def __init__(self, mesh, cfg: EncoderConfig | None = None, params: dict | None = None,
+                 seed: int = 0):
+        self.cfg = cfg or EncoderConfig.from_env()
+        self.mesh = mesh
+        grid = mesh.devices.reshape(mesh.devices.shape[0], -1)
+        self.devices = [torch.device(d) for d in grid[:, 0]]  # one per data position
+        if params is None:
+            params = init_params(
+                self.cfg, torch.Generator(device=self.devices[0]).manual_seed(seed))
+        replicas: dict[torch.device, Encoder] = {}
+        self.modules = [replicas.setdefault(d, Encoder(self.cfg, params, device=d).eval())
+                        for d in self.devices]
+        self.tokenizer = HashTokenizer(self.cfg.vocab_size, self.cfg.max_seq)
+
+    @torch.inference_mode()
+    def encode_tokens(self, tokens: np.ndarray) -> torch.Tensor:
+        """One [B, L] token block split over the devices (contiguous parts
+        of ceil(B / dp) rows) → [B, out_dim] float32 on the first device;
+        every part is enqueued before any result is used."""
+        n = len(self.devices)
+        step = -(-len(tokens) // n)
+        outs = []
+        for i, (dev, module) in enumerate(zip(self.devices, self.modules)):
+            part = tokens[i * step:(i + 1) * step]
+            if not len(part):
+                continue
+            host = torch.from_numpy(np.ascontiguousarray(part))
+            if dev.type == "cuda":
+                host = host.pin_memory()
+            outs.append(module(host.to(dev, non_blocking=True)).to(self.devices[0],
+                                                                   non_blocking=True))
+        return torch.cat(outs)
+
+    def __call__(self, texts: list[str]) -> np.ndarray:
+        if not texts:
+            return np.zeros((0, self.cfg.out_dim), np.float32)
+        step = max(_MAX_BATCH, len(self.devices))
+        outs = [self.encode_tokens(seq_bucket(self.tokenizer.encode_batch(texts[off:off + step])))
+                for off in range(0, len(texts), step)]
+        return torch.cat(outs).cpu().numpy()

@@ -1,5 +1,5 @@
 """Product quantization, the pq vector backend (the port of
-``mobius_rag_tpu.ops.pq``, all of it but ``stack_shard_pq``).
+``mobius_rag_tpu.ops.pq``).
 
 Each row splits into M subvectors of ds = D/M dims; a row's code is one
 byte per subvector, the nearest of K = 256 codewords (L2) of that
@@ -20,6 +20,8 @@ q · centroid of the probed cluster.
   selection is the probe scans' seeded stable top-k
   (``index.ivf.seeded_topk``). :func:`pq_search_reranked`: ADC
   candidates, then an exact re-rank from host rows.
+- :func:`pad_shard_pq` / :func:`stack_shard_pq`: per-shard tables on one
+  common layout, for the sharded engine.
 
 Random draws come from ``np.random.default_rng(seed)`` in the JAX
 package's order, so both packages train on the same rows. The JAX
@@ -35,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mobius_rag_tpu_torch.index.ivf import _slab_layout, _tensors, probe_cells, seeded_topk
+from mobius_rag_tpu_torch.index.ivf import (_packed_dims, _slab_layout, _tensors, probe_cells,
+                                            rehome_cells, seeded_topk, stack_tables)
 from mobius_rag_tpu_torch.ops.quant import fill_cluster_packed
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, topk_stable
 
@@ -234,6 +237,33 @@ class PackedPQ:
             (torch.uint8,), (m,), block=block)
         return cls(cents_dev, codes, codebooks, valid_dev, rowids_dev, nlist, pad,
                    base_nlist=ivf.nlist, residual=residual)
+
+
+def pad_shard_pq(shards: "list[PackedPQ]") -> "list[PackedPQ]":
+    """Each shard's PQ tables on the common layout of a shard stack (see
+    ``index.ivf.pad_shard_packed``). Every shard keeps its own codebooks."""
+    base, nlist, pad = _packed_dims(shards)
+    m, residual = shards[0].codes.shape[-1], shards[0].residual
+    out = []
+    for sh in shards:
+        if sh.residual != residual or sh.codes.shape[-1] != m:
+            raise ValueError("shards disagree on the PQ code width or residual mode")
+        nb = sh.base_nlist
+        out.append(PackedPQ(rehome_cells(sh.centroids, nb, base, nlist),
+                            rehome_cells(sh.codes, nb, base, nlist, pad), sh.codebooks,
+                            rehome_cells(sh.valid, nb, base, nlist, pad),
+                            rehome_cells(sh.rowids, nb, base, nlist, pad),
+                            nlist, pad, base_nlist=base, residual=residual))
+    return out
+
+
+def stack_shard_pq(shards: "list[PackedPQ]") -> PackedPQ:
+    """Per-shard PQ tables stacked along a leading shard axis (the JAX
+    package's ``stack_shard_pq``)."""
+    padded = pad_shard_pq(shards)
+    p0 = padded[0]
+    return stack_tables(padded, nlist=p0.nlist, pad=p0.pad, base_nlist=p0.base_nlist,
+                        residual=p0.residual)
 
 
 def pq_search_packed(ppq: PackedPQ, queries: torch.Tensor, penalty: torch.Tensor,

@@ -1,5 +1,5 @@
 """Projected-residual int8 ANN codes, the proj vector backend (the port
-of ``mobius_rag_tpu.ops.proj``, all of it but ``stack_shard_proj``):
+of ``mobius_rag_tpu.ops.proj``):
 
     code(x)  = int8( P (x − centroid(x)) )          # P: [p, D] PCA rows
     score(q) ≈ q·centroid + (Pq) · dequant(code)    # one int8 dot per slot
@@ -15,6 +15,8 @@ of ``mobius_rag_tpu.ops.proj``, all of it but ``stack_shard_proj``):
   (candidate-local gating); ``ops.proj_scan.proj_gated_blocks``.
 - :func:`scatter_slots`, :func:`invalidate_slots`, :func:`encode_reserved`:
   the in-place halves of the engine's incremental insert/delete path.
+- :func:`pad_shard_proj` / :func:`stack_shard_proj`: per-shard tables on
+  one common layout, for the sharded engine.
 
 The probe selection, the int8 query projection and the final
 ``merged_topk`` are torch ops around the kernels, as the JAX package
@@ -28,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mobius_rag_tpu_torch.index.ivf import _slab_layout, probe_cells
+from mobius_rag_tpu_torch.index.ivf import (_packed_dims, _slab_layout, probe_cells,
+                                            rehome_cells, stack_tables)
 from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_gated_blocks
 from mobius_rag_tpu_torch.ops.quant import INV127, fill_cluster_packed
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, merged_topk
@@ -178,6 +181,32 @@ class PackedProj:
         codes, scales = fill_cluster_packed(nlist, pad, enc, (torch.int8, torch.float32),
                                             (p, 0), block=block)
         return finish(proj, codes, scales)
+
+
+def pad_shard_proj(shards: "list[PackedProj]") -> "list[PackedProj]":
+    """Each shard's proj tables on the common layout of a shard stack (see
+    ``index.ivf.pad_shard_packed``). Every shard keeps its own projection
+    and centroids; the padded tables have no reserved slabs."""
+    base, nlist, pad = _packed_dims(shards)
+    p = shards[0].codes.shape[-1]
+    out = []
+    for sh in shards:
+        if sh.codes.shape[-1] != p:
+            raise ValueError("shards disagree on the projection width")
+        nb = sh.base_nlist
+        out.append(PackedProj(rehome_cells(sh.centroids, nb, base, nlist), sh.proj,
+                              *(rehome_cells(getattr(sh, f), nb, base, nlist, pad)
+                                for f in ("codes", "scales", "valid", "rowids")),
+                              nlist=nlist, pad=pad, base_nlist=base))
+    return out
+
+
+def stack_shard_proj(shards: "list[PackedProj]") -> PackedProj:
+    """Per-shard proj tables stacked along a leading shard axis (the JAX
+    package's ``stack_shard_proj``)."""
+    padded = pad_shard_proj(shards)
+    p0 = padded[0]
+    return stack_tables(padded, nlist=p0.nlist, pad=p0.pad, base_nlist=p0.base_nlist)
 
 
 def _quantize_projected(pr: torch.Tensor):

@@ -1,0 +1,401 @@
+"""A corpus sharded over a grid of devices, merged on one (the port of
+``mobius_rag_tpu.parallel.sharded``).
+
+The chunk matrix and all its companion columns split by row blocks over
+the grid's ``shard`` axis: shard s owns global rows [s·Cs, (s+1)·Cs) over a
+capacity padded to a multiple of S, so the store's row ids stay valid
+global ids. Each shard runs the engine's arm scan on its own device
+(``engine.arm_candidates``: arm scores, the local top-m of each arm and
+the candidates' rerank signals) and only the small candidate payloads
+(M rows × a few floats per arm, never [B, C] scores) travel to the merge
+device, the store's own, where ``engine.fuse_and_rerank`` re-sorts each
+arm over the shards' lists and fuses. The JAX package runs the same
+program under ``shard_map``; its ``psum`` of the strict counts is here a
+sum of the shards' counts on the merge device, and its all-gather a
+``torch.cat`` of the shards' payloads copied there without blocking.
+
+RRF needs each arm's global ranks: the global top-M of an arm is a
+subset of the union of the shards' top-Ms, so gathering them and
+re-sorting reproduces the one-device ranks (tests/test_torch_sharded.py
+holds the port to its dense engine and to the JAX sharded engine). The
+strict count that decides the auto-relax branch is the global one, so
+every shard takes the same branch.
+
+A serving grid ([dp, S], ``mesh.make_serve_mesh``) replicates the shards
+over its data axis: the batch splits contiguously over the dp groups and
+each group scans its own replica; the bucket union of the lexical arm is
+global to the batch, so every group gets all of it. Replicas that land on
+one device share its tensors.
+
+Live serving: the sharded copy follows the store through its mutation
+listeners. Publishes and deletes after construction accumulate as dirty
+rows; ``refresh()`` copies those rows into the shards that own them, or
+re-shards when the store grew, bulk-loaded, uses the sparse lexical
+layout (its per-shard tables are re-keyed) or more than 4,096 rows are
+dirty. The query entry points refresh first, so a published document
+surfaces without rebuilding the engine.
+
+ANN backends run per shard: each shard clusters its own rows (one nlist
+for every shard), the tables are padded to one layout (``pad_shard_*``;
+padded zero centroids can take a probe from a real cell that scores
+below 0, so the padding is part of the result) and rebuilt whenever the
+store's generation moves. Under host residency only pq and proj shard:
+the device holds codes, each shard builds from its own rows of the host
+matrix, and the exact re-rank runs once, after the merge, from the host.
+"""
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from mobius_rag_tpu_torch.config import Config, get_config
+from mobius_rag_tpu_torch.index.ivf import IVFIndex, PackedIVF, pad_shard_ivf, pad_shard_packed
+from mobius_rag_tpu_torch.index.store import ChunkStore, DeviceIndex
+from mobius_rag_tpu_torch.ops.pq import PackedPQ, effective_m, pad_shard_pq
+from mobius_rag_tpu_torch.ops.proj import PackedProj, pad_shard_proj
+from mobius_rag_tpu_torch.parallel.mesh import Mesh, make_mesh, make_serve_mesh
+from mobius_rag_tpu_torch.query import engine as eng
+from mobius_rag_tpu_torch.query import gating
+from mobius_rag_tpu_torch.utils import round_up
+
+# More dirty rows than this re-shard the index instead of copying rows.
+_REBUILD_ROWS = 4096
+
+_PAD_SHARDS = {"ivf": pad_shard_ivf, "packed": pad_shard_packed, "pq": pad_shard_pq,
+               "proj": pad_shard_proj}
+
+
+def _tables_to(tables, device: torch.device):
+    """ANN tables (any class) with their tensors on `device`."""
+    if tables.centroids.device == device:
+        return tables
+    out = copy.copy(tables)
+    for f in type(tables).FIELDS:
+        setattr(out, f, getattr(tables, f).to(device))
+    return out
+
+
+def _to(q: dict, device: torch.device) -> dict:
+    """A prepared batch on `device`, copied without blocking."""
+    return {key: v.to(device, non_blocking=True) for key, v in q.items()}
+
+
+class ShardedEngine:
+    """Search over a corpus sharded across a device grid.
+
+    Built from a ChunkStore: rows are block-partitioned over the shards
+    (shard s owns global rows [s·Cs, (s+1)·Cs)), so the store's row ids
+    remain valid for record lookup. ``mesh`` is a ``parallel.mesh.Mesh``;
+    by default ``MRAG_NUM_SHARDS`` shards over the visible CUDA devices
+    (``MRAG_SERVE_DP`` > 1: a [dp, shards] grid)."""
+
+    def __init__(self, store: ChunkStore, mesh: Mesh | None = None,
+                 cfg: Config | None = None, axis: str | None = None,
+                 vector_backend: str | None = None):
+        self.cfg = cfg or get_config()
+        self.store = store
+        backend = vector_backend or self.cfg.vector_backend
+        eng._check_backend(backend)
+        if store.host_vectors is not None and backend not in ("pq", "proj"):
+            raise ValueError(
+                "host vector residency shards as a codes-only index: the device "
+                "holds per-shard pq or proj tables and the exact re-rank runs "
+                "from host RAM after the merge, so the vector backend must be "
+                "'pq' or 'proj' (exact, ivf and packed need the rows on the device)")
+        self.axis = axis or self.cfg.shard_axis
+        if mesh is None:
+            mesh = (make_serve_mesh(self.cfg.serve_dp, self.cfg.num_shards,
+                                    shard_axis=self.axis)
+                    if self.cfg.serve_dp > 1 else make_mesh(self.cfg.num_shards, self.axis))
+        self.mesh = mesh
+        # [dp][S] devices: one row per data group
+        self.groups = mesh.groups(self.axis)
+        self.num_shards = len(self.groups[0])
+        # the merge device: the store's, where prepared batches arrive
+        self.device = store.index.valid.device
+        self.vector_backend = backend
+        self._pending: set[int] = set()
+        self._needs_rebuild = False
+        self._sparse = "lex_cols" in store.index.fields
+        store.listeners.append(self._on_store_event)
+        self._shard_index()
+        self._synced_generation = store.generation
+        # per-shard ANN tables ([dp][S], replicas sharing a device shared),
+        # rebuilt whenever the store's generation moves
+        self._ann = None
+        self._ann_generation = -1
+        self._ann_backend = None
+
+    # -- liveness ----------------------------------------------------------
+
+    def _on_store_event(self, event: str, rows: list[int]) -> None:
+        if event in ("grow", "bulk") or self._sparse:
+            # a new capacity or a bulk rewrite reshapes the shards; the sparse
+            # tables are re-keyed per shard
+            self._needs_rebuild = True
+        else:
+            self._pending.update(rows)
+
+    @property
+    def stale(self) -> bool:
+        return self._synced_generation != self.store.generation
+
+    def refresh(self) -> dict:
+        """Bring the sharded copy up to date with the store: the dirty rows
+        copied into the shards that own them, or a re-shard (see the module
+        docstring). Returns {"refreshed": False} when already current, else
+        {"refreshed": True, "mode": "scatter:<rows>" or "rebuild"}."""
+        if not self.stale:
+            return {"refreshed": False}
+        if self._needs_rebuild or len(self._pending) > _REBUILD_ROWS:
+            self._shard_index()
+            mode = "rebuild"
+        else:
+            self._apply_rows(sorted(self._pending))
+            mode = f"scatter:{len(self._pending)}"
+        self._pending.clear()
+        self._needs_rebuild = False
+        self._synced_generation = self.store.generation
+        return {"refreshed": True, "mode": mode}
+
+    def _apply_rows(self, rows: list[int]) -> None:
+        """Copy the store's current values of `rows` into each shard copy
+        that owns them (every field but the sparse tables and an empty
+        host-residency payload)."""
+        if not rows:
+            return
+        src = self.store.index
+        cs = self.c_local
+        rows_np = np.asarray(rows, np.int64)
+        for (dev, s), idx in self._copies.items():
+            mine = rows_np[(rows_np >= s * cs) & (rows_np < (s + 1) * cs)]
+            if not len(mine):
+                continue
+            g = torch.from_numpy(mine).to(self.device)
+            local = torch.from_numpy(mine - s * cs).to(dev)
+            for f in src.fields:
+                if f in ("lex_cols", "lex_wts"):
+                    continue
+                dst = getattr(idx, f)
+                if f == "lexical":  # bucket-major [H, C]: columns
+                    dst[:, local] = src.lexical[:, g].to(dev)
+                elif dst.shape[0]:
+                    dst[local] = getattr(src, f)[g].to(dev)
+
+    def rebuilt(self, store: ChunkStore) -> "ShardedEngine":
+        """A fresh sharded engine over a new store (the swap after a
+        restore), on this engine's grid and backend."""
+        return ShardedEngine(store, mesh=self.mesh, cfg=self.cfg, axis=self.axis,
+                             vector_backend=self.vector_backend)
+
+    # -- build ---------------------------------------------------------------
+
+    def _shard_index(self) -> None:
+        """(Re)build every shard copy from the store: row block s of every
+        field (the columns of the dense lexical matrix), zero-padded to the
+        padded capacity, on each device of shard s's column of the grid."""
+        index = self.store.index
+        s = self.num_shards
+        self.c_pad = round_up(index.capacity, s)
+        self.c_local = self.c_pad // s
+        sparse = self._shard_sparse_tables() if "lex_cols" in index.fields else None
+        self._copies: dict[tuple[torch.device, int], DeviceIndex] = {}
+        self.shards: list[list[DeviceIndex]] = []
+        for row in self.groups:
+            out = []
+            for si, dev in enumerate(row):
+                key = (dev, si)
+                if key not in self._copies:
+                    self._copies[key] = self._one_shard(index, si, dev, sparse)
+                out.append(self._copies[key])
+            self.shards.append(out)
+
+    def _one_shard(self, index: DeviceIndex, si: int, dev: torch.device, sparse) -> DeviceIndex:
+        cs = self.c_local
+        arrays = {}
+        for f in index.fields:
+            if f in ("lex_cols", "lex_wts"):
+                continue
+            a = getattr(index, f)
+            axis = 1 if f == "lexical" else 0  # the chunk axis
+            c = a.shape[axis]
+            if c == 0:
+                # host residency: the device payload is [0, D]; it stays empty
+                arrays[f] = a.to(dev, copy=True)
+                continue
+            part = a.narrow(axis, min(si * cs, c), max(0, min(cs, c - si * cs)))
+            if part.shape[axis] < cs:
+                shape = list(a.shape)
+                shape[axis] = cs - part.shape[axis]
+                part = torch.cat([part, a.new_zeros(shape)], dim=axis)
+            arrays[f] = part.to(dev, copy=True)
+        if sparse is not None:
+            cols, wts = sparse
+            arrays["lex_cols"] = torch.from_numpy(cols[si]).to(dev)
+            arrays["lex_wts"] = torch.from_numpy(wts[si]).to(dev).to(torch.bfloat16)
+        return DeviceIndex(**arrays)
+
+    def _shard_sparse_tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """The store's sparse postings re-keyed per shard: shard s's table
+        holds its own rows' postings under local row ids, so its lexical
+        arm adds into [B, Cs] directly. Returns (cols [S, H, P] int32, wts
+        [S, H, P] float32), P the largest shard-bucket fill rounded up to
+        8, every shard's postings in the store's order."""
+        s, cs = self.num_shards, self.c_local
+        cols_np = self.store._lex_cols_np  # [H, P] global row ids
+        wts_np = self.store._lex_wts_np
+        h = cols_np.shape[0]
+        hh, pp = np.nonzero(cols_np >= 0)
+        rows = cols_np[hh, pp]
+        shard = rows // cs
+        key = shard * h + hh  # row of the stacked [S·H, P] tables
+        counts = np.bincount(key, minlength=s * h)
+        p_loc = int(round_up(max(8, int(counts.max(initial=0))), 8))
+        out_cols = np.full((s * h, p_loc), -1, np.int32)
+        out_wts = np.zeros((s * h, p_loc), np.float32)
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        slot = np.arange(len(ks)) - np.searchsorted(ks, ks, side="left")
+        out_cols[ks, slot] = (rows - shard * cs)[order]
+        out_wts[ks, slot] = wts_np[hh, pp][order]
+        return out_cols.reshape(s, h, p_loc), out_wts.reshape(s, h, p_loc)
+
+    # -- vector-arm ANN backend ---------------------------------------------
+
+    def set_vector_backend(self, backend: str) -> None:
+        eng._check_backend(backend)
+        if self.store.host_vectors is not None and backend not in ("pq", "proj"):
+            raise ValueError("host vector residency serves codes-only shards: the "
+                             "backend must stay 'pq' or 'proj'")
+        self.vector_backend = backend
+
+    def ensure_ann(self):
+        """Per-shard ANN tables of the configured backend ([dp][S], each on
+        its shard's device; None for exact). Shard s clusters the store's
+        rows [s·Cs, (s+1)·Cs) with local row ids (the arm scan adds the
+        shard's offset), every shard at nlist = MRAG_IVF_NLIST or
+        max(16, isqrt(live rows / S)); the tables are then padded to one
+        layout. Built on the store's device, from the host matrix under
+        host residency."""
+        if self.vector_backend == "exact":
+            return None
+        if (self._ann is not None and self._ann_generation == self.store.generation
+                and self._ann_backend == self.vector_backend):
+            return self._ann
+        cfg, store = self.cfg, self.store
+        src = store.index
+        s, cs = self.num_shards, self.c_local
+        valid = src.valid.cpu().numpy()
+        n_live = int((valid > 0).sum())
+        nlist = cfg.ivf_nlist or max(16, int(np.sqrt(max(n_live // s, 1))))
+        pq_m = effective_m(cfg.embed_dim, cfg.pq_m)
+        int8 = cfg.vector_dtype == "int8"
+        shards = []
+        for si in range(s):
+            lo, hi = si * cs, min((si + 1) * cs, src.capacity)
+            if store.host_vectors is not None:
+                hv, hs = store.host_vectors[lo:hi], store.host_scales[lo:hi]
+                ivf = IVFIndex.build_host(hv, hs, valid[lo:hi], device=self.device,
+                                          nlist=nlist)
+                if self.vector_backend == "proj":
+                    shards.append(PackedProj.from_ivf(ivf, hv, p=cfg.proj_p, row_scales=hs))
+                else:
+                    shards.append(PackedPQ.from_ivf(ivf, hv, m=pq_m, row_scales=hs))
+                continue
+            vec = src.vectors[lo:hi]
+            ivf = IVFIndex.build(vec, valid[lo:hi], nlist=nlist)
+            scales = src.vec_scales[lo:hi] if int8 else None
+            if self.vector_backend == "packed":
+                shards.append(PackedIVF.from_ivf(ivf, vec, row_scales=scales))
+            elif self.vector_backend == "pq":
+                shards.append(PackedPQ.from_ivf(ivf, vec, m=pq_m, row_scales=scales))
+            elif self.vector_backend == "proj":
+                shards.append(PackedProj.from_ivf(ivf, vec, p=cfg.proj_p, row_scales=scales))
+            else:
+                shards.append(ivf)
+        padded = _PAD_SHARDS[self.vector_backend](shards)
+        copies: dict[tuple[torch.device, int], object] = {}
+        self._ann = [[copies.setdefault((dev, si), _tables_to(padded[si], dev))
+                      for si, dev in enumerate(row)] for row in self.groups]
+        self._ann_generation = store.generation
+        self._ann_backend = self.vector_backend
+        return self._ann
+
+    # -- query ---------------------------------------------------------------
+
+    @torch.inference_mode()
+    def run(self, q: dict, k: int, funnel: int = 0) -> dict[str, torch.Tensor]:
+        """The sharded device program for one prepared batch (tensors on the
+        merge device, as ``SearchEngine.prepare_batch`` returns them):
+        per-shard arm scans, the merge and the rerank, enqueued without a
+        host wait. Returns ``engine.search_batch``'s schema on the merge
+        device: the fused top k, each arm's merged top 2k, the global strict
+        counts and, when ``funnel`` > 0, the funnel block."""
+        self.refresh()
+        ann = self.ensure_ann()
+        s, c_total, c_local = self.num_shards, self.c_pad, self.c_local
+        w = min(funnel, c_total)
+        # Per-shard widths: an arm's global top pool (and the global funnel
+        # top-w) may lie entirely on one shard. Under a funnel (host
+        # residency) `k` arrives already over-fetched, so the pool is k.
+        pool = k if funnel else k * self.cfg.over_fetch
+        m = min(max(pool, w), c_local)
+        m_other = min(pool, c_local)
+        m_global = min(pool, c_total)
+        q = dict(q, vec=q["vec"].float())  # bf16-rounded queries, widened once
+        b = q["vec"].shape[0]
+        b_loc = -(-b // len(self.groups))
+        parts, totals = [], []
+        for g, row in enumerate(self.groups):
+            lo, hi = g * b_loc, min((g + 1) * b_loc, b)
+            if lo >= hi:
+                continue
+            qg = {key: (v if key == "lex_buckets" else v[lo:hi]) for key, v in q.items()}
+            on: dict[torch.device, dict] = {}
+            qs = [on.setdefault(dev, qg if dev == self.device else _to(qg, dev))
+                  for dev in row]
+            # the global strict count, the shards' counts summed on the merge
+            # device; one shard's own count is already the global one
+            total = None if s == 1 else sum(
+                gating.strict_counts(idx, qd).to(self.device, non_blocking=True)
+                for idx, qd in zip(self.shards[g], qs))[:, None]
+            out = [eng.arm_candidates(
+                idx, qd, k, m, m_other=m_other, ann=None if ann is None else ann[g][si],
+                nprobe=self.cfg.ivf_nprobe, approx=self.cfg.ann_approx_topk,
+                strict_total=None if total is None else total.to(dev, non_blocking=True),
+                offset=si * c_local)
+                for si, (idx, qd, dev) in enumerate(zip(self.shards[g], qs, row))]
+            totals.append(out[0][3].to(self.device, non_blocking=True) if total is None
+                          else total)
+            parts.append([torch.stack([o[i].to(self.device, non_blocking=True) for o in out],
+                                      dim=1) for i in range(3)])  # [3, S, B_g, m(, N_SIG)]
+        # each arm re-sorted once over the shards' lists, as wide as fusion,
+        # the traces and the funnel read
+        vals, gidx, sigs = eng.merge_shard_lists(
+            *(torch.cat([p[i] for p in parts], dim=2) for i in range(3)),
+            min(max(m_global, 2 * k, w), s * m))
+        out = eng.fuse_and_rerank(vals, gidx, sigs, q, k, self.cfg.rrf_k, m_global)
+        for a, name in enumerate(("vec", "lex", "dtag")):
+            out[f"{name}_idx"], out[f"{name}_vals"] = gidx[a][:, :2 * k], vals[a][:, :2 * k]
+        out["strict_count"] = torch.cat(totals)[:, 0]
+        if w:
+            out.update(eng.wide_outputs(vals, gidx, sigs, w))
+        return out
+
+    def search_arrays(self, q: dict, k: int) -> dict[str, np.ndarray]:
+        """The sharded program on a prepared batch (``SearchEngine.
+        prepare_batch``'s tensors), its outputs on the host (see
+        :meth:`run`)."""
+        return {key: v.cpu().numpy() for key, v in self.run(q, k).items()}
+
+    def search(self, engine, reqs, k: int | None = None):
+        """A full search over the sharded index: `engine`, a SearchEngine
+        over the same store, serves it with this grid attached (its host
+        preparation, the exact host re-rank under host residency and the
+        assembly; the device program runs sharded)."""
+        if engine.sharded is not self:
+            engine = copy.copy(engine)
+            engine.sharded, engine.vector_backend = self, self.vector_backend
+        return engine.search(reqs, k or self.cfg.default_k)

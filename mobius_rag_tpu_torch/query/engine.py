@@ -48,9 +48,10 @@ Semantics follow the JAX engine line by line; where torch differs:
   sends them) and widened to float32 on the device;
 - each arm's candidate cosine is a gather of its rows, as the JAX
   engine's ANN branch does (``_cand_cos``), since no dense cosine exists;
-- fusion skips the JAX engine's per-arm re-sort (``engine.py:620``): on
-  one device each arm's list is already in top-k order, so it is the
-  identity (the sharded merge that needs it is not ported);
+- fusion skips the JAX engine's per-arm re-sort (``engine.py:620``): each
+  arm's list arrives in top-k order, on one device from its own scan and
+  under sharding from ``merge_shard_lists``, which re-sorts the shards'
+  [3, S, B, m] lists once;
 - the lexical bucket union ships at its exact size: the JAX engine's pads
   (``_BUCKET_PADS``) only bounded recompiles;
 - the sparse lexical arm sums each row's postings in float64, so its
@@ -78,8 +79,12 @@ An optional cross-encoder (``cross_encoder``, e.g.
 on the host after assembly and re-sorts them stably by its logit; the
 confidence label still comes from the linear rerank score.
 
-Not ported yet: sharded serving (``sharded=`` raises
-NotImplementedError; ROADMAP queue 1, item 4).
+Sharded serving (``sharded=`` a ``parallel.ShardedEngine`` over the same
+store): the device program runs per shard over a grid of devices and the
+shards' candidate lists merge on the engine's device; the merged output
+has this engine's schema, so results carry the global arm traces and
+strict counts (the JAX sharded engine ships the fused subset only, with
+empty traces and a strict count of -1). Gating is dense under sharding.
 """
 from __future__ import annotations
 
@@ -384,7 +389,8 @@ def _min_sim_filter(vec_vals: torch.Tensor, q: dict) -> torch.Tensor:
 def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
                    m_other: int | None = None, ann=None,
                    nprobe: int = 32, approx: float = 0.0, local=None,
-                   tag_level: int = 2):
+                   tag_level: int = 2, strict_total: torch.Tensor | None = None,
+                   offset: int = 0):
     """The three arms' top-m candidates and their rerank signals.
 
     ``ann`` None is the exact backend (the masked cosine top-m); ANN tables
@@ -395,10 +401,17 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
     read. ``m_other`` (default m) caps the lexical and d-tag arm widths;
     their lists are padded back to m with dead entries.
 
+    On one shard of a sharded index (dense gating): ``strict_total`` [B, 1]
+    is the strict count over every shard, so that every shard takes the
+    same auto-relax branch (the JAX engine's ``psum``), and ``offset`` (the
+    shard's first global row) is added to the returned row ids.
+
     Returns (vals [3, B, m] f32, gidx [3, B, m] int32, sigs [3, B, m,
     N_SIG] f32, strict_total [B, 1])."""
     m_oth = min(m_other or m, m)
     if local is not None:
+        if strict_total is not None or offset:
+            raise ValueError("candidate-local gating is single-device")
         if not isinstance(ann, PackedProj):
             raise ValueError("candidate-local gating needs a PackedProj ann")
         gate_words, dtag_t = local
@@ -419,7 +432,8 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
             return gating.lex_signal_join(idx, lex_idx, lex_vals)
     else:
         strict, relaxed, open_mask, meta_ok = filter_masks(index, q)
-        strict_total = strict.sum(dim=1, keepdim=True)
+        if strict_total is None:
+            strict_total = strict.sum(dim=1, keepdim=True)
         penalty = gate_penalty(strict, relaxed, open_mask, q, k, strict_total)
         # [B, C] each and read no more: freed before the arms' transients
         del strict, relaxed, open_mask
@@ -462,18 +476,35 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
             idx = torch.cat([idx, idx.new_zeros((b, pad))], dim=1)
             sig = torch.cat([sig, sig.new_zeros((b, pad, N_SIG))], dim=1)
         out_vals.append(vals)
-        out_idx.append(idx)
+        out_idx.append(idx + offset)
         out_sigs.append(sig)
     return (torch.stack(out_vals), torch.stack(out_idx).to(torch.int32),
             torch.stack(out_sigs), strict_total)
 
 
+def merge_shard_lists(vals, gidx, sigs, r: int):
+    """The sharded merge's per-arm global re-sort: the shards' lists
+    [3, S, B, m] (sigs [3, S, B, m, N_SIG]) → each arm's top r of its S·m
+    candidates, [3, B, r]. The lists are laid shard-major and shard s owns
+    rows below shard s + 1's, so the stable selection keeps the lower
+    global row first among equal scores, as one device does."""
+    n_arms, s, b, m = vals.shape
+    vals = vals.permute(0, 2, 1, 3).reshape(n_arms, b, s * m)
+    gidx = gidx.permute(0, 2, 1, 3).reshape(n_arms, b, s * m)
+    sigs = sigs.permute(0, 2, 1, 3, 4).reshape(n_arms, b, s * m, N_SIG)
+    top = [topk_stable(vals[a], r) for a in range(n_arms)]
+    pos = torch.stack([p for _, p in top])  # [3, B, r]
+    return (torch.stack([v for v, _ in top]), torch.gather(gidx, 2, pos),
+            torch.gather(sigs, 2, pos[..., None].expand(-1, -1, -1, N_SIG)))
+
+
 def fuse_and_rerank(vals, gidx, sigs, q, k: int, rrf_k: int, m_global: int | None = None):
     """RRF + rerank over the UNION of the per-arm candidate lists (no
     [B, C] buffer: duplicates are summed through a [B, 3r, 3r] pairwise
-    match). vals/gidx [3, B, m] (each arm already in top-k order),
-    sigs [3, B, m, N_SIG]. Each arm contributes its first r = min(m_global,
-    m) candidates (m_global: the fusion pool under a funnel, default m)."""
+    match). vals/gidx [3, B, m] (each arm already in top-k order: a
+    sharded index's lists go through :func:`merge_shard_lists` first),
+    sigs [3, B, m, N_SIG]. Each arm contributes its first r =
+    min(m_global, m) candidates (m_global: the fusion pool, default m)."""
     n_arms, _, m = vals.shape
     m_global = m if m_global is None else m_global
     r = min(m_global, m)
@@ -729,9 +760,6 @@ class SearchEngine:
         self.cfg = cfg or get_config()
         backend = vector_backend or self.cfg.vector_backend
         _check_backend(backend)
-        if sharded is not None:
-            raise NotImplementedError(
-                "sharded serving is not ported yet (ROADMAP queue 1, item 4)")
         self.device = torch.device(device)
         if store.device != self.device:
             raise ValueError(f"engine device {self.device} != store device "
@@ -771,6 +799,17 @@ class SearchEngine:
         # the stream of the strict counts on a card (made at first use)
         self._count_stream: torch.cuda.Stream | None = None
         store.listeners.append(self._on_store_mutation)
+        # parallel.ShardedEngine over the same store: the device program then
+        # runs over its device grid, for every caller of this engine (agent,
+        # API). The backend propagates into it, or is inherited from it.
+        self.sharded = sharded
+        if sharded is not None:
+            if sharded.store is not store:
+                raise ValueError("the sharded engine must wrap this engine's store")
+            if vector_backend is not None:
+                sharded.set_vector_backend(vector_backend)
+            else:
+                self.vector_backend = sharded.vector_backend
 
     # -- vector-arm backend -------------------------------------------------
 
@@ -781,6 +820,8 @@ class SearchEngine:
             self._ann = None
             self._ann_generation = -1
             self._reset_ann_incremental()
+        if self.sharded is not None:
+            self.sharded.set_vector_backend(backend)
 
     def _on_store_mutation(self, event: str, rows: list[int]) -> None:
         """ChunkStore listener: queue row mutations for the incremental ANN
@@ -814,9 +855,10 @@ class SearchEngine:
         """MRAG_GATING: "local" forces candidate-local gating (proj backend),
         "dense" disables it, "auto" is local under host residency (the 10M
         configuration whose [B, C] buffers local gating exists to remove)
-        and dense on a device-resident store, as in the JAX engine."""
+        and dense on a device-resident store, as in the JAX engine. A sharded
+        engine gates densely."""
         mode = self.cfg.gating
-        if mode == "dense" or self.vector_backend != "proj":
+        if mode == "dense" or self.sharded is not None or self.vector_backend != "proj":
             return False
         return mode == "local" or self.store.host_vectors is not None
 
@@ -1375,12 +1417,20 @@ class SearchEngine:
             local=local, tag_level=self._batch_tag_level(exps) if local else 2,
             funnel=self._device_funnel(k))
 
+    def _packed(self, q: dict, exps, ann, local, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """One prepared batch's device program and its two packed output
+        arrays, enqueued: over the device grid when a sharded engine is
+        attached, else on this engine's device."""
+        fw = self._device_funnel(k)
+        out = (self.sharded.run(q, self._device_k(k), fw) if self.sharded is not None
+               else self._program(q, exps, ann, local, k))
+        return pack_device(out, fw)
+
     def _dispatch(self, q: dict, exps, ann, local, k: int) -> PendingFetch:
         """The device side of one batch of search_pipelined: its program,
         the output packing and the copies of the two packed arrays to the
         host, all enqueued; nothing here waits for the device."""
-        return PendingFetch(pack_device(self._program(q, exps, ann, local, k),
-                                        self._device_funnel(k)))
+        return PendingFetch(self._packed(q, exps, ann, local, k))
 
     def _finish(self, reqs, exps, fetched, k: int) -> dict[str, np.ndarray]:
         """The packed arrays of one batch, on the host → its output dict,
@@ -1391,15 +1441,22 @@ class SearchEngine:
             out = self._host_rerank(list(reqs), exps, out, k)
         return out
 
-    def _run(self, reqs: Sequence[QueryRequest], k: int):
-        # the tables exist before prepare: local gating bakes the host
-        # strict counts into the prepared batch
+    def _tables(self):
+        """(ANN tables, local-gating structures) of this engine's own device
+        program, built before a batch is prepared (local gating bakes the
+        host strict counts into it); (None, None) under sharding, whose
+        tables the sharded engine keeps."""
+        if self.sharded is not None:
+            return None, None
         ann = self.ensure_ann()
+        return ann, self._ensure_local_structs(ann)
+
+    def _run(self, reqs: Sequence[QueryRequest], k: int):
+        ann, local = self._tables()
         q, exps = self.prepare_batch(reqs)
         t_prep = time.perf_counter()
-        local = self._ensure_local_structs(ann)
-        out = self._finish(reqs, exps, pack_out(self._program(q, exps, ann, local, k),
-                                                self._device_funnel(k)), k)
+        packed = self._packed(q, exps, ann, local, k)
+        out = self._finish(reqs, exps, (packed[0].cpu().numpy(), packed[1].cpu().numpy()), k)
         return exps, out, t_prep
 
     def search(self, reqs: Sequence[QueryRequest] | QueryRequest, k: int | None = None
@@ -1424,8 +1481,7 @@ class SearchEngine:
         module docstring), so on a card the host's fetch, re-rank and
         assembly of one batch overlap the device work of the later ones."""
         k = k or self.cfg.default_k
-        ann = self.ensure_ann()
-        local = self._ensure_local_structs(ann)
+        ann, local = self._tables()
         ready = None
         if self.device.type == "cuda":  # the index as it stands before the first batch
             ready = torch.cuda.Event()

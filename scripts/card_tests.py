@@ -1,6 +1,8 @@
 """Run the port's `cuda`-marked tests (the kernels, the pipelined engine's
 dispatch without a device-to-host wait, the encoder's bf16 against
-float32 activations, and a training step against its CPU twin) on a CUDA card whose machine has no JAX. Those tests
+float32 activations, a training step against its CPU twin, and the
+sharded engine against the dense one) on a CUDA card whose machine has
+no JAX. Those tests
 use only the torch side; their modules import the JAX package for their
 CPU tests, so those imports become mocks here and only the `on_card`
 tests are collected.
@@ -20,7 +22,9 @@ MOCKED = ["jax", "jax.numpy", "mobius_rag_tpu", "mobius_rag_tpu.config", "mobius
           "mobius_rag_tpu.query", "mobius_rag_tpu.query.engine", "mobius_rag_tpu.testing",
           "mobius_rag_tpu.models", "mobius_rag_tpu.models.checkpoint",
           "mobius_rag_tpu.models.encoder", "mobius_rag_tpu.models.tokenizer",
-          "mobius_rag_tpu.models.data", "mobius_rag_tpu.models.train", "optax"]
+          "mobius_rag_tpu.models.data", "mobius_rag_tpu.models.train", "mobius_rag_tpu.ops.pq",
+          "mobius_rag_tpu.parallel", "mobius_rag_tpu.parallel.mesh",
+          "mobius_rag_tpu.parallel.sharded", "optax"]
 
 
 def main() -> int:
@@ -33,7 +37,7 @@ def main() -> int:
                         "-k", "on_card", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
                           for m in ("topk", "quant", "proj", "pipelined", "encoder",
-                                    "train"))])
+                                    "train", "sharded"))])
 
 
 if __name__ == "__main__":

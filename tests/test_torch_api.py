@@ -6,8 +6,9 @@ lexicon=sample_lexicon())`` over the toy corpus. The JSON bodies must be
 equal apart from time stamps, uuids, timings and version strings (floats
 within 1e-5). The eval routes run the ported harness (run_eval, calibrate,
 the bank loader, the judge and the fact checker's grade rollup) and answer
-alike. The handlers whose module the port has not ported yet answer 501
-and name the module; the JAX app answers them.
+alike. The routes of the last modules ported (the PDF export, the Drive
+router, the integrity report, the index RPC and the stage profiler)
+answer alike too; the profiler's timings and its note are not compared.
 
 Each package's app runs in a subprocess of its own (this file run as a
 script), so that each has its own data directory: both packages default
@@ -31,15 +32,19 @@ VOLATILE = {"agent_id", "run_id", "job_id", "chunking_job", "id", "ts", "ts_ms",
             "latency_ms", "elapsed_ms", "timings", "stage_ms", "search_id",
             "decision_id", "trace_id", "total_ms", "device_ms", "wall_ms", "timings_ms",
             "ms", "latency_ms_median", "latency_ms_p95", "calib_id"}
-# uuids under a key that elsewhere holds stable ids
-VOLATILE_IN = {"curator_add": {"source_id"}}
+# uuids under a key that elsewhere holds stable ids; the stage profiler's
+# timings, its id and its note (which says how each package's stages run)
+VOLATILE_IN = {"curator_add": {"source_id"},
+               "profile": {"profile_id", "note", "host_prepare_ms", "host_assemble_ms",
+                           "signals_ms", "fusion_rerank_ms", "filters", "vector",
+                           "lexical", "dtag", "arms", "full_pipeline"}}
 
 _MANUAL = (b"SUNSHINE HEALTH MANUAL\n\nTIMELY FILING\n"
            b"Participating providers must submit claims within 180 days.\n\n"
            b"PRIOR AUTHORIZATION\nH0019 requires prior authorization.")
 
 # (name, method, path, request kwargs, expectation): "equal" — both apps
-# answer alike; "501 <module>" — the port answers 501 naming the module.
+# answer alike.
 SCENARIO = [
     ("health", "get", "/health", {}, "equal"),
     ("upload", "post", "/upload?filename=sunshine_manual.txt&payer=Sunshine%20Health"
@@ -102,13 +107,12 @@ SCENARIO = [
     ("fact_compare", "post", "/api/eval/fact_compare",
      {"json": {"answer_a": "180 days", "answer_b": "no", "must_facts": ["180 days"]}},
      "equal"),
-    ("pdf", "get", "/documents/{doc_id}/pdf", {}, "501 mobius_rag_tpu.export_pdf"),
-    ("drive_status", "get", "/drive/status", {}, "501 mobius_rag_tpu.drive"),
-    ("integrity", "get", "/admin/integrity", {}, "501 mobius_rag_tpu.integrity"),
+    ("pdf", "get", "/documents/{doc_id}/pdf", {}, "equal"),
+    ("drive_status", "get", "/drive/status", {}, "equal"),
+    ("integrity", "get", "/admin/integrity", {}, "equal"),
     ("internal_publish", "post", "/internal/index/publish",
-     {"json": {"doc_id": "x", "records": []}}, "501 mobius_rag_tpu.index.service"),
-    ("profile", "post", "/admin/profile", {"json": {"iters": 1}},
-     "501 mobius_rag_tpu.profiling"),
+     {"json": {"doc_id": "x", "records": []}}, "equal"),
+    ("profile", "post", "/admin/profile", {"json": {"iters": 1}}, "equal"),
     ("delete", "delete", "/documents/{doc_id}", {}, "equal"),
     ("query_after_delete", "post", "/api/query",
      {"json": {"query": "timely filing deadline", "payer": "sunshine_health"}}, "equal"),
@@ -216,15 +220,6 @@ def test_route_answers_like_jax(responses, name):
     assert not diffs, diffs[:10]
 
 
-@pytest.mark.parametrize("name,module", [(s[0], s[4].split()[1]) for s in SCENARIO
-                                         if (s[4] or "").startswith("501")])
-def test_unported_handler_answers_501(responses, name, module):
-    status, body = responses["port"][name]
-    assert status == 501 and body["module"] == module and module in body["error"]
-    assert "ROADMAP" in body["error"]
-    assert responses["jax"][name][0] != 501
-
-
 def test_scenario_known_answers(responses):
     """tests/test_api.py's checks, on the port's answers."""
     port = responses["port"]
@@ -250,6 +245,11 @@ def test_scenario_known_answers(responses):
     assert bank["name"] == "bank_toy.yaml" and bank["n_queries"] == 5
     assert bank["sha"] == responses["jax"]["eval_bank"][1]["sha"]
     assert port["fact_compare"][1]["winner"] == "a"
+    assert port["pdf"][1].startswith("%PDF") and port["pdf"][1] == responses["jax"]["pdf"][1]
+    assert port["integrity"][1]["counts"]["host_records"] > 0
+    assert port["internal_publish"][1] == {"rows": []}
+    assert set(port["profile"][1]["profile"]["device_stages_ms"]) == \
+        {"filters", "vector", "lexical", "dtag", "arms", "full_pipeline"}
 
 
 def _context_under(tmp_path):

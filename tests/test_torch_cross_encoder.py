@@ -19,6 +19,7 @@ floor; both measure 3-13% here, most of it in the embedding table's bf16
 accumulation).
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -243,6 +244,32 @@ def test_appcontext_attaches_cross_encoder_from_env(tmp_path, monkeypatch):
     model = ctx.engine.cross_encoder
     assert isinstance(model, tce.CrossEncoderModel) and model.device.type == "cpu"
     assert model.cfg.base.dtype == "bfloat16"
+    ctx.store.add_chunks(ttesting.toy_corpus(ctx.engine.lexicon, pad_docs=5))
+    res = ctx.engine.search(QueryRequest(query="timely filing"), k=3)[0]
+    assert res.hits and all("cross_encoder" in h.signals for h in res.hits)
+
+
+def test_appcontext_serves_an_orbax_cross_checkpoint(tmp_path, monkeypatch):
+    """The JAX package's first choice, an orbax checkpoint, is served
+    through MRAG_CROSS_ENCODER_CKPT where tensorstore imports: the loaded
+    score head equals the saved one, bit for bit."""
+    pytest.importorskip("orbax.checkpoint")
+    pytest.importorskip("tensorstore")
+    from mobius_rag_tpu_torch.api import server
+
+    jcfg, _ = _cfgs("float32")
+    params = jce.init_cross_params(jcfg, jax.random.PRNGKey(6))
+    ckpt = tmp_path / "ce_orbax"
+    jckpt.save_encoder(str(ckpt), jax.device_get(params), jcfg.base, kind="cross")
+    assert json.load(open(ckpt / "encoder.json"))["backend"] == "orbax"
+    patched = dataclasses.replace(server.get_config(), cross_encoder_ckpt=str(ckpt))
+    monkeypatch.setattr(server, "get_config", lambda: patched)
+    ctx = server.AppContext.build(embed_fn=ttesting.hash_embed,
+                                  lexicon=ttesting.sample_lexicon(), device="cpu")
+    model = ctx.engine.cross_encoder
+    assert isinstance(model, tce.CrossEncoderModel)
+    np.testing.assert_array_equal(model.module.score_head.detach().numpy(),
+                                  np.asarray(params["score_head"]))
     ctx.store.add_chunks(ttesting.toy_corpus(ctx.engine.lexicon, pad_docs=5))
     res = ctx.engine.search(QueryRequest(query="timely filing"), k=3)[0]
     assert res.hits and all("cross_encoder" in h.signals for h in res.hits)

@@ -227,16 +227,63 @@ def test_checkpoint_to_jax(tmp_path, hybrid):
     assert np.abs(mine - theirs).max() <= F32_TOL
 
 
-def test_checkpoint_refuses_what_the_port_cannot_read(tmp_path):
+@pytest.mark.parametrize("kind", ["bi", "cross"])
+def test_checkpoint_from_jax_orbax(tmp_path, kind):
+    """JAX save_encoder with orbax (its first choice) → the port's
+    load_encoder, which reads the orbax files through tensorstore without
+    JAX: the same parameters, bit for bit, for the encoder and the
+    cross-encoder."""
+    pytest.importorskip("orbax.checkpoint")
+    pytest.importorskip("tensorstore")
+    from mobius_rag_tpu.models import cross_encoder as jce
+
+    jcfg, tcfg = _cfgs("float32", False)
+    if kind == "cross":
+        params = jce.init_cross_params(jce.CrossEncoderConfig(jcfg), jax.random.PRNGKey(4))
+    else:
+        params = _jax_params(jcfg)
+    jckpt.save_encoder(str(tmp_path), jax.device_get(params), jcfg, kind=kind)
+    assert json.load(open(tmp_path / "encoder.json"))["backend"] == "orbax"
+    tree, cfg = tckpt.load_encoder(str(tmp_path))
+    assert cfg == tcfg
+    want = jax.tree_util.tree_leaves(_numpy_tree(params))
+    got = tenc.flatten_params(tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_checkpoint_refuses_what_the_port_cannot_read(tmp_path, monkeypatch):
+    """An orbax checkpoint is refused only where tensorstore is missing
+    (it reads orbax's files); an unknown kind and too few leaves raise."""
     _, tcfg = _cfgs("float32", False)
     with open(tmp_path / "encoder.json", "w") as f:
         json.dump({"backend": "orbax", "kind": "bi", "config": dataclasses.asdict(tcfg)}, f)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(NotImplementedError, match="tensorstore"):
         tckpt.load_encoder(str(tmp_path))
     with pytest.raises(ValueError, match="kind"):
         tckpt.save_encoder(str(tmp_path / "x"), {}, tcfg, kind="mono")
     with pytest.raises(ValueError, match="fewer leaves"):
         tenc.unflatten_params(tcfg, [])
+
+
+@pytest.mark.parametrize("dp", [1, 2, 3])
+def test_mesh_encoder_matches_encoder_model(dp):
+    """MeshEncoderModel over dp CPU devices splits each batch over them; its
+    rows equal EncoderModel's on the same (JAX-drawn) parameters, within
+    the float32 bound; one replica per distinct device."""
+    from mobius_rag_tpu_torch.parallel.mesh import make_mesh
+
+    jcfg, tcfg = _cfgs("float32", False)
+    params = tenc.params_from_numpy(_numpy_tree(_jax_params(jcfg)))
+    one = tenc.EncoderModel(tcfg, params, device="cpu")
+    mesh = tenc.MeshEncoderModel(make_mesh(dp, devices=["cpu"] * dp), tcfg, params)
+    texts = TEXTS * 3
+    assert np.abs(mesh(texts) - one(texts)).max() <= F32_TOL
+    assert len({id(m) for m in mesh.modules}) == 1
+    assert mesh([]).shape == (0, tcfg.out_dim)
 
 
 @pytest.mark.cuda

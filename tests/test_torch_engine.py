@@ -309,15 +309,30 @@ def test_bench_results(bench, i):
     check_results(bench["jres"], bench["tres"], i)
 
 
-@pytest.mark.parametrize("kw", [{"sharded": object()},
-                                {"sharded": object(), "vector_backend": "ivf"}])
+@pytest.mark.parametrize("kw", [{"sharded": "grid"},
+                                {"sharded": "grid", "vector_backend": "ivf"}])
 def test_unported_engine_options_raise(toy, kw):
-    """Sharded serving is the one engine option still to port, whatever
-    the backend (every vector backend is served since the ivf, packed and
-    pq backends were ported)."""
+    """``sharded=`` (once refused, now served): a ShardedEngine over four
+    CPU shards attached to an engine over the same store gives the dense
+    engine's hits; a backend given to the engine propagates into it."""
+    from mobius_rag_tpu_torch.parallel import ShardedEngine, make_mesh
+
     _, te = toy["engines"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(te.store, te.lexicon, device="cpu", **kw)
+    se = ShardedEngine(te.store, mesh=make_mesh(4, devices=["cpu"] * 4))
+    kw = dict(kw, sharded=se)
+    engine = TEngine(te.store, te.lexicon, embed_fn=ttesting.hash_embed, device="cpu", **kw)
+    reqs = [_tq(q, k) for q, k in TOY_REQUESTS]
+    got = engine.search(reqs, k=K)
+    assert se.vector_backend == kw.get("vector_backend", "exact")
+    if "vector_backend" in kw:
+        assert se._ann is not None and any(r.hits for r in got)
+    else:
+        for a, b in zip(toy["tres"], got):
+            assert [h.chunk_id for h in b.hits] == [h.chunk_id for h in a.hits]
+            np.testing.assert_allclose([h.score for h in b.hits],
+                                       [h.score for h in a.hits], rtol=0, atol=ATOL)
+    with pytest.raises(ValueError, match="store"):
+        TEngine(TStore(device="cpu"), te.lexicon, device="cpu", sharded=se)
 
 
 def test_cross_encoder_raises(toy):

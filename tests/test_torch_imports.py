@@ -9,8 +9,12 @@ a micro-batcher drain through the pipelined engine and one agent run
 (every module of the port is imported on the way), at run time for the
 front door's library entry points and for the training path and the eval
 harness (a few training steps of both encoders, an eval of the toy bank,
-a calibration, the fixture stack), and statically over every source file
-of the port and chip_smoke.py. The port imports no optax either."""
+a calibration, the fixture stack), at run time for sharded serving and
+the last host modules (a sharded engine over CPU shards with exact and
+ANN backends, data-parallel encode, the stage profiler, integrity, the
+PDF writer, Drive, the index wire format, the slice merge), and
+statically over every source file of the port and chip_smoke.py. The
+port imports no optax either."""
 import ast
 import os
 import subprocess
@@ -182,11 +186,12 @@ def test_front_door_modules_import_nothing_of_the_jax_package():
     names = sorted(
         "mobius_rag_tpu_torch." + os.path.relpath(os.path.join(root, f), PKG)[:-3]
         .replace(os.sep, ".").removesuffix(".__init__")
-        for sub in ("api", "ingest", "models", "eval_harness")
+        for sub in ("api", "ingest", "models", "eval_harness", "parallel")
         for root, _, files in os.walk(os.path.join(PKG, sub)) for f in files
         if f.endswith(".py")) + [f"mobius_rag_tpu_torch.{m}" for m in (
             "providers", "blobstore", "candidates", "tenancy", "infra", "nightly",
-            "ops.pq", "index.ann_io")]
+            "ops.pq", "index.ann_io", "index.service", "profiling", "integrity",
+            "export_pdf", "drive")]
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NEW_MODULES.format(names=names)],
                           capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
@@ -223,6 +228,55 @@ def test_training_and_eval_harness_import_nothing_forbidden():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _TRAIN_EVAL.format(forbidden=set(FORBIDDEN))],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_SHARDED_AND_HOST = """
+import sys, types
+from mobius_rag_tpu_torch.drive import InMemoryDrive, classify_file
+from mobius_rag_tpu_torch.export_pdf import markdown_to_pdf
+from mobius_rag_tpu_torch.index.service import record_from_wire, record_to_wire
+from mobius_rag_tpu_torch.index.store import ChunkStore
+from mobius_rag_tpu_torch.integrity import integrity_report
+from mobius_rag_tpu_torch.models.encoder import EncoderConfig, MeshEncoderModel
+from mobius_rag_tpu_torch.parallel import ShardedEngine, make_mesh, make_serve_mesh
+from mobius_rag_tpu_torch.parallel.slices import merge_slice_results
+from mobius_rag_tpu_torch.profiling import profile_engine
+from mobius_rag_tpu_torch.query.engine import QueryRequest, SearchEngine
+from mobius_rag_tpu_torch.testing import hash_embed, sample_lexicon, toy_corpus
+lex = sample_lexicon()
+store = ChunkStore(device="cpu")
+store.add_chunks(toy_corpus(lex, pad_docs=20))
+engine = SearchEngine(store, lex, embed_fn=hash_embed, device="cpu")
+q = QueryRequest(query="timely filing deadline for Sunshine Health")
+assert profile_engine(engine, [q], k=3, iters=1)["device_stages_ms"]
+for backend in ("exact", "ivf", "packed", "pq", "proj"):
+    se = ShardedEngine(store, mesh=make_serve_mesh(2, 2, devices=["cpu"] * 4),
+                       vector_backend=backend)
+    res = SearchEngine(store, lex, embed_fn=hash_embed, device="cpu", sharded=se).search(q, k=3)
+    assert res[0].hits, backend
+assert merge_slice_results([res, res], k=3)[0].hits
+emb = MeshEncoderModel(make_mesh(2, devices=["cpu"] * 2), EncoderConfig.tiny())(["a b", "c"])
+assert emb.shape[0] == 2
+assert integrity_report(types.SimpleNamespace(store=store, pipeline=None))["ok"]
+assert markdown_to_pdf("# x").startswith(b"%PDF") and classify_file("a.pdf")
+rec = store.record(0)
+assert record_from_wire(record_to_wire(rec)).chunk_id == rec.chunk_id
+assert InMemoryDrive({{"f": [("a.txt", b"x")]}}).list_folder("f")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print("FORBIDDEN", bad)
+"""
+
+
+def test_sharded_serving_and_host_wiring_import_nothing_forbidden():
+    """Sharded serving over every backend, data-parallel encode, the stage
+    profiler and the last host modules load no JAX, PyYAML, aiohttp or
+    JAX-package module."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SHARDED_AND_HOST.format(forbidden=set(FORBIDDEN) | {"aiohttp"})],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
