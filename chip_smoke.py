@@ -51,11 +51,16 @@ the card: the stage profiler and a Chrome trace (phase 3's engine),
 integrity, the PDF export, a Drive folder import, data-parallel encode,
 an npz checkpoint round trip, the embedding worker CLI as a subprocess
 and, with aiohttp, the routes and the index RPC over a live server
-(phase 7's context). The phases run in the order 1, 2, 3 (with 6 and
-the 70k part of 10a and 11's profiler), 3b, 4 (with 6, 8, 10a and 10b),
-5 (with 8b and 10c), 7 (with 7d and 11), 9: phase 5 chooses its N from
-the time left, and the phases before it are the ones that must not take
-it.
+(phase 7's context). Phase 12 trains the encoder at full width over a
+device grid (``models.train.GridModel``: Megatron tensor parallelism
+over tp, the batch over dp), every grid position on this card, as (dp 4,
+tp 2) and (dp 2, tp 4) on phase 9's batches, its first loss held to
+phase 9a's, and one tiny grid step held against its CPU twin; then it
+runs ``graft_entry.dryrun_multichip(8)`` over this card named 8 times.
+The phases run in the order 1, 2, 3 (with 6 and the 70k part of 10a and
+11's profiler), 3b, 4 (with 6, 8, 10a and 10b), 5 (with 8b and 10c), 7
+(with 7d and 11), 9, 12: phase 5 chooses its N from the time left, and
+the phases before it are the ones that must not take it.
 
     python3 chip_smoke.py
 
@@ -262,8 +267,24 @@ def time_topk(q, v, pen, ms, sc, m) -> dict:
     vf = v.float() if sc is None else v.float() * sc[:, None]
     t_l = _median_ms(lambda: torch.topk(torch.addmm(pen, q, vf.T), m, dim=1))
     del vf
+    t_mm = _mm_dtype_ms(q, v, pen, m) if v.dtype == torch.bfloat16 else None
     return {"ms": t_k, "device_ms": sum(by.values()), "by_kernel": by, "plain_ms": t_p,
-            "library_ms": t_l, **_topk_bound(q, v, pen, m)}
+            "library_ms": t_l, "library_mm_dtype_ms": t_mm, **_topk_bound(q, v, pen, m)}
+
+
+def _mm_dtype_ms(q, v, pen, m) -> float | None:
+    """The library route on the bf16 rows as they are: bf16 x bf16 products
+    accumulated in float32 (aten::mm.dtype; queries reach the arm
+    bf16-rounded), the penalty added, then topk: two calls. None, and a
+    line saying so, where this PyTorch lacks the CUDA overload."""
+    qb = q.to(torch.bfloat16)
+    try:
+        return _median_ms(lambda: torch.topk(torch.mm(qb, v.T, out_dtype=torch.float32) + pen,
+                                             m, dim=1))
+    except (TypeError, RuntimeError) as e:  # NotImplementedError is a RuntimeError
+        log(f"phase 2: torch.mm(..., out_dtype=torch.float32) on bf16 rows is not available "
+            f"in torch {torch.__version__}: {str(e).splitlines()[0]}")
+        return None
 
 
 def phase2_kernel() -> dict:
@@ -286,7 +307,11 @@ def phase2_kernel() -> dict:
             line += (f"; kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}: {by}), plain "
                      f"{t['plain_ms']:.4f} ms, library addmm+topk {t['library_ms']:.4f} ms "
                      f"(float32 rows{'' if v.dtype == torch.float32 else ', widened first'}; "
-                     f"median of 20); bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+                     f"median of 20)"
+                     + ("" if t["library_mm_dtype_ms"] is None else
+                        f", library mm(out_dtype=float32)+topk on the bf16 rows "
+                        f"{t['library_mm_dtype_ms']:.4f} ms")
+                     + f"; bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
                      f"(share {t['bound_ms'] / t['ms']:.3f})")
         log(line)
     return {"max_abs_err": worst["fp"], "max_abs_err_int8": worst["int8"],
@@ -876,12 +901,11 @@ def _exact_top(vectors: torch.Tensor, q: torch.Tensor, k: int) -> np.ndarray:
     return best_i.cpu().numpy()
 
 
-def _device_busy_share(run, n_batches: int, dev) -> tuple[float, float, dict, float]:
-    """torch.profiler over run(), which searches n_batches batches: (device
-    kernel ms per batch, wall ms per batch, kernel ms per batch by name for
-    the top entries, the proj kernels' ms per batch). Sums the device-side
-    events only (the CPU-side operator events carry their kernels' time
-    too)."""
+def _device_profile(run, n_batches: int, dev) -> tuple[dict, float, float]:
+    """torch.profiler over run(), which runs n_batches batches (or steps):
+    (device ms per batch by kernel name, device operations per batch, wall
+    ms per batch). Counts the device-side events only (the CPU-side
+    operator events carry their kernels' time too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -894,6 +918,7 @@ def _device_busy_share(run, n_batches: int, dev) -> tuple[float, float, dict, fl
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3 / n_batches
     by_name: dict = {}
+    n_ops = 0
     for ev in prof.events():
         # a user annotation's device range (e.g. the optimizer's step) spans
         # kernels that are counted on their own
@@ -901,6 +926,15 @@ def _device_busy_share(run, n_batches: int, dev) -> tuple[float, float, dict, fl
             name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
             name = name.split("<")[0].split("(")[0] or ev.name[:40]
             by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n_batches
+            n_ops += 1
+    return by_name, n_ops / n_batches, wall
+
+
+def _device_busy_share(run, n_batches: int, dev) -> tuple[float, float, dict, float]:
+    """torch.profiler over run(), which searches n_batches batches: (device
+    kernel ms per batch, wall ms per batch, kernel ms per batch by name for
+    the top entries, the proj kernels' ms per batch)."""
+    by_name, _, wall = _device_profile(run, n_batches, dev)
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     proj_ms = sum(v for key, v in by_name.items() if key.startswith("proj_"))
     return sum(by_name.values()), wall, top, proj_ms
@@ -1583,6 +1617,8 @@ def _choose_n(build_s_per_m: float, elapsed: float) -> tuple[int, str]:
     searches); ~1.2 KB of host RAM per record beside the int8 matrix
     (pinned, rounded up to a power of two by the allocator)."""
     total, avail = _mem_gib()
+    # a quarter of the limit and 60 s stay for the phases after phase 5:
+    # 10c, 7, 9 and 12 (~80 + ~110-120 + ~30-38 + ~45 s on an H100 at 10M)
     budget = 0.75 * SCRIPT_LIMIT_S - elapsed - 60.0
     why = []
     for n in N_CUTS:
@@ -2725,9 +2761,11 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def train_step_twin(dev: str = "cuda") -> tuple[float, float, float]:
+def train_step_twin(dev: str = "cuda", grid: tuple[int, int] | None = None
+                    ) -> tuple[float, float, float]:
     """One step of train_demo's tiny config (float32 activations) on `dev`
-    and on the CPU copy of the same parameters and tokens: (gradients'
+    and on the CPU copy of the same parameters and tokens, on one device or
+    over a (dp, tp) `grid` of the device named dp x tp times: (gradients'
     worst difference relative to each parameter's largest |gradient|, the
     updates' worst difference above TWIN_FLOOR, the share of elements below
     it)."""
@@ -2735,17 +2773,20 @@ def train_step_twin(dev: str = "cuda") -> tuple[float, float, float]:
 
     from mobius_rag_tpu_torch.models.encoder import EncoderConfig, init_params
     from mobius_rag_tpu_torch.models.train import TrainConfig, demo_tokens, make_train_step
+    from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
 
     cfg = dataclasses.replace(EncoderConfig.tiny(), dtype="float32")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    q, d = demo_tokens(cfg, 16, 0, dev)
+    q, d = (t.cpu().numpy() for t in demo_tokens(cfg, 16, 0, dev))
     out = {}
     for where in (dev, "cpu"):
-        step, shard, _, init = make_train_step(cfg, TrainConfig(), device=where)
+        mesh = None if grid is None else \
+            make_train_mesh(*grid, devices=[where] * (grid[0] * grid[1]))
+        step, shard, batch, init = make_train_step(cfg, TrainConfig(), mesh, device=where)
         module = shard(_to(params, where))
         before = [p.detach().clone() for p in module.parameters()]
         opt = init(module)
-        module, opt, _ = step(module, opt, q.to(where), d.to(where))
+        module, opt, _ = step(module, opt, batch(q), batch(d))
         out[where] = ([p.grad.detach().cpu() for p in module.parameters()],
                       [(p.detach() - b).cpu() for p, b in zip(module.parameters(), before)])
     grad_err, step_err, below, total = 0.0, 0.0, 0, 0
@@ -2830,12 +2871,13 @@ def phase9a_encoder_train(smi: str, store, pairs, cfg, dev: str = "cuda") -> dic
         f"float32 parameters), {n_params / 1e6:.1f} M parameters, AdamW set up in "
         f"{time.perf_counter() - t0:.2f} s; {len(pairs)} ICT pairs from {store.size} chunks")
     it = iter(blocks)
-    lengths = []
+    lengths, every = [], []
 
     def step():
         qs, ds = next(it)
         lengths.append((seq_bucket(qs).shape[1], seq_bucket(ds).shape[1]))
-        return step_fn(module, opt, shard_batch(qs), shard_batch(ds))[2]
+        every.append(step_fn(module, opt, shard_batch(qs), shard_batch(ds))[2])
+        return every[-1]
 
     ms, metrics = _timed_steps(step, TRAIN_WARMUP, TRAIN_TIMED, dev)
     timed_lengths = lengths[TRAIN_WARMUP:]
@@ -2845,7 +2887,9 @@ def phase9a_encoder_train(smi: str, store, pairs, cfg, dev: str = "cuda") -> dic
     peak = _peak_gib(dev)
     if not all(np.isfinite(m["loss"]) for m in metrics):
         raise AssertionError(f"phase 9a: a non-finite loss {metrics}")
-    busy, wall, top, _ = _device_busy_share(lambda: [step() for _ in range(2)], 2, dev)
+    by_name, n_ops, wall = _device_profile(lambda: [step() for _ in range(2)], 2, dev)
+    busy = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     med = float(np.median(ms))
     log(f"phase 9a: {TRAIN_TIMED} steps at batch {TRAIN_BATCH} (after {TRAIN_WARMUP} "
         f"warm-up): {med:.2f} ms per step (median; mean {np.mean(ms):.2f}, min {min(ms):.2f}, "
@@ -2857,7 +2901,8 @@ def phase9a_encoder_train(smi: str, store, pairs, cfg, dev: str = "cuda") -> dic
     log(f"phase 9a: loss by step {[round(m['loss'], 4) for m in metrics]}, accuracy "
         f"{[round(m['accuracy'], 4) for m in metrics]}")
     log(f"phase 9a: profiled step: device busy {busy:.2f} of {wall:.2f} ms "
-        f"({100 * busy / wall:.1f}%); top kernels (ms per step) "
+        f"({100 * busy / wall:.1f}%), device operations (kernels and copies) "
+        f"{_on_card(n_ops, '.0f', dev)}; top kernels (ms per step) "
         f"{ {k[:60]: round(v, 3) for k, v in top.items()} }")
     del module, opt
     grad_err, step_err, below = train_step_twin(dev)
@@ -2868,7 +2913,8 @@ def phase9a_encoder_train(smi: str, store, pairs, cfg, dev: str = "cuda") -> dic
     log(f"phase 9a: tiny float32 step on {dev} vs its CPU twin: gradients max rel diff "
         f"{grad_err:.2e} (bound {TWIN_GRAD}), updates max |diff| {step_err:.2e} (bound "
         f"{TWIN_STEP}) where |g| >= {TWIN_FLOOR} x max ({100 * below:.3f}% of elements below)")
-    return {"ms": ms, "mfu": mfu, "peak_gib": peak, "metrics": metrics}
+    return {"ms": ms, "mfu": mfu, "peak_gib": peak, "metrics": metrics,
+            "loss_step1": float(every[0]["loss"])}
 
 
 def vector_arm_citation_at_10(store, embed_fn, bank, dev) -> float:
@@ -3103,12 +3149,12 @@ def phase9_train_eval(smi: str, dev: str = "cuda", cfg=None, n_distractors: int 
     b = phase9b_recipe(smi, store, engine.lexicon, dev, steps=recipe_steps)
     c = phase9c_cross_train(smi, pairs, cfg, dev)
     ran = phase9d_eval_routes(smi, dev)
-    del engine, store, pairs
+    del engine, store
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     log(f"phase 9: {time.perf_counter() - t_all:.1f} s")
-    return {"9a": a, "9b": b, "9c": c, "eval_routes": ran,
+    return {"9a": a, "9b": b, "9c": c, "eval_routes": ran, "pairs": pairs,
             "launches": sum(v["launches"] for v in b.values())}
 
 
@@ -3726,6 +3772,129 @@ def _phase11_http(dev: str) -> str:
     return f"RemoteIndexClient publish/delete and routes {status} through a live server"
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training over a device grid (every grid position on this card:
+# the real dp x tp program, its launches and copies, no interconnect), and
+# the graft_entry twin's nine-stage dryrun
+# ---------------------------------------------------------------------------
+
+GRID_SHAPES = ((4, 2), (2, 4))  # (dp, tp) over cuda:0 named 8 times
+GRID_TIMED = 5
+GRID_LOSS_REL = 0.01  # step 1's loss against phase 9a's single-device step 1
+
+
+def phase12a_grid_train(smi: str, pairs, cfg, loss_step1: float, dev: str = "cuda") -> dict:
+    """The encoder at `cfg`'s width trained over each GRID_SHAPES grid of
+    `dev` named dp x tp times, on phase 9a's batches (TRAIN_BATCH pairs of
+    `pairs`, seed 0) from phase 9a's initial parameters: TRAIN_WARMUP
+    steps, then GRID_TIMED between CUDA events; ms per step, the profiled
+    step's device busy share, top kernels and device operations, peak
+    device memory and each step's loss; step 1's loss within GRID_LOSS_REL
+    of phase 9a's (`loss_step1`). Then one tiny float32 step over a (4, 2)
+    grid against its CPU twin."""
+    from mobius_rag_tpu_torch.models.data import pretokenized_batches
+    from mobius_rag_tpu_torch.models.encoder import init_params
+    from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
+    from mobius_rag_tpu_torch.models.train import TrainConfig, make_train_step
+    from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
+
+    on_card = torch.device(dev).type == "cuda"
+    tok = HashTokenizer(cfg.vocab_size, cfg.max_seq)
+    blocks = list(pretokenized_batches(pairs, tok, TRAIN_BATCH,
+                                       steps=TRAIN_WARMUP + GRID_TIMED + 1, seed=0))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    out = {}
+    for dp, tp in GRID_SHAPES:
+        t0 = time.perf_counter()
+        mesh = make_train_mesh(dp, tp, devices=[dev] * (dp * tp))
+        step_fn, shard_params, shard_batch, init_opt = make_train_step(cfg, TrainConfig(), mesh)
+        _reset_peak(dev)
+        model = shard_params(params)
+        opt = init_opt(model)
+        setup_s = time.perf_counter() - t0
+        it = iter(blocks)
+        every = []
+
+        def step():
+            qs, ds = next(it)
+            every.append(step_fn(model, opt, shard_batch(qs), shard_batch(ds))[2])
+            return every[-1]
+
+        ms, _ = _timed_steps(step, TRAIN_WARMUP, GRID_TIMED, dev)
+        by_name, n_ops, wall = _device_profile(step, 1, dev)
+        peak = _peak_gib(dev)
+        losses = [float(m["loss"]) for m in every]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"phase 12a ({dp}, {tp}): a non-finite loss {losses}")
+        rel = abs(losses[0] - loss_step1) / loss_step1
+        if rel > GRID_LOSS_REL:
+            raise AssertionError(f"phase 12a ({dp}, {tp}): step 1's loss {losses[0]} is not "
+                                 f"within {GRID_LOSS_REL} of phase 9a's {loss_step1}")
+        busy = sum(by_name.values())
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+        med = float(np.median(ms))
+        log(f"phase 12a: grid dp={dp} x tp={tp} on {dev} x {dp * tp}, encoder "
+            f"{cfg.num_layers} x {cfg.model_dim} (heads {cfg.num_heads}, mlp {cfg.mlp_dim}, "
+            f"max_seq {cfg.max_seq}, vocab {cfg.vocab_size}, out {cfg.out_dim}, {cfg.dtype} "
+            f"activations), batch {TRAIN_BATCH}: sharded and AdamW set up in {setup_s:.2f} s; "
+            f"{GRID_TIMED} steps (after {TRAIN_WARMUP} warm-up) {med:.2f} ms per step (median; "
+            f"min {min(ms):.2f}, max {max(ms):.2f}), peak device memory "
+            f"{_on_card(peak, '.2f', dev, ' GiB')} on {smi}")
+        log(f"phase 12a: grid ({dp}, {tp}) profiled step: device busy "
+            f"{_on_card(busy, '.2f', dev, ' ms')} of {wall:.2f} ms "
+            f"({_on_card(100 * busy / wall, '.1f', dev, '%')}), device operations (kernels and "
+            f"copies) {_on_card(n_ops, '.0f', dev)}; top kernels (ms) "
+            f"{ {k[:60]: round(v, 3) for k, v in top.items()} }")
+        log(f"phase 12a: grid ({dp}, {tp}) loss by step {[round(x, 4) for x in losses]}; step 1 "
+            f"{losses[0]:.6f} against phase 9a's single-device {loss_step1:.6f} (rel diff "
+            f"{rel:.2e}, bound {GRID_LOSS_REL})")
+        out[(dp, tp)] = {"ms": ms, "busy_ms": busy, "wall_ms": wall, "device_ops": n_ops,
+                         "peak_gib": peak, "losses": losses}
+        del model, opt, step_fn
+        log(f"phase 12a: grid ({dp}, {tp}) in {time.perf_counter() - t0:.1f} s")
+    grad_err, step_err, below = train_step_twin(dev, grid=(4, 2))
+    if on_card and not (grad_err <= TWIN_GRAD and step_err <= TWIN_STEP):
+        raise AssertionError(f"phase 12a: the card's grid step differs from its CPU twin: "
+                             f"gradients {grad_err} (bound {TWIN_GRAD}), updates {step_err} "
+                             f"(bound {TWIN_STEP})")
+    log(f"phase 12a: tiny float32 grid (4, 2) step on {dev} vs its CPU twin: gradients max "
+        f"rel diff {grad_err:.2e} (bound {TWIN_GRAD}), updates max |diff| {step_err:.2e} "
+        f"(bound {TWIN_STEP}) where |g| >= {TWIN_FLOOR} x max ({100 * below:.3f}% below)")
+    return out
+
+
+def phase12b_dryrun(dev: str = "cuda") -> int:
+    """graft_entry.dryrun_multichip(8) over `dev` named 8 times: its nine
+    stages print their lines. Returns the masked top-k's launches in it."""
+    from mobius_rag_tpu_torch import graft_entry
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+
+    t0 = time.perf_counter()
+    masked_topk.launches = 0
+    graft_entry.dryrun_multichip(8, devices=[dev] * 8)
+    launches = masked_topk.launches
+    if torch.device(dev).type == "cuda" and not launches:
+        raise AssertionError("phase 12b: the dryrun launched no masked top-k")
+    log(f"phase 12b: dryrun_multichip(8) over {dev} x 8: all nine stages ok in "
+        f"{time.perf_counter() - t0:.1f} s; masked top-k launches {launches}")
+    return launches
+
+
+def phase12_grid(smi: str, pairs, loss_step1: float, dev: str = "cuda", cfg=None) -> dict:
+    """Phase 12: the grid trainer at `cfg`'s width (default
+    EncoderConfig.from_env(); cut only to rehearse off the card) on phase
+    9's pairs (12a), then the dryrun twin (12b)."""
+    from mobius_rag_tpu_torch.models.encoder import EncoderConfig
+
+    t0 = time.perf_counter()
+    a = phase12a_grid_train(smi, pairs, cfg or EncoderConfig.from_env(), loss_step1, dev)
+    launches = phase12b_dryrun(dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return {"12a": a, "launches": launches}
+
+
 def main() -> None:
     import gc
     import os
@@ -3753,6 +3922,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     p7 = phase7_front_door(smi)
     p9 = phase9_train_eval(smi)
+    p12 = phase12_grid(smi, p9.pop("pairs"), p9["9a"]["loss_step1"])
     kernels = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     # launches by path: phase 3's counted run, phase 6's micro-batcher and agent
@@ -3763,7 +3933,8 @@ def main() -> None:
                                "phase 9b eval": p9["launches"],
                                "phase 10a sharded 70k S=4": s["phase10"]["S=4"]["launches"],
                                "phase 10a sharded 70k dp2xS4":
-                                   s["phase10"]["dp2xS4"]["launches"]},
+                                   s["phase10"]["dp2xS4"]["launches"],
+                               "phase 12b dryrun": p12["launches"]},
                "masked_topk_int8": {"phase 3b": s8["launches"]},
                "masked_topk_bf16": {f"phase 10a sharded 1M S={n}": p4["phase10"]["a"][n]["launches"]
                                     for n in (1, SHARDS_1M)}}
@@ -3787,7 +3958,7 @@ def main() -> None:
                     "launches": sum(by_path["masked_topk_bf16"].values()),
                     "launches_by_path": by_path["masked_topk_bf16"],
                     "max_abs_err": k["max_abs_err"], **{key: t[key] for key in keys},
-                    "library_ms": None, "device_ms": t["device_ms"],
+                    "library_ms": t["library_mm_dtype_ms"], "device_ms": t["device_ms"],
                     "shape": f"B={BATCH} C={C_SHARD} m=40 bfloat16"})
     packed = p4["phase8"]["packed"]
     by_path["proj_blocks"] = {"phase 4 path A": p4["launches"]["proj_blocks"],

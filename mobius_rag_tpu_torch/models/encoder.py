@@ -17,6 +17,11 @@ soft-maxed in float32, probabilities cast back; tanh GELU; masked mean
 pool, float32 projection and L2 normalisation. The matmuls and attention
 products are plain ``torch.einsum`` (the JAX package has no kernel of its
 own there either).
+
+``param_specs``, ``shard_tree`` and ``GridEncoder`` lay the parameters over
+a ("dp", "tp") device grid in the JAX package's Megatron layout and run
+one dp row's forward in tensor-parallel form (``models/train.py`` trains
+over the grid).
 """
 from __future__ import annotations
 
@@ -181,31 +186,74 @@ def _param(shape, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
 
 
+def _attention(y: torch.Tensor, mask: torch.Tensor, qkv: torch.Tensor,
+               attn_out: torch.Tensor, scale: float) -> torch.Tensor:
+    """Self-attention over the heads that ``qkv`` [D, 3, h, Dh] and
+    ``attn_out`` [h, Dh, D] hold, projected back to [B, L, D] in y's dtype
+    (all heads: the layer's output; a tensor-parallel shard's heads: its
+    partial sum)."""
+    dt = y.dtype
+    qkv = torch.einsum("bld,dshe->bslhe", y, qkv.to(dt))
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # [B, L, h, Dh]
+    # bf16 logits / a float32 scalar promote to float32 in JAX
+    logits = torch.einsum("blhe,bmhe->bhlm", q, k).float() / scale
+    logits.masked_fill_(~mask[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    del logits
+    ctx = torch.einsum("bhlm,bmhe->blhe", probs, v)
+    return torch.einsum("blhe,hed->bld", ctx, attn_out.to(dt))
+
+
+def _mlp(y: torch.Tensor, mlp_in: torch.Tensor, mlp_out: torch.Tensor) -> torch.Tensor:
+    """The MLP over the hidden columns that ``mlp_in`` [D, f] and ``mlp_out``
+    [f, D] hold (all of them, or a tensor-parallel shard's: its partial sum)."""
+    dt = y.dtype
+    hmid = F.gelu(torch.einsum("bld,df->blf", y, mlp_in.to(dt)), approximate="tanh")
+    return torch.einsum("blf,fd->bld", hmid, mlp_out.to(dt))
+
+
+def _scale(cfg: EncoderConfig) -> float:
+    # the logits' divisor: a float32 constant, as np.sqrt(dh).astype(f32)
+    return float(np.float32(np.sqrt(cfg.model_dim // cfg.num_heads)))
+
+
+def _embed_tokens(tokens: torch.Tensor, embed: torch.Tensor, pos: torch.Tensor,
+                  dt: torch.dtype) -> torch.Tensor:
+    # cast the table first, then gather (as the JAX code does)
+    return embed.to(dt)[tokens] + pos.to(dt)[None, :tokens.shape[1]]
+
+
+def _pool_project(cfg: EncoderConfig, x: torch.Tensor, mask: torch.Tensor,
+                  tokens: torch.Tensor, proj: torch.Tensor, anchor_proj=None,
+                  alpha=None) -> torch.Tensor:
+    """Masked mean pool of the final states, float32 projection, L2
+    normalisation, and under ``hybrid_anchor`` the mix with the anchor's
+    normalized bag of tokens."""
+    maskf = mask[..., None].float()
+    denom = torch.clamp(mask.sum(dim=1, keepdim=True).float(), min=1.0)
+    pooled = (x.float() * maskf).sum(dim=1) / denom
+    out = pooled @ proj
+    out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=1e-6)
+    if cfg.hybrid_anchor:
+        # a fixed projection: no gradient reaches it (JAX's stop_gradient)
+        bag = (anchor_proj.detach()[tokens] * maskf).sum(dim=1)  # tf-weighted
+        bag = bag / torch.clamp(torch.linalg.vector_norm(bag, dim=-1, keepdim=True), min=1e-6)
+        mix = bag + torch.abs(alpha) * out
+        out = mix / torch.clamp(torch.linalg.vector_norm(mix, dim=-1, keepdim=True), min=1e-6)
+    return out
+
+
 class _Block(nn.Module):
     def __init__(self, cfg: EncoderConfig, device):
         super().__init__()
         for name, shape in _layer_shapes(cfg).items():
             self.register_parameter(name, _param(shape, device))
-        # the logits' divisor: a float32 constant, as np.sqrt(dh).astype(f32)
-        self.scale = float(np.float32(np.sqrt(cfg.model_dim // cfg.num_heads)))
+        self.scale = _scale(cfg)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        y = _rms_norm(x, self.ln1_scale)
-        qkv = torch.einsum("bld,dshe->bslhe", y, self.qkv.to(dt))
-        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # [B, L, H, Dh]
-        # bf16 logits / a float32 scalar promote to float32 in JAX
-        logits = torch.einsum("blhe,bmhe->bhlm", q, k).float() / self.scale
-        logits.masked_fill_(~mask[:, None, None, :], -1e30)
-        probs = torch.softmax(logits, dim=-1).to(dt)
-        del logits
-        ctx = torch.einsum("bhlm,bmhe->blhe", probs, v)
-        x = x + torch.einsum("blhe,hed->bld", ctx, self.attn_out.to(dt))
-
-        y = _rms_norm(x, self.ln2_scale)
-        hmid = F.gelu(torch.einsum("bld,df->blf", y, self.mlp_in.to(dt)),
-                      approximate="tanh")
-        return x + torch.einsum("blf,fd->bld", hmid, self.mlp_out.to(dt))
+        x = x + _attention(_rms_norm(x, self.ln1_scale), mask, self.qkv, self.attn_out,
+                           self.scale)
+        return x + _mlp(_rms_norm(x, self.ln2_scale), self.mlp_in, self.mlp_out)
 
 
 class Encoder(nn.Module):
@@ -270,35 +318,184 @@ class Encoder(nn.Module):
     def trunk(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The transformer blocks and the final norm: (states [B, L, dm] in
         the config's dtype, mask [B, L] of non-PAD tokens)."""
-        dt = self.cfg.torch_dtype
         tokens = tokens.long()
-        length = tokens.shape[1]
         mask = tokens != PAD_ID  # [B, L]
-        # cast the table first, then gather (as the JAX code does)
-        x = self.embed.to(dt)[tokens] + self.pos.to(dt)[None, :length]
+        x = _embed_tokens(tokens, self.embed, self.pos, self.cfg.torch_dtype)
         for block in self.layers:
             x = block(x, mask)
         return _rms_norm(x, self.ln_f_scale), mask
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
         x, mask = self.trunk(tokens)
+        anchor = (self.anchor_proj, self.alpha) if self.cfg.hybrid_anchor else ()
+        return _pool_project(self.cfg, x, mask, tokens.long(), self.proj, *anchor)
+
+
+class PartitionSpec(tuple):
+    """How a parameter lies on a device grid: for each of its dimensions the
+    grid axis it is split over, or None; shorter than the parameter (``P()``
+    is fully replicated) leaves the remaining dimensions whole. The port's
+    form of ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *axes: str | None):
+        return super().__new__(cls, axes)
+
+
+P = PartitionSpec
+
+
+def param_specs(cfg: EncoderConfig) -> dict:
+    """The Megatron-style tensor-parallel layout over a ("dp", "tp") grid,
+    the JAX package's: heads (``qkv``, ``attn_out``) and MLP hidden columns
+    (``mlp_in``, ``mlp_out``) split over tp, so each tp position's partial
+    outputs at ``attn_out`` and ``mlp_out`` sum to the layer's; the tables'
+    columns (``embed``, ``pos``, ``proj``, ``anchor_proj``) split over tp;
+    the norms' scales and ``alpha`` replicated."""
+    layer = {
+        "ln1_scale": P(),
+        "ln2_scale": P(),
+        "qkv": P(None, None, "tp", None),
+        "attn_out": P("tp", None, None),
+        "mlp_in": P(None, "tp"),
+        "mlp_out": P("tp", None),
+    }
+    specs = {
+        "embed": P(None, "tp"),
+        "pos": P(None, "tp"),
+        "ln_f_scale": P(),
+        "proj": P(None, "tp"),
+        "layers": [dict(layer) for _ in range(cfg.num_layers)],
+    }
+    if cfg.hybrid_anchor:
+        specs["anchor_proj"] = P(None, "tp")
+        specs["alpha"] = P()
+    return specs
+
+
+def check_tp(cfg: EncoderConfig, tp: int) -> None:
+    """param_specs splits heads, MLP columns, model and output columns over
+    tp: each must divide evenly (JAX's device_put refuses an uneven split)."""
+    for name in ("num_heads", "mlp_dim", "model_dim", "out_dim"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"tp must divide {name}: tp={tp}, {name}={getattr(cfg, name)}")
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of parameter trees of one structure, in
+    :func:`flatten_params` order (dicts and lists are nodes, dict keys
+    sorted; anything else, a PartitionSpec too, is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _split_dims(spec: PartitionSpec, mesh) -> list[tuple[int, int, int]]:
+    """(dimension, grid axis index, parts) for each split dimension."""
+    out = []
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            a = mesh.axis_names.index(axis)
+            out.append((dim, a, mesh.devices.shape[a]))
+    return out
+
+
+def shard_tree(tree: dict, specs: dict, mesh) -> np.ndarray:
+    """A parameter tree laid out over ``mesh`` as ``specs`` says: an object
+    array of ``mesh.devices``' shape whose element at grid position ``idx``
+    is the tree of what JAX's ``NamedSharding(mesh, spec)`` places on
+    ``mesh.devices[idx]``, each leaf a contiguous copy of its own on that
+    device (a device named twice in the grid holds two copies)."""
+    grid = np.empty(mesh.devices.shape, dtype=object)
+    for idx in np.ndindex(mesh.devices.shape):
+        def piece(leaf, spec, idx=idx):
+            sl = [slice(None)] * leaf.ndim
+            for dim, a, n in _split_dims(spec, mesh):
+                if leaf.shape[dim] % n:
+                    raise ValueError(f"dimension {dim} of a {tuple(leaf.shape)} parameter "
+                                     f"does not split into {n} parts")
+                size = leaf.shape[dim] // n
+                sl[dim] = slice(idx[a] * size, (idx[a] + 1) * size)
+            return leaf[tuple(sl)].to(mesh.devices[idx], copy=True,
+                                      memory_format=torch.contiguous_format)
+        grid[idx] = tree_map(piece, tree, specs)
+    return grid
+
+
+def gather_tree(grid: np.ndarray, specs: dict, mesh) -> dict:
+    """Inverse of :func:`shard_tree`: each leaf whole on the grid's first
+    device, its split dimensions concatenated from the positions along
+    their axes (every other coordinate 0)."""
+    home = mesh.devices.flat[0]
+    order = {idx: k for k, idx in enumerate(np.ndindex(grid.shape))}
+
+    def whole(spec, *leaves):  # one leaf per position, in grid.flat order
+        def build(idx, dims):
+            if not dims:
+                return leaves[order[idx]].to(home)
+            (dim, a, n), rest = dims[0], dims[1:]
+            return torch.cat([build(idx[:a] + (c,) + idx[a + 1:], rest) for c in range(n)],
+                             dim)
+        return build((0,) * grid.ndim, _split_dims(spec, mesh))
+
+    return tree_map(whole, specs, *grid.flat)
+
+
+def _cols(shards: list[torch.Tensor], home: torch.device) -> torch.Tensor:
+    """A column-split table whole on ``home`` (differentiable: each shard
+    receives its columns' gradient)."""
+    return torch.cat([t.to(home) for t in shards], dim=1)
+
+
+class GridEncoder:
+    """One dp row of the encoder in Megatron tensor-parallel form: ``Encoder``'s
+    function over the row's tp shard trees (``shard_tree`` under
+    ``param_specs``), ``devices[j]`` holding shard j.
+
+    Each shard runs its heads through ``qkv`` and ``attn_out`` and its hidden
+    columns through ``mlp_in`` and ``mlp_out`` on its own device; the partial
+    outputs are summed on the row's first device (JAX's psum over tp, in the
+    activations' dtype), where the residual stream, the RMS norms, the
+    pooling, the output norm and the anchor mix run once, with shard 0's
+    copy of the replicated parameters, so that each gets one gradient. The
+    column-split tables are concatenated there where they are used. All of
+    it is differentiable, so the backward carries each shard its gradient:
+    autograd sums the activations' gradients copied back from the shards."""
+
+    def __init__(self, cfg: EncoderConfig, shards: list[dict], devices: list[torch.device]):
+        self.cfg, self.shards, self.devices = cfg, shards, devices
+        self.home = devices[0]
+        self.scale = _scale(cfg)
+
+    def _psum(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part.to(self.home)
+        return total
+
+    def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, L] on the row's first device → [B, out_dim] float32 there."""
+        cfg, first, home = self.cfg, self.shards[0], self.home
         tokens = tokens.long()
-        maskf = mask[..., None].float()
-        denom = torch.clamp(mask.sum(dim=1, keepdim=True).float(), min=1.0)
-        pooled = (x.float() * maskf).sum(dim=1) / denom
-        out = pooled @ self.proj
-        out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True),
-                                min=1e-6)
-        if cfg.hybrid_anchor:
-            # a fixed projection: no gradient reaches it (JAX's stop_gradient)
-            bag = (self.anchor_proj.detach()[tokens] * maskf).sum(dim=1)  # tf-weighted
-            bag = bag / torch.clamp(torch.linalg.vector_norm(bag, dim=-1, keepdim=True),
-                                    min=1e-6)
-            mix = bag + torch.abs(self.alpha) * out
-            out = mix / torch.clamp(torch.linalg.vector_norm(mix, dim=-1, keepdim=True),
-                                    min=1e-6)
-        return out
+        mask = tokens != PAD_ID
+        masks = [mask.to(d) for d in self.devices]
+
+        def table(name):
+            return _cols([s[name] for s in self.shards], home)
+
+        x = _embed_tokens(tokens, table("embed"), table("pos"), cfg.torch_dtype)
+        for li, layer in enumerate(first["layers"]):
+            ls = [s["layers"][li] for s in self.shards]
+            y = _rms_norm(x, layer["ln1_scale"])
+            x = x + self._psum([_attention(y.to(d), m, p["qkv"], p["attn_out"], self.scale)
+                                for d, m, p in zip(self.devices, masks, ls)])
+            y = _rms_norm(x, layer["ln2_scale"])
+            x = x + self._psum([_mlp(y.to(d), p["mlp_in"], p["mlp_out"])
+                                for d, p in zip(self.devices, ls)])
+        x = _rms_norm(x, first["ln_f_scale"])
+        anchor = (table("anchor_proj"), first["alpha"]) if cfg.hybrid_anchor else ()
+        return _pool_project(cfg, x, mask, tokens, table("proj"), *anchor)
 
 
 def flops_per_token(cfg: EncoderConfig, length: int) -> int:

@@ -1,5 +1,6 @@
-"""Contrastive training of the encoder on (query, chunk) pairs, on one card
-(the port of ``mobius_rag_tpu.models.train``).
+"""Contrastive training of the encoder on (query, chunk) pairs, on one device
+or over a ("dp", "tp") device grid (the port of
+``mobius_rag_tpu.models.train``).
 
 Fine-tunes the encoder on in-domain pairs mined from the corpus
 (``models/data.py``): symmetric InfoNCE over in-batch negatives at a logit
@@ -12,8 +13,20 @@ update. A parameter that no gradient reaches (the hybrid anchor, under
 JAX's ``stop_gradient``) gets a zero gradient, not None, so AdamW still
 decays it as optax does.
 
-The JAX trainer shards over a ("dp", "tp") mesh; the port runs on one
-device, and any other ``mesh`` raises (ROADMAP queue 1, item 4). JAX pads
+Over a training grid (``parallel.mesh.make_train_mesh``) the parameters
+lie as ``models.encoder.param_specs`` says, every grid position holding
+its own copy of its shard (``GridModel``), and the batch splits
+contiguously over dp. Each dp row runs the tensor-parallel forward
+(``models.encoder.GridEncoder``); the rows' embeddings meet on the grid's
+first device, where the loss of the whole batch is taken, as JAX takes it
+over the logical array. After the backward each shard's gradient is summed
+over the dp rows onto row 0, whose shards alone are clipped (each logical
+element counted once) and stepped, with AdamW's moments beside them, as JAX
+keeps ``opt_state`` sharded like the parameters; the other rows then copy
+them. A grid of one device repeated runs the whole program on one card.
+``mesh=None`` means one device, ``device=``: the JAX package then builds a
+mesh over every device, which on one card is dp=1, tp=1, the same program.
+JAX pads
 every batch to ``max_seq`` to bound compiles; eager PyTorch compiles
 nothing, so each token block is trimmed to the encoder's sequence buckets
 (``seq_bucket``): PAD columns are masked out of attention and pooling, so
@@ -34,8 +47,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mobius_rag_tpu_torch.models.encoder import (Encoder, EncoderConfig, init_params,
-                                                 seq_bucket)
+from mobius_rag_tpu_torch.models.encoder import (Encoder, EncoderConfig, GridEncoder,
+                                                 check_tp, gather_tree, init_params,
+                                                 param_specs, seq_bucket, shard_tree,
+                                                 tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +59,6 @@ class TrainConfig:
     weight_decay: float = 0.01
     temperature: float = 20.0  # logit scale (1 / 0.05)
     grad_clip: float = 1.0
-
-
-def single_device(mesh) -> None:
-    """The port trains on one device: ``mesh=None`` means it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh is not ported yet (ROADMAP queue 1, item 4)")
 
 
 def make_optimizer(params, tc: TrainConfig) -> torch.optim.AdamW:
@@ -63,19 +71,24 @@ def make_optimizer(params, tc: TrainConfig) -> torch.optim.AdamW:
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place: each gradient is kept when the
     global norm is below ``max_norm``, else becomes ``g / norm * max_norm``.
-    Stays on the device (no read-back). Returns the norm."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    Stays on the devices (no read-back); the gradients may lie on several,
+    and the norm is taken on the first's. Returns the norm."""
+    home = grads[0].device
+    norm = torch.sqrt(sum((g * g).sum().to(home) for g in grads))
     keep = norm < max_norm
-    one = torch.ones((), device=norm.device)
+    one = torch.ones((), device=home)
     div, mul = torch.where(keep, one, norm), torch.where(keep, one, max_norm * one)
     for g in grads:
-        g.div_(div).mul_(mul)
+        g.div_(div.to(g.device)).mul_(mul.to(g.device))
     return norm
 
 
-def contrastive_loss(module: Encoder, q_tokens: torch.Tensor, d_tokens: torch.Tensor,
+def contrastive_loss(module: "Encoder | GridModel", q_tokens, d_tokens,
                      temperature: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric InfoNCE over in-batch negatives: (loss, accuracy)."""
+    """Symmetric InfoNCE over in-batch negatives: (loss, accuracy). The
+    tokens are what ``module`` takes: [B, L] tensors for an ``Encoder``,
+    one part per dp row for a ``GridModel`` (the loss is the whole
+    batch's either way)."""
     qe = module(q_tokens)  # [B, out] normalized
     de = module(d_tokens)
     logits = (qe @ de.T) * temperature  # [B, B]
@@ -111,15 +124,97 @@ def to_device(tokens: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.to(device, non_blocking=True).long()
 
 
+class GridModel:
+    """The encoder over a ("dp", "tp") training grid: every position's shard
+    tree (``shard_tree`` under ``param_specs``, taking gradients), one
+    ``GridEncoder`` per dp row. ``model(parts)`` runs row i on ``parts[i]``
+    and returns the rows' embeddings concatenated on the grid's first
+    device. ``parameters()`` are the owners: row 0's shards of the split
+    parameters and position (0, 0)'s copy of the replicated ones, each
+    logical element once; the other positions follow them."""
+
+    def __init__(self, cfg: EncoderConfig, params: dict, mesh):
+        if mesh.axis_names != ("dp", "tp"):
+            raise ValueError(f"a training grid has axes ('dp', 'tp'), not {mesh.axis_names}")
+        check_tp(cfg, mesh.devices.shape[1])
+        self.cfg, self.mesh, self.specs = cfg, mesh, param_specs(cfg)
+        self.grid = shard_tree(params, self.specs, mesh)
+        for tree in self.grid.flat:
+            tree_map(lambda leaf: leaf.requires_grad_(True), tree)
+        self.home = mesh.devices[0, 0]
+        self.rows = [GridEncoder(cfg, list(self.grid[i]), list(mesh.devices[i]))
+                     for i in range(mesh.devices.shape[0])]
+        # per grid position, (leaf, owner leaf) pairs in tree order
+        split = [any(spec) for spec in _leaves(self.specs)]
+        leaves = {idx: _leaves(self.grid[idx]) for idx in np.ndindex(self.grid.shape)}
+        self._pairs = {idx: [(leaf, leaves[(0, idx[1]) if s else (0, 0)][k])
+                             for k, (leaf, s) in enumerate(zip(mine, split))]
+                       for idx, mine in leaves.items()}
+
+    def __call__(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        return torch.cat([row(t).to(self.home) for row, t in zip(self.rows, parts)])
+
+    def parameters(self) -> list[torch.Tensor]:
+        return [owner for pairs in self._pairs.values()
+                for leaf, owner in pairs if leaf is owner]
+
+    def sum_grads_over_dp(self) -> None:
+        """Adds the gradient of each position of rows 1.. into its owner's
+        and drops it: row 0 then holds the gradient of the whole batch. (A
+        row's replicated parameters take their gradient at its shard 0, the
+        only copy its forward reads.)"""
+        for idx, pairs in self._pairs.items():
+            if idx[0] == 0:
+                continue
+            for leaf, owner in pairs:
+                if leaf.grad is not None:
+                    g = leaf.grad.to(owner.device)
+                    owner.grad = g if owner.grad is None else owner.grad.add_(g)
+                    leaf.grad = None
+
+    @torch.no_grad()
+    def copy_from_owners(self) -> None:
+        for pairs in self._pairs.values():
+            for leaf, owner in pairs:
+                if leaf is not owner:
+                    leaf.copy_(owner)
+
+    def params_tree(self) -> dict:
+        """The parameters whole, as the JAX package's tree, on the grid's first
+        device (new tensors)."""
+        with torch.no_grad():
+            return gather_tree(self.grid, self.specs, self.mesh)
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _update(module, opt, tc: TrainConfig) -> None:
+    """The optimizer's step on the gradients in place: missing ones zero,
+    clipped by their global norm, then AdamW."""
+    fill_missing_grads(module)
+    clip_by_global_norm_([p.grad for p in module.parameters()], tc.grad_clip)
+    opt.step()
+
+
 def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="cuda"):
     """Returns (train_step, shard_params, shard_batch, init_opt_state), the
-    JAX package's four functions on one device:
-    ``shard_params(tree) -> Encoder`` (parameters on the device, taking
-    gradients), ``shard_batch(np tokens) -> tensor`` (trimmed),
-    ``init_opt_state(module) -> optimizer`` and
-    ``train_step(module, opt, q, d) -> (module, opt, {"loss", "accuracy"})``
-    with the metrics left on the device."""
-    single_device(mesh)
+    JAX package's four functions: ``shard_params(tree)`` gives the model
+    (parameters taking gradients), ``shard_batch(np tokens)`` the device
+    batch (trimmed to its sequence bucket), ``init_opt_state(model)`` the
+    optimizer and ``train_step(model, opt, q, d) -> (model, opt, {"loss",
+    "accuracy"})`` with the metrics left on the device.
+
+    ``mesh=None``: an ``Encoder`` on ``device`` and [B, L] tensors there.
+    A training grid (``make_train_mesh``): a ``GridModel``, batches as one
+    [B / dp, L] part per dp row on the row's first device (B must split
+    evenly, as JAX's device_put onto P("dp", None) requires), the metrics
+    on the grid's first device; ``device`` is not read."""
+    if mesh is not None:
+        return _grid_train_step(cfg, tc, mesh)
     device = torch.device(device)
 
     def shard_params(params: dict) -> Encoder:
@@ -135,10 +230,38 @@ def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="c
         opt.zero_grad(set_to_none=True)
         loss, acc = contrastive_loss(module, q_tokens, d_tokens, tc.temperature)
         loss.backward()
-        fill_missing_grads(module)
-        clip_by_global_norm_([p.grad for p in module.parameters()], tc.grad_clip)
-        opt.step()
+        _update(module, opt, tc)
         return module, opt, {"loss": loss.detach(), "accuracy": acc}
+
+    return train_step, shard_params, shard_batch, init_opt_state
+
+
+def _grid_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh):
+    row_devices = list(mesh.devices[:, 0])
+    dp = len(row_devices)
+
+    def shard_params(params: dict) -> GridModel:
+        return GridModel(cfg, params, mesh)
+
+    def shard_batch(tokens: np.ndarray) -> list[torch.Tensor]:
+        if len(tokens) % dp:
+            raise ValueError(f"a batch of {len(tokens)} rows does not split evenly over "
+                             f"dp={dp}: its size should be divisible by {dp}")
+        tokens = seq_bucket(tokens)
+        n = len(tokens) // dp
+        return [to_device(tokens[i * n:(i + 1) * n], d) for i, d in enumerate(row_devices)]
+
+    def init_opt_state(model: GridModel) -> torch.optim.AdamW:
+        return make_optimizer(model.parameters(), tc)
+
+    def train_step(model: GridModel, opt, q_parts, d_parts):
+        opt.zero_grad(set_to_none=True)
+        loss, acc = contrastive_loss(model, q_parts, d_parts, tc.temperature)
+        loss.backward()
+        model.sum_grads_over_dp()
+        _update(model, opt, tc)
+        model.copy_from_owners()
+        return model, opt, {"loss": loss.detach(), "accuracy": acc}
 
     return train_step, shard_params, shard_batch, init_opt_state
 
@@ -159,8 +282,9 @@ def train_encoder_on_corpus(
     device="cuda",
 ):
     """Fine-tune the encoder on ICT pairs mined from a ChunkStore (mine →
-    train → re-embed with the result). Returns (parameter tree on
-    ``device``, history). ``augment`` > 0 adds that multiple of
+    train → re-embed with the result). Returns (parameter tree, history):
+    the tree whole on ``device``, or with a training grid ``mesh`` on the
+    grid's first device. ``augment`` > 0 adds that multiple of
     paraphrase-augmented pairs (``models/data.augment_pairs``). The pairs
     and batches are the JAX package's for the same store and seed; the
     initial parameters come from ``torch.Generator(device).manual_seed(seed)``
@@ -169,10 +293,9 @@ def train_encoder_on_corpus(
                                                   pretokenized_batches)
     from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
 
-    single_device(mesh)
     cfg = cfg or EncoderConfig.from_env()
     tc = tc or TrainConfig()
-    device = torch.device(device)
+    device = _home(mesh, device)
     tokenizer = HashTokenizer(cfg.vocab_size, cfg.max_seq)
     pairs = mine_ict_pairs(store, max_pairs=steps * batch * 2, seed=seed)
     if len(pairs) < batch:
@@ -181,7 +304,8 @@ def train_encoder_on_corpus(
     if augment > 0:
         pairs = augment_pairs(pairs, lexicon=lexicon, factor=augment, seed=seed)
 
-    step_fn, shard_params, shard_batch, init_opt = make_train_step(cfg, tc, device=device)
+    step_fn, shard_params, shard_batch, init_opt = make_train_step(cfg, tc, mesh,
+                                                                   device=device)
     if params is None:
         params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
     module = shard_params(params)
@@ -193,6 +317,12 @@ def train_encoder_on_corpus(
         if done % log_every == 0 or done == steps:
             history.append({"step": done, **{k: float(v) for k, v in metrics.items()}})
     return detached_tree(module.params_tree()), history
+
+
+def _home(mesh, device) -> torch.device:
+    """The device that holds the parameters whole: ``device``, or a grid's
+    first."""
+    return torch.device(device) if mesh is None else mesh.devices.flat[0]
 
 
 def demo_tokens(cfg: EncoderConfig, batch: int, seed: int, device) -> tuple:
@@ -207,14 +337,16 @@ def demo_tokens(cfg: EncoderConfig, batch: int, seed: int, device) -> tuple:
 
 def train_demo(num_steps: int = 3, mesh=None, cfg: EncoderConfig | None = None,
                batch: int = 16, seed: int = 0, device="cuda") -> list[dict]:
-    """Tiny smoke-train on random token pairs. Returns the metrics history."""
+    """Tiny smoke-train on random token pairs, on ``device`` or over a
+    training grid ``mesh``. Returns the metrics history."""
     cfg = cfg or EncoderConfig.tiny()
-    device = torch.device(device)
-    step, shard_params, _, init_opt = make_train_step(cfg, TrainConfig(), mesh,
-                                                      device=device)
+    device = _home(mesh, device)
+    step, shard_params, shard_batch, init_opt = make_train_step(cfg, TrainConfig(), mesh,
+                                                                device=device)
     module = shard_params(init_params(cfg, torch.Generator(device=device).manual_seed(seed)))
     opt = init_opt(module)
-    q_tokens, d_tokens = demo_tokens(cfg, batch, seed, device)
+    q_tokens, d_tokens = (shard_batch(t.cpu().numpy())
+                          for t in demo_tokens(cfg, batch, seed, device))
     history = []
     for _ in range(num_steps):
         module, opt, metrics = step(module, opt, q_tokens, d_tokens)

@@ -1,4 +1,4 @@
-"""Device grids for sharded serving (the port of
+"""Device grids for sharded serving and training (the port of
 ``mobius_rag_tpu.parallel.mesh``).
 
 The JAX package scales out with a ``jax.sharding.Mesh``: one process,
@@ -9,7 +9,9 @@ axis, whose groups each take a contiguous part of the query batch
 (``parallel/sharded.py``). A device may appear more than once: a grid of
 ``cuda:0`` repeated S times runs the S-shard program on one card (S times
 the launches and the real merge), and the same code over ``cuda:0..3`` is
-the four-card deployment.
+the four-card deployment. A training grid ([dp, tp], ``make_train_mesh``)
+splits the batch over ``dp`` and the encoder's heads and hidden columns
+over ``tp`` (``models/train.py``).
 
 Beyond one host the corpus splits at the host layer, as in the JAX
 package: one engine (or one ``index.service.RemoteIndexClient`` endpoint)
@@ -88,3 +90,12 @@ def make_serve_mesh(dp: int, num_shards: int = 0, *, data_axis: str = "data",
     if dp * n > len(devices):
         raise ValueError(f"dp*shards={dp * n} > {len(devices)} devices")
     return Mesh(_grid(devices[: dp * n]).reshape(dp, n), (data_axis, shard_axis))
+
+
+def make_train_mesh(dp: int, tp: int, devices=None) -> Mesh:
+    """A [dp, tp] training grid with axes ("dp", "tp") (default devices:
+    every visible CUDA device)."""
+    devices = _device_list(devices)
+    if dp * tp > len(devices):
+        raise ValueError(f"dp*tp={dp * tp} > {len(devices)} devices")
+    return Mesh(_grid(devices[: dp * tp]).reshape(dp, tp), ("dp", "tp"))

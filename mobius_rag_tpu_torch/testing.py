@@ -123,3 +123,39 @@ def toy_corpus(lexicon: Lexicon | None = None, *, pad_docs: int = 0,
         )
         recs.append(featurize_chunk(rec, lexicon, cfg))
     return recs
+
+
+class ScriptedLLM:
+    """Test LLM returning the canned response of each stage (``default``
+    for a stage without one) and recording the stages it was asked for."""
+
+    def __init__(self, responses: dict[str, str] | None = None,
+                 default: str = "UNKNOWN"):
+        self.responses = responses or {}
+        self.default = default
+        self.calls: list[str] = []
+
+    def generate(self, prompt: str, *, system: str = "", max_tokens: int = 1024,
+                 temperature: float = 0.0, stage: str = "") -> str:
+        self.calls.append(stage)
+        return self.responses.get(stage, self.default)
+
+
+class ScriptedWeb:
+    """Test web client serving a url→body map (search returns every url
+    whose body shares a query token)."""
+
+    offline = False
+
+    def __init__(self, pages: dict[str, str] | None = None):
+        self.pages = pages or {}
+
+    def search(self, query: str, *, max_results: int = 5):
+        toks = {t for t in query.lower().split() if len(t) > 3}
+        out = [{"url": u, "title": u}
+               for u, body in self.pages.items()
+               if any(t in body.lower() for t in toks)]
+        return out[:max_results]
+
+    def fetch(self, url: str, *, timeout_s: float = 8.0) -> str:
+        return self.pages.get(url, "")

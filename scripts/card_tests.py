@@ -1,8 +1,8 @@
 """Run the port's `cuda`-marked tests (the kernels, the pipelined engine's
 dispatch without a device-to-host wait, the encoder's bf16 against
-float32 activations, a training step against its CPU twin, and the
-sharded engine against the dense one) on a CUDA card whose machine has
-no JAX. Those tests
+float32 activations, a training step and a (2, 2) grid training step
+against their CPU twins, and the sharded engine against the dense one)
+on a CUDA card whose machine has no JAX. Those tests
 use only the torch side; their modules import the JAX package for their
 CPU tests, so those imports become mocks here and only the `on_card`
 tests are collected.
@@ -14,7 +14,8 @@ import sys
 from unittest.mock import MagicMock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MOCKED = ["jax", "jax.numpy", "mobius_rag_tpu", "mobius_rag_tpu.config", "mobius_rag_tpu.index",
+MOCKED = ["jax", "jax.numpy", "jax.sharding", "mobius_rag_tpu", "mobius_rag_tpu.config",
+          "mobius_rag_tpu.index",
           "mobius_rag_tpu.index.ann_io", "mobius_rag_tpu.index.ivf",
           "mobius_rag_tpu.index.store", "mobius_rag_tpu.ingest",
           "mobius_rag_tpu.ingest.featurize", "mobius_rag_tpu.ops", "mobius_rag_tpu.ops.proj",
@@ -37,7 +38,7 @@ def main() -> int:
                         "-k", "on_card", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
                           for m in ("topk", "quant", "proj", "pipelined", "encoder",
-                                    "train", "sharded"))])
+                                    "train", "train_grid", "sharded"))])
 
 
 if __name__ == "__main__":

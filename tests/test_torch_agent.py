@@ -34,7 +34,7 @@ from mobius_rag_tpu.query.agent import AgentRequest as JAgentRequest
 from mobius_rag_tpu.query.agent import CorpusSearchAgent as JAgent
 from mobius_rag_tpu.query.agent import partition_terms as jpartition
 from mobius_rag_tpu.query.engine import QueryRequest as JRequest, SearchEngine as JEngine
-from mobius_rag_tpu.testing import ScriptedLLM, ScriptedWeb
+from mobius_rag_tpu.testing import ScriptedLLM as JScriptedLLM, ScriptedWeb as JScriptedWeb
 from mobius_rag_tpu_torch import testing as ttesting
 from mobius_rag_tpu_torch.clients import StaticFactStore
 from mobius_rag_tpu_torch.config import get_config as tget_config
@@ -43,6 +43,7 @@ from mobius_rag_tpu_torch.index.store import ChunkRecord, ChunkStore
 from mobius_rag_tpu_torch.ingest.featurize import featurize_chunk
 from mobius_rag_tpu_torch.query import classify, gate, router, strategies
 from mobius_rag_tpu_torch.query.agent import AgentRequest, CorpusSearchAgent, partition_terms
+from mobius_rag_tpu_torch.testing import ScriptedLLM, ScriptedWeb
 from mobius_rag_tpu_torch.query.engine import QueryRequest, SearchEngine
 
 torch.set_num_threads(1)
@@ -241,12 +242,13 @@ def test_locate_citation_matches_jax(agents, tmp_path, i):
     ja, ta = agents
     quote, texts, with_curator, pages = LOCATE[i]
     jc, tc = _curators(tmp_path) if with_curator else (None, None)
-    web = None if pages is None else ScriptedWeb(pages=pages)
+    jweb, tweb = (None, None) if pages is None else \
+        (JScriptedWeb(pages=pages), ScriptedWeb(pages=pages))
     a = jstrat.locate_citation(quote, texts, ja.engine, JRequest(query=REQ[0], payer=REQ[1]),
-                               curator=jc, web=web)
+                               curator=jc, web=jweb)
     b = strategies.locate_citation(quote, texts, ta.engine,
                                    QueryRequest(query=REQ[0], payer=REQ[1]),
-                                   curator=tc, web=web)
+                                   curator=tc, web=tweb)
     assert b == a
 
 
@@ -255,7 +257,7 @@ def test_locate_citation_robots_matches_jax(agents, tmp_path):
     jc, tc = _curators(tmp_path, probe=lambda url: {"robots_disallowed": True})
     quote = "zymurgy fermentation consult windows are plan specific"
     a = jstrat.locate_citation(quote, ["x"], ja.engine, JRequest(query=REQ[0], payer=REQ[1]),
-                               curator=jc, web=ScriptedWeb())
+                               curator=jc, web=JScriptedWeb())
     b = strategies.locate_citation(quote, ["x"], ta.engine,
                                    QueryRequest(query=REQ[0], payer=REQ[1]),
                                    curator=tc, web=ScriptedWeb())
@@ -270,7 +272,7 @@ def test_run_strategy_c_matches_jax(agents, tmp_path):
                              'say "claims may be filed whenever convenient without any '
                              'deadline".')}
     a = jstrat.run_strategy_c(ja.engine, JRequest(query=REQ[0], payer=REQ[1]), 5,
-                              ScriptedLLM(script), curator=jc)
+                              JScriptedLLM(script), curator=jc)
     b = strategies.run_strategy_c(ta.engine, QueryRequest(query=REQ[0], payer=REQ[1]), 5,
                                   ScriptedLLM(script), curator=tc)
     assert (b.success, b.answer, b.confidence_label, b.detail) == \
@@ -281,12 +283,12 @@ def test_run_strategy_c_matches_jax(agents, tmp_path):
 
 def test_run_strategy_d_matches_jax(agents):
     ja, ta = agents
-    web = ScriptedWeb(pages={"https://payer.example/manual": "timely filing is 120 days"})
+    pages = {"https://payer.example/manual": "timely filing is 120 days"}
     llm = {"strategy_d": "Filing is 120 days [passage 0]."}
     a = jstrat.run_strategy_d(ja.engine, JRequest(query="timely filing deadline"), 5,
-                              ScriptedLLM(llm), web)
+                              JScriptedLLM(llm), JScriptedWeb(pages=pages))
     b = strategies.run_strategy_d(ta.engine, QueryRequest(query="timely filing deadline"), 5,
-                                  ScriptedLLM(llm), web)
+                                  ScriptedLLM(llm), ScriptedWeb(pages=pages))
     assert (b.success, b.answer, b.detail, [h.text for h in b.hits]) == \
         (a.success, a.answer, a.detail, [h.text for h in a.hits])
 

@@ -12,7 +12,9 @@ harness (a few training steps of both encoders, an eval of the toy bank,
 a calibration, the fixture stack), at run time for sharded serving and
 the last host modules (a sharded engine over CPU shards with exact and
 ANN backends, data-parallel encode, the stage profiler, integrity, the
-PDF writer, Drive, the index wire format, the slice merge), and
+PDF writer, Drive, the index wire format, the slice merge), at run time
+for the graft_entry twin (its forward and its nine-stage dryrun, the grid
+trainer included), and
 statically over every source file of the port and chip_smoke.py. The
 port imports no optax either."""
 import ast
@@ -280,3 +282,27 @@ def test_sharded_serving_and_host_wiring_import_nothing_forbidden():
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_GRAFT_ENTRY = """
+import sys
+from mobius_rag_tpu_torch import graft_entry
+fwd, (params, tokens) = graft_entry.entry("cpu")
+assert fwd(params, tokens[:2]).shape == (2, 1536)
+graft_entry.dryrun_multichip(8, devices=["cpu"] * 8)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print("FORBIDDEN", bad)
+"""
+
+
+def test_graft_entry_imports_nothing_forbidden():
+    """The graft_entry twin (the encoder's entry forward, and the nine-stage
+    dryrun over ["cpu"] * 8: the grid trainer, sharded serving, mesh encode,
+    the slice merge) loads no JAX, optax, PyYAML, aiohttp or JAX-package
+    module."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _GRAFT_ENTRY.format(forbidden=set(FORBIDDEN) | {"aiohttp"})],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FORBIDDEN []" in proc.stdout and "dryrun multi-slice ok" in proc.stdout, proc.stdout

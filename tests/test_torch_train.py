@@ -333,13 +333,6 @@ def test_corpus_too_small_raises():
                                        steps=2, batch=8, device="cpu")
 
 
-def test_mesh_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttrain.make_train_step(tenc.EncoderConfig.tiny(), ttrain.TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.train_demo(1, mesh=object(), device="cpu")
-
-
 def test_train_demo_loss_moves():
     history = ttrain.train_demo(num_steps=4, batch=8, device="cpu")
     assert len(history) == 4 and all(np.isfinite(h["loss"]) for h in history)

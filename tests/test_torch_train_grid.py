@@ -1,0 +1,418 @@
+"""Training over a ("dp", "tp") device grid (the port's make_train_mesh,
+param_specs, shard_tree/gather_tree, GridEncoder and the grid trainer, and
+the graft_entry twin) against the JAX package's mesh trainer on the 8
+virtual CPU devices of tests/conftest.py. The port runs its grid on
+``["cpu"] * 8``; the widths are EncoderConfig.tiny()'s (2 layers, 4 heads,
+model 128) with max_seq 32 and vocab 512, as in tests/test_torch_train.py,
+whose constants and helpers these tests reuse:
+
+- the layout: each grid position's shard bitwise equal to the shard that
+  JAX's NamedSharding puts on the same position of the same mesh shape;
+- gradients after the dp sum, gathered: in float32 within GRAD_F32 = 1e-5
+  of each parameter's largest |gradient|, against jax.grad of
+  contrastive_loss under make_train_mesh(4, 2) and against the port's
+  single-device gradients; in bfloat16 no further from JAX's float32
+  gradient than JAX's own mesh bf16 gradient is, by BF16_FACTOR = 1.25
+  plus BF16_FLOOR = 0.005 (Frobenius norms relative to the float32 one);
+- the clip's global norm within CLIP_REL = 1e-6 relative of the single
+  device's (the shards' sums of squares add in another order), and one
+  step's updates within TWIN_STEP = 1e-6 of the single device's wherever
+  |gradient| >= TWIN_FLOOR = 1e-3 of that parameter's largest (as
+  chip_smoke.train_step_twin bounds them);
+- five steps' losses within TRAJ_REL = 0.02 of the JAX mesh trainer's at
+  (4, 2) and (2, 4), from the same parameters and batches;
+- entry()'s bf16 forward against JAX entry()'s on carried-across
+  parameters within test_torch_encoder.py's bf16 bounds (per-row cosine
+  BF16_COS = 0.999, BF16_ABS = 3e-2 max abs on unit rows), and the same
+  forward at float32 activations within its F32_TOL = 1e-5.
+
+The card case (marked ``cuda``; scripts/card_tests.py runs it) holds a
+(2, 2) grid step on ``["cuda:0"] * 4`` against the same step on the CPU copy
+within TWIN_GRAD = 1e-4 and TWIN_STEP.
+"""
+import dataclasses
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as JP
+
+from mobius_rag_tpu.models import encoder as jenc
+from mobius_rag_tpu.models import train as jtrain
+from mobius_rag_tpu.parallel.mesh import make_train_mesh as jmake_train_mesh
+from mobius_rag_tpu_torch import graft_entry
+from mobius_rag_tpu_torch.index.store import ChunkStore as TStore
+from mobius_rag_tpu_torch.models import checkpoint as tckpt
+from mobius_rag_tpu_torch.models import encoder as tenc
+from mobius_rag_tpu_torch.models import train as ttrain
+from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
+from mobius_rag_tpu_torch.testing import sample_lexicon, toy_corpus
+from test_torch_encoder import BF16_ABS, BF16_COS, F32_TOL, _rowwise_cos
+from test_torch_train import (GRAD_F32, TRAJ_REL, TWIN_FLOOR, TWIN_GRAD, TWIN_STEP, _cfgs,
+                              _jax_grads, _jax_params, _port_grads, _rel_err, _tokens,
+                              assert_bf16_grads)
+
+CLIP_REL = 1e-6
+CPU8 = ["cpu"] * 8
+SHAPES = [(4, 2), (2, 4)]
+
+
+def _grid(dp, tp):
+    return make_train_mesh(dp, tp, devices=CPU8)
+
+
+def _jax_sharded(jmesh, jcfg, params):
+    specs = jenc.param_specs(jcfg)
+    return jax.tree_util.tree_map(lambda s, x: jax.device_put(x, NamedSharding(jmesh, s)),
+                                  specs, params, is_leaf=lambda x: isinstance(x, JP))
+
+
+def _grid_grads(tcfg, params, q, d, dp=4, tp=2):
+    """Loss, accuracy and the gathered gradients (flatten order) of one grid
+    forward and backward after the dp sum."""
+    mesh = _grid(dp, tp)
+    _, shard_params, shard_batch, _ = ttrain.make_train_step(tcfg, ttrain.TrainConfig(), mesh)
+    model = shard_params(tenc.params_from_numpy(params))
+    loss, acc = ttrain.contrastive_loss(model, shard_batch(q), shard_batch(d), 20.0)
+    loss.backward()
+    model.sum_grads_over_dp()
+    ttrain.fill_missing_grads(model)
+    grads = np.empty(model.grid.shape, dtype=object)
+    for idx in np.ndindex(grads.shape):
+        grads[idx] = tenc.tree_map(lambda p: p.grad, model.grid[idx])
+    tree = tenc.gather_tree(grads, model.specs, mesh)
+    return loss.item(), acc.item(), [g.numpy() for g in tenc.flatten_params(tree)]
+
+
+# ---- grids and layout --------------------------------------------------------
+
+@pytest.mark.parametrize("dp,tp", [(4, 2), (2, 4), (1, 1), (8, 1), (1, 8)])
+def test_make_train_mesh_shapes(dp, tp):
+    want = jmake_train_mesh(dp, tp)
+    got = _grid(dp, tp)
+    assert got.axis_names == want.axis_names == ("dp", "tp")
+    assert got.devices.shape == want.devices.shape == (dp, tp)
+    assert got.shape == {"dp": dp, "tp": tp}
+    assert all(d == torch.device("cpu") for d in got.devices.flat)
+
+
+def test_make_train_mesh_errors_as_jax():
+    with pytest.raises(ValueError, match=r"dp\*tp=16 > 8 devices") as jerr:
+        jmake_train_mesh(4, 4)
+    with pytest.raises(ValueError) as terr:
+        make_train_mesh(4, 4, devices=CPU8)
+    assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["plain", "hybrid_anchor"])
+def test_param_specs_equal_jax(hybrid):
+    jcfg, tcfg = _cfgs(hybrid=hybrid)
+    want, got = jenc.param_specs(jcfg), tenc.param_specs(tcfg)
+    assert jax.tree_util.tree_structure(want, is_leaf=lambda x: isinstance(x, JP)) == \
+        jax.tree_util.tree_structure(tenc.tree_map(lambda s: 0, got))
+    flat_w = jax.tree_util.tree_leaves(want, is_leaf=lambda x: isinstance(x, JP))
+    flat_g = []
+    tenc.tree_map(flat_g.append, got)
+    assert [tuple(s) for s in flat_g] == [tuple(s) for s in flat_w]
+    assert all(isinstance(s, tenc.PartitionSpec) for s in flat_g)
+
+
+@pytest.mark.parametrize("dp,tp", SHAPES)
+def test_shards_bitwise_equal_jax_addressable_shards(dp, tp):
+    jcfg, tcfg = _cfgs(hybrid=True)
+    params = _jax_params(jcfg)
+    jmesh = jmake_train_mesh(dp, tp)
+    jtree = _jax_sharded(jmesh, jcfg, params)
+    mesh = _grid(dp, tp)
+    grid = tenc.shard_tree(tenc.params_from_numpy(params), tenc.param_specs(tcfg), mesh)
+    assert grid.shape == (dp, tp)
+    jleaves = jax.tree_util.tree_leaves(jtree)
+    n = 0
+    for k, jarr in enumerate(jleaves):
+        for shard in jarr.addressable_shards:
+            pos = tuple(np.argwhere(jmesh.devices == shard.device)[0])
+            mine = tenc.flatten_params(grid[pos])[k]
+            assert mine.is_contiguous()
+            np.testing.assert_array_equal(mine.numpy(), np.asarray(shard.data))
+            n += 1
+    assert n == len(jleaves) * dp * tp
+    # every position holds its own copy, though every position is the CPU
+    ptrs = [t.data_ptr() for tree in grid.flat for t in tenc.flatten_params(tree)]
+    assert len(set(ptrs)) == len(ptrs)
+    back = tenc.gather_tree(grid, tenc.param_specs(tcfg), mesh)
+    for a, b in zip(tenc.flatten_params(back), jax.tree_util.tree_leaves(params)):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_tp_must_divide_the_split_widths():
+    _, tcfg = _cfgs()  # 4 heads
+    with pytest.raises(ValueError, match="tp must divide num_heads"):
+        ttrain.make_train_step(tcfg, ttrain.TrainConfig(), make_train_mesh(1, 3, CPU8))[1](
+            tenc.init_params(tcfg, torch.Generator().manual_seed(0)))
+    with pytest.raises(ValueError, match="tp must divide out_dim"):
+        tenc.check_tp(dataclasses.replace(tcfg, out_dim=254), 4)
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 1), (4, 2)])
+def test_grid_forward_equals_encoder(dp, tp):
+    """A dp row's tensor-parallel forward computes Encoder's function."""
+    _, tcfg = _cfgs(hybrid=True)
+    params = tenc.init_params(tcfg, torch.Generator().manual_seed(3))
+    q, _ = _tokens(tcfg.vocab_size)
+    want = tenc.Encoder(tcfg, params)(torch.from_numpy(q)).detach()
+    mesh = _grid(dp, tp)
+    grid = tenc.shard_tree(params, tenc.param_specs(tcfg), mesh)
+    row = tenc.GridEncoder(tcfg, list(grid[0]), list(mesh.devices[0]))
+    got = row(torch.from_numpy(q)).detach()
+    assert float((got - want).abs().max()) <= F32_TOL
+
+
+# ---- gradients, the clip and one step ----------------------------------------
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["plain", "hybrid_anchor"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_grads_match_jax_mesh_and_single_device(dtype, hybrid):
+    jcfg, tcfg = _cfgs(dtype, hybrid)
+    params = _jax_params(jcfg)
+    q, d = _tokens(jcfg.vocab_size)
+    jmesh = jmake_train_mesh(4, 2)
+    batch = NamedSharding(jmesh, JP("dp", None))
+    jq, jd = jax.device_put(jnp.asarray(q), batch), jax.device_put(jnp.asarray(d), batch)
+
+    def jax_mesh_grads(cfg):
+        (loss, acc), g = jax.jit(jax.value_and_grad(
+            lambda p: jtrain.contrastive_loss(p, jq, jd, cfg, 20.0), has_aux=True))(
+                _jax_sharded(jmesh, cfg, params))
+        return float(loss), float(acc), [np.asarray(x) for x in jax.tree_util.tree_leaves(g)]
+
+    jloss, jacc, want = jax_mesh_grads(jcfg)
+    loss, acc, grads = _grid_grads(tcfg, params, q, d)
+    _, _, single = _port_grads(tcfg, params, q, d)
+    assert len(grads) == len(want) == len(single)
+    if dtype == "float32":
+        assert abs(loss - jloss) <= GRAD_F32 * max(1.0, abs(jloss)) and acc == jacc
+        assert _rel_err(grads, want) <= GRAD_F32
+        assert _rel_err(grads, single) <= GRAD_F32
+    else:
+        _, _, truth = _jax_grads(dataclasses.replace(jcfg, dtype="float32"), params, q, d)
+        assert abs(loss - jloss) <= 0.01 * max(1.0, abs(jloss))
+        assert_bf16_grads(grads, want, truth)
+    if hybrid:  # the anchor's gradient is zero, not missing
+        tree = tenc.unflatten_params(tcfg, grads)
+        assert not tree["anchor_proj"].any() and tree["alpha"] != 0
+
+
+def _one_step(model, shard_batch, q, d, tc):
+    """train_step's body with the clip's norm kept: (norm, gradients,
+    parameters before, parameters after), gathered where on a grid."""
+    opt = ttrain.make_optimizer(model.parameters(), tc)
+    before = [t.detach().clone() for t in tenc.flatten_params(model.params_tree())]
+    loss, _ = ttrain.contrastive_loss(model, shard_batch(q), shard_batch(d), tc.temperature)
+    loss.backward()
+    if isinstance(model, ttrain.GridModel):
+        model.sum_grads_over_dp()
+    ttrain.fill_missing_grads(model)
+    norm = ttrain.clip_by_global_norm_([p.grad for p in model.parameters()], tc.grad_clip)
+    opt.step()
+    if isinstance(model, ttrain.GridModel):
+        model.copy_from_owners()
+    after = [t.detach().clone() for t in tenc.flatten_params(model.params_tree())]
+    return float(norm), before, after
+
+
+@pytest.mark.parametrize("dp,tp", SHAPES)
+def test_clip_norm_and_one_step_match_single_device(dp, tp):
+    _, tcfg = _cfgs(hybrid=True)
+    params = tenc.init_params(tcfg, torch.Generator().manual_seed(4))
+    q, d = _tokens(tcfg.vocab_size, seed=3)
+    tc = ttrain.TrainConfig()
+    _, sshard, sbatch, _ = ttrain.make_train_step(tcfg, tc, device="cpu")
+    single = sshard(params)
+    s_norm, s_before, s_after = _one_step(single, sbatch, q, d, tc)
+    s_grads = [p.grad for p in tenc.flatten_params(single.params_tree())]
+    _, gshard, gbatch, _ = ttrain.make_train_step(tcfg, tc, _grid(dp, tp))
+    model = gshard(params)
+    g_norm, g_before, g_after = _one_step(model, gbatch, q, d, tc)
+    assert s_norm >= tc.grad_clip  # the clip scales
+    assert abs(g_norm - s_norm) <= CLIP_REL * s_norm
+    for sb, sa, gb, ga, g in zip(s_before, s_after, g_before, g_after, s_grads):
+        assert torch.equal(sb, gb)
+        live = g.abs() >= TWIN_FLOOR * g.abs().max()
+        if live.any():
+            assert float(((ga - gb) - (sa - sb)).abs()[live].max()) <= TWIN_STEP
+    # every position follows its owner after the step
+    for idx in np.ndindex(model.grid.shape):
+        for leaf, owner in model._pairs[idx]:
+            assert torch.equal(leaf, owner)
+
+
+# ---- the trainer -------------------------------------------------------------
+
+@pytest.mark.parametrize("dp,tp", SHAPES)
+def test_loss_trajectory_follows_jax_mesh(dp, tp):
+    """Five steps over different batches from the same parameters: losses
+    within TRAJ_REL of the JAX trainer on the same mesh shape."""
+    jcfg, tcfg = _cfgs()
+    params = _jax_params(jcfg, seed=2)
+    tc, jtc = ttrain.TrainConfig(), jtrain.TrainConfig()
+    step, shard_params, shard_batch, init_opt = jtrain.make_train_step(
+        jcfg, jtc, jmake_train_mesh(dp, tp))
+    jp = shard_params(jax.tree_util.tree_map(jnp.asarray, params))
+    js = init_opt(jp)
+    tstep, tshard, tbatch, tinit = ttrain.make_train_step(tcfg, tc, _grid(dp, tp))
+    model = tshard(tenc.params_from_numpy(params))
+    topt = tinit(model)
+    for seed in range(5, 10):
+        q, d = _tokens(jcfg.vocab_size, seed=seed)
+        jp, js, jm = step(jp, js, shard_batch(jnp.asarray(q)), shard_batch(jnp.asarray(d)))
+        model, topt, tm = tstep(model, topt, tbatch(q), tbatch(d))
+        assert abs(float(tm["loss"]) - float(jm["loss"])) <= TRAJ_REL * float(jm["loss"])
+        assert float(tm["accuracy"]) == pytest.approx(float(jm["accuracy"]), abs=1 / 8 + 1e-6)
+
+
+def test_odd_batch_raises_in_both_packages():
+    jcfg, tcfg = _cfgs()
+    q = np.ones((6, 32), np.int32)
+    _, _, jbatch, _ = jtrain.make_train_step(jcfg, jtrain.TrainConfig(), jmake_train_mesh(4, 2))
+    with pytest.raises(ValueError, match="divisible by 4"):
+        jbatch(jnp.asarray(q))
+    _, _, tbatch, _ = ttrain.make_train_step(tcfg, ttrain.TrainConfig(), _grid(4, 2))
+    with pytest.raises(ValueError, match="divisible by 4"):
+        tbatch(q)
+    assert [p.shape for p in tbatch(np.ones((8, 32), np.int32))] == [(2, 32)] * 4
+
+
+@pytest.fixture(scope="module")
+def toy_store():
+    s = TStore(device="cpu")
+    s.add_chunks(toy_corpus(sample_lexicon()))
+    return s
+
+
+def test_train_on_corpus_over_grid_loss_moves(toy_store, tmp_path):
+    """tests/test_train_corpus.py's mesh test: dp 4 x tp 2; the returned tree
+    is whole, loads into EncoderModel and round-trips through save_encoder."""
+    cfg = tenc.EncoderConfig.tiny()
+    params, history = ttrain.train_encoder_on_corpus(
+        toy_store, cfg=cfg, steps=12, batch=8, mesh=_grid(4, 2), log_every=4)
+    assert [h["step"] for h in history] == [4, 8, 12]
+    assert history[-1]["loss"] < history[0]["loss"] * 1.5  # moving, not NaN
+    assert np.isfinite(history[-1]["loss"])
+    leaves = tenc.flatten_params(params)
+    assert all(not t.requires_grad and t.device.type == "cpu" for t in leaves)
+    assert params["embed"].shape == (cfg.vocab_size, cfg.model_dim)
+    tckpt.save_encoder(str(tmp_path / "enc"), params, cfg)
+    loaded, cfg2 = tckpt.load_encoder(str(tmp_path / "enc"))
+    assert cfg2 == cfg
+    for a, b in zip(tenc.flatten_params(loaded), leaves):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    texts = ["timely filing deadline", "prior authorization for dme"]
+    va = tenc.EncoderModel(cfg, params=params, device="cpu")(texts)
+    vb = tenc.EncoderModel(cfg2, params=loaded, device="cpu")(texts)
+    np.testing.assert_allclose(va, vb, atol=1e-5)
+
+
+def test_grid_trained_encoder_retrieval_stays_sharp(toy_store):
+    """Fine-tune over the grid → re-embed → sentence-queries still retrieve
+    their source chunk (no representation collapse)."""
+    cfg = tenc.EncoderConfig.tiny()
+    params, _ = ttrain.train_encoder_on_corpus(toy_store, cfg=cfg, steps=30, batch=8,
+                                               mesh=_grid(4, 2), seed=7)
+    untrained = tenc.EncoderModel(cfg, seed=7, device="cpu")
+    trained = tenc.EncoderModel(cfg, params=params, device="cpu")
+    texts = [r.text for r in toy_store.records if r is not None]
+    queries = [t.split(". ")[0] for t in texts]
+
+    def recall_at_1(model):
+        docs, qs = model(texts), model(queries)
+        return np.mean((qs @ docs.T).argmax(axis=1) == np.arange(len(texts)))
+
+    assert recall_at_1(untrained) >= 0.8  # task sanity: solvable before training
+    assert recall_at_1(trained) >= 0.8
+
+
+def test_train_demo_sharded_loss_decreases():
+    history = ttrain.train_demo(num_steps=8, mesh=_grid(4, 2), batch=16)
+    losses = [h["loss"] for h in history]
+    assert losses[-1] < losses[0], losses
+
+
+def test_train_demo_wide_tp_grid():
+    history = ttrain.train_demo(num_steps=2, mesh=_grid(2, 4), batch=8)
+    assert np.isfinite(history[-1]["loss"])
+
+
+def test_grid_of_a_missing_device_raises():
+    """No quiet fall-back: a grid naming a device that is not there fails."""
+    _, tcfg = _cfgs()
+    with pytest.raises((AssertionError, RuntimeError)):
+        ttrain.train_demo(1, mesh=make_train_mesh(1, 2, devices=["cpu", "cuda:7"]), cfg=tcfg,
+                          batch=2)
+
+
+def test_new_entry_points_default_to_cuda():
+    import inspect
+
+    assert inspect.signature(graft_entry.entry).parameters["device"].default == "cuda"
+    for fn in (graft_entry.dryrun_multichip, make_train_mesh):
+        assert inspect.signature(fn).parameters["devices"].default is None
+    # devices=None: every visible CUDA device, none here
+    if torch.cuda.is_available():
+        assert make_train_mesh(1, 1).devices[0, 0].type == "cuda"
+    else:
+        with pytest.raises(ValueError, match="> 0 devices"):
+            make_train_mesh(1, 1)
+
+
+# ---- the graft_entry twin ----------------------------------------------------
+
+def test_dryrun_multichip_runs_all_stages_on_cpu(capsys):
+    graft_entry.dryrun_multichip(8, devices=CPU8)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [line.split(" ok")[0] for line in lines] == [
+        "dryrun train step", "dryrun sharded search", "dryrun sparse-sharded search",
+        "dryrun live republish", "dryrun sharded IVF", "dryrun mesh encode",
+        "dryrun 2D serve mesh", "dryrun sharded host residency", "dryrun multi-slice"]
+    assert "dp=4 tp=2" in lines[0]
+
+
+def test_entry_forward_matches_jax_entry():
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import __graft_entry__ as jentry
+
+    jfwd, (jparams, jtokens) = jentry.entry()
+    fwd, (params, tokens) = graft_entry.entry("cpu")
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtokens))
+    assert tenc.flatten_params(params)[0].shape == (8192, 512)
+    carried = tenc.params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    want = np.asarray(jax.jit(jfwd)(jparams, jtokens))
+    got = fwd(carried, tokens).numpy()
+    assert got.shape == want.shape == (8, 1536)
+    assert _rowwise_cos(got, want).min() >= BF16_COS
+    assert np.abs(got - want).max() <= BF16_ABS
+    # the same forward at float32 activations
+    cfg = tenc.EncoderConfig(vocab_size=8192, num_layers=4, num_heads=8, model_dim=512,
+                             mlp_dim=2048, max_seq=128, out_dim=1536, dtype="float32")
+    jcfg = jenc.EncoderConfig(**dataclasses.asdict(cfg))
+    want32 = np.asarray(jenc.encode_jit(jparams, jtokens, jcfg))
+    got32 = tenc.Encoder(cfg, carried)(tokens).detach().numpy()
+    assert np.abs(got32 - want32).max() <= F32_TOL
+
+
+# ---- on the card -------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_grid_step_on_card_matches_cpu_twin():
+    """chip_smoke.train_step_twin over a (2, 2) grid of ["cuda:0"] * 4 against
+    the same grid step on ["cpu"] * 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the grid step runs on it")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    grad_err, step_err, _ = chip_smoke.train_step_twin("cuda", grid=(2, 2))
+    assert grad_err <= TWIN_GRAD and step_err <= TWIN_STEP
