@@ -98,6 +98,7 @@ N_CENTERS = 4096
 FEATURIZE_EVERY = 50
 HIT_TOL = 1e-3  # dense vs local rerank scores (test_gating.py's bound)
 SCRIPT_LIMIT_S = 1200  # the whole script's time limit, kernel builds included
+PROFILE_TRIES = 6  # profiler sessions tried for a kernel's device time
 # Data-sheet peaks of one NVIDIA H100 SXM at 700 W: HBM bytes/s, and
 # operations/s by the inputs' type.
 PEAK_BYTES = 3.35e12
@@ -197,6 +198,7 @@ def topk_inputs(g, b, c, d, dtype, gate=0.3, live=None, pen_form="bc", min_sim=T
 
 C_MAIN = 70_144  # capacity of the 70,000-row store
 C_SHARD = 125_000  # rows of one of 8 shards of the 1M store (phase 10a)
+C_1M = 1_000_192  # capacity of the 1M store: phase 10a's dense engine and S=1
 
 
 def topk_cases(g) -> dict:
@@ -204,7 +206,10 @@ def topk_cases(g) -> dict:
     bfloat16 and int8 rows) and the edges: C=1000 with one query whose every
     row is gated, m=1024, fewer live rows than m, a [C] penalty, every row
     one row (all scores tie), m=128 and m=129 on either side of pass 1's
-    partial width."""
+    partial width. bf16 rows also at one shard of the 1M store and at the
+    whole store, B=32 and B=1, each with unit float32 queries (three
+    tensor-core products a k-step) and, named "... qbf16", with the same
+    queries rounded to bf16 as the engine sends them (one product)."""
     cases = {}
     for b in (BATCH, 1):
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"), (torch.int8, "int8")):
@@ -230,6 +235,13 @@ def topk_cases(g) -> dict:
     })
     for name in ("C=1000", "int8 C=1000"):
         cases[name][0][2][1] = -1e30  # one query with every row gated
+    cases["main_bf16 1M"] = (topk_inputs(g, BATCH, C_1M, 1536, torch.bfloat16, live=N_1M), 40)
+    for where in (" shard", " 1M"):  # B=1: the first query of the B=32 case
+        (q, v, pen, ms, sc), m = cases[f"main_bf16{where}"]
+        cases[f"main_bf16{where} B=1"] = ((q[:1], v, pen[:1], ms[:1], sc), m)
+    for name in [k for k in cases if k.startswith("main_bf16")]:
+        (q, v, pen, ms, sc), m = cases[name]
+        cases[f"{name} qbf16"] = ((q.to(torch.bfloat16).float(), v, pen, ms, sc), m)
     return cases
 
 
@@ -304,7 +316,8 @@ def phase2_kernel() -> dict:
         if name.startswith("main"):
             t = timing[name] = time_topk(q, v, pen, ms, sc, m)
             by = ", ".join(f"{k} {x:.4f}" for k, x in t["by_kernel"].items())
-            line += (f"; kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}: {by}), plain "
+            line += (f"; queries {'bf16-exact' if name.endswith('qbf16') else 'float32'}"
+                     f"; kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}: {by}), plain "
                      f"{t['plain_ms']:.4f} ms, library addmm+topk {t['library_ms']:.4f} ms "
                      f"(float32 rows{'' if v.dtype == torch.float32 else ', widened first'}; "
                      f"median of 20)"
@@ -312,7 +325,7 @@ def phase2_kernel() -> dict:
                         f", library mm(out_dtype=float32)+topk on the bf16 rows "
                         f"{t['library_mm_dtype_ms']:.4f} ms")
                      + f"; bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
-                     f"(share {t['bound_ms'] / t['ms']:.3f})")
+                     f"(share of device time {t['bound_ms'] / t['device_ms']:.3f})")
         log(line)
     return {"max_abs_err": worst["fp"], "max_abs_err_int8": worst["int8"],
             "timing": timing}
@@ -472,7 +485,7 @@ def _device_ms_by_kernel(fn, n: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then returns no device events
+    for _ in range(PROFILE_TRIES):  # the profiler now and then returns no device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -480,6 +493,9 @@ def _device_ms_by_kernel(fn, n: int = 20) -> dict:
         events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
         if events:
             break
+        time.sleep(0.5)
+    else:
+        raise RuntimeError(f"the profiler recorded no device events in {PROFILE_TRIES} tries")
     by: dict = {}
     for ev in events:
         name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
@@ -3951,15 +3967,21 @@ def main() -> None:
                         "device_ms_B1": t1["device_ms"], "plain_ms_B1": t1["plain_ms"],
                         "bound_ms_B1": t1["bound_ms"],
                         "library_ms_B1": t1["library_ms"] if f32 else None})
-    # bf16 rows, at one shard's shape of the 1M store (phase 10a's path)
-    t = k["timing"]["main_bf16 shard"]
+    # bf16 rows, at one shard's shape of the 1M store with the queries the
+    # engine sends (bf16-exact: phase 10a's path), and at the whole store;
+    # float32 queries beside them
+    t = k["timing"]["main_bf16 shard qbf16"]
+    tf, t1m = k["timing"]["main_bf16 shard"], k["timing"]["main_bf16 1M qbf16"]
     kernels.append({"name": "masked_topk_bf16", "route": "cuda", "source": KERNEL_SOURCE,
                     "replaces": KERNEL_REPLACES,
                     "launches": sum(by_path["masked_topk_bf16"].values()),
                     "launches_by_path": by_path["masked_topk_bf16"],
                     "max_abs_err": k["max_abs_err"], **{key: t[key] for key in keys},
                     "library_ms": t["library_mm_dtype_ms"], "device_ms": t["device_ms"],
-                    "shape": f"B={BATCH} C={C_SHARD} m=40 bfloat16"})
+                    "shape": f"B={BATCH} C={C_SHARD} m=40 bfloat16, bf16-exact queries",
+                    "ms_q_f32": tf["ms"], "device_ms_q_f32": tf["device_ms"],
+                    "ms_1M": t1m["ms"], "device_ms_1M": t1m["device_ms"],
+                    "bound_ms_1M": t1m["bound_ms"], "library_ms_1M": t1m["library_mm_dtype_ms"]})
     packed = p4["phase8"]["packed"]
     by_path["proj_blocks"] = {"phase 4 path A": p4["launches"]["proj_blocks"],
                               "phase 6 served 1M": p4["launches"]["proj_blocks_served"],

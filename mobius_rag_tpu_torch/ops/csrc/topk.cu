@@ -9,19 +9,44 @@
 //   out[b]      = the top m of score[b, :], descending, lower row first on ties
 //
 // The rows are float32, bfloat16 or int8 (the store's
-// MRAG_VECTOR_DTYPE=int8 form, with its per-row scales); each widens
-// exactly to float32 as it is read from shared memory, so one pass-1
-// template serves all three. Every dot is a sequence of float32 FMAs in k
-// order; the scale multiplies the full dot (one rounded product) before
-// the penalty and the min_sim test, as the JAX dense arm computes cos and
-// then compares it.
+// MRAG_VECTOR_DTYPE=int8 form, with its per-row scales). float32 and int8
+// rows widen exactly to float32 as they are read from shared memory, and
+// every dot is a sequence of float32 FMAs in k order. bfloat16 rows go
+// through the tensor cores (below); every product is exact there too, and
+// only the order of the float32 sums differs. The scale multiplies the
+// full dot (one rounded product) before the penalty and the min_sim
+// test, as the JAX dense arm computes cos and then compares it.
 //
 // What bounds it on this card: at the main path's shape (B=32 queries,
 // C=70,144 rows, D=1536, m=40) float32 rows are 431 MB for 6.9 GFLOP:
 // bytes, 0.131 ms at 3.35 TB/s, with the FMAs (0.103 ms at the 67 TFLOP/s
-// float32 peak) under them. bfloat16 (215 MB) and int8 rows (108 MB) read
-// fewer bytes than the float32 FMA pipe takes for the same 6.9 GFLOP, so
-// while the dot core is float32 FMAs they are bound by the FMA pipe.
+// float32 peak) under them. int8 rows (108 MB) read fewer bytes than the
+// float32 FMA pipe takes for the same 6.9 GFLOP, so while their dot core
+// is float32 FMAs they are bound by the FMA pipe. bfloat16 rows (215 MB;
+// 400 MB with the penalty at one 1M shard's C=125,000) are bound by bytes
+// again on the tensor cores: even three products a k-step are 0.037 ms of
+// bf16 work at C=125,000 against 0.12 ms of bytes.
+//
+// The bfloat16 core (pass 1 for T = __nv_bfloat16): rows times queries
+// with mma.sync m16n8k16 bf16 -> float32. A is the rows, read from the
+// ring with ldmatrix.x4; B is the queries, built in registers from the
+// float32 slice (a bf16 plane of the slice, read with ldmatrix, measured
+// no faster at equal occupancy and cost a block per SM; PERF.md). A
+// float32 query element x splits exactly
+// into three bf16 parts, each the truncation of what the parts before it
+// leave: hi = x's top 16 bits, mid = those of r = x - hi, lo = r - mid
+// (r and lo are exact in float32, and lo has at most 8 significant bits),
+// so hi + mid + lo == x away from float32 underflow, and three products
+// into one float32 accumulator hold every product exactly. The engine
+// sends bf16-rounded queries, whose mid and lo are zero: after each
+// slice lands, every thread tests the query chunks it copied, and
+// __syncthreads_or, the slice's barrier, tells the block whether this
+// slice needs 3 products or 1. With its FMAs gone the core is bound by
+// its copies and its selection: measured on an H100 at B=32, C=125,000
+// (PERF.md), pass 1 takes ~0.195 ms with bf16-exact queries, of which the
+// copies and the selection alone take ~0.185 and the selection ~0.04 (no
+// copy of its block is in flight while it runs); float32 queries' three
+// products add ~0.05.
 //
 // What the design does about it:
 //   pass 1 (topk_tiles<T, QT>): one block per (128-row tile, QT queries);
@@ -29,27 +54,31 @@
 //     batch computes few padded queries and a single search none. Row
 //     and query k-slices (128 bytes of a row: 32 float32, 64 bfloat16 or
 //     128 int8 values, and the queries' same depth in float32) come into
-//     a 2-stage ring in shared memory
+//     a ring in shared memory (NSTAGE stages)
 //     through cp.async 16-byte copies (zero-filled past B, C and D), one
 //     barrier per slice, so slice k + 1 is in flight while slice k is
-//     computed. bfloat16 and int8 rows are staged as raw bytes and widened
-//     on the shared -> register read (bf16 by the 16-bit shift, int8
-//     exactly through the float bits of 2^23 + 128 + x). A lane computes
+//     computed. bfloat16 and int8 rows are staged as raw bytes; int8 rows
+//     are widened on the shared -> register read (exactly through the
+//     float bits of 2^23 + 128 + x). On the FMA core a lane computes
 //     RT rows x QTT queries from 128-bit shared reads (Geom: 4 x 4 at
 //     QT=32); a warp's lanes take consecutive rows and share its queries,
 //     so the query reads are broadcasts and the row reads (stride 144
-//     bytes) are conflict-free. Then the penalty and min_sim, one 64-bit
+//     bytes) are conflict-free. On the tensor-core core a warp computes
+//     MT m16 x NT n8 tiles (MmaGeom: 2 x 2 at QT=32); QT 4 and 1 pad to
+//     one n8 tile. The 144-byte row stride puts ldmatrix's 8 rows on
+//     distinct banks, and the queries' 72-float stride the float2
+//     fragment reads. Then the penalty and min_sim, one 64-bit
 //     key per (query, row) in shared memory, and one warp per query
 //     selects the tile's top P = min(m, 128) keys without sorting them: a
 //     bitwise search for the largest score word h with at least P keys at
 //     or above it (ballots over the 128 keys held 4 per lane), then the
 //     keys above h and, of those on h, the first in row order by their
 //     rank. The warp writes its P keys unsorted and the tile's largest.
-//     Measured on an H100 (PERF.md): at B=32 pass 1's FMAs alone run at
-//     ~0.4 of the float32 peak and its copies alone at ~2.1 TB/s, and the
-//     two overlap only in part; the lane tiles, tile heights and ring
-//     depths that scripts/topk_check.py --sweep tries move it by a few
-//     percent.
+//     Measured on an H100 (PERF.md): at B=32 the float32 core's FMAs
+//     alone run at ~0.4 of the float32 peak and its copies alone at ~2.1
+//     TB/s, and the two overlap only in part; other lane tiles, tile
+//     heights and ring depths moved it by a few percent, and deeper rings
+//     and other warp tiles did not speed up the bf16 core.
 //   pass 2 (topk_select), where m <= 128 and there are at least m tiles:
 //     one block per query. Its threads each take the largest key of a set
 //     of tiles; the m-th largest of those keys, cut to its score bits, is a
@@ -75,6 +104,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -135,16 +166,47 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four consecutive elements of a staged row as float32: bf16 widens
-// exactly by a 16-bit shift; int8 exactly through the float 2^23 + 128 + x
-// (its mantissa holds the byte x + 128), minus 2^23 + 128.
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned& r0, unsigned& r1,
+                                            unsigned& r2, unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+// c += A (16 x 16 bf16, row) * B (16 x 8 bf16, col), float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Two bf16 (the top halves of float bits u0, lower k, and u1) as one
+// mma operand register.
+__device__ __forceinline__ unsigned pack_top(unsigned u0, unsigned u1) {
+  return __byte_perm(u0, u1, 0x7632);
+}
+
+// The exact split of two float32 query elements into bf16 parts, packed
+// as mma operands: hi + mid + lo == x (see the header).
+__device__ __forceinline__ void split2(float2 x, unsigned& hi, unsigned& mid, unsigned& lo) {
+  const unsigned u0 = __float_as_uint(x.x), u1 = __float_as_uint(x.y);
+  const float r0 = x.x - __uint_as_float(u0 & 0xFFFF0000u);
+  const float r1 = x.y - __uint_as_float(u1 & 0xFFFF0000u);
+  const unsigned v0 = __float_as_uint(r0), v1 = __float_as_uint(r1);
+  hi = pack_top(u0, u1);
+  mid = pack_top(v0, v1);
+  lo = pack_top(__float_as_uint(r0 - __uint_as_float(v0 & 0xFFFF0000u)),
+                __float_as_uint(r1 - __uint_as_float(v1 & 0xFFFF0000u)));
+}
+
+// Four consecutive elements of a staged row of the FMA core as float32:
+// int8 exactly through the float 2^23 + 128 + x (its mantissa holds the
+// byte x + 128), minus 2^23 + 128.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
 }
 __device__ __forceinline__ float4 load4(const int8_t* p) {
   const unsigned u = *reinterpret_cast<const unsigned*>(p) ^ 0x80808080u;
@@ -194,21 +256,45 @@ struct Geom<4> { static constexpr int WQ = 1, WR = 4, LQ = 1, RT = 1, QTT = 4; }
 template <>
 struct Geom<1> { static constexpr int WQ = 1, WR = 4, LQ = 1, RT = 1, QTT = 1; };
 
+// The tensor-core core's geometry by QT: WM row groups x WN query groups
+// of warps; a warp computes MT m16 tiles of rows x NT n8 tiles of queries
+// (QT 4 and 1 fill one n8 tile in part).
+template <int QT>
+struct MmaGeom;
+template <>
+struct MmaGeom<32> { static constexpr int WM = 4, WN = 2, MT = 2, NT = 2; };
+template <>
+struct MmaGeom<16> { static constexpr int WM = 4, WN = 2, MT = 2, NT = 1; };
+template <>
+struct MmaGeom<8> { static constexpr int WM = 8, WN = 1, MT = 1, NT = 1; };
+template <>
+struct MmaGeom<4> { static constexpr int WM = 4, WN = 1, MT = 2, NT = 1; };
+template <>
+struct MmaGeom<1> { static constexpr int WM = 4, WN = 1, MT = 2, NT = 1; };
+
 // Pass-1 layout for element type T and QT queries a block.
 template <typename T, int QT>
 struct Tile {
+  static constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;  // the tensor-core core
   static constexpr int WQ = Geom<QT>::WQ, WR = Geom<QT>::WR, LQ = Geom<QT>::LQ;
   static constexpr int RT = Geom<QT>::RT, QTT = Geom<QT>::QTT;
-  static constexpr int WARPS = WQ * WR;
+  static constexpr int WM = MmaGeom<QT>::WM, WN = MmaGeom<QT>::WN;
+  static constexpr int MT = MmaGeom<QT>::MT, NT = MmaGeom<QT>::NT;
+  static constexpr int WARPS = MMA ? WM * WN : WQ * WR;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int LR = 32 / LQ;  // row lanes of a warp
   static_assert(WR * LR * RT == TILE_ROWS, "the warps cover the tile's rows");
   static_assert(WQ * LQ * QTT == QT, "the warps cover the tile's queries");
+  static_assert(WM * MT * 16 == TILE_ROWS, "the mma warps cover the tile's rows");
+  static_assert(WN * NT * 8 == (QT < 8 ? 8 : QT), "the mma warps cover the tile's queries");
   static constexpr int DK = SLICE_BYTES / sizeof(T);     // depth of a k-slice
   static constexpr int ROW_STRIDE = SLICE_BYTES + 16;    // bytes: 4 mod 8 words
-  static constexpr int Q_STRIDE = DK + 4;                // floats: 4 mod 8 words
+  // floats: 4 mod 8 words for the FMA core's float4 reads, 8 mod 32 for
+  // the tensor-core core's float2 fragment reads
+  static constexpr int Q_STRIDE = DK + (MMA ? 8 : 4);
   static constexpr int ROWS_BYTES = TILE_ROWS * ROW_STRIDE;
-  static constexpr int STAGE = ROWS_BYTES + QT * Q_STRIDE * 4;
+  static constexpr int Q_BYTES = QT * Q_STRIDE * 4;
+  static constexpr int STAGE = ROWS_BYTES + Q_BYTES;
   static constexpr int RING = NSTAGE * STAGE;
   static constexpr int KEYS = QT * TILE_ROWS * 8;        // the keys reuse the ring
   static constexpr int SMEM = RING > KEYS ? RING : KEYS;
@@ -229,10 +315,6 @@ topk_tiles(const float* __restrict__ q, const T* __restrict__ vec,
   const int row0 = blockIdx.x * TILE_ROWS;
   const int q0 = blockIdx.y * QT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp % G::WR, wq = warp / G::WR;
-  // this lane's rows: rbase + LR * i (i < RT); queries: qbase + LQ * j (j < QTT)
-  const int rbase = wr * G::LR * G::RT + lane % G::LR;
-  const int qbase = wq * G::LQ * G::QTT + lane / G::LR;
 
   // k-slice ks into stage st: TILE_ROWS row slices of SLICE_BYTES in
   // 16-byte chunks (each one copy, or 16 / cp_bytes where the rows are not
@@ -276,70 +358,157 @@ topk_tiles(const float* __restrict__ q, const T* __restrict__ vec,
     }
   };
 
-  float acc[G::RT][G::QTT];
-#pragma unroll
-  for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-    for (int j = 0; j < G::QTT; ++j) acc[i][j] = 0.f;
-
-  // 4 depths of the slice at kk: each accumulator takes its 4 FMAs in k order
-  auto step = [&](const T* rs, const float* qs, int kk) {
-    float4 qv[G::QTT];
-#pragma unroll
-    for (int j = 0; j < G::QTT; ++j)
-      qv[j] = *reinterpret_cast<const float4*>(qs + j * G::LQ * G::Q_STRIDE + kk);
-#pragma unroll
-    for (int i = 0; i < G::RT; ++i) {
-      const float4 v = load4(rs + i * G::LR * (G::ROW_STRIDE / sizeof(T)) + kk);
-#pragma unroll
-      for (int j = 0; j < G::QTT; ++j) {
-        acc[i][j] = fmaf(qv[j].x, v.x, acc[i][j]);
-        acc[i][j] = fmaf(qv[j].y, v.y, acc[i][j]);
-        acc[i][j] = fmaf(qv[j].z, v.z, acc[i][j]);
-        acc[i][j] = fmaf(qv[j].w, v.w, acc[i][j]);
-      }
+  // (query qq, row rr)'s key from its dot, into the key buffer
+  auto emit = [&](int qq, int rr, float acc) {
+    const int row = row0 + rr;
+    const int qi = q0 + qq;
+    float s = -INFINITY;  // rows past C sort below every real score
+    if (row < C && qi < B) {
+      const float dot = scales != nullptr ? __fmul_rn(acc, scales[row]) : acc;
+      s = dot + pen[static_cast<size_t>(qi) * pen_stride + row];
+      if (dot < min_sim[qi]) s += NEG_INF;
     }
+    keys[qq * TILE_ROWS + rr] = make_key(s, row);
   };
 #pragma unroll
   for (int s = 0; s < NSTAGE - 1; ++s) {
     if (s < n_slices) stage(s, s);
     cp_async_commit();
   }
-  for (int ks = 0; ks < n_slices; ++ks) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // slice ks landed for all; slice ks - 1's stage is free
-    if (ks + NSTAGE - 1 < n_slices) stage(ks + NSTAGE - 1, (ks + NSTAGE - 1) % NSTAGE);
-    cp_async_commit();
-    const unsigned char* sg = smem + (ks % NSTAGE) * G::STAGE;
-    const T* rs = reinterpret_cast<const T*>(sg) + rbase * (G::ROW_STRIDE / sizeof(T));
-    const float* qs = reinterpret_cast<const float*>(sg + G::ROWS_BYTES) + qbase * G::Q_STRIDE;
-    const int width = D - ks * G::DK;
-    if (width >= G::DK) {
+
+  if constexpr (G::MMA) {
+    const int wm = warp % G::WM, wn = warp / G::WM;
+    const int g = lane >> 2, t = lane & 3;  // the mma fragments' group and lane in it
+    float acc[G::MT][G::NT][4] = {};
+    // this lane's ldmatrix row of A: row wm * MT * 16 + lane % 16 (+ 16 i),
+    // k from 8 * (lane / 16) (+ 16 per k-step)
+    const unsigned a_lane = smem_addr(smem) +
+                            (wm * G::MT * 16 + (lane & 15)) * G::ROW_STRIDE + (lane >> 4) * 16;
+    // the 4 k-steps of a slice (zero past D), with 3 query parts or 1
+    auto slice = [&](auto split_tag, const unsigned char* sg) {
+      constexpr bool SPLIT = decltype(split_tag)::value;
+      const float* qs = reinterpret_cast<const float*>(sg + G::ROWS_BYTES);
+      const unsigned a_st = a_lane + static_cast<unsigned>(sg - smem);
 #pragma unroll
-      for (int kk = 0; kk < G::DK; kk += 4) step(rs, qs, kk);
-    } else {
-      for (int kk = 0; kk < width; kk += 4) step(rs, qs, kk);
+      for (int kk = 0; kk < G::DK / 16; ++kk) {
+        unsigned a[G::MT][4];
+#pragma unroll
+        for (int i = 0; i < G::MT; ++i)
+          ldmatrix_x4(a_st + i * 16 * G::ROW_STRIDE + kk * 32, a[i][0], a[i][1], a[i][2],
+                      a[i][3]);
+#pragma unroll
+        for (int j = 0; j < G::NT; ++j) {
+          const int n = (wn * G::NT + j) * 8 + g;  // this lane's query of the n8 tile
+          unsigned b[3][2];
+          float2 x0 = make_float2(0.f, 0.f), x1 = x0;
+          if (QT >= 8 || n < QT) {
+            const float* qn = qs + n * G::Q_STRIDE + kk * 16 + 2 * t;
+            x0 = *reinterpret_cast<const float2*>(qn);
+            x1 = *reinterpret_cast<const float2*>(qn + 8);
+          }
+          if (SPLIT) {
+            split2(x0, b[0][0], b[1][0], b[2][0]);
+            split2(x1, b[0][1], b[1][1], b[2][1]);
+          } else {  // bf16-exact: the top halves are the values
+            b[0][0] = pack_top(__float_as_uint(x0.x), __float_as_uint(x0.y));
+            b[0][1] = pack_top(__float_as_uint(x1.x), __float_as_uint(x1.y));
+          }
+#pragma unroll
+          for (int p = 0; p < (SPLIT ? 3 : 1); ++p)
+#pragma unroll
+            for (int i = 0; i < G::MT; ++i)
+              mma_bf16(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[p][0], b[p][1]);
+        }
+      }
+    };
+    for (int ks = 0; ks < n_slices; ++ks) {
+      cp_async_wait<NSTAGE - 2>();
+      const unsigned char* sg = smem + (ks % NSTAGE) * G::STAGE;
+      // whether a query chunk this thread copied into slice ks is not
+      // bf16-exact (the thread's own copies have landed for it)
+      unsigned resid = 0;
+#pragma unroll
+      for (int u = 0; u < G::Q_CHUNKS; ++u) {
+        const int e = tid + u * G::THREADS;
+        if (e < QT * (G::DK / 4)) {
+          const int qq = e / (G::DK / 4), c = e % (G::DK / 4);
+          const uint4 w =
+              *reinterpret_cast<const uint4*>(sg + G::ROWS_BYTES + (qq * G::Q_STRIDE + 4 * c) * 4);
+          resid |= (w.x | w.y | w.z | w.w) & 0xFFFFu;
+        }
+      }
+      // slice ks landed for all; slice ks - 1's stage is free
+      const bool split = __syncthreads_or(resid != 0);
+      if (ks + NSTAGE - 1 < n_slices) stage(ks + NSTAGE - 1, (ks + NSTAGE - 1) % NSTAGE);
+      cp_async_commit();
+      if (split) slice(std::true_type{}, sg);
+      else slice(std::false_type{}, sg);
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring becomes the key buffer
+    cp_async_wait<0>();
+    __syncthreads();  // the ring becomes the key buffer
+    // accumulator h of tile (i, j): row g (+8 for h >= 2), query 2t + h % 2
+#pragma unroll
+    for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int qq = (wn * G::NT + j) * 8 + 2 * t + (h & 1);
+          if (QT >= 8 || qq < QT)
+            emit(qq, (wm * G::MT + i) * 16 + g + 8 * (h >> 1), acc[i][j][h]);
+        }
+  } else {
+    const int wr = warp % G::WR, wq = warp / G::WR;
+    // this lane's rows: rbase + LR * i (i < RT); queries: qbase + LQ * j (j < QTT)
+    const int rbase = wr * G::LR * G::RT + lane % G::LR;
+    const int qbase = wq * G::LQ * G::QTT + lane / G::LR;
+    float acc[G::RT][G::QTT];
+#pragma unroll
+    for (int i = 0; i < G::RT; ++i)
+#pragma unroll
+      for (int j = 0; j < G::QTT; ++j) acc[i][j] = 0.f;
+
+    // 4 depths of the slice at kk: each accumulator takes its 4 FMAs in k order
+    auto step = [&](const T* rs, const float* qs, int kk) {
+      float4 qv[G::QTT];
+#pragma unroll
+      for (int j = 0; j < G::QTT; ++j)
+        qv[j] = *reinterpret_cast<const float4*>(qs + j * G::LQ * G::Q_STRIDE + kk);
+#pragma unroll
+      for (int i = 0; i < G::RT; ++i) {
+        const float4 v = load4(rs + i * G::LR * (G::ROW_STRIDE / sizeof(T)) + kk);
+#pragma unroll
+        for (int j = 0; j < G::QTT; ++j) {
+          acc[i][j] = fmaf(qv[j].x, v.x, acc[i][j]);
+          acc[i][j] = fmaf(qv[j].y, v.y, acc[i][j]);
+          acc[i][j] = fmaf(qv[j].z, v.z, acc[i][j]);
+          acc[i][j] = fmaf(qv[j].w, v.w, acc[i][j]);
+        }
+      }
+    };
+    for (int ks = 0; ks < n_slices; ++ks) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();  // slice ks landed for all; slice ks - 1's stage is free
+      if (ks + NSTAGE - 1 < n_slices) stage(ks + NSTAGE - 1, (ks + NSTAGE - 1) % NSTAGE);
+      cp_async_commit();
+      const unsigned char* sg = smem + (ks % NSTAGE) * G::STAGE;
+      const T* rs = reinterpret_cast<const T*>(sg) + rbase * (G::ROW_STRIDE / sizeof(T));
+      const float* qs = reinterpret_cast<const float*>(sg + G::ROWS_BYTES) + qbase * G::Q_STRIDE;
+      const int width = D - ks * G::DK;
+      if (width >= G::DK) {
+#pragma unroll
+        for (int kk = 0; kk < G::DK; kk += 4) step(rs, qs, kk);
+      } else {
+        for (int kk = 0; kk < width; kk += 4) step(rs, qs, kk);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring becomes the key buffer
 
 #pragma unroll
-  for (int i = 0; i < G::RT; ++i) {
-    const int rr = rbase + i * G::LR;
-    const int row = row0 + rr;
+    for (int i = 0; i < G::RT; ++i)
 #pragma unroll
-    for (int j = 0; j < G::QTT; ++j) {
-      const int qq = qbase + j * G::LQ;
-      const int qi = q0 + qq;
-      float s = -INFINITY;  // rows past C sort below every real score
-      if (row < C && qi < B) {
-        const float dot = scales != nullptr ? __fmul_rn(acc[i][j], scales[row]) : acc[i][j];
-        s = dot + pen[static_cast<size_t>(qi) * pen_stride + row];
-        if (dot < min_sim[qi]) s += NEG_INF;
-      }
-      keys[qq * TILE_ROWS + rr] = make_key(s, row);
-    }
+      for (int j = 0; j < G::QTT; ++j) emit(qbase + j * G::LQ, rbase + i * G::LR, acc[i][j]);
   }
   __syncthreads();
 

@@ -98,6 +98,22 @@ def masked_topk_reference(queries: torch.Tensor, vectors: torch.Tensor,
     return vals, idx.to(torch.int32)
 
 
+def bf16_parts(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The exact split that the kernel's bfloat16-row core makes of float32
+    queries, as plain torch: (hi, mid, lo), float32 tensors of bf16 values,
+    each the truncation to bf16 of what the parts before it leave, with
+    hi + mid + lo == x (away from float32 underflow). A bf16-exact x has
+    mid == lo == 0 and takes one tensor-core product a k-step, any other
+    three."""
+    def top(t):
+        return (t.contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+    hi = top(x)
+    r = x - hi
+    mid = top(r)
+    return hi, mid, r - mid
+
+
 def build_kernel() -> tuple[ctypes.CDLL, float]:
     """Build (at first use) and load the kernel library. Returns (library,
     seconds spent compiling, 0.0 when it was already built)."""

@@ -7,13 +7,14 @@ shapes. It checks indexing, fragment layouts and arithmetic, not speed.
     python3 scripts/cuda_cpu_rehearsal.py proj        # ops/csrc/proj_scan.cu
     python3 scripts/cuda_cpu_rehearsal.py topk        # ops/csrc/topk.cu
     python3 scripts/cuda_cpu_rehearsal.py topk --source other.cu
+    python3 scripts/cuda_cpu_rehearsal.py topk --bf16 # the bf16-row cases alone
 
 The source is rewritten for g++ on the way: every device function whose
 body holds inline ``asm`` is dropped (the shim defines the same names:
 ``smem_addr``, ``cp_async``, ``cp_async_commit``, ``cp_async_wait*``,
-``ldmatrix_x4``, ``mma_s8``), ``extern __shared__`` arrays point at the
-launch's dynamic shared memory, and ``k<<<cfg>>>(args)`` becomes a call of
-the shim's launcher.
+``ldmatrix_x4``, ``mma_s8``, ``mma_bf16``), ``extern
+__shared__`` arrays point at the launch's dynamic shared memory, and
+``k<<<cfg>>>(args)`` becomes a call of the shim's launcher.
 """
 from __future__ import annotations
 
@@ -141,9 +142,65 @@ def rehearse_proj(lib) -> None:
         print(f"proj {name}: grouping, raw dots and gated levels 0/1/2 bitwise", flush=True)
 
 
-def rehearse_topk(lib) -> None:
+# (name, B, C, D, m, row type, penalty form, special): special "dup" and
+# "equal" put rows and queries on a 1/8 grid (every dot exact, ties exact),
+# "few" leaves 25 live rows, "gated" gates every row of query 1; "qbf16"
+# rounds the queries to bf16 (the engine's queries: one product a k-step
+# on bf16 rows), "qmixed" every other one; other bf16 cases keep float32
+# queries, which take all three parts of the split.
+TOPK_CASES = [
+    ("f32", 5, 700, 64, 40, torch.float32, "bc", None),
+    ("B=1", 1, 900, 64, 40, torch.float32, "bc", None),
+    ("B=9", 9, 300, 32, 12, torch.float32, "bc", None),
+    ("B=33", 33, 260, 32, 7, torch.float32, "c", None),
+    ("int8", 4, 600, 64, 40, torch.int8, "bc", None),
+    ("m=128", 3, 1200, 32, 128, torch.float32, "bc", None),
+    ("m=129", 3, 1200, 32, 129, torch.float32, "bc", None),
+    ("m=700", 2, 1500, 32, 700, torch.float32, "c", None),
+    ("C=m", 2, 150, 32, 150, torch.float32, "bc", None),
+    ("duplicates", 3, 800, 32, 40, torch.float32, "bc", "dup"),
+    ("all equal", 2, 700, 32, 40, torch.float32, "c", "equal"),
+    ("few live", 3, 900, 32, 40, torch.float32, "bc", "few"),
+    ("all gated", 3, 500, 32, 40, torch.float32, "bc", "gated"),
+    # at least m tiles of 128 rows: the threshold merge
+    ("select", 4, 2000, 32, 10, torch.float32, "bc", None),
+    ("select int8", 3, 1300, 64, 8, torch.int8, "c", None),
+    ("select B=1", 1, 1300, 32, 8, torch.float32, "bc", None),
+    ("select B=20", 20, 1300, 32, 8, torch.float32, "bc", None),
+    ("select ties", 2, 1300, 32, 8, torch.float32, "c", "equal"),
+    ("select duplicates", 3, 1300, 32, 8, torch.float32, "bc", "dup"),
+    ("select few live", 3, 1300, 32, 8, torch.float32, "bc", "few"),
+    ("select all gated", 3, 1300, 32, 8, torch.float32, "bc", "gated"),
+    ("select m=128", 2, 16400, 32, 128, torch.float32, "bc", None),
+    ("select overflow", 2, 13200, 32, 40, torch.float32, "c", "equal"),
+    # D past a k-slice and not a multiple of a 16-byte copy
+    ("D=36", 3, 300, 36, 10, torch.float32, "bc", None),
+    ("D=36 int8", 3, 300, 36, 10, torch.int8, "bc", None),
+    ("D=132 int8", 2, 1500, 132, 9, torch.int8, "bc", None),
+    # bf16 rows on the tensor cores: every query tile (32, 16, 8, 4, 1),
+    # both query kinds and a tile that mixes them, D under one k-step,
+    # past a k-slice and not a multiple of 16, ties, a [C] penalty, and the
+    # threshold merge
+    ("bf16", 4, 600, 64, 40, torch.bfloat16, "bc", None),
+    ("bf16 q bf16", 4, 600, 64, 40, torch.bfloat16, "bc", "qbf16"),
+    ("bf16 B=5 mixed", 5, 300, 64, 12, torch.bfloat16, "bc", "qmixed"),
+    ("bf16 B=12", 12, 300, 64, 10, torch.bfloat16, "c", None),
+    ("bf16 B=33 mixed", 33, 260, 32, 7, torch.bfloat16, "c", "qmixed"),
+    ("bf16 B=1", 1, 400, 64, 10, torch.bfloat16, "bc", None),
+    ("bf16 B=1 q bf16", 1, 400, 64, 10, torch.bfloat16, "c", "qbf16"),
+    ("bf16 D=20", 3, 300, 20, 10, torch.bfloat16, "bc", None),
+    ("bf16 D=20 q bf16", 3, 300, 20, 10, torch.bfloat16, "c", "qbf16"),
+    ("bf16 D=36", 3, 300, 36, 10, torch.bfloat16, "bc", None),
+    ("bf16 D=1540", 2, 140, 1540, 5, torch.bfloat16, "bc", "qmixed"),
+    ("bf16 ties", 2, 700, 32, 40, torch.bfloat16, "c", "equal"),
+    ("select bf16", 3, 1300, 64, 8, torch.bfloat16, "bc", None),
+]
+BF16_CASES = [c for c in TOPK_CASES if c[5] == torch.bfloat16]
+
+
+def rehearse_topk(lib, cases=TOPK_CASES) -> None:
     from mobius_rag_tpu_torch.ops.quant import quantize_rows
-    from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk_reference
+    from mobius_rag_tpu_torch.ops.topk import NEG_INF, bf16_parts, masked_topk_reference
 
     p_, i_ = ctypes.c_void_p, ctypes.c_int
     lib.mrag_masked_topk.argtypes = [p_, p_, i_, p_, p_, ctypes.c_longlong, p_,
@@ -152,38 +209,6 @@ def rehearse_topk(lib) -> None:
     lib.mrag_topk_scratch_elems.restype = ctypes.c_longlong
     kinds = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
     g = torch.Generator().manual_seed(0)
-    # (name, B, C, D, m, row type, penalty form, special)
-    cases = [("f32", 5, 700, 64, 40, torch.float32, "bc", None),
-             ("B=1", 1, 900, 64, 40, torch.float32, "bc", None),
-             ("B=9", 9, 300, 32, 12, torch.float32, "bc", None),
-             ("B=33", 33, 260, 32, 7, torch.float32, "c", None),
-             ("bf16", 4, 600, 64, 40, torch.bfloat16, "bc", None),
-             ("int8", 4, 600, 64, 40, torch.int8, "bc", None),
-             ("m=128", 3, 1200, 32, 128, torch.float32, "bc", None),
-             ("m=129", 3, 1200, 32, 129, torch.float32, "bc", None),
-             ("m=700", 2, 1500, 32, 700, torch.float32, "c", None),
-             ("C=m", 2, 150, 32, 150, torch.float32, "bc", None),
-             ("duplicates", 3, 800, 32, 40, torch.float32, "bc", "dup"),
-             ("all equal", 2, 700, 32, 40, torch.float32, "c", "equal"),
-             ("few live", 3, 900, 32, 40, torch.float32, "bc", "few"),
-             ("all gated", 3, 500, 32, 40, torch.float32, "bc", "gated"),
-             # at least m tiles of 128 rows: the threshold merge
-             ("select", 4, 2000, 32, 10, torch.float32, "bc", None),
-             ("select bf16", 3, 1300, 64, 8, torch.bfloat16, "bc", None),
-             ("select int8", 3, 1300, 64, 8, torch.int8, "c", None),
-             ("select B=1", 1, 1300, 32, 8, torch.float32, "bc", None),
-             ("select B=20", 20, 1300, 32, 8, torch.float32, "bc", None),
-             ("select ties", 2, 1300, 32, 8, torch.float32, "c", "equal"),
-             ("select duplicates", 3, 1300, 32, 8, torch.float32, "bc", "dup"),
-             ("select few live", 3, 1300, 32, 8, torch.float32, "bc", "few"),
-             ("select all gated", 3, 1300, 32, 8, torch.float32, "bc", "gated"),
-             ("select m=128", 2, 16400, 32, 128, torch.float32, "bc", None),
-             ("select overflow", 2, 13200, 32, 40, torch.float32, "c", "equal"),
-             # D past a k-slice and not a multiple of a 16-byte copy
-             ("D=36", 3, 300, 36, 10, torch.float32, "bc", None),
-             ("D=36 bf16", 3, 300, 36, 10, torch.bfloat16, "bc", None),
-             ("D=36 int8", 3, 300, 36, 10, torch.int8, "bc", None),
-             ("D=132 int8", 2, 1500, 132, 9, torch.int8, "bc", None)]
     for name, b, c, d, m, dtype, pen_form, special in cases:
         v = torch.randn(c, d, generator=g)
         v = v / v.norm(dim=1, keepdim=True)
@@ -201,6 +226,12 @@ def rehearse_topk(lib) -> None:
         q = q / q.norm(dim=1, keepdim=True)
         if special in ("dup", "equal"):
             q = torch.randint(-2, 3, (b, d), generator=g).float() / 8
+        if special == "qbf16":
+            q = q.to(torch.bfloat16).float()
+        if special == "qmixed":
+            q[1::2] = q[1::2].to(torch.bfloat16).float()
+        if dtype == torch.bfloat16 and special not in ("qbf16", "dup", "equal"):
+            assert bool(bf16_parts(q[0])[2].ne(0).any()), f"{name}: no query needs 3 parts"
         shape = (b, c) if pen_form == "bc" else (c,)
         pen = torch.where(torch.rand(shape, generator=g) < 0.3, NEG_INF, 0.0)
         if special == "equal":
@@ -234,12 +265,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=["proj", "topk"])
     ap.add_argument("--source", help="the .cu file (default: the package's)")
+    ap.add_argument("--bf16", action="store_true", help="topk: only the bf16-row cases")
     args = ap.parse_args()
     source = args.source or os.path.join(
         CSRC, "proj_scan.cu" if args.kernel == "proj" else "topk.cu")
     with tempfile.TemporaryDirectory() as tmp:
         lib = build(source, tmp)
-        (rehearse_proj if args.kernel == "proj" else rehearse_topk)(lib)
+        if args.kernel == "proj":
+            rehearse_proj(lib)
+        else:
+            rehearse_topk(lib, BF16_CASES if args.bf16 else TOPK_CASES)
 
 
 if __name__ == "__main__":

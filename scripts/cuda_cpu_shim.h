@@ -3,8 +3,8 @@
 // size (scripts/cuda_cpu_rehearsal.py). One std::thread per CUDA thread,
 // the blocks of a launch one after another; std::barrier for
 // __syncthreads and for each warp; warp collectives (shuffles, ballots,
-// ldmatrix, mma.sync m16n8k32 s8) exchange through a per-warp buffer with
-// the lane layouts of the PTX ISA; cp.async copies at once (commit and
+// ldmatrix, mma.sync m16n8k32 s8 and m16n8k16 bf16) exchange through a
+// per-warp buffer with the lane layouts of the PTX ISA; cp.async copies at once (commit and
 // wait are no-ops). Slow, and no model of timing or of memory ordering
 // beyond the barriers; it checks indexing, layouts and arithmetic.
 #pragma once
@@ -40,11 +40,14 @@ struct __attribute__((aligned(16))) uint4 { unsigned x, y, z, w; };
 struct __attribute__((aligned(16))) float4 { float x, y, z, w; };
 struct __attribute__((aligned(8))) uint2 { unsigned x, y; };
 struct __attribute__((aligned(8))) int2 { int x, y; };
+struct __attribute__((aligned(8))) float2 { float x, y; };
 struct __attribute__((aligned(4))) char4 { signed char x, y, z, w; };
 struct __nv_bfloat16 { uint16_t bits; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -98,6 +101,7 @@ struct ShimBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<ShimWarp>> warps;
   unsigned char* dyn;
+  std::atomic<int> counts[2] = {0, 0};  // __syncthreads_count's, alternating
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
@@ -107,18 +111,18 @@ inline thread_local int shim_tid;
 inline void __syncthreads() { shim_blk->bar->arrive_and_wait(); }
 // Barrier that counts the threads whose predicate holds.
 inline int __syncthreads_count(int pred) {
-  static std::atomic<int> counts[2];
-  static thread_local int phase = 0;
-  std::atomic<int>& c = counts[phase];
+  static thread_local int phase = 0;  // a thread serves one block
+  std::atomic<int>& c = shim_blk->counts[phase];
   phase ^= 1;
   if (pred) c.fetch_add(1);
   shim_blk->bar->arrive_and_wait();
   const int n = c.load();
   shim_blk->bar->arrive_and_wait();
-  counts[phase].store(0);  // the other counter, for the next call
+  shim_blk->counts[phase].store(0);  // the other counter, for the next call
   shim_blk->bar->arrive_and_wait();
   return n;
 }
+inline int __syncthreads_or(int pred) { return __syncthreads_count(pred != 0) != 0; }
 inline ShimWarp& shim_warp() { return *shim_blk->warps[shim_tid >> 5]; }
 inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp().bar.arrive_and_wait(); }
 
@@ -192,6 +196,34 @@ inline void ldmatrix_x4(unsigned addr, unsigned& r0, unsigned& r1, unsigned& r2,
     memcpy(&r[j], shim_blk->dyn + w.x[j * 8 + lane / 4] + 4 * (lane % 4), 4);
   w.bar.arrive_and_wait();
   r0 = r[0], r1 = r[1], r2 = r[2], r3 = r[3];
+}
+
+// c += A (16 x 16 bf16, row) * B (16 x 8 bf16, col): the fragment layouts
+// of mma.m16n8k16 .bf16 (two values a register, the lower k in the low
+// half). Products exact, summed in double, rounded once to float32.
+inline void mma_bf16(float (&c)[4], unsigned a0, unsigned a1, unsigned a2, unsigned a3,
+                     unsigned b0, unsigned b1) {
+  ShimWarp& w = shim_warp();
+  const int lane = shim_tid & 31;
+  const unsigned mine[6] = {a0, a1, a2, a3, b0, b1};
+  memcpy(w.m[lane], mine, sizeof(mine));
+  w.bar.arrive_and_wait();
+  auto bf = [&](int src, int reg, int k) {
+    return static_cast<double>(__uint_as_float((w.m[src][reg] >> (16 * (k % 2))) << 16));
+  };
+  auto a_at = [&](int r, int k) {
+    return bf((r % 8) * 4 + (k % 8) / 2, (r >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0), k);
+  };
+  auto b_at = [&](int k, int n) { return bf(n * 4 + (k % 8) / 2, 4 + (k >= 8 ? 1 : 0), k); };
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int r = lane / 4 + (i >= 2 ? 8 : 0), n = 2 * (lane % 4) + (i & 1);
+    double s = c[i];
+    for (int k = 0; k < 16; ++k) s += a_at(r, k) * b_at(k, n);
+    out[i] = static_cast<float>(s);
+  }
+  w.bar.arrive_and_wait();
+  for (int i = 0; i < 4; ++i) c[i] = out[i];
 }
 
 // c += A (16 x 32 s8, row) * B (32 x 8 s8, col): the fragment layouts of

@@ -1,24 +1,29 @@
-"""Build the masked top-k kernel with the compiler's resource report, hold
-it against its plain version on every phase-2 top-k case of chip_smoke.py
-and time it at the main shapes (B=32 and B=1; C=70,144, D=1536, m=40;
-float32, bfloat16 and int8 rows): CUDA-event time of the wrapper call, the
-device time of each launch (pass 1 and each merge level, torch.profiler),
-the bound and the library route (addmm + topk). A short check for a change
-to ``mobius_rag_tpu_torch/ops/csrc/topk.cu``; needs one CUDA card.
+"""Build the masked top-k kernel with the compiler's resource report, show
+that every bf16-row instantiation of pass 1 runs on the tensor cores (HMMA
+in its SASS, ``cuobjdump -sass``), hold the kernel against its plain
+version on every phase-2 top-k case of chip_smoke.py and time it at the
+main shapes (B=32 and B=1, D=1536, m=40; float32, bfloat16 and int8 rows
+at C=70,144; bf16 rows also at C=125,000 and 1,000,192, with float32 and
+with bf16-exact queries): CUDA-event time of the wrapper call, the device
+time of each launch (pass 1 and each merge level, torch.profiler), the
+bound and the library routes (addmm + topk; on bf16 rows also
+mm(out_dtype=float32) + add + topk). A short check for a change to
+``mobius_rag_tpu_torch/ops/csrc/topk.cu``; needs one CUDA card.
 
     python3 scripts/topk_check.py                 # report, checks, timings
     python3 scripts/topk_check.py --ab OTHER.cu   # + timed in turns with another source
-    python3 scripts/topk_check.py --sweep         # + pass-1 geometries and ring depths
+    python3 scripts/topk_check.py --sweep         # + pass-1 variants and diagnostics
 
 ``--ab`` builds OTHER.cu (another version of topk.cu with the same C
 interface, e.g. the parent commit's) beside the package's and times both at
 the main shapes in turns (other, this, this, other), each checked against
-the plain version first. ``--sweep`` builds the source once for each
-pass-1 variant in SWEEP (other lane tiles, warps a block, tile rows and
-ring depths, by editing the constants), checks each at the main shapes and
-times their pass 1 there, in turns, with the diagnostics of DIAG (timed
-only: pass 1 without its FMAs, without its row copies or without its
-selection).
+the plain version first; the float32- and int8-row outputs of the two must
+be bitwise equal. ``--sweep`` builds the source once for each pass-1
+variant in SWEEP (other lane tiles, the bf16 core's warp tiles and ring
+depths, by editing the constants), checks each at the main shapes of its
+row types and times their pass 1 there, in turns, with the diagnostics of
+DIAG (timed only: pass 1 without its FMAs or its tensor-core slices,
+without its row copies or without its selection).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -39,13 +45,10 @@ from mobius_rag_tpu_torch.ops._build import NVCC_FLAGS, find_nvcc  # noqa: E402
 
 
 GEOM32 = "struct Geom<32> { static constexpr int WQ = 8, WR = 1, LQ = 1, RT = 4, QTT = 4; };"
-GEOM16 = "struct Geom<16> { static constexpr int WQ = 4, WR = 2, LQ = 1, RT = 2, QTT = 4; };"
-GEOM8 = "struct Geom<8> { static constexpr int WQ = 2, WR = 4, LQ = 1, RT = 1, QTT = 4; };"
-GEOM4 = "struct Geom<4> { static constexpr int WQ = 1, WR = 4, LQ = 1, RT = 1, QTT = 4; };"
-GEOM1 = "struct Geom<1> { static constexpr int WQ = 1, WR = 4, LQ = 1, RT = 1, QTT = 1; };"
-ROWS = "constexpr int TILE_ROWS = 128;"
+MGEOM32 = "struct MmaGeom<32> { static constexpr int WM = 4, WN = 2, MT = 2, NT = 2; };"
 NSTAGE = "constexpr int NSTAGE = 2;"
 STEPS = "step(rs, qs, kk);"
+SLICES = "if (split) slice(std::true_type{}, sg);\n      else slice(std::false_type{}, sg);"
 ROW_LOOP = "for (int u = 0; u < G::ROW_CHUNKS; ++u) {"
 
 
@@ -54,36 +57,42 @@ def _geom(qt: int, wq: int, wr: int, lq: int, rt: int, qtt: int) -> str:
             f"RT = {rt}, QTT = {qtt}; }};")
 
 
-# name -> edits of the shipped source: the ring depth; a geometry as (query
-# x row warps, query lanes, rows x queries a lane); 64- and 192-row tiles
-TILE64 = [(ROWS, "constexpr int TILE_ROWS = 64;"), (GEOM8, _geom(8, 2, 2, 1, 1, 4)),
-          (GEOM16, _geom(16, 4, 1, 1, 2, 4)), (GEOM4, _geom(4, 1, 2, 1, 1, 4)),
-          (GEOM1, _geom(1, 1, 2, 1, 1, 1))]
-TILE192 = [(ROWS, "constexpr int TILE_ROWS = 192;"), (GEOM32, _geom(32, 8, 1, 1, 6, 4)),
-           (GEOM16, _geom(16, 4, 2, 1, 3, 4)), (GEOM8, _geom(8, 2, 2, 1, 3, 4)),
-           (GEOM4, _geom(4, 1, 2, 1, 3, 4)), (GEOM1, _geom(1, 1, 2, 1, 3, 1))]
+def _mgeom(qt: int, wm: int, wn: int, mt: int, nt: int) -> str:
+    return (f"struct MmaGeom<{qt}> {{ static constexpr int WM = {wm}, WN = {wn}, MT = {mt}, "
+            f"NT = {nt}; }};")
+
+
+# the row types a variant is timed on: the FMA core's, the tensor-core
+# core's, or both
+FMA, MMA, ALL = ("float32", "int8"), ("bfloat16",), ("float32", "int8", "bfloat16")
+# name -> (edits of the shipped source, row types): the ring depth (both
+# cores); the FMA core's geometry at QT=32 as (query x row warps, query
+# lanes, rows x queries a lane); the tensor-core core's warp tiles (both
+# keep 128-row tiles, which the selection and the mma warps assume)
 SWEEP = {
-    "128 B x3": [(NSTAGE, "constexpr int NSTAGE = 3;")],
-    "32: 8 q lanes": [(GEOM32, _geom(32, 1, 8, 8, 4, 4))],
-    "32: 8x4 a lane, 4 warps": [(GEOM32, _geom(32, 4, 1, 2, 8, 4))],
-    "32: 8x8 a lane, 2 warps": [(GEOM32, _geom(32, 2, 1, 2, 8, 8))],
-    "32: 2x8 a lane": [(GEOM32, _geom(32, 4, 2, 1, 2, 8))],
-    "64-row tiles, 32: 2 q lanes": TILE64 + [(GEOM32, _geom(32, 4, 1, 2, 4, 4))],
-    "192-row tiles, 32: 6x4 a lane": TILE192,
+    "128 B x3": ([(NSTAGE, "constexpr int NSTAGE = 3;")], ALL),
+    "128 B x4": ([(NSTAGE, "constexpr int NSTAGE = 4;")], ALL),
+    "32: 8 q lanes": ([(GEOM32, _geom(32, 1, 8, 8, 4, 4))], FMA),
+    "32: 8x4 a lane, 4 warps": ([(GEOM32, _geom(32, 4, 1, 2, 8, 4))], FMA),
+    "32: 8x8 a lane, 2 warps": ([(GEOM32, _geom(32, 2, 1, 2, 8, 8))], FMA),
+    "32: 2x8 a lane": ([(GEOM32, _geom(32, 4, 2, 1, 2, 8))], FMA),
+    "bf16 32: 8 warps of 1x4 tiles": ([(MGEOM32, _mgeom(32, 8, 1, 1, 4))], MMA),
+    "bf16 32: 4 warps of 2x4 tiles": ([(MGEOM32, _mgeom(32, 4, 1, 2, 4))], MMA),
 }
 # diagnostics, timed but wrong by design (not checked): pass 1 with the
-# FMAs taken out (the copies and the selection alone), with the row copies
-# taken out (the FMAs on whatever the ring holds, and the selection), and
-# with the selection taken out; and the FMAs alone at other lane tiles
+# FMAs or the tensor-core slices taken out (the copies and the selection
+# alone), with the row copies taken out (the dots on whatever the ring
+# holds, and the selection), and with the selection taken out; and the
+# FMAs alone at other lane tiles
 NO_ROWS = [(ROW_LOOP, "for (int u = 0; u < 0; ++u) {")]
 SELECT = "for (int qq = warp; qq < QT && q0 + qq < B; qq += G::WARPS) {"
 DIAG = {
-    "no FMAs": [(STEPS, "(void)kk;")],
-    "no row copies": NO_ROWS,
-    "no selection": [(SELECT, "for (int qq = warp; qq < 0; qq += G::WARPS) {")],
-    "no row copies, 8x4 a lane, 4 warps": NO_ROWS + SWEEP["32: 8x4 a lane, 4 warps"],
-    "no row copies, 8x8 a lane, 2 warps": NO_ROWS + SWEEP["32: 8x8 a lane, 2 warps"],
-    "no row copies, 192-row tiles": NO_ROWS + TILE192,
+    "no FMAs": ([(STEPS, "(void)kk;")], FMA),
+    "bf16 no mma slices": ([(SLICES, "(void)split;")], MMA),
+    "no row copies": (NO_ROWS, ALL),
+    "no selection": ([(SELECT, "for (int qq = warp; qq < 0; qq += G::WARPS) {")], ALL),
+    "no row copies, 8x4 a lane, 4 warps": (NO_ROWS + SWEEP["32: 8x4 a lane, 4 warps"][0], FMA),
+    "no row copies, 8x8 a lane, 2 warps": (NO_ROWS + SWEEP["32: 8x8 a lane, 2 warps"][0], FMA),
 }
 
 
@@ -96,8 +105,8 @@ def sweep(cases) -> None:
     with open(shipped) as f:
         src = f.read()
     with tempfile.TemporaryDirectory() as tmp:
-        builds = {"shipped": shipped}
-        for i, (name, edits) in enumerate({**SWEEP, **DIAG}.items()):
+        builds = {"shipped": (shipped, ALL)}
+        for i, (name, (edits, kinds)) in enumerate({**SWEEP, **DIAG}.items()):
             text = src
             for old, new in edits:
                 if old not in text:
@@ -106,15 +115,17 @@ def sweep(cases) -> None:
             path = os.path.join(tmp, f"topk_v{i}.cu")
             with open(path, "w") as f:
                 f.write(text)
-            builds[name] = path
+            builds[name] = (path, kinds)
         with ThreadPoolExecutor(max_workers=len(builds)) as ex:
-            list(ex.map(lambda p: build_library("mrag_topk", [p], find_nvcc(), NVCC_FLAGS),
+            list(ex.map(lambda b: build_library("mrag_topk", [b[0]], find_nvcc(), NVCC_FLAGS),
                         builds.values()))
-        mains = {k: c for k, c in cases.items() if k.startswith("main")}
+        mains = {k: c for k, c in cases.items() if k.startswith("main") and "1M" not in k}
         for name, ((q, v, pen, ms, sc), m) in mains.items():
+            kind = str(v.dtype)[6:]
+            whos = [w for w, (_, kinds) in builds.items() if kind in kinds]
             times: dict = {}
-            for who in list(builds) + list(reversed(builds)):
-                _load(builds[who])
+            for who in whos + whos[::-1]:
+                _load(builds[who][0])
                 if who not in DIAG:
                     chip_smoke.check_topk(name, q, v, pen, ms, sc, m)
                 launches = device_ms_by_launch(
@@ -124,6 +135,24 @@ def sweep(cases) -> None:
             chip_smoke.log(f"sweep {name} pass 1 device ms: " + "; ".join(
                 f"{who} {' / '.join(f'{t:.4f}' for t in ts)}" for who, ts in times.items()))
     _load(shipped)
+
+
+def sass_check(lib: str) -> None:
+    """Count the tensor-core instructions (HMMA) in each pass-1
+    instantiation's SASS; raise unless every bf16-row one holds some."""
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    counts = {}
+    for part in out.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "topk_tiles" in name:
+            counts[name] = len(re.findall(r"\bHMMA\b", part))
+    for name, n in sorted(counts.items()):
+        chip_smoke.log(f"sass {name}: {n} HMMA")
+    bf16 = [n for name, n in counts.items() if "__nv_bfloat16" in name]
+    if len(bf16) != 5 or not all(bf16):
+        raise SystemExit(f"the bf16-row pass 1 is not on the tensor cores: {counts}")
 
 
 def device_ms_by_launch(fn, n: int = 20) -> list[tuple[str, float]]:
@@ -138,7 +167,7 @@ def device_ms_by_launch(fn, n: int = 20) -> list[tuple[str, float]]:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then returns no device events
+    for _ in range(chip_smoke.PROFILE_TRIES):  # the profiler now and then returns no device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -147,6 +176,7 @@ def device_ms_by_launch(fn, n: int = 20) -> list[tuple[str, float]]:
                      key=lambda ev: ev.time_range.start)
         if evs:
             break
+        time.sleep(0.5)
     else:
         raise RuntimeError("the profiler recorded no device events")
     names = [ev.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
@@ -172,10 +202,13 @@ def _load(path: str) -> None:
 
 def _line(name, t, launches) -> str:
     parts = ", ".join(f"{k} {v:.4f}" for k, v in launches)
-    return (f"{name}: event {t['ms']:.4f} ms, device {sum(v for _, v in launches):.4f} ms "
-            f"({parts}), plain {t['plain_ms']:.4f}, library addmm+topk {t['library_ms']:.4f}, "
-            f"bound {t['bound_ms']:.4f} by {t['bound_by']} (share of event "
-            f"{t['bound_ms'] / t['ms']:.3f})")
+    device = sum(v for _, v in launches)
+    mm = t["library_mm_dtype_ms"]
+    return (f"{name}: event {t['ms']:.4f} ms, device {device:.4f} ms "
+            f"({parts}), plain {t['plain_ms']:.4f}, library addmm+topk {t['library_ms']:.4f}"
+            + ("" if mm is None else f", library mm(out_dtype=float32)+topk {mm:.4f}")
+            + f", bound {t['bound_ms']:.4f} by {t['bound_by']} (share of device "
+            f"{t['bound_ms'] / device:.3f})")
 
 
 def main() -> None:
@@ -189,11 +222,12 @@ def main() -> None:
         proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
                                os.path.join(tmp, "lib.so"), shipped],
                               capture_output=True, text=True, timeout=600)
-    print("\n".join(line for line in (proc.stdout + proc.stderr).splitlines()
-                    if re.search(r"error|warning|registers|spill|Compiling", line)),
-          flush=True)
-    if proc.returncode != 0:
-        raise SystemExit("the top-k source does not build")
+        print("\n".join(line for line in (proc.stdout + proc.stderr).splitlines()
+                        if re.search(r"error|warning|registers|spill|Compiling", line)),
+              flush=True)
+        if proc.returncode != 0:
+            raise SystemExit("the top-k source does not build")
+        sass_check(os.path.join(tmp, "lib.so"))
     _, seconds = topk.build_kernel()
     chip_smoke.log(f"built {shipped} in {seconds:.2f} s")
 
@@ -216,6 +250,17 @@ def main() -> None:
         builds = {"other": os.path.abspath(args.ab), "this": shipped}
         for path in builds.values():
             _load(path)
+        # every case's outputs from both; float32 and int8 rows must agree bitwise
+        for name, ((q, v, pen, ms, sc), m) in cases.items():
+            out = {}
+            for who in builds:
+                _load(builds[who])
+                out[who] = topk.masked_topk(q, v, pen, ms, m, row_scales=sc)
+            same = all(torch.equal(a, b) for a, b in zip(out["other"], out["this"]))
+            chip_smoke.log(f"ab {name} {str(v.dtype)[6:]}: outputs "
+                           f"{'bitwise equal' if same else 'differ'}")
+            if v.dtype != torch.bfloat16 and not same:
+                raise SystemExit(f"ab {name}: the float32/int8 rows' outputs changed")
         mains = {k: c for k, c in cases.items() if k.startswith("main")}
         for name, ((q, v, pen, ms, sc), m) in mains.items():
             for who in ("other", "this", "this", "other"):

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from mobius_rag_tpu.ops.topk import cosine_topk_pallas, cosine_topk_xla
-from mobius_rag_tpu_torch.ops.topk import (NEG_INF, masked_topk,
+from mobius_rag_tpu_torch.ops.topk import (NEG_INF, bf16_parts, masked_topk,
                                            masked_topk_reference, topk_stable)
 
 torch.set_num_threads(1)
@@ -66,6 +66,25 @@ def test_masked_topk_matches_jax(topk_inputs, impl, n, b, k):
     tv, ti = masked_topk(torch.from_numpy(q), torch.from_numpy(v),
                          torch.from_numpy(pen), None, k)
     assert tv.dtype == torch.float32 and ti.dtype == torch.int32
+    assert_topk_equal(tv, ti, jv, ji)
+
+
+@pytest.mark.parametrize("qkind", ["bf16", "float32"])
+@pytest.mark.parametrize("n,b,k", CASES[:3])
+def test_bf16_rows_match_jax(qkind, n, b, k):
+    """bf16 rows in both packages: the function the kernel's tensor-core
+    core computes (every product exact in float32), with bf16-rounded
+    queries (the engine's) and with float32 ones."""
+    rng = np.random.default_rng(n + b)
+    vj = jnp.asarray(_normalize(rng.standard_normal((n, 256)).astype(np.float32)), jnp.bfloat16)
+    v = np.array(vj.astype(jnp.float32))  # the bf16 values, exactly
+    q = _normalize(rng.standard_normal((b, 256)).astype(np.float32))
+    if qkind == "bf16":
+        q = np.array(jnp.asarray(q, jnp.bfloat16).astype(jnp.float32))
+    pen = np.where(rng.random(n) < 0.3, NEG_INF, 0.0).astype(np.float32)
+    jv, ji = jax.device_get(cosine_topk_xla(vj, q, pen, k))
+    tv, ti = masked_topk(torch.from_numpy(q), torch.from_numpy(v).to(torch.bfloat16),
+                         torch.from_numpy(pen), None, k)
     assert_topk_equal(tv, ti, jv, ji)
 
 
@@ -176,3 +195,46 @@ def test_kernel_matches_plain_on_card(dtype, b, c, m, pen_form, special):
         assert torch.equal(ki.cpu(), torch.arange(m, dtype=torch.int32).expand(b, m))
     if special == "gated":
         assert (kv[1] <= NEG_INF / 2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qkind,b,d,c,m,pen_form,special", [
+    # the engine's bf16-exact queries (one product a k-step), float32
+    # queries with a nonzero lo part (three), and one tile mixing both
+    ("exact", 32, 1536, 20000, 40, "bc", None), ("split", 32, 1536, 20000, 40, "bc", None),
+    ("mixed", 32, 1536, 20000, 40, "bc", None),
+    # D not a multiple of 16 (under one k-slice; past 24 of them), B=5
+    # (an 8-query tile) and B=33 (a second 32-query tile), a [C] penalty
+    ("split", 5, 20, 3000, 10, "bc", None), ("exact", 5, 20, 3000, 10, "c", None),
+    ("mixed", 33, 1540, 5000, 40, "bc", None), ("split", 33, 1540, 5000, 40, "c", None),
+    ("exact", 12, 1536, 5000, 40, "c", None), ("split", 1, 1536, 70144, 40, "bc", None),
+    # every row one row: all scores tie, the lower row first
+    ("exact", 4, 1536, 5000, 40, "c", "ties"), ("split", 4, 1536, 5000, 40, "c", "ties")])
+def test_bf16_rows_on_card(qkind, b, d, c, m, pen_form, special):
+    """bf16 rows on the tensor cores against the plain version, for every
+    kind of float32 query the kernel's exact split meets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(c + d + b)
+    v = torch.randn(1 if special == "ties" else c, d, device="cuda", generator=g)
+    v = (v / v.norm(dim=1, keepdim=True)).expand(c, d).to(torch.bfloat16).contiguous()
+    q = torch.randn(b, d, device="cuda", generator=g)
+    q = q / q.norm(dim=1, keepdim=True)
+    if qkind == "exact":
+        q = q.to(torch.bfloat16).float()
+    elif qkind == "mixed":
+        q[1::2] = q[1::2].to(torch.bfloat16).float()
+    lo = bf16_parts(q)[2]
+    assert bool(lo[0].ne(0).any()) == (qkind != "exact")  # query 0 needs three parts or one
+    shape = (b, c) if pen_form == "bc" else (c,)
+    gate = 0.0 if special == "ties" else 0.3
+    pen = torch.where(torch.rand(shape, device="cuda", generator=g) < gate, NEG_INF, 0.0)
+    min_sim = torch.where(torch.arange(b, device="cuda") % 2 == 1, 0.02, 0.0)
+    before = masked_topk.launches
+    kv, ki = masked_topk(q, v, pen, min_sim, m)
+    torch.cuda.synchronize()
+    assert masked_topk.launches == before + 1
+    rv, ri = masked_topk_reference(q, v, pen, min_sim, m)
+    assert_topk_equal(kv.cpu(), ki.cpu(), rv.cpu(), ri.cpu(), tie=1e-5, atol=1e-4)
+    if special == "ties":
+        assert torch.equal(ki.cpu(), torch.arange(m, dtype=torch.int32).expand(b, m))
