@@ -207,9 +207,10 @@ def topk_cases(g) -> dict:
     row is gated, m=1024, fewer live rows than m, a [C] penalty, every row
     one row (all scores tie), m=128 and m=129 on either side of pass 1's
     partial width. bf16 rows also at one shard of the 1M store and at the
-    whole store, B=32 and B=1, each with unit float32 queries (three
-    tensor-core products a k-step) and, named "... qbf16", with the same
-    queries rounded to bf16 as the engine sends them (one product)."""
+    whole store, B=32 and B=1. Every main case comes with unit float32
+    queries (three bf16 parts a tensor-core k-step; on float32 rows the
+    FMA core) and, named "... qbf16", with the same queries rounded to
+    bf16 as the engine sends them (one part)."""
     cases = {}
     for b in (BATCH, 1):
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"), (torch.int8, "int8")):
@@ -239,7 +240,7 @@ def topk_cases(g) -> dict:
     for where in (" shard", " 1M"):  # B=1: the first query of the B=32 case
         (q, v, pen, ms, sc), m = cases[f"main_bf16{where}"]
         cases[f"main_bf16{where} B=1"] = ((q[:1], v, pen[:1], ms[:1], sc), m)
-    for name in [k for k in cases if k.startswith("main_bf16")]:
+    for name in [k for k in cases if k.startswith("main")]:
         (q, v, pen, ms, sc), m = cases[name]
         cases[f"{name} qbf16"] = ((q.to(torch.bfloat16).float(), v, pen, ms, sc), m)
     return cases
@@ -279,20 +280,29 @@ def time_topk(q, v, pen, ms, sc, m) -> dict:
     vf = v.float() if sc is None else v.float() * sc[:, None]
     t_l = _median_ms(lambda: torch.topk(torch.addmm(pen, q, vf.T), m, dim=1))
     del vf
-    t_mm = _mm_dtype_ms(q, v, pen, m) if v.dtype == torch.bfloat16 else None
+    t_mm = _mm_dtype_ms(q, v, pen, m, sc) if v.dtype != torch.float32 else None
     return {"ms": t_k, "device_ms": sum(by.values()), "by_kernel": by, "plain_ms": t_p,
             "library_ms": t_l, "library_mm_dtype_ms": t_mm, **_topk_bound(q, v, pen, m)}
 
 
-def _mm_dtype_ms(q, v, pen, m) -> float | None:
+def _mm_dtype_ms(q, v, pen, m, sc=None) -> float | None:
     """The library route on the bf16 rows as they are: bf16 x bf16 products
     accumulated in float32 (aten::mm.dtype; queries reach the arm
-    bf16-rounded), the penalty added, then topk: two calls. None, and a
-    line saying so, where this PyTorch lacks the CUDA overload."""
+    bf16-rounded), the penalty added, then topk: two calls. int8 rows
+    (`sc` their scales) are widened to bf16 (exactly) inside the timing
+    and the dots scaled: four calls, a reference and no library call on
+    the same inputs. None, and a line saying so, where this PyTorch lacks
+    the CUDA overload."""
     qb = q.to(torch.bfloat16)
+    if sc is None:
+        def route():
+            return torch.topk(torch.mm(qb, v.T, out_dtype=torch.float32) + pen, m, dim=1)
+    else:
+        def route():
+            return torch.topk(torch.mm(qb, v.to(torch.bfloat16).T, out_dtype=torch.float32) * sc
+                              + pen, m, dim=1)
     try:
-        return _median_ms(lambda: torch.topk(torch.mm(qb, v.T, out_dtype=torch.float32) + pen,
-                                             m, dim=1))
+        return _median_ms(route)
     except (TypeError, RuntimeError) as e:  # NotImplementedError is a RuntimeError
         log(f"phase 2: torch.mm(..., out_dtype=torch.float32) on bf16 rows is not available "
             f"in torch {torch.__version__}: {str(e).splitlines()[0]}")
@@ -323,6 +333,8 @@ def phase2_kernel() -> dict:
                      f"median of 20)"
                      + ("" if t["library_mm_dtype_ms"] is None else
                         f", library mm(out_dtype=float32)+topk on the bf16 rows "
+                        f"{t['library_mm_dtype_ms']:.4f} ms" if v.dtype == torch.bfloat16 else
+                        f", reference widen to bf16+mm(out_dtype=float32)*scale+pen+topk "
                         f"{t['library_mm_dtype_ms']:.4f} ms")
                      + f"; bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
                      f"(share of device time {t['bound_ms'] / t['device_ms']:.3f})")
@@ -3954,19 +3966,28 @@ def main() -> None:
                "masked_topk_int8": {"phase 3b": s8["launches"]},
                "masked_topk_bf16": {f"phase 10a sharded 1M S={n}": p4["phase10"]["a"][n]["launches"]
                                     for n in (1, SHARDS_1M)}}
+    # float32 and int8 rows at the 70k store's shape, B=32 and B=1, with the
+    # queries the engine sends (bf16-exact); float32 queries beside them
     for name, timing, err in (("masked_topk", "main_f32", "max_abs_err"),
                               ("masked_topk_int8", "main_int8", "max_abs_err_int8")):
-        t, t1 = k["timing"][timing], k["timing"][f"{timing} B=1"]
+        t, t1 = k["timing"][f"{timing} qbf16"], k["timing"][f"{timing} B=1 qbf16"]
+        tf, tf1 = k["timing"][timing], k["timing"][f"{timing} B=1"]
         f32 = name == "masked_topk"  # one library call on the same inputs only for f32 rows
-        kernels.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                        "replaces": KERNEL_REPLACES, "launches": sum(by_path[name].values()),
-                        "launches_by_path": by_path[name],
-                        "max_abs_err": k[err], **{key: t[key] for key in keys},
-                        "library_ms": t["library_ms"] if f32 else None,
-                        "device_ms": t["device_ms"], "ms_B1": t1["ms"],
-                        "device_ms_B1": t1["device_ms"], "plain_ms_B1": t1["plain_ms"],
-                        "bound_ms_B1": t1["bound_ms"],
-                        "library_ms_B1": t1["library_ms"] if f32 else None})
+        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                 "replaces": KERNEL_REPLACES, "launches": sum(by_path[name].values()),
+                 "launches_by_path": by_path[name],
+                 "max_abs_err": k[err], **{key: t[key] for key in keys},
+                 "library_ms": t["library_ms"] if f32 else None,
+                 "device_ms": t["device_ms"],
+                 "shape": f"B={BATCH} C={C_MAIN} m=40 {timing[5:]}, bf16-exact queries",
+                 "ms_B1": t1["ms"], "device_ms_B1": t1["device_ms"], "plain_ms_B1": t1["plain_ms"],
+                 "bound_ms_B1": t1["bound_ms"], "library_ms_B1": t1["library_ms"] if f32 else None,
+                 "ms_q_f32": tf["ms"], "device_ms_q_f32": tf["device_ms"],
+                 "ms_q_f32_B1": tf1["ms"], "device_ms_q_f32_B1": tf1["device_ms"]}
+        if not f32:  # widen to bf16, mm(out_dtype=float32), scale, penalty, topk
+            entry.update(reference_mm_ms=t["library_mm_dtype_ms"],
+                         reference_mm_ms_B1=t1["library_mm_dtype_ms"])
+        kernels.append(entry)
     # bf16 rows, at one shard's shape of the 1M store with the queries the
     # engine sends (bf16-exact: phase 10a's path), and at the whole store;
     # float32 queries beside them

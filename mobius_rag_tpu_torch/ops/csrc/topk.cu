@@ -9,76 +9,90 @@
 //   out[b]      = the top m of score[b, :], descending, lower row first on ties
 //
 // The rows are float32, bfloat16 or int8 (the store's
-// MRAG_VECTOR_DTYPE=int8 form, with its per-row scales). float32 and int8
-// rows widen exactly to float32 as they are read from shared memory, and
-// every dot is a sequence of float32 FMAs in k order. bfloat16 rows go
-// through the tensor cores (below); every product is exact there too, and
-// only the order of the float32 sums differs. The scale multiplies the
-// full dot (one rounded product) before the penalty and the min_sim
-// test, as the JAX dense arm computes cos and then compares it.
+// MRAG_VECTOR_DTYPE=int8 form, with its per-row scales). Two cores compute
+// the dots. The tensor-core core (mma.sync m16n8k16 bf16 -> float32) takes
+// bfloat16 rows at every query tile QT, int8 rows from QT = 4 and float32
+// rows at QT = 32 (MMA_QT_INT8, MMA_QT_F32); every product there is exact,
+// so only the order of the float32 sums differs from a float32 dot. The
+// float32 FMA core takes the rest, where it measured faster (PERF.md): a
+// few queries a tile pad most of an n8 tile, and splitting or widening the
+// rows then costs more than the FMAs it saves; and a float32-row tile
+// whose queries' first k-slice is not bf16-exact, since float32 rows
+// against float32 queries take 9 tensor-core products a k-step. int8 rows
+// widen exactly to float32 on the FMA core's shared -> register read
+// (through the float bits of 2^23 + 128 + x). The scale multiplies the
+// full dot (one rounded product) before the penalty and the min_sim test,
+// as the JAX dense arm computes cos and then compares it.
+//
+// Exact bf16 operands. A float32 value x splits exactly into three bf16
+// parts, each the truncation of what the parts before it leave: hi = x's
+// top 16 bits, mid = those of r = x - hi, lo = r - mid (r and lo are exact
+// in float32, and lo has at most 8 significant bits), so hi + mid + lo ==
+// x away from float32 underflow, and a product of two parts is exact in
+// the float32 accumulator. The engine sends bf16-rounded queries
+// (query/engine.py prepare_batch), whose mid and lo are zero: after each
+// k-slice lands, every thread tests the query chunks it copied, and
+// __syncthreads_or, the slice's barrier, tells the block whether this
+// slice's queries take 3 parts or 1. The rows' parts: bfloat16 rows are
+// their own 1 part; int8 rows widen exactly to bf16 (|x| <= 128 has 8
+// significant bits), 1 part; float32 rows split into 3. So a k-step takes
+// (row parts) x (query parts) products: 1 or 3 on bf16 and int8 rows, 3 on
+// float32 rows (9 where a later slice of a tile that began bf16-exact is
+// not).
+//
+// The k-permutation (float32 and int8 rows). A k16 step's product is
+// unchanged by any permutation of k applied to both A (rows) and B
+// (queries). A lane of the m16n8k16 fragments holds k = 2t, 2t+1 (a0/a1,
+// b0) and 2t+8, 2t+9 (a2/a3, b1) of its rows g and g+8 and its query g;
+// here it takes instead 4 consecutive elements e..e+3 of the slice, e =
+// 8t + 4kk on float32 rows (k-step kk of 2) and 16kk + 4t on int8 rows (kk
+// of 8), e, e+1 in place of 2t, 2t+1 and e+2, e+3 in place of 2t+8, 2t+9:
+// one 16-byte read of each row (float32) or one 4-byte read (int8), and
+// one float4 of its query, for A and B alike. The k-steps of a slice
+// cover its elements once. bfloat16 rows keep the layout of the PTX ISA:
+// A from ldmatrix.x4, B from two float2 reads.
 //
 // What bounds it on this card: at the main path's shape (B=32 queries,
-// C=70,144 rows, D=1536, m=40) float32 rows are 431 MB for 6.9 GFLOP:
-// bytes, 0.131 ms at 3.35 TB/s, with the FMAs (0.103 ms at the 67 TFLOP/s
-// float32 peak) under them. int8 rows (108 MB) read fewer bytes than the
-// float32 FMA pipe takes for the same 6.9 GFLOP, so while their dot core
-// is float32 FMAs they are bound by the FMA pipe. bfloat16 rows (215 MB;
-// 400 MB with the penalty at one 1M shard's C=125,000) are bound by bytes
-// again on the tensor cores: even three products a k-step are 0.037 ms of
-// bf16 work at C=125,000 against 0.12 ms of bytes.
-//
-// The bfloat16 core (pass 1 for T = __nv_bfloat16): rows times queries
-// with mma.sync m16n8k16 bf16 -> float32. A is the rows, read from the
-// ring with ldmatrix.x4; B is the queries, built in registers from the
-// float32 slice (a bf16 plane of the slice, read with ldmatrix, measured
-// no faster at equal occupancy and cost a block per SM; PERF.md). A
-// float32 query element x splits exactly
-// into three bf16 parts, each the truncation of what the parts before it
-// leave: hi = x's top 16 bits, mid = those of r = x - hi, lo = r - mid
-// (r and lo are exact in float32, and lo has at most 8 significant bits),
-// so hi + mid + lo == x away from float32 underflow, and three products
-// into one float32 accumulator hold every product exactly. The engine
-// sends bf16-rounded queries, whose mid and lo are zero: after each
-// slice lands, every thread tests the query chunks it copied, and
-// __syncthreads_or, the slice's barrier, tells the block whether this
-// slice needs 3 products or 1. With its FMAs gone the core is bound by
-// its copies and its selection: measured on an H100 at B=32, C=125,000
-// (PERF.md), pass 1 takes ~0.195 ms with bf16-exact queries, of which the
-// copies and the selection alone take ~0.185 and the selection ~0.04 (no
-// copy of its block is in flight while it runs); float32 queries' three
-// products add ~0.05.
+// C=70,144 rows, D=1536, m=40) float32 rows are 431 MB: bytes, 0.131 ms at
+// 3.35 TB/s, against 20.7 GFLOP of bf16 products (3 a k-step, 0.021 ms at
+// the 989 TFLOP/s bf16 peak) or 6.9 GFLOP of float32 FMAs (0.103 ms at 67
+// TFLOP/s). int8 rows (108 MB; 0.035 ms) and bfloat16 rows (215 MB; 400
+// MB with the penalty at one 1M shard's C=125,000) are bound by bytes too.
+// Measured on an H100 (PERF.md), the tensor-core core's pass 1 is bound by
+// its copies and its per-tile selection, not by its products: with
+// bf16-exact queries at B=32 it takes ~0.22 ms on float32 rows, ~0.11 on
+// int8 rows (C=70,144) and ~0.20 on bf16 rows (C=125,000), against ~0.21,
+// ~0.08 and ~0.19 for its copies and selection alone; no copy of its block
+// is in flight while it selects (~0.04 ms at C=125,000).
 //
 // What the design does about it:
 //   pass 1 (topk_tiles<T, QT>): one block per (128-row tile, QT queries);
 //     QT is 32, 16, 8, 4 or 1, the smallest that holds B, so that a small
-//     batch computes few padded queries and a single search none. Row
-//     and query k-slices (128 bytes of a row: 32 float32, 64 bfloat16 or
-//     128 int8 values, and the queries' same depth in float32) come into
-//     a ring in shared memory (NSTAGE stages)
-//     through cp.async 16-byte copies (zero-filled past B, C and D), one
-//     barrier per slice, so slice k + 1 is in flight while slice k is
-//     computed. bfloat16 and int8 rows are staged as raw bytes; int8 rows
-//     are widened on the shared -> register read (exactly through the
-//     float bits of 2^23 + 128 + x). On the FMA core a lane computes
-//     RT rows x QTT queries from 128-bit shared reads (Geom: 4 x 4 at
-//     QT=32); a warp's lanes take consecutive rows and share its queries,
-//     so the query reads are broadcasts and the row reads (stride 144
-//     bytes) are conflict-free. On the tensor-core core a warp computes
-//     MT m16 x NT n8 tiles (MmaGeom: 2 x 2 at QT=32); QT 4 and 1 pad to
-//     one n8 tile. The 144-byte row stride puts ldmatrix's 8 rows on
-//     distinct banks, and the queries' 72-float stride the float2
-//     fragment reads. Then the penalty and min_sim, one 64-bit
-//     key per (query, row) in shared memory, and one warp per query
-//     selects the tile's top P = min(m, 128) keys without sorting them: a
-//     bitwise search for the largest score word h with at least P keys at
-//     or above it (ballots over the 128 keys held 4 per lane), then the
-//     keys above h and, of those on h, the first in row order by their
-//     rank. The warp writes its P keys unsorted and the tile's largest.
-//     Measured on an H100 (PERF.md): at B=32 the float32 core's FMAs
-//     alone run at ~0.4 of the float32 peak and its copies alone at ~2.1
-//     TB/s, and the two overlap only in part; other lane tiles, tile
-//     heights and ring depths moved it by a few percent, and deeper rings
-//     and other warp tiles did not speed up the bf16 core.
+//     batch computes few padded queries and a single search none. Row and
+//     query k-slices (128 bytes of a row: 32 float32, 64 bfloat16 or 128
+//     int8 values, and the queries' same depth in float32) come into a
+//     ring in shared memory (NSTAGE stages) through cp.async 16-byte copies
+//     (zero-filled past B, C and D), one barrier per slice, so slice k + 1
+//     is in flight while slice k is computed. On the tensor cores a warp
+//     computes MT m16 x NT n8 tiles (MmaGeom for bf16 rows: 2 x 2 at
+//     QT=32; RowsGeom for float32 and int8 rows, 1 x QT / 8, so that one
+//     warp makes each row tile's split or widened fragments); QT 4 and 1
+//     pad to one n8 tile. The 144-byte row stride puts ldmatrix's 8 rows
+//     and the int8 rows' 4-byte reads on distinct banks, and float32 rows'
+//     16-byte reads of rows g and g+1 (a quarter warp) on alternate 16-byte
+//     bank groups; the queries' stride (DK + 8 floats for bf16 rows, DK + 4
+//     for float32, DK + 16 for int8) does the same for their float2 or
+//     float4 reads. On the FMA core a lane computes RT rows x QTT queries
+//     from 128-bit shared reads (Geom: 4 x 4 at QT=32); a warp's lanes take
+//     consecutive rows and share its queries, so the query reads are
+//     broadcasts and the row reads conflict-free. Then the penalty and
+//     min_sim, one 64-bit key per (query, row) in shared memory, and one
+//     warp per query selects the tile's top P = min(m, 128) keys without
+//     sorting them: a bitwise search for the largest score word h with at
+//     least P keys at or above it (ballots over the 128 keys held 4 per
+//     lane), then the keys above h and, of those on h, the first in row
+//     order by their rank. The warp writes its P keys unsorted and the
+//     tile's largest.
 //   pass 2 (topk_select), where m <= 128 and there are at least m tiles:
 //     one block per query. Its threads each take the largest key of a set
 //     of tiles; the m-th largest of those keys, cut to its score bits, is a
@@ -117,6 +131,8 @@ constexpr int BUF2 = 4096;      // keys one pass-2 block holds
 constexpr int THREADS2 = 1024;
 constexpr int LOAD2 = 8;        // keys each pass-2 thread loads at once
 constexpr float NEG_INF = -1e30f;
+
+__host__ __device__ inline int n_tiles_of(int C) { return (C + TILE_ROWS - 1) / TILE_ROWS; }
 
 __device__ __forceinline__ uint64_t make_key(float v, int row) {
   uint32_t u = __float_as_uint(v);
@@ -189,8 +205,8 @@ __device__ __forceinline__ unsigned pack_top(unsigned u0, unsigned u1) {
   return __byte_perm(u0, u1, 0x7632);
 }
 
-// The exact split of two float32 query elements into bf16 parts, packed
-// as mma operands: hi + mid + lo == x (see the header).
+// The exact split of two float32 elements into bf16 parts, packed as mma
+// operands: hi + mid + lo == x (see the header).
 __device__ __forceinline__ void split2(float2 x, unsigned& hi, unsigned& mid, unsigned& lo) {
   const unsigned u0 = __float_as_uint(x.x), u1 = __float_as_uint(x.y);
   const float r0 = x.x - __uint_as_float(u0 & 0xFFFF0000u);
@@ -202,9 +218,9 @@ __device__ __forceinline__ void split2(float2 x, unsigned& hi, unsigned& mid, un
                 __float_as_uint(r1 - __uint_as_float(v1 & 0xFFFF0000u)));
 }
 
-// Four consecutive elements of a staged row of the FMA core as float32:
-// int8 exactly through the float 2^23 + 128 + x (its mantissa holds the
-// byte x + 128), minus 2^23 + 128.
+// Four consecutive staged elements as float32: float32 as they are, int8
+// exactly through the float 2^23 + 128 + x (its mantissa holds the byte
+// x + 128), minus 2^23 + 128.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -215,6 +231,20 @@ __device__ __forceinline__ float4 load4(const int8_t* p) {
                      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - BIAS,
                      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - BIAS,
                      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - BIAS);
+}
+
+// The bf16 parts of four consecutive elements as mma operands: parts p of
+// (x, y) into lo[p], of (z, w) into hi[p]. One part where the values are
+// bf16-exact (their top halves), else the three of split2.
+template <bool SPLIT>
+__device__ __forceinline__ void parts4(float4 x, unsigned (&lo)[3], unsigned (&hi)[3]) {
+  if constexpr (SPLIT) {
+    split2(make_float2(x.x, x.y), lo[0], lo[1], lo[2]);
+    split2(make_float2(x.z, x.w), hi[0], hi[1], hi[2]);
+  } else {
+    lo[0] = pack_top(__float_as_uint(x.x), __float_as_uint(x.y));
+    hi[0] = pack_top(__float_as_uint(x.z), __float_as_uint(x.w));
+  }
 }
 
 // Sort each of the total/n contiguous segments of s (n a power of two)
@@ -239,10 +269,33 @@ __device__ void bitonic_desc(uint64_t* s, int total, int n) {
   }
 }
 
-// Pass-1 geometry by the query tile QT: the block's warps are WQ query
-// groups x WR row groups; a warp's lanes are LQ query lanes x 32 / LQ row
-// lanes; a lane computes RT rows x QTT queries. (LQ > 1, other tiles and
-// other TILE_ROWS are the variants scripts/topk_check.py --sweep times.)
+// The tensor-core core's geometry by the query tile QT: WM row groups x
+// WN query groups of warps; a warp computes MT m16 tiles of rows x NT n8
+// tiles of queries (QT 4 and 1 fill one n8 tile in part).
+template <int QT>
+struct MmaGeom;
+template <>
+struct MmaGeom<32> { static constexpr int WM = 4, WN = 2, MT = 2, NT = 2; };
+template <>
+struct MmaGeom<16> { static constexpr int WM = 4, WN = 2, MT = 2, NT = 1; };
+template <>
+struct MmaGeom<8> { static constexpr int WM = 8, WN = 1, MT = 1, NT = 1; };
+template <>
+struct MmaGeom<4> { static constexpr int WM = 4, WN = 1, MT = 2, NT = 1; };
+template <>
+struct MmaGeom<1> { static constexpr int WM = 4, WN = 1, MT = 2, NT = 1; };
+// float32 and int8 rows, whose A fragments cost a split or a widening: one
+// warp makes each m16 tile's fragments, for all of the tile's queries
+template <int QT>
+struct RowsGeom { static constexpr int WM = 8, WN = 1, MT = 1, NT = QT / 8; };
+template <>
+struct RowsGeom<4> : MmaGeom<4> {};
+template <>
+struct RowsGeom<1> : MmaGeom<1> {};
+
+// The FMA core's geometry by QT: the block's warps are WQ query groups x
+// WR row groups; a warp's lanes are LQ query lanes x 32 / LQ row lanes; a
+// lane computes RT rows x QTT queries.
 template <int QT>
 struct Geom;
 template <>
@@ -256,42 +309,46 @@ struct Geom<4> { static constexpr int WQ = 1, WR = 4, LQ = 1, RT = 1, QTT = 4; }
 template <>
 struct Geom<1> { static constexpr int WQ = 1, WR = 4, LQ = 1, RT = 1, QTT = 1; };
 
-// The tensor-core core's geometry by QT: WM row groups x WN query groups
-// of warps; a warp computes MT m16 tiles of rows x NT n8 tiles of queries
-// (QT 4 and 1 fill one n8 tile in part).
-template <int QT>
-struct MmaGeom;
-template <>
-struct MmaGeom<32> { static constexpr int WM = 4, WN = 2, MT = 2, NT = 2; };
-template <>
-struct MmaGeom<16> { static constexpr int WM = 4, WN = 2, MT = 2, NT = 1; };
-template <>
-struct MmaGeom<8> { static constexpr int WM = 8, WN = 1, MT = 1, NT = 1; };
-template <>
-struct MmaGeom<4> { static constexpr int WM = 4, WN = 1, MT = 2, NT = 1; };
-template <>
-struct MmaGeom<1> { static constexpr int WM = 4, WN = 1, MT = 2, NT = 1; };
+// The smallest query tile QT whose dots run on the tensor cores, by row
+// type; below it the float32 FMA core computes them: where a few queries
+// pad most of an n8 tile, splitting or widening the rows costs more than
+// the FMAs it saves (PERF.md). bf16 rows always take the tensor cores.
+constexpr int MMA_QT_F32 = 32;
+constexpr int MMA_QT_INT8 = 4;
+
+template <typename T, int QT>
+constexpr bool use_mma() {
+  return std::is_same<T, __nv_bfloat16>::value ||
+         QT >= (std::is_same<T, float>::value ? MMA_QT_F32 : MMA_QT_INT8);
+}
 
 // Pass-1 layout for element type T and QT queries a block.
 template <typename T, int QT>
 struct Tile {
-  static constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;  // the tensor-core core
+  static constexpr bool MMA = use_mma<T, QT>();
+  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;  // A from ldmatrix
+  static constexpr int A_PARTS = std::is_same<T, float>::value ? 3 : 1;  // the rows' bf16 parts
+  // float32 rows on the tensor cores keep the FMA core for float32 queries
+  static constexpr bool FMA_TOO = MMA && A_PARTS == 3;
+  using MG = std::conditional_t<BF16, MmaGeom<QT>, RowsGeom<QT>>;
+  static constexpr int WM = MG::WM, WN = MG::WN, MT = MG::MT, NT = MG::NT;
   static constexpr int WQ = Geom<QT>::WQ, WR = Geom<QT>::WR, LQ = Geom<QT>::LQ;
   static constexpr int RT = Geom<QT>::RT, QTT = Geom<QT>::QTT;
-  static constexpr int WM = MmaGeom<QT>::WM, WN = MmaGeom<QT>::WN;
-  static constexpr int MT = MmaGeom<QT>::MT, NT = MmaGeom<QT>::NT;
+  static constexpr int LR = 32 / LQ;  // row lanes of an FMA warp
   static constexpr int WARPS = MMA ? WM * WN : WQ * WR;
   static constexpr int THREADS = 32 * WARPS;
-  static constexpr int LR = 32 / LQ;  // row lanes of a warp
-  static_assert(WR * LR * RT == TILE_ROWS, "the warps cover the tile's rows");
-  static_assert(WQ * LQ * QTT == QT, "the warps cover the tile's queries");
   static_assert(WM * MT * 16 == TILE_ROWS, "the mma warps cover the tile's rows");
   static_assert(WN * NT * 8 == (QT < 8 ? 8 : QT), "the mma warps cover the tile's queries");
+  static_assert(WR * LR * RT == TILE_ROWS, "the FMA warps cover the tile's rows");
+  static_assert(WQ * LQ * QTT == QT, "the FMA warps cover the tile's queries");
+  static_assert(!FMA_TOO || WQ * WR == WM * WN, "both cores run in one block");
   static constexpr int DK = SLICE_BYTES / sizeof(T);     // depth of a k-slice
-  static constexpr int ROW_STRIDE = SLICE_BYTES + 16;    // bytes: 4 mod 8 words
-  // floats: 4 mod 8 words for the FMA core's float4 reads, 8 mod 32 for
-  // the tensor-core core's float2 fragment reads
-  static constexpr int Q_STRIDE = DK + (MMA ? 8 : 4);
+  static constexpr int ROW_STRIDE = SLICE_BYTES + 16;    // bytes: 4 mod 32 words
+  // floats, for conflict-free reads of the queries (see the header): on
+  // the tensor cores 8 mod 32 words for bf16 rows' float2 reads at 2t and
+  // 2t + 8, 4 mod 8 for float32 rows' float4 at 8t + 4kk, 16 mod 32 for
+  // int8's at 16kk + 4t; 4 mod 8 for the FMA core's float4 broadcasts
+  static constexpr int Q_STRIDE = DK + (!MMA ? 4 : BF16 ? 8 : A_PARTS == 3 ? 4 : 16);
   static constexpr int ROWS_BYTES = TILE_ROWS * ROW_STRIDE;
   static constexpr int Q_BYTES = QT * Q_STRIDE * 4;
   static constexpr int STAGE = ROWS_BYTES + Q_BYTES;
@@ -300,10 +357,16 @@ struct Tile {
   static constexpr int SMEM = RING > KEYS ? RING : KEYS;
   static constexpr int ROW_CHUNKS = TILE_ROWS * (SLICE_BYTES / 16) / THREADS;  // a thread's
   static constexpr int Q_CHUNKS = (QT * DK / 4 + THREADS - 1) / THREADS;
+  // int8 rows on the tensor cores: ptxas keeps the registers under what
+  // the blocks that the shared memory holds (228 KB an SM, 1 KB of it
+  // reserved a block) allow; left alone it takes enough to hold one block
+  // fewer (at QT=32, 2 of 3). Other instantiations: no bound (0), which
+  // measured faster (PERF.md)
+  static constexpr int MIN_BLOCKS = MMA && sizeof(T) == 1 ? 233472 / (SMEM + 1024) : 0;
 };
 
 template <typename T, int QT>
-__global__ void __launch_bounds__(Tile<T, QT>::THREADS)
+__global__ void __launch_bounds__(Tile<T, QT>::THREADS, Tile<T, QT>::MIN_BLOCKS)
 topk_tiles(const float* __restrict__ q, const T* __restrict__ vec,
            const float* __restrict__ scales, const float* __restrict__ pen,
            long long pen_stride, const float* __restrict__ min_sim, int B, int C, int D,
@@ -312,9 +375,11 @@ topk_tiles(const float* __restrict__ q, const T* __restrict__ vec,
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* keys = reinterpret_cast<uint64_t*>(smem);  // after the dots: [QT][TILE_ROWS]
 
-  const int row0 = blockIdx.x * TILE_ROWS;
   const int q0 = blockIdx.y * QT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = n_tiles_of(C);
+  const int tile = blockIdx.x;
+  const int row0 = tile * TILE_ROWS;
 
   // k-slice ks into stage st: TILE_ROWS row slices of SLICE_BYTES in
   // 16-byte chunks (each one copy, or 16 / cp_bytes where the rows are not
@@ -376,145 +441,186 @@ topk_tiles(const float* __restrict__ q, const T* __restrict__ vec,
     cp_async_commit();
   }
 
-  if constexpr (G::MMA) {
-    const int wm = warp % G::WM, wn = warp / G::WM;
-    const int g = lane >> 2, t = lane & 3;  // the mma fragments' group and lane in it
-    float acc[G::MT][G::NT][4] = {};
-    // this lane's ldmatrix row of A: row wm * MT * 16 + lane % 16 (+ 16 i),
-    // k from 8 * (lane / 16) (+ 16 per k-step)
-    const unsigned a_lane = smem_addr(smem) +
-                            (wm * G::MT * 16 + (lane & 15)) * G::ROW_STRIDE + (lane >> 4) * 16;
-    // the 4 k-steps of a slice (zero past D), with 3 query parts or 1
-    auto slice = [&](auto split_tag, const unsigned char* sg) {
-      constexpr bool SPLIT = decltype(split_tag)::value;
-      const float* qs = reinterpret_cast<const float*>(sg + G::ROWS_BYTES);
-      const unsigned a_st = a_lane + static_cast<unsigned>(sg - smem);
+  // whether a query chunk this thread copied into the slice at sg is not
+  // bf16-exact (the thread's own copies have landed for it)
+  auto resid_of = [&](const unsigned char* sg) {
+    unsigned resid = 0;
 #pragma unroll
-      for (int kk = 0; kk < G::DK / 16; ++kk) {
-        unsigned a[G::MT][4];
-#pragma unroll
-        for (int i = 0; i < G::MT; ++i)
-          ldmatrix_x4(a_st + i * 16 * G::ROW_STRIDE + kk * 32, a[i][0], a[i][1], a[i][2],
-                      a[i][3]);
-#pragma unroll
-        for (int j = 0; j < G::NT; ++j) {
-          const int n = (wn * G::NT + j) * 8 + g;  // this lane's query of the n8 tile
-          unsigned b[3][2];
-          float2 x0 = make_float2(0.f, 0.f), x1 = x0;
-          if (QT >= 8 || n < QT) {
-            const float* qn = qs + n * G::Q_STRIDE + kk * 16 + 2 * t;
-            x0 = *reinterpret_cast<const float2*>(qn);
-            x1 = *reinterpret_cast<const float2*>(qn + 8);
-          }
-          if (SPLIT) {
-            split2(x0, b[0][0], b[1][0], b[2][0]);
-            split2(x1, b[0][1], b[1][1], b[2][1]);
-          } else {  // bf16-exact: the top halves are the values
-            b[0][0] = pack_top(__float_as_uint(x0.x), __float_as_uint(x0.y));
-            b[0][1] = pack_top(__float_as_uint(x1.x), __float_as_uint(x1.y));
-          }
-#pragma unroll
-          for (int p = 0; p < (SPLIT ? 3 : 1); ++p)
-#pragma unroll
-            for (int i = 0; i < G::MT; ++i)
-              mma_bf16(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[p][0], b[p][1]);
-        }
+    for (int u = 0; u < G::Q_CHUNKS; ++u) {
+      const int e = tid + u * G::THREADS;
+      if (e < QT * (G::DK / 4)) {
+        const int qq = e / (G::DK / 4), c = e % (G::DK / 4);
+        const uint4 w =
+            *reinterpret_cast<const uint4*>(sg + G::ROWS_BYTES + (qq * G::Q_STRIDE + 4 * c) * 4);
+        resid |= (w.x | w.y | w.z | w.w) & 0xFFFFu;
       }
-    };
-    for (int ks = 0; ks < n_slices; ++ks) {
-      cp_async_wait<NSTAGE - 2>();
-      const unsigned char* sg = smem + (ks % NSTAGE) * G::STAGE;
-      // whether a query chunk this thread copied into slice ks is not
-      // bf16-exact (the thread's own copies have landed for it)
-      unsigned resid = 0;
-#pragma unroll
-      for (int u = 0; u < G::Q_CHUNKS; ++u) {
-        const int e = tid + u * G::THREADS;
-        if (e < QT * (G::DK / 4)) {
-          const int qq = e / (G::DK / 4), c = e % (G::DK / 4);
-          const uint4 w =
-              *reinterpret_cast<const uint4*>(sg + G::ROWS_BYTES + (qq * G::Q_STRIDE + 4 * c) * 4);
-          resid |= (w.x | w.y | w.z | w.w) & 0xFFFFu;
-        }
-      }
-      // slice ks landed for all; slice ks - 1's stage is free
-      const bool split = __syncthreads_or(resid != 0);
-      if (ks + NSTAGE - 1 < n_slices) stage(ks + NSTAGE - 1, (ks + NSTAGE - 1) % NSTAGE);
-      cp_async_commit();
-      if (split) slice(std::true_type{}, sg);
-      else slice(std::false_type{}, sg);
     }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring becomes the key buffer
-    // accumulator h of tile (i, j): row g (+8 for h >= 2), query 2t + h % 2
+    return resid != 0;
+  };
+
+  // the tensor-core core
+  auto mma_core = [&]() {
+    if constexpr (G::MMA) {
+      const int wm = warp % G::WM, wn = warp / G::WM;
+      const int g = lane >> 2, t = lane & 3;  // the mma fragments' group and lane in it
+      float acc[G::MT][G::NT][4] = {};
+      // bf16 rows: this lane's ldmatrix row of A, row wm * MT * 16 + lane % 16
+      // (+ 16 i), k from 8 * (lane / 16) (+ 16 per k-step)
+      const unsigned a_lane = smem_addr(smem) +
+                              (wm * G::MT * 16 + (lane & 15)) * G::ROW_STRIDE + (lane >> 4) * 16;
+      // the slice's k-steps (zero past D): (row parts) x (query parts)
+      // products, the query parts 3 where SPLIT, else 1
+      auto slice = [&](auto split_tag, const unsigned char* sg) {
+        constexpr bool SPLIT = decltype(split_tag)::value;
+        constexpr int QP = SPLIT ? 3 : 1;
+        const float* qs = reinterpret_cast<const float*>(sg + G::ROWS_BYTES);
 #pragma unroll
-    for (int i = 0; i < G::MT; ++i)
+        for (int kk = 0; kk < G::DK / 16; ++kk) {
+          // this lane's first element of the k-step: the PTX layout's 2t on
+          // bf16 rows, the k-permutation's e on float32 and int8 rows
+          const int e = G::BF16           ? kk * 16 + 2 * t
+                        : sizeof(T) == 4 ? 8 * t + 4 * kk
+                                         : 16 * kk + 4 * t;
+          unsigned a[G::MT][4][G::A_PARTS];  // tile i's a0..a3, by part
 #pragma unroll
-      for (int j = 0; j < G::NT; ++j)
+          for (int i = 0; i < G::MT; ++i) {
+            if constexpr (G::BF16) {
+              ldmatrix_x4(a_lane + static_cast<unsigned>(sg - smem) + i * 16 * G::ROW_STRIDE +
+                              kk * 32,
+                          a[i][0][0], a[i][1][0], a[i][2][0], a[i][3][0]);
+            } else {  // rows g and g + 8 of the m16 tile
+              const unsigned char* ra =
+                  sg + ((wm * G::MT + i) * 16 + g) * G::ROW_STRIDE + e * sizeof(T);
+              unsigned lo[3], hi[3];
+              parts4<G::A_PARTS == 3>(load4(reinterpret_cast<const T*>(ra)), lo, hi);
 #pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          const int qq = (wn * G::NT + j) * 8 + 2 * t + (h & 1);
-          if (QT >= 8 || qq < QT)
-            emit(qq, (wm * G::MT + i) * 16 + g + 8 * (h >> 1), acc[i][j][h]);
+              for (int pa = 0; pa < G::A_PARTS; ++pa) a[i][0][pa] = lo[pa], a[i][2][pa] = hi[pa];
+              parts4<G::A_PARTS == 3>(load4(reinterpret_cast<const T*>(ra + 8 * G::ROW_STRIDE)),
+                                      lo, hi);
+#pragma unroll
+              for (int pa = 0; pa < G::A_PARTS; ++pa) a[i][1][pa] = lo[pa], a[i][3][pa] = hi[pa];
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < G::NT; ++j) {
+            const int n = (wn * G::NT + j) * 8 + g;  // this lane's query of the n8 tile
+            float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (QT >= 8 || n < QT) {
+              const float* qn = qs + n * G::Q_STRIDE + e;
+              if constexpr (G::BF16) {
+                const float2 x0 = *reinterpret_cast<const float2*>(qn);
+                const float2 x1 = *reinterpret_cast<const float2*>(qn + 8);
+                x = make_float4(x0.x, x0.y, x1.x, x1.y);
+              } else {
+                x = *reinterpret_cast<const float4*>(qn);
+              }
+            }
+            unsigned b0[3], b1[3];
+            parts4<SPLIT>(x, b0, b1);
+#pragma unroll
+            for (int pa = 0; pa < G::A_PARTS; ++pa)
+#pragma unroll
+              for (int pb = 0; pb < QP; ++pb)
+#pragma unroll
+                for (int i = 0; i < G::MT; ++i)
+                  mma_bf16(acc[i][j], a[i][0][pa], a[i][1][pa], a[i][2][pa], a[i][3][pa], b0[pb],
+                           b1[pb]);
+          }
         }
+      };
+      for (int ks = 0; ks < n_slices; ++ks) {
+        cp_async_wait<NSTAGE - 2>();
+        const unsigned char* sg = smem + (ks % NSTAGE) * G::STAGE;
+        // slice ks landed for all; slice ks - 1's stage is free
+        const bool split = __syncthreads_or(resid_of(sg));
+        if (ks + NSTAGE - 1 < n_slices) stage(ks + NSTAGE - 1, (ks + NSTAGE - 1) % NSTAGE);
+        cp_async_commit();
+        if (split) slice(std::true_type{}, sg);
+        else slice(std::false_type{}, sg);
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // the ring becomes the key buffer
+      // accumulator h of tile (i, j): row g (+8 for h >= 2), query 2t + h % 2
+#pragma unroll
+      for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int qq = (wn * G::NT + j) * 8 + 2 * t + (h & 1);
+            if (QT >= 8 || qq < QT)
+              emit(qq, (wm * G::MT + i) * 16 + g + 8 * (h >> 1), acc[i][j][h]);
+          }
+    }
+  };
+
+  // the float32 FMA core
+  auto fma_core = [&]() {
+    if constexpr (!G::BF16) {
+      const int wr = warp % G::WR, wq = warp / G::WR;
+      // this lane's rows: rbase + LR * i (i < RT); queries: qbase + LQ * j (j < QTT)
+      const int rbase = wr * G::LR * G::RT + lane % G::LR;
+      const int qbase = wq * G::LQ * G::QTT + lane / G::LR;
+      float acc[G::RT][G::QTT] = {};
+      // 4 depths of the slice at kk: each accumulator takes its 4 FMAs in k order
+      auto step = [&](const T* rs, const float* qs, int kk) {
+        float4 qv[G::QTT];
+#pragma unroll
+        for (int j = 0; j < G::QTT; ++j)
+          qv[j] = *reinterpret_cast<const float4*>(qs + j * G::LQ * G::Q_STRIDE + kk);
+#pragma unroll
+        for (int i = 0; i < G::RT; ++i) {
+          const float4 v = load4(rs + i * G::LR * (G::ROW_STRIDE / sizeof(T)) + kk);
+#pragma unroll
+          for (int j = 0; j < G::QTT; ++j) {
+            acc[i][j] = fmaf(qv[j].x, v.x, acc[i][j]);
+            acc[i][j] = fmaf(qv[j].y, v.y, acc[i][j]);
+            acc[i][j] = fmaf(qv[j].z, v.z, acc[i][j]);
+            acc[i][j] = fmaf(qv[j].w, v.w, acc[i][j]);
+          }
+        }
+      };
+      for (int ks = 0; ks < n_slices; ++ks) {
+        cp_async_wait<NSTAGE - 2>();
+        __syncthreads();  // slice ks landed for all; slice ks - 1's stage is free
+        if (ks + NSTAGE - 1 < n_slices) stage(ks + NSTAGE - 1, (ks + NSTAGE - 1) % NSTAGE);
+        cp_async_commit();
+        const unsigned char* sg = smem + (ks % NSTAGE) * G::STAGE;
+        const T* rs = reinterpret_cast<const T*>(sg) + rbase * (G::ROW_STRIDE / sizeof(T));
+        const float* qs = reinterpret_cast<const float*>(sg + G::ROWS_BYTES) + qbase * G::Q_STRIDE;
+        const int width = D - ks * G::DK;
+        if (width >= G::DK) {
+#pragma unroll
+          for (int kk = 0; kk < G::DK; kk += 4) step(rs, qs, kk);
+        } else {
+          for (int kk = 0; kk < width; kk += 4) step(rs, qs, kk);
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // the ring becomes the key buffer
+#pragma unroll
+      for (int i = 0; i < G::RT; ++i)
+#pragma unroll
+        for (int j = 0; j < G::QTT; ++j) emit(qbase + j * G::LQ, rbase + i * G::LR, acc[i][j]);
+    }
+  };
+
+  if constexpr (!G::MMA) {
+    fma_core();
+  } else if constexpr (!G::FMA_TOO) {
+    mma_core();
   } else {
-    const int wr = warp % G::WR, wq = warp / G::WR;
-    // this lane's rows: rbase + LR * i (i < RT); queries: qbase + LQ * j (j < QTT)
-    const int rbase = wr * G::LR * G::RT + lane % G::LR;
-    const int qbase = wq * G::LQ * G::QTT + lane / G::LR;
-    float acc[G::RT][G::QTT];
-#pragma unroll
-    for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-      for (int j = 0; j < G::QTT; ++j) acc[i][j] = 0.f;
-
-    // 4 depths of the slice at kk: each accumulator takes its 4 FMAs in k order
-    auto step = [&](const T* rs, const float* qs, int kk) {
-      float4 qv[G::QTT];
-#pragma unroll
-      for (int j = 0; j < G::QTT; ++j)
-        qv[j] = *reinterpret_cast<const float4*>(qs + j * G::LQ * G::Q_STRIDE + kk);
-#pragma unroll
-      for (int i = 0; i < G::RT; ++i) {
-        const float4 v = load4(rs + i * G::LR * (G::ROW_STRIDE / sizeof(T)) + kk);
-#pragma unroll
-        for (int j = 0; j < G::QTT; ++j) {
-          acc[i][j] = fmaf(qv[j].x, v.x, acc[i][j]);
-          acc[i][j] = fmaf(qv[j].y, v.y, acc[i][j]);
-          acc[i][j] = fmaf(qv[j].z, v.z, acc[i][j]);
-          acc[i][j] = fmaf(qv[j].w, v.w, acc[i][j]);
-        }
-      }
-    };
-    for (int ks = 0; ks < n_slices; ++ks) {
-      cp_async_wait<NSTAGE - 2>();
-      __syncthreads();  // slice ks landed for all; slice ks - 1's stage is free
-      if (ks + NSTAGE - 1 < n_slices) stage(ks + NSTAGE - 1, (ks + NSTAGE - 1) % NSTAGE);
-      cp_async_commit();
-      const unsigned char* sg = smem + (ks % NSTAGE) * G::STAGE;
-      const T* rs = reinterpret_cast<const T*>(sg) + rbase * (G::ROW_STRIDE / sizeof(T));
-      const float* qs = reinterpret_cast<const float*>(sg + G::ROWS_BYTES) + qbase * G::Q_STRIDE;
-      const int width = D - ks * G::DK;
-      if (width >= G::DK) {
-#pragma unroll
-        for (int kk = 0; kk < G::DK; kk += 4) step(rs, qs, kk);
-      } else {
-        for (int kk = 0; kk < width; kk += 4) step(rs, qs, kk);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring becomes the key buffer
-
-#pragma unroll
-    for (int i = 0; i < G::RT; ++i)
-#pragma unroll
-      for (int j = 0; j < G::QTT; ++j) emit(qbase + j * G::LQ, rbase + i * G::LR, acc[i][j]);
+    // float32 rows: the FMA core takes a tile whose queries' first slice
+    // is not bf16-exact (float32 queries, whose 9 tensor-core products a
+    // k-step are slower than the FMAs; PERF.md), the tensor cores the rest
+    cp_async_wait<NSTAGE - 2>();
+    if (__syncthreads_or(resid_of(smem))) fma_core();
+    else mma_core();
   }
   __syncthreads();
 
   // one warp per query: the tile's top P keys (unsorted) and its largest
   const unsigned below = (1u << lane) - 1u;
-  const size_t n_tiles = gridDim.x;
   for (int qq = warp; qq < QT && q0 + qq < B; qq += G::WARPS) {
     const int qi = q0 + qq;
     uint64_t k[KPL];  // key r of the tile at lane r % 32, k[r / 32]
@@ -526,8 +632,8 @@ topk_tiles(const float* __restrict__ q, const T* __restrict__ vec,
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) mx = kmax(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane == 0) tmax[qi * n_tiles + blockIdx.x] = mx;
-    uint64_t* out = partial + (qi * n_tiles + blockIdx.x) * P;
+    if (lane == 0) tmax[static_cast<size_t>(qi) * n_tiles + tile] = mx;
+    uint64_t* out = partial + (static_cast<size_t>(qi) * n_tiles + tile) * P;
     if (P == TILE_ROWS) {  // every key of the tile is kept
 #pragma unroll
       for (int i = 0; i < KPL; ++i) out[lane + 32 * i] = k[i];
@@ -677,8 +783,6 @@ topk_merge(const uint64_t* __restrict__ src, int n_in, int m,
 
 int partial_width(int m) { return m < TILE_ROWS ? m : TILE_ROWS; }
 
-int n_tiles_of(int C) { return (C + TILE_ROWS - 1) / TILE_ROWS; }
-
 // The threshold merge serves m up to pass 1's partial width when there
 // are at least m tiles; the tree serves the rest.
 bool threshold_merge(int C, int m) { return m <= TILE_ROWS && n_tiles_of(C) >= m; }
@@ -699,7 +803,10 @@ cudaError_t launch_tiles(QTile<QT>, cudaStream_t s, const float* q, const void* 
   const long long row_bytes = static_cast<long long>(D) * sizeof(T);
   const int cp_bytes = row_bytes % 16 == 0 && a % 16 == 0 ? 16
                        : row_bytes % 8 == 0 && a % 8 == 0 ? 8 : 4;
-  dim3 grid(n_tiles_of(C), (B + QT - 1) / QT);
+  // one block a tile (scripts/topk_check.py --sweep times grids of fewer
+  // blocks, each walking its tiles)
+  const int grid_x = n_tiles_of(C);
+  dim3 grid(grid_x, (B + QT - 1) / QT);
   kernel<<<grid, Tile<T, QT>::THREADS, smem, s>>>(q, static_cast<const T*>(vec), scales, pen,
                                                   pen_stride, min_sim, B, C, D, P, cp_bytes,
                                                   partial, tmax);

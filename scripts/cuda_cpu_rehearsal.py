@@ -8,6 +8,7 @@ shapes. It checks indexing, fragment layouts and arithmetic, not speed.
     python3 scripts/cuda_cpu_rehearsal.py topk        # ops/csrc/topk.cu
     python3 scripts/cuda_cpu_rehearsal.py topk --source other.cu
     python3 scripts/cuda_cpu_rehearsal.py topk --bf16 # the bf16-row cases alone
+    python3 scripts/cuda_cpu_rehearsal.py topk --f32-int8  # the float32/int8-row cases
 
 The source is rewritten for g++ on the way: every device function whose
 body holds inline ``asm`` is dropped (the shim defines the same names:
@@ -145,9 +146,10 @@ def rehearse_proj(lib) -> None:
 # (name, B, C, D, m, row type, penalty form, special): special "dup" and
 # "equal" put rows and queries on a 1/8 grid (every dot exact, ties exact),
 # "few" leaves 25 live rows, "gated" gates every row of query 1; "qbf16"
-# rounds the queries to bf16 (the engine's queries: one product a k-step
-# on bf16 rows), "qmixed" every other one; other bf16 cases keep float32
-# queries, which take all three parts of the split.
+# rounds the queries to bf16 (the engine's queries: one query part a
+# k-step), "qmixed" every other one, "qhalf" the first half of each;
+# other cases keep float32 queries, which take all three parts of the
+# split.
 TOPK_CASES = [
     ("f32", 5, 700, 64, 40, torch.float32, "bc", None),
     ("B=1", 1, 900, 64, 40, torch.float32, "bc", None),
@@ -196,6 +198,42 @@ TOPK_CASES = [
     ("select bf16", 3, 1300, 64, 8, torch.bfloat16, "bc", None),
 ]
 BF16_CASES = [c for c in TOPK_CASES if c[5] == torch.bfloat16]
+# float32 and int8 rows: every query tile (float32 rows on the tensor
+# cores from MMA_QT_F32 = 32 queries a tile, int8 rows from 4; the FMA
+# core below), each with float32 queries (float32 rows: the FMA slices;
+# int8: 3 products a k-step), the engine's bf16-exact ones (3; 1), a tile
+# mixing both, and
+# queries bf16-exact in their first half of D only (the choice changes
+# from slice to slice); D under one k-step (20), past a float32 slice
+# (36), past an int8 slice (132), long and not a multiple of 16 (1540);
+# ties, a [C] penalty and the threshold merge
+F32_INT8_CASES = [
+    ("f32 B=32 half", 32, 300, 64, 10, torch.float32, "bc", "qhalf"),
+    ("f32 B=20 D=36 q bf16", 20, 300, 36, 10, torch.float32, "c", "qbf16"),
+    ("f32 B=17 D=20 mixed", 17, 200, 20, 10, torch.float32, "bc", "qmixed"),
+    ("f32 B=12 mixed", 12, 300, 64, 10, torch.float32, "c", "qmixed"),
+    ("f32 B=5", 5, 300, 64, 12, torch.float32, "bc", None),
+    ("f32 B=3 q bf16", 3, 300, 64, 10, torch.float32, "bc", "qbf16"),
+    ("f32 B=1 q bf16", 1, 400, 64, 10, torch.float32, "bc", "qbf16"),
+    ("f32 D=1540 mixed", 2, 140, 1540, 5, torch.float32, "bc", "qmixed"),
+    ("f32 D=132 half", 3, 300, 132, 10, torch.float32, "bc", "qhalf"),
+    ("f32 ties", 17, 700, 32, 40, torch.float32, "c", "equal"),
+    ("select f32 q bf16", 17, 700, 64, 5, torch.float32, "bc", "qbf16"),
+    ("int8 B=32 q bf16", 32, 300, 64, 10, torch.int8, "bc", "qbf16"),
+    ("int8 B=12", 12, 300, 64, 10, torch.int8, "c", None),
+    ("int8 B=5 mixed", 5, 300, 64, 12, torch.int8, "bc", "qmixed"),
+    ("int8 B=3 q bf16", 3, 300, 64, 10, torch.int8, "bc", "qbf16"),
+    ("int8 B=1 q bf16", 1, 400, 64, 10, torch.int8, "bc", "qbf16"),
+    ("int8 B=1", 1, 400, 64, 10, torch.int8, "c", None),
+    ("int8 D=20 q bf16", 3, 300, 20, 10, torch.int8, "bc", "qbf16"),
+    ("int8 D=36 mixed", 3, 300, 36, 10, torch.int8, "c", "qmixed"),
+    ("int8 D=132 q bf16", 2, 500, 132, 9, torch.int8, "bc", "qbf16"),
+    ("int8 D=1540 mixed", 2, 140, 1540, 5, torch.int8, "bc", "qmixed"),
+    ("int8 D=260 half", 2, 300, 260, 10, torch.int8, "c", "qhalf"),
+    ("int8 ties", 2, 700, 32, 40, torch.int8, "c", "equal"),
+    ("select int8 q bf16", 3, 1300, 64, 8, torch.int8, "c", "qbf16"),
+]
+TOPK_CASES += F32_INT8_CASES
 
 
 def rehearse_topk(lib, cases=TOPK_CASES) -> None:
@@ -230,7 +268,9 @@ def rehearse_topk(lib, cases=TOPK_CASES) -> None:
             q = q.to(torch.bfloat16).float()
         if special == "qmixed":
             q[1::2] = q[1::2].to(torch.bfloat16).float()
-        if dtype == torch.bfloat16 and special not in ("qbf16", "dup", "equal"):
+        if special == "qhalf":
+            q[:, :d // 2] = q[:, :d // 2].to(torch.bfloat16).float()
+        if special not in ("qbf16", "dup", "equal"):
             assert bool(bf16_parts(q[0])[2].ne(0).any()), f"{name}: no query needs 3 parts"
         shape = (b, c) if pen_form == "bc" else (c,)
         pen = torch.where(torch.rand(shape, generator=g) < 0.3, NEG_INF, 0.0)
@@ -266,6 +306,8 @@ def main() -> None:
     ap.add_argument("kernel", choices=["proj", "topk"])
     ap.add_argument("--source", help="the .cu file (default: the package's)")
     ap.add_argument("--bf16", action="store_true", help="topk: only the bf16-row cases")
+    ap.add_argument("--f32-int8", action="store_true",
+                    help="topk: only F32_INT8_CASES (float32 and int8 rows)")
     args = ap.parse_args()
     source = args.source or os.path.join(
         CSRC, "proj_scan.cu" if args.kernel == "proj" else "topk.cu")
@@ -274,7 +316,8 @@ def main() -> None:
         if args.kernel == "proj":
             rehearse_proj(lib)
         else:
-            rehearse_topk(lib, BF16_CASES if args.bf16 else TOPK_CASES)
+            rehearse_topk(lib, BF16_CASES if args.bf16 else
+                          F32_INT8_CASES if args.f32_int8 else TOPK_CASES)
 
 
 if __name__ == "__main__":

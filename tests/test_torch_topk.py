@@ -197,27 +197,35 @@ def test_kernel_matches_plain_on_card(dtype, b, c, m, pen_form, special):
         assert (kv[1] <= NEG_INF / 2).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("qkind,b,d,c,m,pen_form,special", [
-    # the engine's bf16-exact queries (one product a k-step), float32
-    # queries with a nonzero lo part (three), and one tile mixing both
+# (query kind, B, D, C, m, penalty form, special) of the tensor-core core's
+# card tests: the engine's bf16-exact queries (one query part a k-step),
+# float32 queries with a nonzero lo part (three), and one tile mixing both;
+# D not a multiple of 16 (under one k-slice; past 24 of them), B=5 (an
+# 8-query tile) and B=33 (a second 32-query tile), a [C] penalty; every
+# row one row: all scores tie, the lower row first
+ON_CARD_ROWS = [
     ("exact", 32, 1536, 20000, 40, "bc", None), ("split", 32, 1536, 20000, 40, "bc", None),
     ("mixed", 32, 1536, 20000, 40, "bc", None),
-    # D not a multiple of 16 (under one k-slice; past 24 of them), B=5
-    # (an 8-query tile) and B=33 (a second 32-query tile), a [C] penalty
     ("split", 5, 20, 3000, 10, "bc", None), ("exact", 5, 20, 3000, 10, "c", None),
     ("mixed", 33, 1540, 5000, 40, "bc", None), ("split", 33, 1540, 5000, 40, "c", None),
     ("exact", 12, 1536, 5000, 40, "c", None), ("split", 1, 1536, 70144, 40, "bc", None),
-    # every row one row: all scores tie, the lower row first
-    ("exact", 4, 1536, 5000, 40, "c", "ties"), ("split", 4, 1536, 5000, 40, "c", "ties")])
-def test_bf16_rows_on_card(qkind, b, d, c, m, pen_form, special):
-    """bf16 rows on the tensor cores against the plain version, for every
-    kind of float32 query the kernel's exact split meets."""
+    ("exact", 4, 1536, 5000, 40, "c", "ties"), ("split", 4, 1536, 5000, 40, "c", "ties")]
+
+
+def _rows_on_card(dtype, qkind, b, d, c, m, pen_form, special):
+    """`dtype` rows on the tensor cores against the plain version, for
+    every kind of float32 query the kernel's exact split meets."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from mobius_rag_tpu_torch.ops.quant import quantize_rows
+
     g = torch.Generator(device="cuda").manual_seed(c + d + b)
     v = torch.randn(1 if special == "ties" else c, d, device="cuda", generator=g)
-    v = (v / v.norm(dim=1, keepdim=True)).expand(c, d).to(torch.bfloat16).contiguous()
+    v = (v / v.norm(dim=1, keepdim=True)).expand(c, d)
+    scales = None
+    if dtype == torch.int8:
+        v, scales = quantize_rows(v)
+    v = v.to(dtype).contiguous()
     q = torch.randn(b, d, device="cuda", generator=g)
     q = q / q.norm(dim=1, keepdim=True)
     if qkind == "exact":
@@ -231,10 +239,28 @@ def test_bf16_rows_on_card(qkind, b, d, c, m, pen_form, special):
     pen = torch.where(torch.rand(shape, device="cuda", generator=g) < gate, NEG_INF, 0.0)
     min_sim = torch.where(torch.arange(b, device="cuda") % 2 == 1, 0.02, 0.0)
     before = masked_topk.launches
-    kv, ki = masked_topk(q, v, pen, min_sim, m)
+    kv, ki = masked_topk(q, v, pen, min_sim, m, row_scales=scales)
     torch.cuda.synchronize()
     assert masked_topk.launches == before + 1
-    rv, ri = masked_topk_reference(q, v, pen, min_sim, m)
+    rv, ri = masked_topk_reference(q, v, pen, min_sim, m, row_scales=scales)
     assert_topk_equal(kv.cpu(), ki.cpu(), rv.cpu(), ri.cpu(), tie=1e-5, atol=1e-4)
     if special == "ties":
         assert torch.equal(ki.cpu(), torch.arange(m, dtype=torch.int32).expand(b, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qkind,b,d,c,m,pen_form,special", ON_CARD_ROWS)
+def test_bf16_rows_on_card(qkind, b, d, c, m, pen_form, special):
+    """bf16 rows on the tensor cores against the plain version, for every
+    kind of float32 query the kernel's exact split meets."""
+    _rows_on_card(torch.bfloat16, qkind, b, d, c, m, pen_form, special)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("qkind,b,d,c,m,pen_form,special", ON_CARD_ROWS)
+def test_f32_int8_rows_on_card(dtype, qkind, b, d, c, m, pen_form, special):
+    """float32 rows (three bf16 parts each) and int8 rows (widened to bf16
+    exactly) through the k-permuted fragments of the tensor-core core,
+    against the plain version, for every kind of float32 query."""
+    _rows_on_card(getattr(torch, dtype), qkind, b, d, c, m, pen_form, special)

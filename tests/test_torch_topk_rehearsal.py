@@ -1,10 +1,12 @@
-"""The masked top-k kernel's bf16-row core, compiled with g++ against
+"""The masked top-k kernel's tensor-core core, compiled with g++ against
 ``scripts/cuda_cpu_shim.h`` and run on the CPU at tiny shapes (one thread
 per CUDA thread; ldmatrix and mma.sync m16n8k16 bf16 with the PTX ISA's
 fragment layouts): each case of ``scripts/cuda_cpu_rehearsal.py``'s bf16
-subset against the plain version. It holds the fragment layouts, the
-exact split of float32 queries and the per-slice choice of 1 or 3
-products without a card.
+subset and of its float32/int8 subset against the plain version. It holds
+the fragment layouts (the PTX ISA's on bf16 rows, the k-permutation on
+float32 and int8 rows), the exact split of float32 queries and float32
+rows, the exact widening of int8 rows and the per-slice choice of 1 or 3
+query parts without a card.
 
 Tolerances: values within 1e-4, ids equal wherever neighbouring values
 differ by more than 1e-5 (the card's phase-2 check); exact tie order on
@@ -33,4 +35,10 @@ def topk_lib():
 
 @pytest.mark.parametrize("case", rehearsal.BF16_CASES, ids=[c[0] for c in rehearsal.BF16_CASES])
 def test_bf16_core_matches_plain_on_cpu_shim(topk_lib, case):
+    rehearsal.rehearse_topk(topk_lib, [case])
+
+
+@pytest.mark.parametrize("case", rehearsal.F32_INT8_CASES,
+                         ids=[c[0] for c in rehearsal.F32_INT8_CASES])
+def test_f32_int8_core_matches_plain_on_cpu_shim(topk_lib, case):
     rehearsal.rehearse_topk(topk_lib, [case])
