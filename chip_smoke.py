@@ -8,10 +8,14 @@ corpus with the proj ANN backend under dense and candidate-local filter
 gating (phase 4), and on the 10M-chunk host-residency configuration:
 proj codes on the card, int8 rows in host RAM, the funnel and the exact
 host re-rank (phase 5; N is cut to 5M or 2M when the time or the host's
-RAM would not hold 10M, and the cut is printed). Phases 3-5 hold the
-overlapped search_pipelined to one search per batch (ids, scores
-bitwise) and print its queries/s and the device's busy share beside the
-sync path's. Phase 6, the served path, runs from the stores of phases 3
+RAM would not hold 10M, and the cut is printed). Every engine serves its
+batches as captured CUDA graphs, one per batch shape
+(``query/compiled.py``); phases 3, 3b and 4's path A also run the eager
+program on the same engine, in turns with the captured one (eager,
+graph, graph, eager), and hold one batch's outputs bitwise across the
+two. Phases 3-5 hold the overlapped search_pipelined to one search per
+batch (ids, scores bitwise) and print its queries/s and the device's busy
+share beside the sync path's. Phase 6, the served path, runs from the stores of phases 3
 and 4: the 70k exact and the 1M path-A engines behind the micro-batcher
 under open-loop Poisson arrivals at 100, 500 and 2,000 queries/s, and
 the retrieval agent (CorpusSearchAgent) on ~24 questions at 70k x 1536.
@@ -72,6 +76,7 @@ fall back to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import time
@@ -790,6 +795,7 @@ def phase3_slice(smi: str, vector_dtype: str = "float32", dev: str = "cuda",
                                        q["min_sim"], m, row_scales=scales)
     _compare(vals[0], gidx[0], rv, ri)
     busy_line, _ = _busy_line(engine, bench_reqs, dev)
+    turns = _graph_turns(engine, bench_reqs, pipe_batches, name, smi, dev)
 
     qps = float(np.median(rounds))
     single_ms = float(np.median(singles))
@@ -803,7 +809,8 @@ def phase3_slice(smi: str, vector_dtype: str = "float32", dev: str = "cuda",
         f"{N_BATCHES} batches (median of {[round(x, 1) for x in pipe_rounds]}), single query "
         f"{single_ms:.3f} ms (median of 10) on {smi}")
     log(f"{name}: {busy_line} on {smi}")
-    out = {"launches": launches, "recall": recall, "qps": qps, "single_ms": single_ms}
+    out = {"launches": launches, "recall": recall, "qps": qps, "single_ms": single_ms,
+           "graphs": turns}
     if vector_dtype == "float32":
         pool = [hybrid_req(i) for i in range(nq)]
         out["launches_served"] = phase6_served(engine, pool, "70k exact", masked_topk, smi, dev)
@@ -1001,11 +1008,136 @@ def _pipelined_check(engine, batches, name: str) -> tuple[list, list]:
     return rounds, 5 * len(batches)
 
 
+def _packed_bitwise(engine, reqs, name: str) -> None:
+    """One batch of `reqs` through the engine's program eagerly, then
+    captured twice (the second a replay): the two packed output arrays
+    bitwise equal across all three."""
+    ann, local = engine._tables()
+    q, exps = engine.prepare_host(reqs)
+    outs = []
+    for graphs in (False, True, True):
+        engine.graphs = graphs
+        f, i = engine._packed(q, exps, ann, local, K)
+        outs.append((f.cpu().numpy().view(np.int32), i.cpu().numpy()))
+    engine.graphs = True
+    for f, i in outs[1:]:
+        if not (np.array_equal(f, outs[0][0]) and np.array_equal(i, outs[0][1])):
+            raise AssertionError(f"{name}: the captured program's outputs differ from "
+                                 "the eager program's")
+
+
+def _host_split(engine, batches) -> dict:
+    """search_pipelined over `batches`, the host's own time (no
+    synchronisation) by stage, ms a batch: prepare (host arrays), enqueue
+    (the upload and the device program: a graph's replay, or the eager
+    operators), unpack (the fetched arrays), assemble; wall beside them."""
+    spans = {"prepare": 0.0, "enqueue": 0.0, "unpack": 0.0, "assemble": 0.0}
+    for attr, key in (("prepare_host", "prepare"), ("_dispatch", "enqueue"),
+                      ("_finish", "unpack"), ("_assemble", "assemble")):
+        fn = getattr(engine, attr)
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            spans[_key] += time.perf_counter() - t0
+            return out
+        setattr(engine, attr, timed)
+    try:
+        t0 = time.perf_counter()
+        engine.search_pipelined(batches, k=K)
+        wall = time.perf_counter() - t0
+    finally:
+        for attr in ("prepare_host", "_dispatch", "_finish", "_assemble"):
+            delattr(engine, attr)
+    n = len(batches)
+    return {**{key: v * 1e3 / n for key, v in spans.items()}, "wall": wall * 1e3 / n}
+
+
+def _graph_turns(engine, reqs, batches, name: str, smi: str, dev) -> dict:
+    """The engine's program eager against captured, on one engine and
+    store, in turns (eager, graph, graph, eager): queries/s at batch BATCH
+    sync (N_BATCHES searches) and pipelined (search_pipelined over
+    `batches`), the host's ms a batch by stage (pipelined), and the
+    device's busy share (one profiled turn of each); captures, capture ms
+    and the graphs' pool bytes; and one batch bitwise across the two. An
+    engine that cannot capture (on the CPU) has none of these."""
+    if engine._programs is None:
+        return {}
+    import gc
+
+    _packed_bitwise(engine, reqs, name)
+    n = sum(len(b) for b in batches)
+    turns = []
+    # the store's records out of the collector: a full collection inside a
+    # timed or profiled window (0.3 s at 70k rows) would stall one turn
+    gc.collect()
+    gc.freeze()
+    try:
+        for graphs in (False, True, True, False):
+            turns.append(_graph_turn(engine, graphs, reqs, batches, n, len(turns) < 2, dev))
+    finally:
+        gc.unfreeze()
+    engine.graphs = True
+    cache = engine._programs
+    for t in turns:
+        how = "graph" if t["graphs"] else "eager"
+        h = t["host_ms"]
+        line = (f"{name}: {how}: {t['sync_qps']:.1f} q/s sync, {t['pipelined_qps']:.1f} "
+                f"pipelined; host ms a batch (pipelined): prepare {h['prepare']:.3f}, "
+                f"enqueue {h['enqueue']:.3f}, unpack {h['unpack']:.3f}, assemble "
+                f"{h['assemble']:.3f}, wall {h['wall']:.3f}")
+        if "busy" in t:
+            line += "; " + ", ".join(
+                f"{mode} device busy {b:.3f} of {w:.3f} ms a batch ({100 * b / w:.1f}%)"
+                for mode, (b, w) in t["busy"].items())
+        log(line + f" on {smi}")
+    ms = cache.capture_ms
+    log(f"{name}: {cache.captures} captures (ms median {np.median(ms):.1f}, max "
+        f"{max(ms):.1f}), {cache.replays} replays, {len(cache.graphs)} graphs kept; the "
+        f"graphs' pool holds {cache.pool_bytes() / 2**20:.1f} MiB; one batch's packed "
+        f"outputs bitwise equal eager and captured (in turns eager, graph, graph, eager) "
+        f"on {smi}")
+    return {"turns": turns, "captures": cache.captures, "capture_ms": list(ms),
+            "pool_bytes": cache.pool_bytes()}
+
+
+def _graph_turn(engine, graphs: bool, reqs, batches, n: int, profiled: bool, dev) -> dict:
+    """One turn of _graph_turns, eager or captured."""
+    engine.graphs = graphs
+    engine.search(reqs, k=K)  # the keys of this turn warm
+    t0 = time.perf_counter()
+    for _ in range(N_BATCHES):
+        engine.search(reqs, k=K)
+    sync = BATCH * N_BATCHES / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    engine.search_pipelined(batches, k=K)
+    piped = n / (time.perf_counter() - t0)
+    turn = {"graphs": graphs, "sync_qps": sync, "pipelined_qps": piped,
+            "host_ms": _host_split(engine, batches)}
+    if profiled:
+        busy = _device_busy_share(lambda: [engine.search(reqs, k=K) for _ in range(4)], 4, dev)
+        pbusy = _device_busy_share(lambda: engine.search_pipelined(batches, k=K),
+                                   len(batches), dev)
+        turn["busy"] = {"sync": busy[:2], "pipelined": pbusy[:2]}
+    return turn
+
+
+@contextlib.contextmanager
+def _eagerly(engine):
+    """The engine's program runs eagerly inside: a graph's replay calls no
+    Python, so a wrapper around a device function sees nothing of it."""
+    graphs, engine.graphs = engine.graphs, False
+    try:
+        yield
+    finally:
+        engine.graphs = graphs
+
+
 def _scan_args(engine, reqs) -> tuple:
     """The arguments of the first proj scan (proj_blocks or
     proj_gated_blocks, from the proj or the packed backend) of one search
-    of `reqs`: its probe array's distinct clusters are what the scan must
-    read, once each."""
+    of `reqs`, run eagerly (a graph's replay calls no wrapper): its probe
+    array's distinct clusters are what the scan must read, once each."""
     from mobius_rag_tpu_torch.index import ivf as ivf_mod
     from mobius_rag_tpu_torch.ops import proj as proj_mod
 
@@ -1023,7 +1155,8 @@ def _scan_args(engine, reqs) -> tuple:
     for (mod, name), fn in zip(slots, saved):
         setattr(mod, name, recorded(fn))
     try:
-        engine.search(reqs, k=K)
+        with _eagerly(engine):
+            engine.search(reqs, k=K)
     finally:
         for (mod, name), fn in zip(slots, saved):
             setattr(mod, name, fn)
@@ -1554,6 +1687,7 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
             f"(median of 10); by kernel, sync (ms/batch) "
             + ", ".join(f"{k} {v:.3f}" for k, v in top.items()) + f" on {smi}")
         log(f"phase 4: path {path}: {busy_line} on {smi}")
+    turns = _graph_turns(engine_a, bench_reqs, pipe_batches, "phase 4: path A", smi, dev)
     from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks
 
     served_launches = phase6_served(engine_a, [hybrid_req(i) for i in range(nq)],
@@ -1608,7 +1742,7 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
                          "proj_blocks_served": served_launches,
                          "proj_gated_blocks": rb["launches"]["proj_gated_blocks"]},
             "build_s_per_m": (stages["records"] + stages["bulk_load"]) / (n_rows / 1e6),
-            "phase8": p8, "phase10": p10}
+            "phase8": p8, "phase10": p10, "graphs": turns}
 
 
 # ---------------------------------------------------------------------------
@@ -1994,11 +2128,13 @@ def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
 
     rec_id, rec_tie, rec_fam = _recall_10m(store, recall_res, qv, best_v, best_i, nb)
 
-    # the host re-rank and merged_topk per batch, then the profiler
+    # the host re-rank and merged_topk per batch (the program run eagerly:
+    # a graph's replay calls no Python), then the profiler
     with _Spans([(SearchEngine, "_host_rerank", "host re-rank"),
                  (proj_mod, "merged_topk", "merged_topk")], dev) as timed:
-        for _ in range(4):
-            engine.search(bench_reqs, k=K)
+        with _eagerly(engine):
+            for _ in range(4):
+                engine.search(bench_reqs, k=K)
     timed = {key: [(t1 - t0) * 1e3 for t0, t1 in spans]
              for key, spans in timed.spans.items()}
     busy_line, (_, _, top, proj_ms) = _busy_line(engine, bench_reqs, dev)
@@ -2057,10 +2193,13 @@ def _table_bytes(ann) -> int:
 
 def _release(engine) -> None:
     """Detach an engine from its store (the store's listeners hold it) and
-    drop its tables, so their device memory is freed."""
+    drop its tables and its captured graphs, so their device memory is
+    freed."""
     engine.store.listeners.remove(engine._on_store_mutation)
     engine._ann = None
     engine._reset_ann_incremental()
+    if engine._programs is not None:  # the graphs hold the tables too
+        engine._programs.clear()
 
 
 def _time_packed_scan(engine, reqs) -> dict:

@@ -92,7 +92,8 @@ def profile_engine(engine, reqs: Sequence, k: int | None = None,
     device = engine.device
 
     t0 = time.perf_counter()
-    q, exps = engine.prepare_batch(reqs)
+    host, exps = engine.prepare_host(reqs)
+    q = engine._device_batch(host)  # the union columns the served program reads
     prepare_ms = (time.perf_counter() - t0) * 1e3
 
     index = engine.store.index

@@ -1,0 +1,254 @@
+"""Captured search programs: the port of the JAX engine's compiled batch
+program (``mobius_rag_tpu/query/engine.py:684-753``, ``_search_compiled``,
+jitted on k, over_fetch, rrf_k, nprobe, funnel, approx, tag_level and the
+input shapes, its programs kept across processes by
+``mobius_rag_tpu/utils/jit_cache.py``).
+
+On a CUDA device ``SearchEngine`` serves each batch as the replay of one
+CUDA graph. The graph covers, from a static input block on, the queries'
+bf16 cast, ``search_batch`` and ``pack_device``: a batch costs the host one
+host-to-device copy of its prepared arrays and one replay, where the eager
+program enqueues ~1,300-1,600 operators. :class:`CapturedPrograms` keeps
+one graph per key:
+
+- the program's static arguments, as the engine passes them (device k,
+  funnel, over_fetch, rrf_k, nprobe, approximate top-k, tag level, the
+  ANN tables' class);
+- the layout of the batch as it goes up (:func:`batch_layout`: each
+  array's name, shape and type; so B, the lexical union columns the
+  program reads, and whether ``strict_total`` rides);
+- the identity (address, shape, type) of every tensor of the tables the
+  program reads: the index fields, the ANN tables, the local-gating
+  structures. A graph bakes their addresses in. In-place writes (appends,
+  deletes, the reserved-slab ANN maintenance) keep the identities, and a
+  replay reads what they wrote, as the eager program does; ``grow``,
+  ``bulk_load``, a postings resize or an ANN rebuild replace tensors, and
+  every graph of the old tables is dropped at the next batch. An entry
+  holds references to those tensors, so a replay never reads freed
+  memory.
+
+The first batch of a key runs the program eagerly on the key's static
+inputs (it builds the kernels, makes the cuBLAS handles, loads the
+modules), and that run is the batch's answer. Then the key is captured.
+``torch.cuda.graph`` synchronizes the device first: the counterpart of
+the JAX program's first-call compile. Nothing here catches a failed
+capture or replay, and nothing serves a key eagerly after one.
+
+Threads: captures run with ``capture_error_mode="thread_local"``. A host
+sync inside the program (it runs on the capturing thread) raises during
+the capture, and other threads may go on allocating device memory and
+copying synchronously meanwhile, which the default "global" mode refuses
+to every thread while any capture is open (the other thread's call
+raises). The served API needs that: documents are
+published from the request handlers and the retag thread while searches
+run on the micro-batcher's thread. A device-wide synchronize from any
+thread still breaks an open capture, in either mode, and
+``torch.cuda.graph`` makes one on entry; so the engine holds :data:`LOCK`
+across a captured batch's upload, replay or capture, and the enqueue of
+its output copies. Captures then never overlap, and no thread's batch
+reaches a graph's static inputs, or the pool's memory, between another
+thread's replay and its copies (the port's threads share the legacy
+default stream, so the order they enqueue in is the order the device
+runs). The capture stream is one of PyTorch's pool streams, which do not
+synchronize with the legacy default stream, so another thread's work
+there neither joins nor breaks a capture.
+
+Memory: one engine's graphs share one memory pool
+(``torch.cuda.graph_pool_handle``), and an LRU bounds them to
+``max_graphs`` keys. A shared pool is safe under one rule, which the
+engine keeps: a graph's static outputs are never read after a later
+replay, of the same graph or of another graph in the pool (another
+graph's replay may write its transients where this graph's outputs lie).
+``search`` and ``search_pipelined`` alike enqueue their copies to
+page-locked host buffers right behind the replay, on the same stream,
+under :data:`LOCK`.
+
+Launch counts: the kernel wrappers count their launches in Python, so a
+replay alone would count none. Each key records the counters' deltas
+during its capture, takes them back (a capture launches nothing), and
+adds them on every replay.
+
+Every single-device backend captures: exact, ivf, packed, pq and proj,
+under dense and candidate-local gating and under host residency; none
+reads a device value back inside its program. A sharded engine
+(``parallel.ShardedEngine``) runs eagerly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import OrderedDict
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_gated_blocks
+from mobius_rag_tpu_torch.ops.topk import masked_topk
+
+# The kernel wrappers whose launch counts a replay must add.
+COUNTED = (masked_topk, proj_blocks, proj_gated_blocks)
+# Held across a captured batch's upload, replay or capture, and the enqueue
+# of its output copies, by every engine of the process (module docstring).
+LOCK = threading.Lock()
+# Keys kept per engine: 6 batch sizes x ~10 union widths read, for a
+# few k or tag levels.
+MAX_GRAPHS = 128
+
+# Every prepared array is 4 bytes an element on the device: uint32 bitsets
+# travel as their int32 bit patterns, the queries as float32.
+_DEVICE_DTYPE = {np.dtype(np.int32): torch.int32, np.dtype(np.uint32): torch.int32,
+                 np.dtype(np.float32): torch.float32}
+
+
+def batch_layout(q: dict[str, np.ndarray]) -> tuple:
+    """(name, shape, device type) of each host array of a prepared batch,
+    in order: the layout of its static input block."""
+    return tuple((key, a.shape, _DEVICE_DTYPE[a.dtype]) for key, a in q.items())
+
+
+def _views(block: torch.Tensor, layout: tuple) -> dict[str, torch.Tensor]:
+    """The arrays of `layout`, cut from a uint8 block in order (every type
+    is 4 bytes wide, so the views stay aligned)."""
+    out, off = {}, 0
+    for key, shape, dtype in layout:
+        n = 4 * int(np.prod(shape, dtype=np.int64))
+        out[key] = block[off:off + n].view(dtype).reshape(shape)
+        off += n
+    return out
+
+
+def to_device(host: dict[str, np.ndarray], device: torch.device,
+              out: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """Host arrays (int32, uint32 bit patterns or float32) → tensors on
+    `device`, uint32 as int32. On a card they travel as one block of
+    page-locked memory in one non-blocking copy on the current stream, then
+    are cut into views: the host does not wait for the device. ``out``, a
+    uint8 block of the batch's size on `device` (a captured program's
+    static input), takes the bytes in place of a fresh block."""
+    arrays = {key: np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a)
+              for key, a in host.items()}
+    buf = torch.empty(sum(a.nbytes for a in arrays.values()), dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    flat = buf.numpy()
+    off = 0
+    for a in arrays.values():
+        flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        off += a.nbytes
+    if out is None:
+        out = buf.to(device, non_blocking=True)  # on the CPU: `buf` itself
+    else:
+        out.copy_(buf, non_blocking=True)
+    return _views(out, batch_layout(arrays))
+
+
+@dataclasses.dataclass
+class _Entry:
+    graph: Any  # torch.cuda.CUDAGraph, or what _capture returns
+    block: torch.Tensor  # the static input block
+    static: dict[str, torch.Tensor]  # its views, the program's arguments
+    outputs: Any  # the static outputs, rewritten by every replay
+    held: tuple  # the tables' tensors, kept alive while the graph is
+    deltas: tuple[int, ...]  # launches per replay, one per COUNTED wrapper
+    capture_ms: float
+
+
+def identity(tensors: Sequence[torch.Tensor]) -> tuple:
+    """What a graph bakes in of each tensor: its address, shape and type."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+
+class CapturedPrograms:
+    """One engine's captured search programs on a CUDA device (see the
+    module docstring). ``run`` serves one batch; ``captures``,
+    ``capture_ms``, ``replays`` and :meth:`pool_bytes` report on them."""
+
+    def __init__(self, device, max_graphs: int = MAX_GRAPHS):
+        self.device = torch.device(device)
+        self._check_device()
+        self.max_graphs = max_graphs
+        self.graphs: "OrderedDict[tuple, _Entry]" = OrderedDict()
+        self.tables: tuple | None = None  # identity of the tables of every graph kept
+        self.captures = 0
+        self.capture_ms: list[float] = []  # one per capture, in order
+        self.replays = 0
+        self._pool = None
+        self._stream = None
+
+    def _check_device(self) -> None:
+        if self.device.type != "cuda":
+            raise ValueError(f"captured programs run on a CUDA device, not {self.device}; "
+                             "an engine on the CPU runs its program eagerly")
+
+    def clear(self) -> None:
+        """Drop every graph (and the tables they hold). A pool whose graphs
+        are all gone is released and cannot take another capture, so the
+        next capture opens a new one."""
+        self.graphs.clear()
+        self.tables = None
+        self._pool = None
+
+    def run(self, key: tuple, held: Sequence[torch.Tensor], q: dict[str, np.ndarray],
+            program: Callable[[dict], Any]) -> Any:
+        """One batch: `q` (host arrays) through the graph of (`key`, its
+        layout) over the tables `held`, replayed, or run eagerly and
+        captured when the key is new. Returns
+        the program's outputs: a graph's static outputs, valid until the
+        next replay of any graph of this engine."""
+        tables = identity(held)
+        if tables != self.tables:  # the store or the ANN tables replaced a tensor
+            self.clear()
+            self.tables = tables
+        full = (key, batch_layout(q))
+        entry = self.graphs.get(full)
+        if entry is None:
+            return self._first(full, tuple(held), q, program)
+        self.graphs.move_to_end(full)
+        to_device(q, self.device, out=entry.block)
+        entry.graph.replay()
+        self.replays += 1
+        for fn, d in zip(COUNTED, entry.deltas):
+            fn.launches += d
+        return entry.outputs
+
+    def _first(self, full: tuple, held: tuple, q: dict[str, np.ndarray], program) -> Any:
+        block = torch.empty((sum(a.nbytes for a in q.values()),), dtype=torch.uint8,
+                            device=self.device)
+        entry = _Entry(None, block, to_device(q, self.device, out=block), None, held, (),
+                       0.0)
+        answer = program(entry.static)  # eager: this batch's answer
+        before = [fn.launches for fn in COUNTED]
+        t0 = time.perf_counter()
+        entry.graph, entry.outputs = self._capture(program, entry.static)
+        entry.capture_ms = (time.perf_counter() - t0) * 1e3
+        entry.deltas = tuple(fn.launches - n for fn, n in zip(COUNTED, before))
+        for fn, n in zip(COUNTED, before):
+            fn.launches = n
+        self.captures += 1
+        self.capture_ms.append(entry.capture_ms)
+        self.graphs[full] = entry
+        while len(self.graphs) > self.max_graphs:
+            self.graphs.popitem(last=False)
+        return answer
+
+    def _capture(self, program, static: dict) -> tuple[Any, Any]:
+        """Capture `program` on `static` into a new graph of the shared
+        pool. Returns (graph, its static outputs)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(
+                graph, pool=self._pool, stream=self._stream, capture_error_mode="thread_local"):
+            outputs = program(static)
+        return graph, outputs
+
+    def pool_bytes(self) -> int:
+        """Bytes the graphs' shared pool holds on the device (its segments
+        in the caching allocator's snapshot)."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)

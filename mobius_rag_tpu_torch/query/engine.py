@@ -52,8 +52,14 @@ Semantics follow the JAX engine line by line; where torch differs:
   arm's list arrives in top-k order, on one device from its own scan and
   under sharding from ``merge_shard_lists``, which re-sorts the shards'
   [3, S, B, m] lists once;
-- the lexical bucket union ships at its exact size: the JAX engine's pads
-  (``_BUCKET_PADS``) only bounded recompiles;
+- the lexical bucket union is prepared as the JAX engine pads it
+  (``_BUCKET_PADS``: 128, 512, 2,048, then the bucket count; pad columns
+  name bucket 0 at weight 0), but the device program reads fewer columns,
+  since in the sparse layout every pad column scans its bucket's whole
+  postings row: on a card the live ones rounded up to a power of two
+  (:func:`_union_width`; a captured program, ``query/compiled.py``, is
+  kept per width, as the JAX program is compiled per width), on the CPU
+  and under sharding exactly the live ones;
 - the sparse lexical arm sums each row's postings in float64, so its
   float32 score does not depend on the order of the device's atomics;
 - the JAX engine's ``optimization_barrier`` sequencing of the ANN arms and
@@ -63,6 +69,12 @@ Semantics follow the JAX engine line by line; where torch differs:
 Float32 matmuls run in full float32 (TF32 is switched off in the
 package's ``__init__``).
 
+On a card the device program of a batch (the queries' bf16 cast,
+:func:`search_batch`, :func:`pack_device`) is one CUDA graph, captured
+once per batch shape and replayed (``query/compiled.py``: the port of
+the JAX engine's ``_search_compiled``); ``graphs=False`` runs it eagerly,
+one operator at a time, as the CPU always does.
+
 ``search_pipelined`` overlaps batches on a card: it prepares and
 enqueues every batch's device program, packing and non-blocking copies
 of its two output arrays into page-locked host buffers, each batch
@@ -70,9 +82,9 @@ closed by a CUDA event, before it waits for any; then it takes the
 batches in order (wait on the event, unpack, host re-rank, assemble), so
 one batch's host work runs while later batches run on the device.
 Nothing on that path reads a device value back: the prepared batch goes
-up as one non-blocking copy from page-locked memory, and the strict
-counts of candidate-local gating run on a stream of their own, whose
-event is the only thing the host waits for.
+up as one non-blocking copy from page-locked memory (into the graph's
+static inputs), and the strict counts of candidate-local gating run on a
+stream of their own, whose event is the only thing the host waits for.
 
 An optional cross-encoder (``cross_encoder``, e.g.
 ``models.cross_encoder.CrossEncoderModel``) rescores each result's hits
@@ -88,6 +100,7 @@ empty traces and a strict count of -1). Gating is dense under sharding.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sqlite3
 import time
@@ -109,6 +122,7 @@ from mobius_rag_tpu_torch.ops.proj import (PackedProj, ProjGate, encode_qmeta,
                                            scatter_slots)
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
 from mobius_rag_tpu_torch.query import gating
+from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms, to_device
 from mobius_rag_tpu_torch.query.gating import query_dtag_ids
 from mobius_rag_tpu_torch.query.lexicon import Lexicon, LexiconExpansion
 from mobius_rag_tpu_torch.utils import native
@@ -133,6 +147,12 @@ MODE_MIN_LABEL = {"corpus": "low", "precision": "low", "recall": "abstain"}
 # Per-candidate signal channels carried through fusion:
 # cos, lex_raw, auth, len, jpd, cov.
 N_SIG = 6
+
+# Widths the batch's lexical bucket union is padded to (the JAX engine's
+# ``_BUCKET_PADS``); past the largest, the bucket count.
+_BUCKET_PADS = (128, 512, 2048)
+# The fewest union columns a card's device program reads (see _union_width).
+_MIN_UNION_READ = 16
 
 
 @dataclasses.dataclass
@@ -697,6 +717,50 @@ class PendingFetch:
         return self.host[0].numpy(), self.host[1].numpy()
 
 
+class PreparedBatch(dict):
+    """A prepared batch on the host (``SearchEngine.prepare_host``): its
+    numpy arrays by name, and ``union``, how many leading columns of its
+    lexical union are live buckets (the rest are pads)."""
+
+    def __init__(self, arrays: dict[str, np.ndarray], union: int):
+        super().__init__(arrays)
+        self.union = union
+
+
+class DeviceBatch(dict):
+    """``SearchEngine.prepare_batch``'s tensors by name, and ``host``, the
+    :class:`PreparedBatch` they were uploaded from: what the engine's
+    device program takes."""
+
+    def __init__(self, tensors: dict[str, torch.Tensor], host: PreparedBatch):
+        super().__init__(tensors)
+        self.host = host
+
+
+def _union_width(union: int, u: int) -> int:
+    """The lexical union columns a card's device program reads: the
+    `union` live ones rounded up to a power of two, at least
+    _MIN_UNION_READ, at most the padded width `u`. The columns past them
+    are pads (bucket 0 at weight 0): in the sparse layout each adds its
+    bucket's whole postings row of zeros to the arms' scans, so reading
+    them costs device time in proportion to `u` (at 1M rows 8,192 postings
+    a column) and changes no score; in the dense layout the [B, U] x
+    [U, C] product may move by an ulp. A power of two keeps the captured
+    programs few."""
+    return min(u, max(_MIN_UNION_READ, 1 << max(union - 1, 0).bit_length()))
+
+
+def _cut_union(q: PreparedBatch, w: int) -> dict[str, np.ndarray]:
+    """`q`'s arrays with the lexical union cut to its first `w` columns."""
+    return dict(q, lex_buckets=q["lex_buckets"][:w], lex_weights=q["lex_weights"][:, :w])
+
+
+def _bf16(q: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """`q` with its queries rounded to bf16 (round-to-nearest-even, as the
+    JAX engine ships them)."""
+    return dict(q, vec=q["vec"].to(torch.bfloat16))
+
+
 def unpack_out(fetched, k: int, w: int = 0) -> dict[str, np.ndarray]:
     """Host inverse of pack_out: numpy views under the JAX engine's key
     schema."""
@@ -718,45 +782,23 @@ def unpack_out(fetched, k: int, w: int = 0) -> dict[str, np.ndarray]:
     return out
 
 
-_TORCH_DTYPE = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}
-
-
-def _to_device(host: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    """Host arrays (int32, uint32 bit patterns or float32) → tensors on
-    `device`, uint32 as int32. On a card they travel as one block of
-    page-locked memory in one non-blocking copy on the current stream,
-    then are cut into views: the host does not wait for the device."""
-    arrays = {key: np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a)
-              for key, a in host.items()}
-    if device.type != "cuda":
-        return {key: torch.from_numpy(a).to(device) for key, a in arrays.items()}
-    buf = torch.empty(sum(a.nbytes for a in arrays.values()), dtype=torch.uint8,
-                      pin_memory=True)
-    flat = buf.numpy()
-    off = 0
-    for a in arrays.values():
-        flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
-        off += a.nbytes
-    dbuf = buf.to(device, non_blocking=True)
-    out, off = {}, 0
-    for key, a in arrays.items():  # every dtype is 4 bytes wide: views stay aligned
-        out[key] = dbuf[off:off + a.nbytes].view(_TORCH_DTYPE[a.dtype]).reshape(a.shape)
-        off += a.nbytes
-    return out
-
-
 # ---------------------------------------------------------------------------
 # Host orchestration
 # ---------------------------------------------------------------------------
 
 class SearchEngine:
     """Host-side handle: prepares query arrays, runs the device pipeline
-    on the store's device, assembles results."""
+    on the store's device, assembles results.
+
+    ``graphs``: None (the default) serves each batch as a captured CUDA
+    graph on a card and eagerly on the CPU; False runs the program eagerly
+    on a card too; True on the CPU raises. A capture or replay that fails
+    raises (``query/compiled.py``). A sharded engine runs eagerly."""
 
     def __init__(self, store: ChunkStore, lexicon: Lexicon | None = None,
                  cfg: Config | None = None, embed_fn=None, telemetry=None,
                  sharded=None, vector_backend: str | None = None,
-                 device="cuda"):
+                 device="cuda", graphs: bool | None = None):
         self.cfg = cfg or get_config()
         backend = vector_backend or self.cfg.vector_backend
         _check_backend(backend)
@@ -798,6 +840,9 @@ class SearchEngine:
         self._strict_cache: "OrderedDict[tuple, float]" = OrderedDict()
         # the stream of the strict counts on a card (made at first use)
         self._count_stream: torch.cuda.Stream | None = None
+        # the captured device programs (query/compiled.py), made when first on
+        self._programs: CapturedPrograms | None = None
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
         store.listeners.append(self._on_store_mutation)
         # parallel.ShardedEngine over the same store: the device program then
         # runs over its device grid, for every caller of this engine (agent,
@@ -810,6 +855,18 @@ class SearchEngine:
                 sharded.set_vector_backend(vector_backend)
             else:
                 self.vector_backend = sharded.vector_backend
+
+    @property
+    def graphs(self) -> bool:
+        """Whether batches run as captured CUDA graphs (see the class
+        docstring); settable, so one engine can serve both ways in turns."""
+        return self._graphs
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        if on and self._programs is None:
+            self._programs = CapturedPrograms(self.device)  # raises off a card
+        self._graphs = bool(on)
 
     # -- vector-arm backend -------------------------------------------------
 
@@ -1240,13 +1297,16 @@ class SearchEngine:
         self._prep_cache[cache_key] = (token, q, exp, lex_w)
         return q, exp, lex_w
 
-    def prepare_batch(self, reqs: Sequence[QueryRequest], ready=None):
-        """The batched query dict on the device: per-query arrays stacked
-        (u32 bitsets as int32 bit patterns), the queries rounded to bf16,
-        and the lexical contraction as the union bucket list [U] with
-        per-query weights [B, U]. Returns (dict, expansions). Nothing here
-        waits for work already enqueued on the device; ``ready`` (a CUDA
-        event after the index's last write, default now) orders the
+    def prepare_host(self, reqs: Sequence[QueryRequest], ready=None):
+        """The batched query arrays on the host (numpy): per-query arrays
+        stacked, the lexical contraction as the union bucket list [U] with
+        per-query weights [B, U], U padded as the JAX engine pads it
+        (``engine.py:1576-1588``: the first of 128, 512, 2,048 that holds
+        the union, else the bucket count; pad columns name bucket 0 at
+        weight 0; a union past the pad keeps its first U buckets), and the
+        normalized float32 queries. Returns (dict, expansions). Nothing
+        here waits for work already enqueued on the device; ``ready`` (a
+        CUDA event after the index's last write, default now) orders the
         strict counts of local gating after the index."""
         vecs = self._embeddings(reqs)
         prepared = [self.prepare_query(r) for r in reqs]
@@ -1255,19 +1315,44 @@ class SearchEngine:
         for _, _, lex_w in prepared:
             for b in lex_w:
                 union.setdefault(b, len(union))
-        weights = np.zeros((len(reqs), len(union)), np.float32)
+        u_pad = next((p for p in _BUCKET_PADS if len(union) <= p), self.cfg.lexical_buckets)
+        if len(union) > u_pad:  # past the largest pad: the first u_pad buckets
+            union = {b: i for b, i in union.items() if i < u_pad}
+        buckets = np.zeros(u_pad, np.int32)
+        buckets[:len(union)] = np.fromiter(union, np.int32, len(union))
+        weights = np.zeros((len(reqs), u_pad), np.float32)
         for bi, (_, _, lex_w) in enumerate(prepared):
             for b, w in lex_w.items():
-                weights[bi, union[b]] = w
-        host["lex_buckets"] = np.fromiter(union, np.int32, len(union))
+                if b in union:
+                    weights[bi, union[b]] = w
+        host["lex_buckets"] = buckets
         host["lex_weights"] = weights
         if self._local_gating_active() and self._ann is not None:
             host["strict_total"] = self._strict_totals(prepared, ready)
         host["vec"] = vecs
-        q = _to_device(host, self.device)
-        # bf16 round-to-nearest-even, as the JAX engine ships its queries
-        q["vec"] = q["vec"].to(torch.bfloat16)
-        return q, [p[1] for p in prepared]
+        return PreparedBatch(host, len(union)), [p[1] for p in prepared]
+
+    def prepare_batch(self, reqs: Sequence[QueryRequest], ready=None):
+        """The batched query dict on the device: :meth:`prepare_host`'s
+        arrays (u32 bitsets as int32 bit patterns, the union at its padded
+        width), the queries rounded to bf16. Returns (DeviceBatch,
+        expansions)."""
+        host, exps = self.prepare_host(reqs, ready)
+        return DeviceBatch(_bf16(to_device(host, self.device)), host), exps
+
+    def _union_read(self, q: PreparedBatch) -> int:
+        """The lexical union columns this engine's device program reads.
+        On a card, the live ones rounded up (:func:`_union_width`) so that
+        the captured graphs stay few, eager or captured alike; the CPU and
+        a sharded engine, which never capture, read exactly the live ones."""
+        if self.device.type == "cuda" and self.sharded is None:
+            return _union_width(q.union, q["lex_buckets"].shape[0])
+        return q.union
+
+    def _device_batch(self, q: PreparedBatch) -> dict[str, torch.Tensor]:
+        """`q` as this engine's device program reads it, on its device: the
+        union cut to :meth:`_union_read` columns, the queries in bf16."""
+        return _bf16(to_device(_cut_union(q, self._union_read(q)), self.device))
 
     def _strict_totals(self, prepared, ready=None) -> np.ndarray:
         """Host-cached global strict-eligible counts per request (the
@@ -1306,7 +1391,7 @@ class SearchEngine:
         since, and the host waits for this stream's event alone."""
         dev = self.device
         if dev.type != "cuda":
-            return gating.strict_counts(self.store.index, _to_device(host, dev)).numpy()
+            return gating.strict_counts(self.store.index, to_device(host, dev)).numpy()
         if ready is None:
             ready = torch.cuda.Event()
             ready.record()
@@ -1315,7 +1400,7 @@ class SearchEngine:
         side = self._count_stream
         with torch.cuda.stream(side):
             side.wait_event(ready)
-            counts = gating.strict_counts(self.store.index, _to_device(host, dev))
+            counts = gating.strict_counts(self.store.index, to_device(host, dev))
             out = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
             out.copy_(counts, non_blocking=True)
             done = torch.cuda.Event()
@@ -1408,29 +1493,61 @@ class SearchEngine:
 
     # -- public API ---------------------------------------------------------
 
-    def _program(self, q: dict, exps, ann, local, k: int) -> dict[str, torch.Tensor]:
-        """Enqueue one prepared batch's device program: search_batch at the
-        device width (k, or k·over_fetch with a funnel under host residency)."""
-        return search_batch(
-            self.store.index, q, self._device_k(k), self.cfg.over_fetch, self.cfg.rrf_k,
-            ann=ann, nprobe=self.effective_nprobe, approx=self.cfg.ann_approx_topk,
-            local=local, tag_level=self._batch_tag_level(exps) if local else 2,
-            funnel=self._device_funnel(k))
+    @staticmethod
+    def _tables_held(index: DeviceIndex, ann, local) -> list[torch.Tensor]:
+        """Every tensor of the tables the device program reads: the index
+        fields, the ANN tables, the local-gating structures."""
+        held = [getattr(index, f) for f in index.fields]
+        if ann is not None:
+            held += [v for _, v in sorted(vars(ann).items()) if isinstance(v, torch.Tensor)]
+        if local is not None:
+            words, dtag = local
+            held += [words, *dtag]
+        return held
 
-    def _packed(self, q: dict, exps, ann, local, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """One prepared batch's device program and its two packed output
-        arrays, enqueued: over the device grid when a sharded engine is
-        attached, else on this engine's device."""
-        fw = self._device_funnel(k)
-        out = (self.sharded.run(q, self._device_k(k), fw) if self.sharded is not None
-               else self._program(q, exps, ann, local, k))
-        return pack_device(out, fw)
+    def _packed(self, q: PreparedBatch, exps, ann, local, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One prepared batch (:meth:`prepare_host`'s, or the host arrays
+        behind :meth:`prepare_batch`'s tensors) through its device program,
+        and the program's two packed output arrays, enqueued: over the
+        device grid when a sharded engine is attached; else on this
+        engine's device, as a captured graph's replay when ``graphs`` is
+        on. The program is search_batch at the device width (k, or
+        k·over_fetch with a funnel under host residency)."""
+        q = getattr(q, "host", q)
+        kd, fw = self._device_k(k), self._device_funnel(k)
+        if self.sharded is not None:
+            return pack_device(self.sharded.run(self._device_batch(q), kd, fw), fw)
+        cfg = self.cfg
+        nprobe = self.effective_nprobe
+        tag_level = self._batch_tag_level(exps) if local else 2
+        # the tables as they stand now: a write on another thread that
+        # replaces one (a grow, a postings resize) reaches the next batch
+        index = self.store.index
+        index = DeviceIndex(**{f: getattr(index, f) for f in index.fields})
 
-    def _dispatch(self, q: dict, exps, ann, local, k: int) -> PendingFetch:
-        """The device side of one batch of search_pipelined: its program,
-        the output packing and the copies of the two packed arrays to the
-        host, all enqueued; nothing here waits for the device."""
-        return PendingFetch(self._packed(q, exps, ann, local, k))
+        def program(qd):
+            out = search_batch(index, _bf16(qd), kd, cfg.over_fetch, cfg.rrf_k, ann=ann,
+                               nprobe=nprobe, approx=cfg.ann_approx_topk, local=local,
+                               tag_level=tag_level, funnel=fw)
+            return pack_device(out, fw)
+
+        host = _cut_union(q, self._union_read(q))
+        if not self.graphs:
+            return program(to_device(host, self.device))
+        key = (kd, fw, cfg.over_fetch, cfg.rrf_k, nprobe, cfg.ann_approx_topk, tag_level,
+               type(ann).__name__)
+        return self._programs.run(key, self._tables_held(index, ann, local), host, program)
+
+    def _dispatch(self, q: PreparedBatch, exps, ann, local, k: int) -> PendingFetch:
+        """The device side of one batch (`q` as :meth:`_packed` takes it):
+        its program, the output packing and the copies of the two packed
+        arrays to the host, all enqueued; nothing here waits for the
+        device. A captured program runs under ``compiled.LOCK`` up to its
+        copies (see query/compiled.py)."""
+        captured = self.graphs and self.sharded is None
+        with LOCK if captured else contextlib.nullcontext():
+            return PendingFetch(self._packed(q, exps, ann, local, k))
 
     def _finish(self, reqs, exps, fetched, k: int) -> dict[str, np.ndarray]:
         """The packed arrays of one batch, on the host → its output dict,
@@ -1453,10 +1570,9 @@ class SearchEngine:
 
     def _run(self, reqs: Sequence[QueryRequest], k: int):
         ann, local = self._tables()
-        q, exps = self.prepare_batch(reqs)
+        q, exps = self.prepare_host(reqs)
         t_prep = time.perf_counter()
-        packed = self._packed(q, exps, ann, local, k)
-        out = self._finish(reqs, exps, (packed[0].cpu().numpy(), packed[1].cpu().numpy()), k)
+        out = self._finish(reqs, exps, self._dispatch(q, exps, ann, local, k).wait(), k)
         return exps, out, t_prep
 
     def search(self, reqs: Sequence[QueryRequest] | QueryRequest, k: int | None = None
@@ -1488,7 +1604,7 @@ class SearchEngine:
             ready.record()
         pending = []
         for batch in batches:
-            q, exps = self.prepare_batch(batch, ready)
+            q, exps = self.prepare_host(batch, ready)
             pending.append((batch, exps, self._dispatch(q, exps, ann, local, k)))
         return [self._assemble(list(batch), exps,
                                self._finish(batch, exps, fetch.wait(), k), k)

@@ -1,5 +1,6 @@
 """Run the port's `cuda`-marked tests (the kernels, the pipelined engine's
-dispatch without a device-to-host wait, the encoder's bf16 against
+dispatch without a device-to-host wait, the captured search programs
+bitwise against the eager ones, the encoder's bf16 against
 float32 activations, a training step and a (2, 2) grid training step
 against their CPU twins, and the sharded engine against the dense one)
 on a CUDA card whose machine has no JAX. Those tests
@@ -37,7 +38,7 @@ def main() -> int:
     return pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest", "-m", "cuda",
                         "-k", "on_card", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
-                          for m in ("topk", "quant", "proj", "pipelined", "encoder",
+                          for m in ("topk", "quant", "proj", "pipelined", "compiled", "encoder",
                                     "train", "train_grid", "sharded"))])
 
 

@@ -66,7 +66,7 @@ class _Timers:
 
     def __enter__(self):
         e = self.engine
-        for name, key in (("prepare_batch", "prepare"), ("_dispatch", "enqueue"),
+        for name, key in (("prepare_host", "prepare"), ("_dispatch", "enqueue"),
                           ("_finish", "unpack"), ("_assemble", "assemble")):
             setattr(e, name, self._wrap(key, getattr(e, name)))
         self._wait = eng.PendingFetch.wait
@@ -74,7 +74,7 @@ class _Timers:
         return self
 
     def __exit__(self, *exc):
-        for name in ("prepare_batch", "_dispatch", "_finish", "_assemble"):
+        for name in ("prepare_host", "_dispatch", "_finish", "_assemble"):
             del self.engine.__dict__[name]
         eng.PendingFetch.wait = self._wait
 
@@ -96,7 +96,7 @@ def pipelined(engine, batches, ahead):
         out.append(engine._assemble(list(batch), exps, res, K))
 
     for batch in batches:
-        q, exps = engine.prepare_batch(batch, ready)
+        q, exps = engine.prepare_host(batch, ready)
         pending.append((batch, exps, engine._dispatch(q, exps, ann, local, K)))
         if ahead is not None and len(pending) > ahead:
             fetch_one()
@@ -174,7 +174,7 @@ def behind_sleep(name, engine, batches, want, smi, sleep_ms: float = 3000.0,
         with _SlowestOp() as slow:
             for batch in batches:
                 t1 = time.perf_counter()
-                q, exps = engine.prepare_batch(batch, ready)
+                q, exps = engine.prepare_host(batch, ready)
                 t2 = time.perf_counter()
                 pending.append((batch, exps, engine._dispatch(q, exps, ann, local, K)))
                 prep += t2 - t1
@@ -202,7 +202,7 @@ def enqueue_ops(name, engine, batch, top: int = 8):
 
     ann = engine.ensure_ann()
     local = engine._ensure_local_structs(ann)
-    q, exps = engine.prepare_batch(batch)
+    q, exps = engine.prepare_host(batch)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         fetch = engine._dispatch(q, exps, ann, local, K)
     fetch.wait()
