@@ -30,9 +30,13 @@ inside prepare) and the agent, then tests/test_api.py's known answer on
 the card through the library calls and, where aiohttp is installed,
 through build_app; phase 7d attaches a full-width bf16 cross-encoder
 from a seeded checkpoint through MRAG_CROSS_ENCODER_CKPT and reranks
-phase 7's queries with it. Phase 8 serves phase 4's 1M store with the
-ivf, packed (int8 cluster blocks scanned by proj_blocks at p = D) and pq
-backends at the JAX package's defaults, with their ann files and a packed
+phase 7's queries with it. The encoder and the cross-encoder run as
+captured CUDA graphs, one per (batch bucket, sequence bucket); phases
+7a, 7b and 7d time them against their eager forwards in turns, and hold
+every captured key bitwise to the eager forward. Phase 8 serves phase
+4's 1M store with the ivf, packed (int8 cluster blocks scanned by
+proj_blocks at p = D) and pq backends at the JAX package's defaults,
+with their ann files and a packed
 engine calibrated to a target recall; phase 8b serves phase 5's
 host-residency store with the pq backend (dense gating, the funnel and
 the exact host re-rank). Phase 9, training and the eval harness, ingests
@@ -634,7 +638,7 @@ def phase2_proj_kernels() -> dict:
                 f"tag levels 0/1/2 (live share {live})")
             log(_time_line(name, b, 66, level, t))
         del codes, words
-        torch.cuda.empty_cache()
+        _empty_cache()
 
     from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks
 
@@ -835,8 +839,24 @@ _HYBRID_1M = [("timely filing deadline for sunshine_health claims", "sunshine_he
 
 
 def _sync(dev) -> None:
+    """Wait for the card. A device-wide synchronize breaks a CUDA graph
+    that another thread is capturing (the port's ingest worker and
+    micro-batcher capture encoder and search graphs), so it is made under
+    compiled.LOCK, as every capture is."""
     if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize()
+        from mobius_rag_tpu_torch.query.compiled import LOCK
+
+        with LOCK:
+            torch.cuda.synchronize()
+
+
+def _empty_cache() -> None:
+    """torch.cuda.empty_cache() under compiled.LOCK (see _sync: it frees
+    device memory, which waits for the device)."""
+    from mobius_rag_tpu_torch.query.compiled import LOCK
+
+    with LOCK:
+        torch.cuda.empty_cache()
 
 
 class _Spans:
@@ -942,12 +962,14 @@ def _device_profile(run, n_batches: int, dev) -> tuple[dict, float, float]:
     ms per batch). Counts the device-side events only (the CPU-side
     operator events carry their kernels' time too)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from mobius_rag_tpu_torch.profiling import locked_profiler
 
     _sync(dev)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if torch.device(dev).type == "cuda" else [])
-    with profile(activities=acts) as prof:
+    with locked_profiler(acts) as prof:
         t0 = time.perf_counter()
         run()
         _sync(dev)
@@ -1053,6 +1075,54 @@ def _host_split(engine, batches) -> dict:
     return {**{key: v * 1e3 / n for key, v in spans.items()}, "wall": wall * 1e3 / n}
 
 
+TURNS = (False, True, True, False)  # graphs off or on: eager, graph, graph, eager
+
+
+def _front_split(engine, model, batches) -> dict:
+    """engine.search over `batches` of queries never asked before (the
+    encoder embeds each batch), the host's own ms a batch by stage:
+    tokenize; embed (pad, upload, replay or the eager enqueue, the copy of
+    the real rows); readback (the embed's wait for the device and its copy
+    to the host); prepare (the rest of prepare_host); enqueue (the search
+    program's upload and replay); wait (for its outputs); unpack;
+    assemble; and the wall."""
+    spans: dict = {}
+    targets = [(model.tokenizer, "encode_batch", "tokenize"), (model, "encode_tokens", "embed"),
+               (engine, "embed_fn", "embed+"), (engine, "prepare_host", "prepare+"),
+               (engine, "_dispatch", "enqueue"), (engine, "_finish", "unpack"),
+               (engine, "_assemble", "assemble")]
+    saved = []
+    for obj, attr, key in targets:
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, attr in vars(obj), fn))
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            spans[_key] = spans.get(_key, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(obj, attr, timed)
+    try:
+        t0 = time.perf_counter()
+        for reqs in batches:
+            engine.search(reqs, k=K)
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, attr, own, fn in reversed(saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
+    ms = {key: v * 1e3 / len(batches) for key, v in spans.items()}
+    out = {"tokenize": ms["tokenize"], "embed": ms["embed"],
+           "readback": ms["embed+"] - ms["tokenize"] - ms["embed"],
+           "prepare": ms["prepare+"] - ms["embed+"], "enqueue": ms["enqueue"],
+           "unpack": ms["unpack"], "assemble": ms["assemble"]}
+    out["wait"] = wall * 1e3 / len(batches) - sum(out.values())
+    out["wall"] = wall * 1e3 / len(batches)
+    return out
+
+
 def _graph_turns(engine, reqs, batches, name: str, smi: str, dev) -> dict:
     """The engine's program eager against captured, on one engine and
     store, in turns (eager, graph, graph, eager): queries/s at batch BATCH
@@ -1073,7 +1143,7 @@ def _graph_turns(engine, reqs, batches, name: str, smi: str, dev) -> dict:
     gc.collect()
     gc.freeze()
     try:
-        for graphs in (False, True, True, False):
+        for graphs in TURNS:
             turns.append(_graph_turn(engine, graphs, reqs, batches, n, len(turns) < 2, dev))
     finally:
         gc.unfreeze()
@@ -1731,7 +1801,7 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
         _release(engine)
     del engine_a, engine_b, ann
     if torch.device(dev).type == "cuda":
-        torch.cuda.empty_cache()
+        _empty_cache()
     reqs = {"recall": recall_reqs, "exact": exact, "self": self_reqs, "self_rows": self_rows,
             "bench": bench_reqs, "pipe": pipe_batches}
     p8 = phase8_ann(smi, store, lexicon, base, reqs, dev)
@@ -1753,7 +1823,7 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
 N_CUTS = (10_000_000, 5_000_000, 2_000_000)  # config 5, then the allowed cuts
 AMPS = (0, 1, 2, 3, 4, 5, 6, 8, 10, 12)  # bench_10m.py:173, one per graded copy
 PAYERS_10M = ["sunshine_health", "aetna", "molina"]
-INGEST_DOCS, INGEST_CHUNKS = 20, 50
+INGEST_DOCS, INGEST_CHUNKS = 10, 50
 GEN_BLOCK = 250_000  # corpus rows made on the card per step
 ORACLE_BLOCK = 250_000  # rows per block of the exact oracle scan
 COS_TOL = 1e-6  # native re-rank cosines vs a numpy recompute
@@ -1906,7 +1976,7 @@ def phase5_host(smi: str, dev: str = "cuda", n_rows: int | None = None,
     d = cfg.embed_dim
     gc.collect()
     if on_card:
-        torch.cuda.empty_cache()
+        _empty_cache()
         torch.cuda.reset_peak_memory_stats()
     stages: dict = {}
     t_all = time.perf_counter()
@@ -2316,7 +2386,7 @@ def phase8_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -> dict:
         _release(engine)
         del engine, ann
         if on_card:
-            torch.cuda.empty_cache()
+            _empty_cache()
 
     # auto-nprobe: the packed backend calibrated to a target recall
     cfg = dataclasses.replace(cfg0, vector_backend="packed", ivf_target_recall=TARGET_RECALL)
@@ -2341,7 +2411,7 @@ def phase8_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -> dict:
     _release(engine)
     del engine
     if on_card:
-        torch.cuda.empty_cache()
+        _empty_cache()
     out["calibration"] = {"curve": cal["curve"], "nprobe": cal["nprobe"], "recall": recall}
     log(f"phase 8: {time.perf_counter() - t_all:.1f} s on {smi}")
     return out
@@ -2362,7 +2432,7 @@ def phase8b_host_pq(smi: str, store, lexicon, cfg5, reqs: dict, dev: str) -> dic
     n, d = reqs["n"], cfg5.embed_dim
     cfg = dataclasses.replace(cfg5, vector_backend="pq", pq_m=96)
     if on_card:
-        torch.cuda.empty_cache()
+        _empty_cache()
         torch.cuda.reset_peak_memory_stats()
     t_all = time.perf_counter()
     engine = SearchEngine(store, lexicon, cfg=cfg, device=dev)
@@ -2493,11 +2563,45 @@ def _front_queries(n: int, tag: str) -> list:
             for i in range(n)]
 
 
+def _graphs_bitwise(model, name: str) -> int:
+    """Every graph that `model` (an EncoderModel or a CrossEncoderModel)
+    keeps, replayed on its static block (the last padded block of its key)
+    against the eager forward of the same block: bitwise on every row, the
+    padded rows finite. Returns the number of keys held."""
+    from mobius_rag_tpu_torch.query.compiled import LOCK
+
+    cache = model._programs
+    with torch.inference_mode():
+        for (key, _), entry in list(cache.graphs.items()):
+            with LOCK:
+                entry.graph.replay()
+                got = entry.outputs.clone()
+            want = model.module(entry.static["tokens"])
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: the graph of {key} differs from the eager "
+                                     f"forward on its block (max |diff| "
+                                     f"{(got - want).abs().max().item()})")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: the graph of {key} gave a non-finite row")
+    return len(cache.graphs)
+
+
+def _graphs_line(model) -> str:
+    cache = model._programs
+    ms = cache.capture_ms or [0.0]
+    return (f"{cache.captures} captures (ms median {np.median(ms):.1f}, max {max(ms):.1f}), "
+            f"{cache.replays} replays, {len(cache.graphs)} graphs kept "
+            f"{sorted(key for key, _ in cache.graphs)}; the pool holds "
+            f"{cache.pool_bytes() / 2**20:.1f} MiB")
+
+
 def phase7a_encoder(smi: str, model, dev: str = "cuda", n_rows: int = N_FRONT):
-    """The encoder alone: ms per batch of ENC_BATCH at each length with its
-    texts/s, tokens/s, encoder_mfu and the device's busy share; the bulk
-    embed of n_rows chunk texts; bf16 against float32 activations on the
-    same parameters. Returns (texts, vectors)."""
+    """The encoder alone: ms per batch of ENC_BATCH at each length, eager
+    against captured in turns (eager, graph, graph, eager), with texts/s,
+    tokens/s and encoder_mfu, and the device's busy share of the captured
+    forward; the bulk embed of n_rows chunk texts; the captures and the
+    graphs' pool; bf16 against float32 activations on the same parameters.
+    Returns (texts, vectors)."""
     import dataclasses
 
     from mobius_rag_tpu_torch.models.encoder import (EncoderModel, flops_per_token)
@@ -2509,31 +2613,43 @@ def phase7a_encoder(smi: str, model, dev: str = "cuda", n_rows: int = N_FRONT):
         f"MLP {cfg.mlp_dim}, vocab {cfg.vocab_size}, max_seq {cfg.max_seq}, out {cfg.out_dim}, "
         f"{cfg.dtype}), {n_params / 1e6:.1f} M parameters from a seeded generator on {dev}")
     g = np.random.default_rng(17)
+    blocks = {}
     for length in ENC_LENGTHS:
-        if length > cfg.max_seq:
-            continue
-        toks = g.integers(3, cfg.vocab_size, (ENC_BATCH, length)).astype(np.int32)
-        toks[:, 0] = 1  # CLS
-        reps = 5 if on_card else 1
-        model.encode_tokens(toks)
-        _sync(dev)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            out = model.encode_tokens(toks)
-        _sync(dev)
-        ms = (time.perf_counter() - t0) * 1e3 / reps
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"encoder: non-finite output at L={length}")
+        if length <= cfg.max_seq:
+            toks = g.integers(3, cfg.vocab_size, (ENC_BATCH, length)).astype(np.int32)
+            toks[:, 0] = 1  # CLS
+            blocks[length] = toks
+    reps = 3 if on_card else 1
+    ms = {length: [] for length in blocks}
+    for graphs in TURNS if on_card else (False,):
+        model.graphs = graphs
+        for length, toks in blocks.items():
+            model.encode_tokens(toks)  # warm; a graph turn's first call captures
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = model.encode_tokens(toks)
+            _sync(dev)
+            ms[length].append((time.perf_counter() - t0) * 1e3 / reps)
+            if out.shape != (ENC_BATCH, cfg.out_dim) or not torch.isfinite(out).all():
+                raise AssertionError(f"encoder: output {tuple(out.shape)} or non-finite at "
+                                     f"L={length}")
+    model.graphs = on_card
+    for length, toks in blocks.items():
         busy, wall, top, _ = _device_busy_share(
             lambda: [model.encode_tokens(toks) for _ in range(3)], 3, dev)
         flops = flops_per_token(cfg, length) * ENC_BATCH * length
-        mfu = flops / (ms / 1e3) / PEAK_OPS["bfloat16"]
-        log(f"phase 7: encoder L={length} B={ENC_BATCH}: {ms:.3f} ms per batch, "
-            f"{ENC_BATCH / ms * 1e3:.1f} texts/s, {ENC_BATCH * length / ms * 1e3:.0f} tokens/s, "
-            f"{flops / ENC_BATCH / length / 1e6:.1f} MFLOP per token, encoder_mfu {mfu:.4f} "
-            f"(of {PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 dense); device busy "
-            f"{busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%); top kernels (ms per "
-            f"batch) { {k[:60]: round(v, 3) for k, v in top.items()} } on {smi}")
+        turns = ", ".join(
+            f"{'graph' if graphs else 'eager'} {t:.3f} ms ({ENC_BATCH / t * 1e3:.1f} texts/s, "
+            f"{ENC_BATCH * length / t * 1e3:.0f} tokens/s, encoder_mfu "
+            f"{flops / (t / 1e3) / PEAK_OPS['bfloat16']:.4f})"
+            for graphs, t in zip(TURNS if on_card else (False,), ms[length]))
+        log(f"phase 7a: encoder L={length} B={ENC_BATCH}, ms per batch in turns: {turns}; "
+            f"{flops / ENC_BATCH / length / 1e6:.1f} MFLOP per token, encoder_mfu of "
+            f"{PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 dense; "
+            f"{'captured' if on_card else 'eager'}: device busy {busy:.3f} of {wall:.3f} ms "
+            f"({100 * busy / wall:.1f}%); top kernels (ms per batch) "
+            f"{ {k[:60]: round(v, 3) for k, v in top.items()} } on {smi}")
 
     texts = policy_texts(np.random.default_rng(23), n_rows)
     _sync(dev)
@@ -2547,12 +2663,14 @@ def phase7a_encoder(smi: str, model, dev: str = "cuda", n_rows: int = N_FRONT):
         raise AssertionError(f"bulk embed: shape {vectors.shape}, norms {norms.min()}-"
                              f"{norms.max()}")
     n_tok = sum(min(len(t.split()) + 1, cfg.max_seq) for t in texts[:1000]) / 1000
-    log(f"phase 7: bulk embed of {n_rows} chunk texts (~{n_tok:.0f} tokens each, host "
-        f"tokenization overlapped with the device) in {sec:.2f} s = {n_rows / sec:.1f} "
-        f"chunks/s on {smi}")
+    log(f"phase 7a: bulk embed of {n_rows} chunk texts (~{n_tok:.0f} tokens each, host "
+        f"tokenization overlapped with the device, {'captured' if on_card else 'eager'}) in "
+        f"{sec:.2f} s = {n_rows / sec:.1f} chunks/s on {smi}")
+    if on_card:
+        log(f"phase 7a: the encoder's graphs: {_graphs_line(model)} on {smi}")
 
     f32 = EncoderModel(dataclasses.replace(cfg, dtype="float32"),
-                       model.module.params_tree(), device=dev)
+                       model.module.params_tree(), device=dev, graphs=False)
     a, b = model(texts[:PRECISION_TEXTS]), f32(texts[:PRECISION_TEXTS])
     cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
     if on_card and torch.backends.cuda.matmul.allow_tf32:
@@ -2570,7 +2688,10 @@ def phase7a_encoder(smi: str, model, dev: str = "cuda", n_rows: int = N_FRONT):
 def phase7b_app(smi: str, ctx, model, texts, vectors, dev: str = "cuda") -> int:
     """AppContext's served path on the bulk-embedded store: uploads (instant
     and queued), queries without embeddings (the encoder runs inside
-    prepare), and the agent. Returns the masked top-k launches."""
+    prepare) with the encoder eager against captured in turns (q/s at batch
+    FRONT_QUERIES, single-query ms, each with its embed ms, and the host's
+    split of a batch), and the agent; every encoder graph of phases 7a-7b
+    held bitwise to the eager forward. Returns the masked top-k launches."""
     import gc
 
     from mobius_rag_tpu_torch.index.store import ChunkRecord
@@ -2611,6 +2732,8 @@ def phase7b_app(smi: str, ctx, model, texts, vectors, dev: str = "cuda") -> int:
         out = inner(batch)
         embed_s[0] += time.perf_counter() - t
         embed_s[1] += 1
+        if out.shape != (len(batch), model.cfg.out_dim):  # the padded rows dropped
+            raise AssertionError(f"embed of {len(batch)} texts gave {out.shape}")
         return out
 
     engine.embed_fn = timed_embed
@@ -2636,32 +2759,54 @@ def phase7b_app(smi: str, ctx, model, texts, vectors, dev: str = "cuda") -> int:
     fresh = _front_queries
     masked_topk.launches = 0
     batches = 0
-    engine.search(fresh(FRONT_QUERIES, "warm"), k=K)
-    engine.search(fresh(1, "warm1"), k=K)
-    batches += 2
-    rounds, embed_batch = [], []
-    for r in range(3):
-        reqs = fresh(FRONT_QUERIES, f"round{r}")
-        e0 = embed_s[0]
-        t0 = time.perf_counter()
-        res = engine.search(reqs, k=K)
-        rounds.append(FRONT_QUERIES / (time.perf_counter() - t0))
-        embed_batch.append((embed_s[0] - e0) * 1e3)
-        batches += 1
-        if not all(x.hits for x in res):
-            raise AssertionError("front door: a query came back without hits")
-    singles, embed_single = [], []
-    for i, req in enumerate(fresh(10, "single")):
-        e0 = embed_s[0]
-        t0 = time.perf_counter()
-        engine.search(req, k=K)
-        singles.append((time.perf_counter() - t0) * 1e3)
-        embed_single.append((embed_s[0] - e0) * 1e3)
-        batches += 1
+    turns = []
+    for t, graphs in enumerate(TURNS if on_card else (False,)):
+        model.graphs = graphs  # the search program stays captured
+        engine.search(fresh(FRONT_QUERIES, f"warm{t}"), k=K)
+        engine.search(fresh(1, f"warm1-{t}"), k=K)
+        split = _front_split(engine, model, [fresh(FRONT_QUERIES, f"split{t}-{j}")
+                                             for j in range(3)])
+        batches += 5
+        rounds, embed_batch = [], []
+        for r in range(3):
+            reqs = fresh(FRONT_QUERIES, f"round{t}-{r}")
+            e0 = embed_s[0]
+            t0 = time.perf_counter()
+            res = engine.search(reqs, k=K)
+            rounds.append(FRONT_QUERIES / (time.perf_counter() - t0))
+            embed_batch.append((embed_s[0] - e0) * 1e3)
+            batches += 1
+            if not all(x.hits for x in res):
+                raise AssertionError("front door: a query came back without hits")
+        singles, embed_single = [], []
+        for req in fresh(10, f"single{t}"):
+            e0 = embed_s[0]
+            t0 = time.perf_counter()
+            engine.search(req, k=K)
+            singles.append((time.perf_counter() - t0) * 1e3)
+            embed_single.append((embed_s[0] - e0) * 1e3)
+            batches += 1
+        turns.append({"graphs": graphs, "qps": float(np.median(rounds)),
+                      "embed_ms": float(np.median(embed_batch)),
+                      "single_ms": float(np.median(singles)),
+                      "single_embed_ms": float(np.median(embed_single)), "split": split})
+        log(f"phase 7b: {'graph' if graphs else 'eager'} encoder: {FRONT_QUERIES} queries "
+            f"without embeddings through ctx.engine.search: {np.median(rounds):.1f} q/s at "
+            f"batch {FRONT_QUERIES} (rounds {[round(x, 1) for x in rounds]}; query embed "
+            f"{np.median(embed_batch):.3f} ms of each batch), single query "
+            f"{np.median(singles):.3f} ms (median of 10; query embed "
+            f"{np.median(embed_single):.3f} ms of it); host ms a batch of "
+            f"{FRONT_QUERIES}: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" on {smi}")
+    model.graphs = on_card
     busy, wall, top, _ = _device_busy_share(
         lambda: engine.search(fresh(FRONT_QUERIES, "profiled"), k=K), 1, dev)
     batches += 1
     search_launches = masked_topk.launches
+    log(f"phase 7b: one batch of {FRONT_QUERIES} fresh queries, "
+        f"{'captured' if on_card else 'eager'}: device busy {busy:.3f} of {wall:.3f} ms per "
+        f"batch ({100 * busy / wall:.1f}%), top kernels (ms) "
+        f"{ {k: round(v, 3) for k, v in list(top.items())[:4]} } on {smi}")
 
     calls = _Calls(engine)
     ctx.agent.engine = calls
@@ -2679,13 +2824,11 @@ def phase7b_app(smi: str, ctx, model, texts, vectors, dev: str = "cuda") -> int:
     if not results[1].refused or results[1].strategy_chain != ["e"]:
         raise AssertionError(f"agent: the PHI question was not refused at gate e "
                              f"({results[1].strategy_chain})")
-    log(f"phase 7: {FRONT_QUERIES} queries without embeddings through ctx.engine.search: "
-        f"{np.median(rounds):.1f} q/s at batch {FRONT_QUERIES} (rounds "
-        f"{[round(x, 1) for x in rounds]}; query embed {np.median(embed_batch):.3f} ms of each "
-        f"batch), single query {np.median(singles):.3f} ms (median of 10; query embed "
-        f"{np.median(embed_single):.3f} ms of it); device busy {busy:.3f} of {wall:.3f} ms "
-        f"per batch ({100 * busy / wall:.1f}%), top kernels (ms) "
-        f"{ {k: round(v, 3) for k, v in list(top.items())[:4]} } on {smi}")
+    if on_card:
+        keys = _graphs_bitwise(model, "phase 7a-7b encoder")
+        log(f"phase 7b: every encoder graph of phases 7a-7b ({keys} keys) replays bitwise "
+            f"the eager forward of its last padded block, padded rows finite; "
+            f"{_graphs_line(model)} on {smi}")
     log(f"phase 7: agent over AppContext: {len(results)} questions, median "
         f"{np.median(times):.2f} ms per question (min {min(times):.2f}, max {max(times):.2f}), "
         f"refused {sum(r.refused for r in results)}, PHI refused at gate e, the cake recipe "
@@ -2758,6 +2901,7 @@ def phase7c_known_answers(smi: str, dev: str = "cuda") -> tuple[int, str]:
 
 
 CROSS_REL = 0.02  # bf16 vs float32 logits, of the largest |float32 logit| (CPU test's bound)
+CROSS_STEPS = (32, 8)  # pair ladders past 8 pairs: the reference's multiples of 32, and of 8
 
 
 def phase7d_cross(smi: str, ctx, dev: str = "cuda") -> int:
@@ -2765,17 +2909,19 @@ def phase7d_cross(smi: str, ctx, dev: str = "cuda") -> int:
     checkpoint (EncoderConfig.from_env()'s 12 x 768, bf16, kind="cross")
     written into the run's data directory and named by
     MRAG_CROSS_ENCODER_CKPT; AppContext.build() over phase 7's store; phase
-    7's 32 queries with and without the stage. Every hit carries the
-    cross_encoder signal, the hits are the stage-less hits in stable order
-    of it, and the bf16 logits agree with a float32 forward of the same
-    parameters within CROSS_REL. Returns the masked top-k launches."""
+    7's 32 queries with and without the stage, under each pair ladder of
+    CROSS_STEPS, the forward eager against captured in turns. Every hit
+    carries the cross_encoder signal, the hits are the stage-less hits in
+    stable order of it, the bf16 logits agree with a float32 forward of
+    the same parameters within CROSS_REL, and every captured key replays
+    bitwise the eager forward. Returns the masked top-k launches."""
     import dataclasses
     import os
 
     from mobius_rag_tpu_torch.api import server
     from mobius_rag_tpu_torch.models.checkpoint import save_encoder
     from mobius_rag_tpu_torch.models.cross_encoder import (
-        CrossEncoderConfig, CrossEncoderModel, init_cross_params)
+        CrossEncoderConfig, CrossEncoderModel, init_cross_params, pair_bucket)
     from mobius_rag_tpu_torch.models.encoder import EncoderConfig
     from mobius_rag_tpu_torch.ops.topk import masked_topk
 
@@ -2826,8 +2972,11 @@ def phase7d_cross(smi: str, ctx, dev: str = "cuda") -> int:
         if [h.chunk_id for h in b.hits] != want:
             raise AssertionError(f"phase 7d: the hits are not the stage-less hits in stable "
                                  f"order of the logit ({b.query})")
+    texts = [h.text for h in ranked[0].hits]
+    if model(ranked[0].query, texts).shape != (len(texts),):  # the padded rows dropped
+        raise AssertionError(f"phase 7d: {len(texts)} pairs did not give {len(texts)} logits")
     f32 = CrossEncoderModel(dataclasses.replace(cfg, base=dataclasses.replace(
-        cfg.base, dtype="float32")), model.module.params_tree(), device=dev)
+        cfg.base, dtype="float32")), model.module.params_tree(), device=dev, graphs=False)
     worst, scale = 0.0, 0.0
     for res in ranked:
         want = f32(res.query, [h.text for h in res.hits])
@@ -2838,31 +2987,53 @@ def phase7d_cross(smi: str, ctx, dev: str = "cuda") -> int:
         raise AssertionError(f"phase 7d: bf16 logits differ from float32 by {worst} > "
                              f"{CROSS_REL} x {scale}")
     del f32
-    ms = {}
-    for stage in (True, False):
-        engine.cross_encoder = model if stage else None
-        rounds = []
-        for _ in range(3):
-            _sync(dev)
-            t0 = time.perf_counter()
-            engine.search(reqs, k=K)
-            _sync(dev)
-            rounds.append((time.perf_counter() - t0) * 1e3 / FRONT_QUERIES)
-            batches += 1
-        ms[stage] = float(np.median(rounds))
+    step0 = model.pair_step
+    pairs = sum(len(r.hits) for r in ranked)
+    k_hits = max(len(r.hits) for r in ranked)
+    ms = {}  # (pair step, turn) -> ms a query with the stage, without it
+    for step in CROSS_STEPS:
+        model.pair_step = step
+        for t, graphs in enumerate(TURNS if on_card else (False,)):
+            model.graphs = graphs
+            engine.cross_encoder = model
+            if graphs:  # a graph turn's first batch captures its keys
+                engine.search(reqs, k=K)
+                batches += 1
+            for stage in (True, False):
+                engine.cross_encoder = model if stage else None
+                rounds = []
+                for _ in range(3):
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    engine.search(reqs, k=K)
+                    _sync(dev)
+                    rounds.append((time.perf_counter() - t0) * 1e3 / FRONT_QUERIES)
+                    batches += 1
+                ms[step, t, stage] = float(np.median(rounds))
+        turns = ", ".join(
+            f"{'graph' if graphs else 'eager'} {ms[step, t, True]:.3f} (without "
+            f"{ms[step, t, False]:.3f}, share "
+            f"{(ms[step, t, True] - ms[step, t, False]) / ms[step, t, True]:.3f})"
+            for t, graphs in enumerate(TURNS if on_card else (False,)))
+        log(f"phase 7d: pair step {step} ({k_hits} pairs padded to "
+            f"{pair_bucket(k_hits, step)} rows): ms per query with the cross-encoder stage "
+            f"in turns (medians of 3 batches of {FRONT_QUERIES}): {turns} on {smi}")
+    model.pair_step = step0
+    model.graphs = on_card
     engine.cross_encoder = model
     launches = masked_topk.launches
     if on_card and launches != batches:
         raise AssertionError(f"phase 7d: masked_topk launched {launches} times for "
                              f"{batches} engine batches")
-    pairs = sum(len(r.hits) for r in ranked)
-    log(f"phase 7d: {FRONT_QUERIES} queries at batch {FRONT_QUERIES}: {ms[True]:.3f} ms per "
-        f"query with the cross-encoder stage ({pairs} pairs, {pairs / FRONT_QUERIES:.1f} a "
-        f"query), {ms[False]:.3f} without; the stage's share "
-        f"{(ms[True] - ms[False]) / ms[True]:.3f} (medians of 3 batches); every hit carries "
-        f"the signal, in stable order of it; bf16 vs float32 logits max |diff| {worst:.5f} "
-        f"(bound {CROSS_REL} x {scale:.4f}); masked_topk launches {launches} == engine "
-        f"batches on {smi}")
+    if on_card:
+        keys = _graphs_bitwise(model, "phase 7d cross-encoder")
+        log(f"phase 7d: every cross-encoder graph ({keys} keys, both pair steps) replays "
+            f"bitwise the eager forward of its last padded block, padded rows finite; "
+            f"{_graphs_line(model)} on {smi}")
+    log(f"phase 7d: {FRONT_QUERIES} queries at batch {FRONT_QUERIES}, {pairs} pairs "
+        f"({pairs / FRONT_QUERIES:.1f} a query); every hit carries the signal, in stable "
+        f"order of it; bf16 vs float32 logits max |diff| {worst:.5f} (bound {CROSS_REL} x "
+        f"{scale:.4f}); masked_topk launches {launches} == engine batches on {smi}")
     return launches
 
 
@@ -2899,7 +3070,7 @@ def phase7_front_door(smi: str, dev: str = "cuda", n_rows: int = N_FRONT) -> dic
     gc.unfreeze()
     gc.collect()
     if on_card:
-        torch.cuda.empty_cache()
+        _empty_cache()
     log(f"phase 7: {time.perf_counter() - t_all:.1f} s")
     return {"launches": launches + known, "launches_cross": cross, "known_answers_via": ran}
 
@@ -3005,7 +3176,7 @@ def _on_card(value: float, fmt: str, dev, unit: str = "") -> str:
 
 def _reset_peak(dev) -> None:
     if torch.device(dev).type == "cuda":
-        torch.cuda.empty_cache()
+        _empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
 
@@ -3319,7 +3490,7 @@ def phase9_train_eval(smi: str, dev: str = "cuda", cfg=None, n_distractors: int 
     del engine, store
     gc.collect()
     if on_card:
-        torch.cuda.empty_cache()
+        _empty_cache()
     log(f"phase 9: {time.perf_counter() - t_all:.1f} s")
     return {"9a": a, "9b": b, "9c": c, "eval_routes": ran, "pairs": pairs,
             "launches": sum(v["launches"] for v in b.values())}
@@ -3558,7 +3729,7 @@ def phase10b_sharded_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -
         _release_sharded(tse)
         store.listeners.remove(serving._on_store_mutation)
         if on_card:
-            torch.cuda.empty_cache()
+            _empty_cache()
     log(f"phase 10b: {time.perf_counter() - t_all:.1f} s")
     return out
 
@@ -3613,7 +3784,7 @@ def phase10c_sharded_host(smi: str, store, lexicon, cfg5, reqs: dict, dev: str) 
     out = {}
     for shards in (SHARDS_HOST, 1):
         if on_card:
-            torch.cuda.empty_cache()
+            _empty_cache()
             torch.cuda.reset_peak_memory_stats()
         t_all = time.perf_counter()
         tse = ShardedEngine(store, mesh=make_mesh(shards, devices=[dev] * shards), cfg=cfg)
@@ -4057,7 +4228,7 @@ def phase12_grid(smi: str, pairs, loss_step1: float, dev: str = "cuda", cfg=None
     a = phase12a_grid_train(smi, pairs, cfg or EncoderConfig.from_env(), loss_step1, dev)
     launches = phase12b_dryrun(dev)
     if torch.device(dev).type == "cuda":
-        torch.cuda.empty_cache()
+        _empty_cache()
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     return {"12a": a, "launches": launches}
 
@@ -4086,7 +4257,7 @@ def main() -> None:
     # collection after unfreezing frees, before the phases after it
     gc.unfreeze()
     gc.collect()
-    torch.cuda.empty_cache()
+    _empty_cache()
     p7 = phase7_front_door(smi)
     p9 = phase9_train_eval(smi)
     p12 = phase12_grid(smi, p9.pop("pairs"), p9["9a"]["loss_step1"])

@@ -1000,6 +1000,8 @@ def build_app(ctx: AppContext):
         directory (a Chrome trace, for Perfetto)."""
         import torch
 
+        from mobius_rag_tpu_torch.profiling import locked_profiler
+
         body = await request.json()
         try:
             trace_dir = _data_subpath(
@@ -1013,7 +1015,7 @@ def build_app(ctx: AppContext):
         activities = [torch.profiler.ProfilerActivity.CPU]
         if ctx.store.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=activities) as prof:
+        with locked_profiler(activities) as prof:
             for _ in range(reps):
                 ctx.engine.search([QueryRequest(query=q) for q in queries],
                                   k=int(body.get("k", 10)))

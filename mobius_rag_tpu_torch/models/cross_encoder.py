@@ -10,10 +10,13 @@ rescores each result's hits (``MRAG_CROSS_ENCODER_CKPT`` attaches one in
 
 The numerics are the encoder's (float32 logits, tanh GELU, float32 RMS
 norms). The JAX package pads each pair batch to 8 or a multiple of 32 to
-bound XLA compiles; eager PyTorch compiles nothing, so the port scores the
-batch as it is (the padded rows are discarded there, so the result is the
-same). The pairs are trimmed to the encoder's sequence buckets: PAD
-columns are masked, so trimming them is exact.
+bound XLA compiles (``score_pairs_jit``); the port pads it too, since on a
+card each (pair bucket, sequence bucket) is one captured CUDA graph, and
+drops the padded rows. Its step past 8 pairs is ``PAIR_STEP`` (8, where
+the reference's is 32): the engine scores one query's k hits a call (10
+by default), which multiples of 32 would pad to 32 rows. The pairs are
+trimmed to the encoder's sequence buckets: PAD columns are masked, so
+trimming them is exact.
 
 Training (``make_cross_train_step``, ``train_cross_encoder_on_corpus``)
 ranks each ICT pair above the same query with the next pair's document,
@@ -28,9 +31,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from mobius_rag_tpu_torch.models.encoder import (Encoder, EncoderConfig, init_params,
-                                                 seq_bucket)
+from mobius_rag_tpu_torch.models.encoder import (CapturedForward, Encoder, EncoderConfig,
+                                                 init_params, pad_rows, seq_bucket)
 from mobius_rag_tpu_torch.models.tokenizer import CLS_ID, PAD_ID, SEP_ID, HashTokenizer
+
+# Pair buckets past 8 pairs: multiples of PAIR_STEP. The reference pads to
+# multiples of 32; the port to multiples of 8, which pads the engine's 10
+# hits a query to 16 rows, not 32: 8.09-9.37 ms a query against 13.77-14.63
+# captured on an H100 (chip_smoke.py phase 7d). Padded rows are dropped,
+# so every ladder gives the same logits.
+PAIR_STEP = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,12 +104,26 @@ def encode_pair(tokenizer: HashTokenizer, query: str, doc: str) -> np.ndarray:
     return out
 
 
-class CrossEncoderModel:
+def pair_bucket(b: int, step: int = 32) -> int:
+    """The rows a batch of b pairs is padded to: 8 up to 8 pairs, else the
+    next multiple of `step`. At step 32 this is the JAX package's rule
+    (``mobius_rag_tpu/models/cross_encoder.py:105``)."""
+    return 8 if b <= 8 else -(-b // step) * step
+
+
+class CrossEncoderModel(CapturedForward):
     """Host handle: ``model(query, texts) -> np.ndarray [len(texts)]``
-    relevance logits, the parameters on the device once."""
+    relevance logits, the parameters on the device once. Each batch of
+    pairs is padded with PAD rows to :func:`pair_bucket` at ``pair_step``
+    and trimmed to the encoder's sequence buckets; the padded rows are
+    dropped. On a card the forward replays one CUDA graph per (pair
+    bucket, sequence bucket) (``models.encoder.CapturedForward``;
+    ``graphs=False`` runs it eagerly)."""
+
+    pair_step = PAIR_STEP
 
     def __init__(self, cfg: CrossEncoderConfig | None = None, params: dict | None = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", graphs: bool | None = None):
         self.cfg = cfg or CrossEncoderConfig(EncoderConfig.from_env())
         self.device = torch.device(device)
         if params is None:
@@ -107,16 +131,14 @@ class CrossEncoderModel:
                 self.cfg, torch.Generator(device=self.device).manual_seed(seed))
         self.module = CrossEncoder(self.cfg, params, device=self.device).eval()
         self.tokenizer = HashTokenizer(self.cfg.base.vocab_size, self.cfg.base.max_seq)
+        self._init_graphs(graphs)
 
-    @torch.inference_mode()
     def __call__(self, query: str, texts: list[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0,), np.float32)
         pairs = seq_bucket(np.stack([encode_pair(self.tokenizer, query, t) for t in texts]))
-        host = torch.from_numpy(np.ascontiguousarray(pairs))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return self.module(host.to(self.device, non_blocking=True)).cpu().numpy()
+        block = pad_rows(pairs, pair_bucket(len(texts), self.pair_step))
+        return self._forward(block, len(texts)).cpu().numpy()
 
 
 CROSS_WEIGHT_DECAY = 1e-4  # optax.adamw's default

@@ -35,6 +35,7 @@ from torch import nn
 
 from mobius_rag_tpu_torch.config import get_config
 from mobius_rag_tpu_torch.models.tokenizer import PAD_ID, HashTokenizer
+from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -506,11 +507,36 @@ def flops_per_token(cfg: EncoderConfig, length: int) -> int:
     return cfg.num_layers * per_layer + 2 * dm * cfg.out_dim
 
 
-# Batch chunking. The JAX package pads each batch up to a bucket of this
-# ladder to bound XLA compiles; eager PyTorch compiles nothing, so the port
-# pads nothing and keeps only the ladder's top as the largest batch one
-# forward takes (MRAG_ENCODER_BATCH_BUCKETS, same variable).
-_MAX_BATCH = int(os.getenv("MRAG_ENCODER_BATCH_BUCKETS", "1,8,32,128").split(",")[-1])
+# Batch buckets (the JAX package's ladder, MRAG_ENCODER_BATCH_BUCKETS): each
+# batch is padded with PAD rows up to the smallest bucket that holds it (past
+# the top, to a multiple of the top), and the padded rows are dropped from the
+# output. On a card each (bucket, sequence bucket) is one captured CUDA graph,
+# as each is one XLA program in the JAX package; the CPU and eager runs pad
+# alike, so all three compute the same shapes. An all-PAD row is finite: its
+# mask is all false, its softmax uniform, its pooled denominator 1.
+_BATCH_BUCKETS = tuple(
+    int(x) for x in os.getenv("MRAG_ENCODER_BATCH_BUCKETS", "1,8,32,128").split(","))
+
+
+def _bucket(n: int) -> int:
+    """The batch bucket of n rows (``mobius_rag_tpu/models/encoder.py``'s
+    ``EncoderModel._bucket``)."""
+    for b in _BATCH_BUCKETS:
+        if n <= b:
+            return b
+    top = _BATCH_BUCKETS[-1]
+    return -(-n // top) * top
+
+
+def pad_rows(tokens: np.ndarray, rows: int) -> np.ndarray:
+    """A [B, L] token block as int32, with PAD rows appended up to `rows`."""
+    tokens = np.asarray(tokens, np.int32)
+    if rows == len(tokens):
+        return np.ascontiguousarray(tokens)
+    out = np.full((rows, tokens.shape[1]), PAD_ID, np.int32)
+    out[:len(tokens)] = tokens
+    return out
+
 
 # Sequence buckets: each batch trims to the smallest bucket covering its
 # longest text; PAD columns are masked out of attention and pooling, so
@@ -533,13 +559,70 @@ def seq_bucket(tokens: np.ndarray) -> np.ndarray:
     return tokens
 
 
-class EncoderModel:
+class CapturedForward:
+    """The forward of ``self.module`` (an :class:`Encoder`) over padded
+    token blocks, eager or replayed from captured CUDA graphs: the port of
+    ``encode_jit`` and ``score_pairs_jit``, jitted once per input shape.
+
+    ``graphs``: None (the default) captures on a card and runs eagerly on
+    the CPU; False runs eagerly on a card too; True on the CPU raises.
+    Captured, one :class:`~mobius_rag_tpu_torch.query.compiled.CapturedPrograms`
+    per model keeps one graph per (rows, length) of the padded block, over
+    the module's parameters: an in-place ``load_tree`` (or a training
+    step) keeps the graphs, a new module drops them. Every captured call
+    holds ``compiled.LOCK`` across its upload, its replay (or its eager
+    first run and capture: ``torch.cuda.graph`` synchronizes the device)
+    and the enqueue of a copy of its real rows, since the next replay of
+    any graph of the model rewrites the static output; the callers (the
+    micro-batcher's thread, the ingest worker, the retag thread, the
+    request handlers) may be on any thread. A failed capture or replay
+    raises; nothing falls back to the eager forward."""
+
+    module: "Encoder"
+    device: torch.device
+
+    def _init_graphs(self, graphs: bool | None) -> None:
+        self._programs: CapturedPrograms | None = None
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+
+    @property
+    def graphs(self) -> bool:
+        """Whether the forward replays captured CUDA graphs (see the class
+        docstring); settable, so one model can run both ways in turns."""
+        return self._graphs
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        if on and self._programs is None:
+            self._programs = CapturedPrograms(self.device)  # raises off a card
+        self._graphs = bool(on)
+
+    def _program(self, static: dict) -> torch.Tensor:
+        return self.module(static["tokens"])
+
+    @torch.inference_mode()
+    def _forward(self, block: np.ndarray, n: int) -> torch.Tensor:
+        """The module's output for the first `n` rows of `block`, a padded
+        int32 [rows, L] token block, on the device: a copy of the captured
+        program's static output, or the eager output's rows."""
+        host = {"tokens": block}
+        if not self.graphs:
+            return self._program(to_device(host, self.device))[:n]
+        with LOCK:
+            out = self._programs.run(block.shape, list(self.module.parameters()), host,
+                                     self._program)
+            return out[:n].clone()
+
+
+class EncoderModel(CapturedForward):
     """Host handle bundling config, parameters on the device and the
     tokenizer — the ``embed_fn`` plugged into SearchEngine and the ingest
-    pipeline: ``model(texts) -> np.ndarray [N, out_dim] float32``."""
+    pipeline: ``model(texts) -> np.ndarray [N, out_dim] float32``. On a
+    card the forward replays one CUDA graph per (batch bucket, sequence
+    bucket) (:class:`CapturedForward`; ``graphs=False`` runs it eagerly)."""
 
     def __init__(self, cfg: EncoderConfig | None = None, params: dict | None = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", graphs: bool | None = None):
         self.cfg = cfg or EncoderConfig.from_env()
         self.device = torch.device(device)
         if params is None:
@@ -548,26 +631,24 @@ class EncoderModel:
         # the parameters go to the device once, here
         self.module = Encoder(self.cfg, params, device=self.device).eval()
         self.tokenizer = HashTokenizer(self.cfg.vocab_size, self.cfg.max_seq)
+        self._init_graphs(graphs)
 
-    @torch.inference_mode()
     def encode_tokens(self, tokens: np.ndarray) -> torch.Tensor:
-        """One forward of a [B, L] token block (no trimming) → [B, out_dim]
-        float32 on the device. The upload does not wait for the device: the
-        tokens go up from page-locked memory."""
-        host = torch.from_numpy(np.ascontiguousarray(tokens))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return self.module(host.to(self.device, non_blocking=True))
+        """One forward of a [B, L] token block (no trimming), padded to its
+        batch bucket → [B, out_dim] float32 on the device, the padded rows
+        dropped. The upload does not wait for the device: the tokens go up
+        from page-locked memory."""
+        return self._forward(pad_rows(tokens, _bucket(len(tokens))), len(tokens))
 
     def __call__(self, texts: list[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.cfg.out_dim), np.float32)
-        # every batch is enqueued before the one read back, so the host
-        # tokenizes batch i+1 while the device encodes batch i
-        outs = [self.encode_tokens(seq_bucket(
-                    self.tokenizer.encode_batch(texts[off:off + _MAX_BATCH])))
-                for off in range(0, len(texts), _MAX_BATCH)]
-        return torch.cat(outs).cpu().numpy()
+        # every chunk is enqueued before the one read back, so the host
+        # tokenizes chunk i+1 while the device encodes chunk i
+        top = _BATCH_BUCKETS[-1]
+        outs = [self.encode_tokens(seq_bucket(self.tokenizer.encode_batch(texts[off:off + top])))
+                for off in range(0, len(texts), top)]
+        return (torch.cat(outs) if len(outs) > 1 else outs[0]).cpu().numpy()
 
 
 class MeshEncoderModel:
@@ -616,7 +697,7 @@ class MeshEncoderModel:
     def __call__(self, texts: list[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.cfg.out_dim), np.float32)
-        step = max(_MAX_BATCH, len(self.devices))
+        step = max(_BATCH_BUCKETS[-1], len(self.devices))
         outs = [self.encode_tokens(seq_bucket(self.tokenizer.encode_batch(texts[off:off + step])))
                 for off in range(0, len(texts), step)]
         return torch.cat(outs).cpu().numpy()

@@ -18,19 +18,41 @@ host prep is fast. Two tools:
 - :func:`capture_trace`: ``torch.profiler`` around N searches, exported as
   a Chrome trace (Perfetto) under ``data_dir/profiles/``.
 
+The profiler starts and stops under ``compiled.LOCK`` (:func:`locked_profiler`):
+its stop synchronizes the device, which would break a CUDA graph that
+another thread (the micro-batcher's, the ingest worker's) is capturing.
+
 Served at ``POST /admin/profile`` (api/extended.py).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import uuid
-from typing import Any, Sequence
+from typing import Any, Iterator, Sequence
 
 import torch
 
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
+from mobius_rag_tpu_torch.query import compiled
 from mobius_rag_tpu_torch.query import engine as eng
+
+
+@contextlib.contextmanager
+def locked_profiler(activities) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler.profile`` over the block, its start and its stop
+    each under ``compiled.LOCK``: both may synchronize the device, and a
+    device-wide synchronize breaks a capture open on another thread. The
+    lock is not held inside the block (a search takes it itself)."""
+    prof = torch.profiler.profile(activities=activities)
+    with compiled.LOCK:
+        prof.start()
+    try:
+        yield prof
+    finally:
+        with compiled.LOCK:
+            prof.stop()
 
 
 def _timed(fn, device: torch.device, iters: int = 5) -> float:
@@ -168,7 +190,7 @@ def capture_trace(engine, reqs: Sequence, k: int | None = None,
     path = os.path.join(logdir, "trace.json")
     try:
         os.makedirs(logdir, exist_ok=True)
-        with torch.profiler.profile(activities=activities) as prof:
+        with locked_profiler(activities) as prof:
             for _ in range(n_batches):
                 engine.search(list(reqs), k=k)
         prof.export_chrome_trace(path)

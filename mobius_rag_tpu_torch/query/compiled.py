@@ -72,6 +72,13 @@ Every single-device backend captures: exact, ivf, packed, pq and proj,
 under dense and candidate-local gating and under host residency; none
 reads a device value back inside its program. A sharded engine
 (``parallel.ShardedEngine``) runs eagerly.
+
+The encoder's and the cross-encoder's forwards (the ports of
+``encode_jit`` and ``score_pairs_jit``) are captured by the same class
+(``models/encoder.CapturedForward``): one instance per model, so one
+pool and one LRU; the key is the padded token block's (rows, length),
+the tables are the module's parameters, and the rules above hold alike
+(the forward launches no counted kernel, so its deltas are zero).
 """
 from __future__ import annotations
 
@@ -160,8 +167,8 @@ def identity(tensors: Sequence[torch.Tensor]) -> tuple:
 
 
 class CapturedPrograms:
-    """One engine's captured search programs on a CUDA device (see the
-    module docstring). ``run`` serves one batch; ``captures``,
+    """One engine's (or one model's) captured programs on a CUDA device
+    (see the module docstring). ``run`` serves one batch; ``captures``,
     ``capture_ms``, ``replays`` and :meth:`pool_bytes` report on them."""
 
     def __init__(self, device, max_graphs: int = MAX_GRAPHS):
@@ -195,7 +202,7 @@ class CapturedPrograms:
         layout) over the tables `held`, replayed, or run eagerly and
         captured when the key is new. Returns
         the program's outputs: a graph's static outputs, valid until the
-        next replay of any graph of this engine."""
+        next replay of any graph of this instance."""
         tables = identity(held)
         if tables != self.tables:  # the store or the ANN tables replaced a tensor
             self.clear()

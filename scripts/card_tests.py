@@ -1,6 +1,8 @@
 """Run the port's `cuda`-marked tests (the kernels, the pipelined engine's
 dispatch without a device-to-host wait, the captured search programs
-bitwise against the eager ones, the encoder's bf16 against
+bitwise against the eager ones, the captured encoder and cross-encoder
+forwards bitwise against the eager ones, an ingesting, a searching and a
+profiling thread on one engine and encoder, the encoder's bf16 against
 float32 activations, a training step and a (2, 2) grid training step
 against their CPU twins, and the sharded engine against the dense one)
 on a CUDA card whose machine has no JAX. Those tests
@@ -23,6 +25,7 @@ MOCKED = ["jax", "jax.numpy", "jax.sharding", "mobius_rag_tpu", "mobius_rag_tpu.
           "mobius_rag_tpu.ops.pallas_proj", "mobius_rag_tpu.ops.quant", "mobius_rag_tpu.ops.topk",
           "mobius_rag_tpu.query", "mobius_rag_tpu.query.engine", "mobius_rag_tpu.testing",
           "mobius_rag_tpu.models", "mobius_rag_tpu.models.checkpoint",
+          "mobius_rag_tpu.models.cross_encoder",
           "mobius_rag_tpu.models.encoder", "mobius_rag_tpu.models.tokenizer",
           "mobius_rag_tpu.models.data", "mobius_rag_tpu.models.train", "mobius_rag_tpu.ops.pq",
           "mobius_rag_tpu.parallel", "mobius_rag_tpu.parallel.mesh",
@@ -39,7 +42,7 @@ def main() -> int:
                         "-k", "on_card", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
                           for m in ("topk", "quant", "proj", "pipelined", "compiled", "encoder",
-                                    "train", "train_grid", "sharded"))])
+                                    "cross_encoder", "train", "train_grid", "sharded"))])
 
 
 if __name__ == "__main__":

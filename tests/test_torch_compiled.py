@@ -17,7 +17,12 @@ On the CPU:
   deletes; the LRU bound; the tables' tensors held by each graph; the
   launch counters' deltas added on every replay; results equal to the
   eager program's; and the card test's write sequence for every backend;
-- ``graphs=None`` on a CPU engine runs eagerly, ``graphs=True`` raises.
+- ``graphs=None`` on a CPU engine runs eagerly, ``graphs=True`` raises;
+- the encoders' captured forwards (models/encoder.CapturedForward) with
+  the stand-in: keys (batch or pair bucket, sequence bucket), an in-place
+  load_tree keeping them and a new module dropping them, the LRU bound,
+  ``graphs=True`` on the CPU raising; and both /admin/profile handlers and
+  capture_trace starting and stopping the profiler under compiled.LOCK.
 
 On a card (``cuda``-marked, skipped here; ``scripts/card_tests.py``): the
 replay bitwise against the eager program (``graphs=False``) for exact
@@ -27,8 +32,9 @@ spanning two batch sizes, several union widths and, under local gating,
 two tag levels; again after an in-place add, after a write carrying
 d-tags and after a grow; kernel launches equal captured and eager (one a
 batch where the path launches one); a writer thread publishing inside
-the captures; two threads searching one engine at once; and which calls
-of another thread each capture mode refuses."""
+the captures; two threads searching one engine at once; which calls
+of another thread each capture mode refuses; and an ingesting, a
+searching and a profiling thread on one engine and one encoder."""
 import dataclasses
 
 import numpy as np
@@ -42,6 +48,8 @@ from mobius_rag_tpu.query.engine import QueryRequest as JRequest, SearchEngine a
 from mobius_rag_tpu_torch import testing as ttesting
 from mobius_rag_tpu_torch.config import get_config as tget_config
 from mobius_rag_tpu_torch.index.store import ChunkRecord as TRecord, ChunkStore as TStore
+from mobius_rag_tpu_torch.models import cross_encoder as tce
+from mobius_rag_tpu_torch.models import encoder as tenc
 from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_gated_blocks
 from mobius_rag_tpu_torch.ops.topk import masked_topk
 from mobius_rag_tpu_torch.query import compiled
@@ -176,8 +184,11 @@ class _Replay:
 
     def replay(self):
         counts = [fn.launches for fn in compiled.COUNTED]  # a replay runs no Python
-        for out, new in zip(self.outputs, self.program(self.static)):
-            out.copy_(new)
+        outputs, new = self.outputs, self.program(self.static)
+        if isinstance(outputs, torch.Tensor):  # an encoder's forward
+            outputs, new = (outputs,), (new,)
+        for out, fresh in zip(outputs, new):
+            out.copy_(fresh)
         for fn, n in zip(compiled.COUNTED, counts):
             fn.launches = n
 
@@ -197,7 +208,10 @@ class StandIn(CapturedPrograms):
         # on a card the engine copies a replay's static outputs to the host
         # right behind it (PendingFetch); on the CPU it keeps the arrays
         # it is given, so the stand-in hands out the copies
-        return tuple(t.clone() for t in super().run(key, held, q, program))
+        out = super().run(key, held, q, program)
+        if isinstance(out, torch.Tensor):  # an encoder's forward
+            return out.clone()
+        return tuple(t.clone() for t in out)
 
 
 def _reads_as_card(engine: SearchEngine) -> SearchEngine:
@@ -393,6 +407,198 @@ def test_launch_deltas_added_per_replay(monkeypatch):
         out = cache.run(("key",), [], host([i, 5, 6]), program)
         np.testing.assert_array_equal(out[0].numpy(), [2 * i, 10, 12])
     assert kernel.launches == 8 and cache.replays == 3
+
+
+# ---------------------------------------------------------------------------
+# the encoders' forwards (models/encoder.CapturedForward)
+# ---------------------------------------------------------------------------
+
+def _encoder(**kw) -> tenc.EncoderModel:
+    """A tiny encoder on the CPU whose texts reach three sequence buckets
+    (64, 128 and max_seq 256)."""
+    cfg = dataclasses.replace(tenc.EncoderConfig.tiny(), max_seq=256)
+    return tenc.EncoderModel(cfg, device="cpu", **kw)
+
+
+def _model_stand_in(model, max_graphs: int = compiled.MAX_GRAPHS) -> StandIn:
+    model._programs = StandIn(model.device, max_graphs)
+    model._graphs = True
+    return model._programs
+
+
+def _texts_of(n: int, words: int, tag: str = "") -> list[str]:
+    return [" ".join(f"w{(i * 7 + j) % 50}" for j in range(words)) + f" {tag}{i}"
+            for i in range(n)]
+
+
+# (texts, words a text) per call → the (batch bucket, length) keys it reaches
+_ENCODER_CALLS = [((3, 10), [(8, 64)]), ((3, 10), [(8, 64)]), ((1, 100), [(1, 128)]),
+                  ((9, 200), [(32, 256)]), ((130, 10), [(128, 64), (8, 64)]),
+                  ((33, 100), [(128, 128)]), ((9, 10), [(32, 64)])]
+
+
+def test_encoder_keys_are_bucket_and_length():
+    """One graph per (batch bucket, sequence bucket) of the padded block:
+    the replays and the first runs give the eager model's rows bitwise,
+    without the padded rows."""
+    model, eager = _encoder(), _encoder(graphs=False)
+    cache = _model_stand_in(model)
+    keys = []
+    for (n, words), reached in _ENCODER_CALLS:
+        texts = _texts_of(n, words)
+        got = model(texts)
+        assert got.shape == (n, model.cfg.out_dim)
+        np.testing.assert_array_equal(got, eager(texts))
+        keys += [k for k in reached if k not in keys]
+    assert sorted(key for key, _ in cache.graphs) == sorted(keys)
+    assert all(layout == (("tokens", key, torch.int32),) for key, layout in cache.graphs)
+    assert cache.captures == len(keys) == 6 and cache.replays == 2
+
+
+def test_cross_encoder_keys_are_pair_bucket_and_length(monkeypatch):
+    """The cross-encoder's graphs are keyed on (pair bucket, sequence
+    bucket), at either pair step; its logits are the eager model's."""
+    cfg = tce.CrossEncoderConfig(dataclasses.replace(tenc.EncoderConfig.tiny(), max_seq=256))
+    model = tce.CrossEncoderModel(cfg, device="cpu")
+    eager = tce.CrossEncoderModel(cfg, model.module.params_tree(), device="cpu", graphs=False)
+    cache = _model_stand_in(model)
+    for step in (32, 8):
+        monkeypatch.setattr(model, "pair_step", step)
+        monkeypatch.setattr(eager, "pair_step", step)
+        for n, words in ((10, 10), (10, 100), (3, 200), (10, 10)):
+            docs = _texts_of(n, words)
+            np.testing.assert_array_equal(model("a query", docs), eager("a query", docs))
+    assert sorted(key for key, _ in cache.graphs) == [(8, 256), (16, 64), (16, 128),
+                                                      (32, 64), (32, 128)]
+    assert cache.captures == 5 and cache.replays == 3
+
+
+def test_encoder_graphs_follow_the_module():
+    """An in-place load_tree (or a training step) keeps the graphs, and their
+    replays read the new parameters; a new module drops them."""
+    model = _encoder()
+    cache = _model_stand_in(model)
+    texts = _texts_of(3, 10)
+    model(texts)
+    fresh = tenc.init_params(model.cfg, torch.Generator().manual_seed(5))
+    model.module.load_tree(fresh)
+    got = model(texts)
+    assert cache.captures == 1 and cache.replays == 1
+    np.testing.assert_array_equal(got, _encoder(params=fresh, graphs=False)(texts))
+    model.module = tenc.Encoder(model.cfg, fresh)
+    np.testing.assert_array_equal(model(texts), got)
+    assert cache.captures == 2 and len(cache.graphs) == 1
+    assert next(iter(cache.graphs.values())).held[0] is model.module.embed
+
+
+def test_encoder_lru_bound():
+    model = _encoder()
+    cache = _model_stand_in(model, max_graphs=2)
+    for n in (1, 5, 20, 1):
+        model(_texts_of(n, 10))
+    assert [key for key, _ in cache.graphs] == [(32, 64), (1, 64)] and cache.captures == 4
+
+
+def test_encoder_graphs_true_on_cpu_raises():
+    model = _encoder()
+    assert model.graphs is False and model._programs is None
+    for make in (lambda: _encoder(graphs=True),
+                 lambda: tce.CrossEncoderModel(tce.CrossEncoderConfig.tiny(), device="cpu",
+                                               graphs=True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            make()
+    with pytest.raises(ValueError, match="CUDA"):
+        model.graphs = True
+    assert model.graphs is False
+
+
+class _RecordingLock:
+    """compiled.LOCK's stand-in: whether it is held, and how often it was
+    taken."""
+
+    def __init__(self):
+        self.held, self.taken = False, 0
+
+    def __enter__(self):
+        assert not self.held
+        self.held, self.taken = True, self.taken + 1
+
+    def __exit__(self, *exc):
+        self.held = False
+
+
+@pytest.fixture
+def profiler_log(monkeypatch):
+    """compiled.LOCK replaced by a recording lock and torch.profiler.profile
+    by a recorder: the log holds (event, lock held) for each profiler start
+    and stop and each search."""
+    lock, log = _RecordingLock(), []
+
+    class Profile:
+        def __init__(self, activities=None):
+            pass
+
+        def start(self):
+            log.append(("start", lock.held))
+
+        def stop(self):
+            log.append(("stop", lock.held))
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                f.write('{"traceEvents": []}')
+
+    real = SearchEngine.search
+
+    def search(self, *a, **kw):
+        log.append(("search", lock.held))
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(compiled, "LOCK", lock)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(SearchEngine, "search", search)
+    return log
+
+
+def test_capture_trace_starts_and_stops_under_the_lock(profiler_log, tmp_path):
+    from mobius_rag_tpu_torch.profiling import capture_trace
+
+    out = capture_trace(_toy_engine(), _reqs(2), k=K, n_batches=2, logdir=str(tmp_path))
+    assert out["ok"]
+    assert profiler_log == [("search", False), ("start", True), ("search", False),
+                            ("search", False), ("stop", True)]
+
+
+def test_profile_routes_start_and_stop_under_the_lock(profiler_log, tmp_path):
+    """Both handlers registered at POST /admin/profile (api/extended.py's,
+    which aiohttp serves, and api/server.py's) start and stop the profiler
+    under compiled.LOCK, and search without it."""
+    import asyncio
+
+    from mobius_rag_tpu_torch.api.server import build_app
+    from test_torch_api import _context_under
+
+    ctx = _context_under(tmp_path)
+    ctx.store.add_chunks(ttesting.toy_corpus(ctx.engine.lexicon))
+    handlers = [route.handler for route in build_app(ctx).router.routes()
+                if route.method == "POST" and route.resource.canonical == "/admin/profile"]
+    assert len(handlers) == 2
+
+    class Request:
+        can_read_body = True
+
+        async def json(self):
+            return {"iters": 1, "k": K, "trace": True, "repetitions": 2}
+
+    for handler in handlers:
+        profiler_log.clear()
+        resp = asyncio.new_event_loop().run_until_complete(handler(Request()))
+        assert resp.status == 200
+        starts = [i for i, (event, _) in enumerate(profiler_log) if event == "start"]
+        assert len(starts) == 1 and profiler_log[-1] == ("stop", True)
+        assert profiler_log[starts[0]] == ("start", True)
+        inside = profiler_log[starts[0] + 1:-1]
+        assert inside and all(e == ("search", False) for e in inside)
 
 
 # ---------------------------------------------------------------------------
@@ -705,3 +911,85 @@ def test_writer_thread_during_captures_on_card(case, monkeypatch):
     engine.graphs = True
     got = [[_fields(r) for r in engine.search(b, k=K)] for b in batches]
     assert got == want
+
+
+@pytest.mark.cuda
+def test_ingest_search_and_profiler_threads_on_card():
+    """Three threads on one engine and one encoder: one ingests (embeds
+    documents and publishes them), one searches batches of new keys whose
+    queries the encoder embeds, and one opens and closes torch.profiler
+    with CUDA activity through the port's profiler (locked_profiler, as
+    both /admin/profile routes do) until the other two are done. Both
+    caches keep 2 graphs, so keys are captured again and again while the
+    profiler starts and stops. All three succeed; each embedding the
+    threads made is bitwise the eager encoder's on the same texts, and
+    afterwards every batch's replay is bitwise the eager program's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import threading
+
+    from mobius_rag_tpu_torch.profiling import locked_profiler
+
+    engine = _case_engine("exact_f32", "cuda")
+    cfg = dataclasses.replace(tenc.EncoderConfig.tiny(), max_seq=256,
+                              out_dim=engine.cfg.embed_dim)
+    model = tenc.EncoderModel(cfg, device="cuda", seed=2)
+    eager = tenc.EncoderModel(cfg, model.module.params_tree(), device="cuda", graphs=False)
+    engine.embed_fn = model
+    model._programs.max_graphs = engine._programs.max_graphs = 2
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    errors, ingested, searched, profiles = [], [], [], []
+    done = threading.Event()
+
+    def ingest():
+        try:
+            for i in range(12):
+                texts = _texts_of((1, 5, 20)[i % 3], (10, 100, 200)[i % 3], f"ingest{i} ")
+                embs = model(texts)
+                engine.store.publish_document(f"ing{i}", [
+                    TRecord(chunk_id=f"ing{i}-{j}", doc_id=f"ing{i}", text=t, embedding=embs[j])
+                    for j, t in enumerate(texts)])
+                ingested.append((texts, embs))
+        except Exception as e:  # reported by the assertion below
+            errors.append(("ingest", repr(e)))
+
+    def search():
+        try:
+            for i in range(12):
+                batch = [QueryRequest(query=f"{q.query} search{i}", payer=q.payer)
+                         for q in _reqs((1, 3, 9, 20)[i % 4])]
+                engine.search(batch, k=K)
+                searched.append(batch)
+        except Exception as e:  # reported by the assertion below
+            errors.append(("search", repr(e)))
+
+    def profile():
+        try:
+            while not done.is_set():
+                with locked_profiler(acts):
+                    torch.ones(1 << 20, device="cuda").sum()
+                profiles.append(1)
+        except Exception as e:  # reported by the assertion below
+            errors.append(("profile", repr(e)))
+
+    workers = [threading.Thread(target=ingest), threading.Thread(target=search)]
+    profiler = threading.Thread(target=profile)
+    profiler.start()
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join()
+    done.set()
+    profiler.join()
+    assert not errors, errors
+    assert len(ingested) == len(searched) == 12 and profiles
+    assert model._programs.captures > 2 and engine._programs.captures > 2
+    for texts, embs in ingested:
+        np.testing.assert_array_equal(embs, eager(texts))
+    for batch in searched:
+        got = np.stack([engine._embed_cache[r.query.strip().lower()] for r in batch])
+        np.testing.assert_array_equal(got, eager([r.query for r in batch]))
+    engine.graphs = False
+    want = [[_fields(r) for r in engine.search(b, k=K)] for b in searched]
+    engine.graphs = True
+    assert [[_fields(r) for r in engine.search(b, k=K)] for b in searched] == want

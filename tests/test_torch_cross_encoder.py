@@ -131,6 +131,74 @@ def test_model_matches_jax_model():
     assert tm.module.score_head.dtype == torch.float32
 
 
+def test_pair_bucket_matches_jax(monkeypatch):
+    """pair_bucket at the reference's step (32) pads b pairs to the rows
+    the JAX CrossEncoderModel hands score_pairs_jit (8, or a multiple of
+    32), for b = 1..70; at step 8, to 8 or a multiple of 8."""
+    jcfg, _ = _cfgs("float32")
+    jm = jce.CrossEncoderModel(jcfg, jce.init_cross_params(jcfg, jax.random.PRNGKey(0)))
+    rows = []
+
+    def score_pairs_jit(params, tokens, cfg):
+        rows.append(tokens.shape[0])
+        return jnp.zeros((tokens.shape[0],), jnp.float32)
+
+    monkeypatch.setattr(jce, "score_pairs_jit", score_pairs_jit)
+    for b in range(1, 71):
+        assert jm(QUERY, ["molina"] * b).shape == (b,)
+    assert rows == [tce.pair_bucket(b) for b in range(1, 71)]
+    assert tce.pair_bucket(10) == 32 and tce.pair_bucket(10, 8) == 16
+    assert [tce.pair_bucket(b, 8) for b in (1, 8, 9, 16, 17, 33)] == [8, 8, 16, 16, 24, 40]
+
+
+@pytest.mark.parametrize("step", [32, 8])
+@pytest.mark.parametrize("n", [3, 9, 33, 130])
+def test_padded_pairs_match_jax_model(n, step, monkeypatch):
+    """CrossEncoderModel pads each batch of pairs to pair_bucket at its
+    step and drops the padded rows: float32 logits against the JAX
+    CrossEncoderModel's (padded to its own ladder) within F32_TOL."""
+    jcfg, tcfg = _cfgs("float32")
+    params = jce.init_cross_params(jcfg, jax.random.PRNGKey(5))
+    docs = [f"{DOCS[i % len(DOCS)]} pair {i}" for i in range(n)]
+    want = jce.CrossEncoderModel(jcfg, params)(QUERY, docs)
+    tm = tce.CrossEncoderModel(tcfg, tenc.params_from_numpy(_np_tree(params)), device="cpu")
+    monkeypatch.setattr(tm, "pair_step", step)
+    shapes = []
+    real = tm._forward
+
+    def forward(block, rows):
+        shapes.append((block.shape[0], rows))
+        return real(block, rows)
+
+    monkeypatch.setattr(tm, "_forward", forward)
+    got = tm(QUERY, docs)
+    assert shapes == [(tce.pair_bucket(n, step), n)] and shapes[0][0] > n
+    assert got.shape == want.shape == (n,)
+    assert np.abs(got - want).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_pairs_match_unpadded(dtype):
+    """A batch's real logits padded (5 → 8, 10 → 32) against the same pairs
+    through the module unpadded: float32 within F32_TOL, bfloat16 within
+    BF16_REL of the largest logit; an all-PAD row's logit is finite."""
+    _, tcfg = _cfgs(dtype)
+    tm = tce.CrossEncoderModel(tcfg, seed=3, device="cpu")
+    for n in (5, 10):
+        docs = [f"{DOCS[i % len(DOCS)]} unpadded {i}" for i in range(n)]
+        got = tm(QUERY, docs)
+        pairs = tenc.seq_bucket(np.stack([tce.encode_pair(tm.tokenizer, QUERY, d)
+                                          for d in docs]))
+        block = tenc.pad_rows(pairs, tce.pair_bucket(n))
+        with torch.no_grad():
+            alone = tm.module(torch.from_numpy(pairs)).numpy()
+            padded = tm.module(torch.from_numpy(block))
+        assert torch.isfinite(padded).all()
+        bound = F32_TOL if dtype == "float32" else BF16_REL * np.abs(alone).max()
+        assert got.shape == alone.shape == (n,)
+        assert np.abs(got - alone).max() <= bound
+
+
 def test_init_cross_params_tree():
     """The port's fresh tree has the JAX tree's keys and shapes (its values
     come from another RNG)."""
@@ -406,3 +474,33 @@ def test_cross_training_learns_pairwise_order(monkeypatch):
     with pytest.raises(ValueError, match="too small"):
         tce.train_cross_encoder_on_corpus(TStore(device="cpu"), steps=2, batch=8,
                                           device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [32, 8])
+def test_captured_pairs_bitwise_on_card(step):
+    """On the card, the served width's layers (2 of 12): one graph per
+    (pair bucket, sequence bucket), L = 64 to 512, each replay bitwise the
+    eager forward (graphs=False) on the same padded block, every row; the
+    padded rows dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import _graphs_bitwise
+
+    base = dataclasses.replace(tenc.EncoderConfig(), num_layers=2)
+    cfg = tce.CrossEncoderConfig(base)
+    model = tce.CrossEncoderModel(cfg, seed=1, device="cuda")
+    eager = tce.CrossEncoderModel(cfg, model.module.params_tree(), device="cuda", graphs=False)
+    model.pair_step = eager.pair_step = step
+    words = " ".join(DOCS).split()
+    for n in (3, 10, 40):
+        for w in (30, 100, 200, 400):
+            docs = [" ".join(words[(i + j) % len(words)] for j in range(w)) for i in range(n)]
+            first, again, want = model(QUERY, docs), model(QUERY, docs), eager(QUERY, docs)
+            assert first.shape == (n,)
+            np.testing.assert_array_equal(again, want)
+            np.testing.assert_array_equal(first, want)
+    keys = {key for key, _ in model._programs.graphs}
+    assert keys == {(tce.pair_bucket(n, step), length) for n in (3, 10, 40)
+                    for length in (64, 128, 256, 512)}
+    assert _graphs_bitwise(model, "cross-encoder") == 12

@@ -1,7 +1,9 @@
 """The port's encoder (mobius_rag_tpu_torch.models) against the JAX package's
 on the same parameters: the tokenizer, ``encode`` at EncoderConfig.tiny()
-with and without the hybrid anchor, sequence buckets, EncoderModel as an
-embed_fn, and the npz checkpoint both ways.
+with and without the hybrid anchor, sequence buckets, the batch ladder
+(``_bucket`` against the JAX rule; padded blocks, their padded rows
+dropped and finite), EncoderModel as an embed_fn, and the npz checkpoint
+both ways.
 
 The JAX parameters are drawn on the CPU with PRNGKey and carried across as
 numpy arrays (parity at init cannot hold: the RNGs differ). Tolerances:
@@ -9,9 +11,10 @@ float32 activations agree within 1e-5 max abs (summation order only);
 bfloat16 activations within a per-row cosine of 0.999 and 3e-2 max abs on
 the unit-norm outputs (bf16 rounds each product to 8 bits of mantissa, and
 the two libraries round the intermediate results of elementwise chains in
-different places). The card case (marked ``cuda``, run by
-scripts/card_tests.py) holds bf16 against float32 on the card at the full
-width's layer shapes.
+different places). The card cases (marked ``cuda``, run by
+scripts/card_tests.py) hold bf16 against float32 on the card at the full
+width's layer shapes, and every captured (batch bucket, sequence bucket)
+graph bitwise against the eager forward.
 """
 import dataclasses
 import json
@@ -159,13 +162,14 @@ def test_pad_invariance_against_jax():
 
 
 def test_encoder_model_matches_jax_across_batch_chunks(monkeypatch):
-    """EncoderModel (the embed_fn) on 40 texts, in chunks of 32 so a batch
-    boundary is crossed, against the JAX EncoderModel (bf16)."""
+    """EncoderModel (the embed_fn) on 40 texts, in chunks of 32 (a ladder
+    whose top is 32) so a batch boundary is crossed, against the JAX
+    EncoderModel (bf16)."""
     jcfg, tcfg = _cfgs("bfloat16", False)
     params = _jax_params(jcfg, seed=7)
     texts = [f"{TEXTS[i % len(TEXTS)]} variant {i} of the policy" for i in range(40)]
     want = jenc.EncoderModel(jcfg, params)(texts)
-    monkeypatch.setattr(tenc, "_MAX_BATCH", 32)
+    monkeypatch.setattr(tenc, "_BATCH_BUCKETS", (1, 8, 32))
     model = tenc.EncoderModel(tcfg, tenc.params_from_numpy(_numpy_tree(params)), device="cpu")
     got = model(texts)
     assert got.shape == want.shape == (40, jcfg.out_dim) and got.dtype == np.float32
@@ -286,6 +290,102 @@ def test_mesh_encoder_matches_encoder_model(dp):
     assert mesh([]).shape == (0, tcfg.out_dim)
 
 
+_BUCKETS_PROBE = r"""
+import json
+from mobius_rag_tpu.models import encoder as jenc
+from mobius_rag_tpu_torch.models import encoder as tenc
+ns = range(1, 301)
+print(json.dumps([tenc._BATCH_BUCKETS, [tenc._bucket(n) for n in ns],
+                  [jenc.EncoderModel._bucket(None, n) for n in ns]]))
+"""
+
+
+@pytest.mark.parametrize("ladder", [None, "2,16,48"], ids=["default", "custom"])
+def test_batch_bucket_matches_jax(ladder):
+    """The port's batch ladder and _bucket(n) against the JAX
+    EncoderModel._bucket for n = 1..300, under the default ladder and a
+    custom MRAG_ENCODER_BATCH_BUCKETS (read at import by both packages, so
+    each runs in a fresh interpreter)."""
+    import subprocess
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("MRAG_ENCODER_BATCH_BUCKETS", None)
+    if ladder:
+        env["MRAG_ENCODER_BATCH_BUCKETS"] = ladder
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    run = subprocess.run([sys.executable, "-c", _BUCKETS_PROBE], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    ladder_got, got, want = json.loads(run.stdout.strip().splitlines()[-1])
+    assert ladder_got == [int(x) for x in (ladder or "1,8,32,128").split(",")]
+    assert got == want
+    assert got[300 - 1] == -(-300 // ladder_got[-1]) * ladder_got[-1]
+
+
+@pytest.mark.parametrize("n", [3, 9, 33, 130])
+def test_padded_model_matches_jax_model(n, monkeypatch):
+    """EncoderModel pads each chunk to its batch bucket (130 texts: a chunk
+    of 128 and one of 2, padded to 8) and drops the padded rows: float32
+    rows against the JAX EncoderModel's within F32_TOL."""
+    jcfg, tcfg = _cfgs("float32", False)
+    params = _jax_params(jcfg, seed=11)
+    texts = [f"{TEXTS[i % len(TEXTS)]} padded batch row {i}" for i in range(n)]
+    want = jenc.EncoderModel(jcfg, params)(texts)
+    model = tenc.EncoderModel(tcfg, tenc.params_from_numpy(_numpy_tree(params)), device="cpu")
+    shapes = []
+    real = model._forward
+
+    def forward(block, rows):
+        shapes.append((block.shape[0], rows))
+        return real(block, rows)
+
+    monkeypatch.setattr(model, "_forward", forward)
+    got = model(texts)
+    assert got.shape == want.shape == (n, jcfg.out_dim)
+    chunks = [min(128, n - off) for off in range(0, n, 128)]
+    assert shapes == [(tenc._bucket(c), c) for c in chunks]
+    assert all(b > c for b, c in shapes if c not in tenc._BATCH_BUCKETS)
+    assert np.abs(got - want).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_rows_match_unpadded(dtype):
+    """A block's real rows padded to their bucket (5 → 8, 20 → 32) against
+    the same rows through the module unpadded, within the file's
+    tolerances."""
+    _, tcfg = _cfgs(dtype, False)
+    model = tenc.EncoderModel(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(2)),
+                              device="cpu")
+    for n in (5, 20):
+        toks = _tokens(tcfg, [f"{TEXTS[i % len(TEXTS)]} row {i}" for i in range(n)])
+        padded = model.encode_tokens(toks).numpy()
+        with torch.no_grad():
+            alone = model.module(torch.from_numpy(toks)).numpy()
+        assert padded.shape == alone.shape == (n, tcfg.out_dim)
+        if dtype == "float32":
+            assert np.abs(padded - alone).max() <= F32_TOL
+        else:
+            assert _rowwise_cos(padded, alone).min() >= BF16_COS
+            assert np.abs(padded - alone).max() <= BF16_ABS
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hybrid", [False, True], ids=["plain", "hybrid_anchor"])
+def test_all_pad_row_is_finite(dtype, hybrid):
+    """A padded row (all PAD: its mask all false, its softmax uniform, its
+    pooled denominator clamped to 1) gives a finite output, and leaves the
+    real rows as they are alone."""
+    _, tcfg = _cfgs(dtype, hybrid)
+    module = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(4)))
+    toks = tenc.pad_rows(_tokens(tcfg, TEXTS[:2]), 8)
+    assert not toks[2:].any()
+    with torch.no_grad():
+        out = module(torch.from_numpy(toks))
+    assert torch.isfinite(out).all()
+    assert out[2:].abs().max() == 0  # nothing pooled, nothing projected
+
+
 @pytest.mark.cuda
 def test_bf16_matches_float32_on_card():
     """On the card, at the served width's layer shapes (2 of 12 layers, to
@@ -304,3 +404,42 @@ def test_bf16_matches_float32_on_card():
     assert np.isfinite(a).all() and np.isfinite(b).all()
     assert _rowwise_cos(a, b).min() >= 0.99
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def _long_texts(words: int, n: int) -> list[str]:
+    base = " ".join(TEXTS).split()
+    return [" ".join(base[(i + j) % len(base)] for j in range(words)) + f" r{i}"
+            for i in range(n)]
+
+
+# texts per call and their words: every batch bucket at every sequence
+# bucket (64, 128, 256 and max_seq 512)
+CARD_CALLS = [(n, w) for n in (1, 5, 20, 100) for w in (30, 100, 200, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hybrid", [False, True], ids=["plain", "hybrid_anchor"])
+def test_captured_forward_bitwise_on_card(hybrid):
+    """On the card, the served width's layers (2 of 12): one graph per
+    (batch bucket, sequence bucket), all 16 of them, each replay bitwise
+    the eager forward (graphs=False) on the same padded block, every row;
+    the padded rows dropped from the output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import _graphs_bitwise
+
+    cfg = dataclasses.replace(tenc.EncoderConfig(), num_layers=2, hybrid_anchor=hybrid)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    model = tenc.EncoderModel(cfg, params, device="cuda")
+    eager = tenc.EncoderModel(cfg, params, device="cuda", graphs=False)
+    assert model.graphs and not eager.graphs
+    for n, words in CARD_CALLS:
+        texts = _long_texts(words, n)
+        first, again, want = model(texts), model(texts), eager(texts)
+        assert first.shape == again.shape == (n, cfg.out_dim)
+        np.testing.assert_array_equal(again, want)
+        np.testing.assert_array_equal(first, want)
+    keys = {key for key, _ in model._programs.graphs}
+    assert keys == {(b, length) for b in (1, 8, 32, 128) for length in (64, 128, 256, 512)}
+    assert model._programs.captures == 16 and model._programs.replays == 16
+    assert _graphs_bitwise(model, "encoder") == 16
