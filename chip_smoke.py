@@ -54,7 +54,11 @@ at 1, and over phase 3's 70k store at 4 shards and a [2, 4] data x shard
 grid, each held to the dense engine; 10b the ivf (config 4 proper),
 packed, pq and proj backends per shard on the 1M store, with a live
 refresh; 10c phase 5's host-residency store over 4 shards with pq, the
-funnel and the exact host re-rank. Phase 11 drives the host wiring on
+funnel and the exact host re-rank. Each sharded engine serves its batches
+as captured CUDA graphs too (the grid is one card), one per key in its
+own cache, and every path of 10a-c times its program eager against
+captured in turns and holds one batch bitwise across the two (10b's
+packed and pq and 10c at half depth). Phase 11 drives the host wiring on
 the card: the stage profiler and a Chrome trace (phase 3's engine),
 integrity, the PDF export, a Drive folder import, data-parallel encode,
 an npz checkpoint round trip, the embedding worker CLI as a subprocess
@@ -1123,18 +1127,21 @@ def _front_split(engine, model, batches) -> dict:
     return out
 
 
-def _graph_turns(engine, reqs, batches, name: str, smi: str, dev) -> dict:
+def _graph_turns(engine, reqs, batches, name: str, smi: str, dev,
+                 n_sync: int = N_BATCHES) -> dict:
     """The engine's program eager against captured, on one engine and
     store, in turns (eager, graph, graph, eager): queries/s at batch BATCH
-    sync (N_BATCHES searches) and pipelined (search_pipelined over
+    sync (`n_sync` searches) and pipelined (search_pipelined over
     `batches`), the host's ms a batch by stage (pipelined), and the
     device's busy share (one profiled turn of each); captures, capture ms
-    and the graphs' pool bytes; and one batch bitwise across the two. An
-    engine that cannot capture (on the CPU) has none of these."""
-    if engine._programs is None:
+    and the graphs' pool bytes (the sharded engine's own, under sharding);
+    and one batch bitwise across the two. An engine that does not capture
+    (on the CPU) has none of these."""
+    if not engine.graphs:
         return {}
     import gc
 
+    t_all = time.perf_counter()
     _packed_bitwise(engine, reqs, name)
     n = sum(len(b) for b in batches)
     turns = []
@@ -1144,11 +1151,12 @@ def _graph_turns(engine, reqs, batches, name: str, smi: str, dev) -> dict:
     gc.freeze()
     try:
         for graphs in TURNS:
-            turns.append(_graph_turn(engine, graphs, reqs, batches, n, len(turns) < 2, dev))
+            turns.append(_graph_turn(engine, graphs, reqs, batches, n, len(turns) < 2, dev,
+                                     n_sync))
     finally:
         gc.unfreeze()
     engine.graphs = True
-    cache = engine._programs
+    cache = engine.programs
     for t in turns:
         how = "graph" if t["graphs"] else "eager"
         h = t["host_ms"]
@@ -1165,29 +1173,29 @@ def _graph_turns(engine, reqs, batches, name: str, smi: str, dev) -> dict:
     log(f"{name}: {cache.captures} captures (ms median {np.median(ms):.1f}, max "
         f"{max(ms):.1f}), {cache.replays} replays, {len(cache.graphs)} graphs kept; the "
         f"graphs' pool holds {cache.pool_bytes() / 2**20:.1f} MiB; one batch's packed "
-        f"outputs bitwise equal eager and captured (in turns eager, graph, graph, eager) "
-        f"on {smi}")
+        f"outputs bitwise equal eager and captured (in turns eager, graph, graph, eager); "
+        f"{time.perf_counter() - t_all:.1f} s on {smi}")
     return {"turns": turns, "captures": cache.captures, "capture_ms": list(ms),
             "pool_bytes": cache.pool_bytes()}
 
 
-def _graph_turn(engine, graphs: bool, reqs, batches, n: int, profiled: bool, dev) -> dict:
+def _graph_turn(engine, graphs: bool, reqs, batches, n: int, profiled: bool, dev,
+                n_sync: int) -> dict:
     """One turn of _graph_turns, eager or captured."""
     engine.graphs = graphs
     engine.search(reqs, k=K)  # the keys of this turn warm
     t0 = time.perf_counter()
-    for _ in range(N_BATCHES):
+    for _ in range(n_sync):
         engine.search(reqs, k=K)
-    sync = BATCH * N_BATCHES / (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    engine.search_pipelined(batches, k=K)
-    piped = n / (time.perf_counter() - t0)
-    turn = {"graphs": graphs, "sync_qps": sync, "pipelined_qps": piped,
-            "host_ms": _host_split(engine, batches)}
-    if profiled:
-        busy = _device_busy_share(lambda: [engine.search(reqs, k=K) for _ in range(4)], 4, dev)
-        pbusy = _device_busy_share(lambda: engine.search_pipelined(batches, k=K),
-                                   len(batches), dev)
+    sync = BATCH * n_sync / (time.perf_counter() - t0)
+    split = _host_split(engine, batches)  # one pipelined pass: its split and its q/s
+    turn = {"graphs": graphs, "sync_qps": sync,
+            "pipelined_qps": n / (split["wall"] * len(batches) / 1e3), "host_ms": split}
+    if profiled:  # 2 sync searches and 4 batches pipelined: the profiler's parse of a
+        # sharded program's events takes seconds a batch (script time)
+        busy = _device_busy_share(lambda: [engine.search(reqs, k=K) for _ in range(2)], 2, dev)
+        few = batches[:4]
+        pbusy = _device_busy_share(lambda: engine.search_pipelined(few, k=K), len(few), dev)
         turn["busy"] = {"sync": busy[:2], "pipelined": pbusy[:2]}
     return turn
 
@@ -3548,23 +3556,16 @@ def _dense_reference(engine, reqs, pipe) -> dict:
 
 def _sharded_path(name: str, ref: dict, serving, reqs, pipe, kernel, per_batch: int,
                   smi: str, dev) -> dict:
-    """The counted run of a sharded engine: search and search_pipelined held
-    to the dense engine's results (_same_results), sync rounds; `kernel`
-    must launch `per_batch` times a batch (once per shard and data group).
-    Prints queries/s and the busy share beside the dense engine's."""
+    """The counted run of a sharded engine, captured on a card: search and
+    search_pipelined held to the dense engine's results (_same_results);
+    `kernel` must launch `per_batch` times a batch (once per shard and data
+    group; a replay adds its capture's launches). Then its program eager
+    against captured in turns (_graph_turns), beside the dense engine's
+    queries/s and busy share."""
     kernel.launches = 0
-    batches = 0
     got = serving.search(reqs, k=K)
-    batches += 1
     got_pipe = serving.search_pipelined(pipe, k=K)
-    batches += len(pipe)
-    rounds = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(N_BATCHES):
-            serving.search(reqs, k=K)
-        rounds.append(BATCH * N_BATCHES / (time.perf_counter() - t0))
-        batches += N_BATCHES
+    batches = 1 + len(pipe)
     launches = kernel.launches
     if torch.device(dev).type == "cuda" and launches != per_batch * batches:
         raise AssertionError(f"{name}: {launches} launches of {kernel.__name__} for "
@@ -3572,20 +3573,22 @@ def _sharded_path(name: str, ref: dict, serving, reqs, pipe, kernel, per_batch: 
     worst = _same_results(name, got, ref["want"])
     for g, w in zip(got_pipe, ref["want_pipe"]):
         worst = max(worst, _same_results(name + " pipelined", g, w))
-    busy, _ = _busy_line(serving, reqs, dev)
-    qps = float(np.median(rounds))
     log(f"{name}: search and search_pipelined ({len(pipe)} batches) give the dense "
         f"engine's hits (scores within {worst:.3g}); {kernel.__name__} launches {launches} "
-        f"== {per_batch} x {batches} batches; {qps:.1f} queries/s at batch {BATCH} sync "
-        f"(rounds {[round(x, 1) for x in rounds]}) against the dense engine's "
-        f"{ref['qps']:.1f}; sharded {busy} | dense {ref['busy']} on {smi}")
-    return {"launches": launches, "qps": qps, "max_score_gap": worst}
+        f"== {per_batch} x {batches} batches ({'captured' if serving.graphs else 'eager'}); "
+        f"the dense engine: {ref['qps']:.1f} queries/s at batch {BATCH} sync, {ref['busy']} "
+        f"on {smi}")
+    turns = _graph_turns(serving, reqs, pipe, name, smi, dev)
+    return {"launches": launches, "max_score_gap": worst, "graphs": turns}
 
 
 def _release_sharded(tse) -> None:
-    """Detach a sharded engine from its store and drop its shard copies."""
+    """Detach a sharded engine from its store and drop its shard copies and
+    its graphs (their pool is freed before the next engine's)."""
     tse.store.listeners.remove(tse._on_store_event)
-    tse.shards = tse._copies = tse._ann = None
+    if tse._programs is not None:
+        tse._programs.clear()
+    tse.shards = tse._copies = tse._ann = tse._programs = None
 
 
 def phase10_70k(smi: str, engine, reqs, pipe, dev) -> dict:
@@ -3639,6 +3642,8 @@ def phase10a_sharded_exact(smi: str, store, lexicon, base, reqs: dict, dev: str)
                                reqs["pipe"], masked_topk, s, smi, dev)
         _release_sharded(tse)
         store.listeners.remove(serving._on_store_mutation)
+        if torch.device(dev).type == "cuda":
+            _empty_cache()
     _release(dense)
     log(f"phase 10a: {time.perf_counter() - t_all:.1f} s")
     return out
@@ -3691,16 +3696,7 @@ def phase10b_sharded_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -
             for h in res.hits:
                 if not (np.isfinite(h.score) and 0.0 <= h.score <= 1.0):
                     raise AssertionError(f"{name}: bad rerank score {h.score}")
-        rounds = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(N_BATCHES // 2):
-                serving.search(reqs["bench"], k=K)
-            rounds.append(BATCH * (N_BATCHES // 2) / (time.perf_counter() - t0))
-            batches += N_BATCHES // 2
-        t0 = time.perf_counter()
         piped = serving.search_pipelined(reqs["pipe"], k=K)
-        pipe_qps = BATCH * len(reqs["pipe"]) / (time.perf_counter() - t0)
         batches += len(reqs["pipe"])
         launches = {"proj_blocks": proj_blocks.launches, "masked_topk": masked_topk.launches}
         # ---- end of the counted run ----
@@ -3710,19 +3706,21 @@ def phase10b_sharded_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -
         if [_hits(x) for x in piped[0]] != [_hits(x) for x in serving.search(reqs["pipe"][0],
                                                                                k=K)]:
             raise AssertionError(f"{name}: search_pipelined disagrees with search")
-        r = {"recall": float(np.mean(recalls)), "qps": float(np.median(rounds)),
-             "pipe_qps": pipe_qps, "build_s": build_s, "launches": launches,
+        r = {"recall": float(np.mean(recalls)), "build_s": build_s, "launches": launches,
              "batches": batches}
         base_nlist = getattr(tables, "base_nlist", tables.nlist)
         log(f"{name}: per-shard tables nlist={tables.nlist} (base {base_nlist}), "
             f"pad={tables.pad}, "
             f"{sum(_table_bytes(t) for t in tse._ann[0]) / 1e9:.3f} GB over the shards, "
             f"built in {build_s:.2f} s; vector-arm recall@{K} vs the exact top-{K} "
-            f"{r['recall']:.4f} ({len(recalls)} noisy queries); {r['qps']:.1f} queries/s at "
-            f"batch {BATCH} sync (rounds of {N_BATCHES // 2} batches "
-            f"{[round(x, 1) for x in rounds]}), {pipe_qps:.1f} pipelined over "
+            f"{r['recall']:.4f} ({len(recalls)} noisy queries); search_pipelined over "
             f"{len(reqs['pipe'])} batches (its first batch equals search's, ids and scores "
             f"bitwise); launches {launches} for {batches} batches on {smi}")
+        # ivf and proj at full depth; packed and pq at half (script time)
+        full = backend in ("ivf", "proj")
+        r["graphs"] = _graph_turns(serving, reqs["bench"],
+                                   reqs["pipe"] if full else reqs["pipe"][:N_BATCHES // 2],
+                                   name, smi, dev, N_BATCHES if full else N_BATCHES // 2)
         if backend == "ivf":
             r["refresh"] = _sharded_refresh(name, store, serving, tse, cfg)
         out[backend] = r
@@ -3822,25 +3820,22 @@ def phase10c_sharded_host(smi: str, store, lexicon, cfg5, reqs: dict, dev: str) 
                                 f"under {req.payer!r}")
             if not all(res.hits for res in hybrid):
                 raise AssertionError(f"{name}: a hybrid request has no hits")
-            rounds = []
             with _Spans([(SearchEngine, "_host_rerank", "host re-rank")], dev) as timed:
-                for _ in range(3):
-                    t0 = time.perf_counter()
-                    for _ in range(4):
-                        serving.search(reqs["bench"], k=K)
-                    rounds.append(BATCH * 4 / (time.perf_counter() - t0))
+                for _ in range(4):
+                    serving.search(reqs["bench"], k=K)
             rerank_ms = [(t1 - t0) * 1e3 for t0, t1 in timed.spans["host re-rank"]]
             busy, wall, top, _ = _device_busy_share(
                 lambda: [serving.search(reqs["bench"], k=K) for _ in range(2)], 2, dev)
             peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
-            r["qps"] = float(np.median(rounds))
-            log(line + f"; every hit passes its payer filter; {np.median(rounds):.1f} "
-                f"queries/s at batch {BATCH} sync (rounds {[round(x, 1) for x in rounds]}); "
-                f"host re-rank {np.median(rerank_ms):.3f} ms per batch; device busy "
-                f"{busy:.3f} of {wall:.3f} ms per batch ({100 * busy / wall:.1f}%); by kernel "
-                f"(ms/batch) " + ", ".join(f"{k} {v:.3f}" for k, v in top.items())
-                + f"; peak device memory {peak:.2f} GiB; {time.perf_counter() - t_all:.1f} s "
-                f"on {smi}")
+            log(line + f"; every hit passes its payer filter; host re-rank "
+                f"{np.median(rerank_ms):.3f} ms per batch; device busy {busy:.3f} of "
+                f"{wall:.3f} ms per batch ({100 * busy / wall:.1f}%); by kernel (ms/batch) "
+                + ", ".join(f"{k} {v:.3f}" for k, v in top.items())
+                + f"; peak device memory {peak:.2f} GiB on {smi}")
+            # half depth (script time): 4 sync searches, 4 batches pipelined
+            r["graphs"] = _graph_turns(serving, reqs["bench"], [reqs["bench"]] * 4, name, smi,
+                                       dev, 4)
+            log(f"{name}: {time.perf_counter() - t_all:.1f} s")
         _release_sharded(tse)
         store.listeners.remove(serving._on_store_mutation)
         out[shards] = r

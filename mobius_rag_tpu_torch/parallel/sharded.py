@@ -42,10 +42,23 @@ below 0, so the padding is part of the result) and rebuilt whenever the
 store's generation moves. Under host residency only pq and proj shard:
 the device holds codes, each shard builds from its own rows of the host
 matrix, and the exact re-rank runs once, after the merge, from the host.
+
+A batch has a host part and a device program (:meth:`ShardedEngine.plan`).
+The host part refreshes the shards, builds the ANN tables and works out
+the widths; it never runs inside a capture. The device program is a
+function of the prepared batch alone, bound to the shard tables as they
+stood when the batch was planned. On a grid whose devices are all the
+merge device (:func:`on_one_device`: a card named S times), the program
+is the JAX ``run``'s counterpart as one CUDA graph per key, kept by the
+sharded engine's own :class:`~mobius_rag_tpu_torch.query.compiled.CapturedPrograms`
+(``SearchEngine`` replays it; see ``query/compiled.py``). A grid over
+several devices runs eagerly.
 """
 from __future__ import annotations
 
 import copy
+import threading
+from typing import Callable
 
 import numpy as np
 import torch
@@ -58,6 +71,7 @@ from mobius_rag_tpu_torch.ops.proj import PackedProj, pad_shard_proj
 from mobius_rag_tpu_torch.parallel.mesh import Mesh, make_mesh, make_serve_mesh
 from mobius_rag_tpu_torch.query import engine as eng
 from mobius_rag_tpu_torch.query import gating
+from mobius_rag_tpu_torch.query.compiled import CapturedPrograms, tables_held
 from mobius_rag_tpu_torch.utils import round_up
 
 # More dirty rows than this re-shard the index instead of copying rows.
@@ -75,6 +89,14 @@ def _tables_to(tables, device: torch.device):
     for f in type(tables).FIELDS:
         setattr(out, f, getattr(tables, f).to(device))
     return out
+
+
+def on_one_device(groups: list[list[torch.device]], device: torch.device) -> bool:
+    """Whether every device of the grid (``mesh.groups(axis)``) is `device`,
+    the merge device: then the whole sharded program runs on it and can be
+    captured as one CUDA graph. A capture records only the capturing
+    device's stream, so a grid over several devices runs eagerly."""
+    return all(dev == device for row in groups for dev in row)
 
 
 def _to(q: dict, device: torch.device) -> dict:
@@ -115,9 +137,16 @@ class ShardedEngine:
         self.num_shards = len(self.groups[0])
         # the merge device: the store's, where prepared batches arrive
         self.device = store.index.valid.device
+        self.one_device = on_one_device(self.groups, self.device)
+        # the captured programs (query/compiled.py), made at first use
+        self._programs: CapturedPrograms | None = None
         self.vector_backend = backend
         self._pending: set[int] = set()
         self._needs_rebuild = False
+        # the store's events, refresh() and a batch's host part come from any
+        # thread (the API publishes on its handlers' threads while a batcher
+        # searches)
+        self._lock = threading.RLock()
         self._sparse = "lex_cols" in store.index.fields
         store.listeners.append(self._on_store_event)
         self._shard_index()
@@ -131,34 +160,41 @@ class ShardedEngine:
     # -- liveness ----------------------------------------------------------
 
     def _on_store_event(self, event: str, rows: list[int]) -> None:
-        if event in ("grow", "bulk") or self._sparse:
-            # a new capacity or a bulk rewrite reshapes the shards; the sparse
-            # tables are re-keyed per shard
-            self._needs_rebuild = True
-        else:
-            self._pending.update(rows)
+        with self._lock:
+            if event in ("grow", "bulk") or self._sparse:
+                # a new capacity or a bulk rewrite reshapes the shards; the
+                # sparse tables are re-keyed per shard
+                self._needs_rebuild = True
+            else:
+                self._pending.update(rows)
 
     @property
     def stale(self) -> bool:
-        return self._synced_generation != self.store.generation
+        # the store bumps its generation before it reports the rows, so an
+        # event that arrives after a refresh read the generation still counts
+        return (self._synced_generation != self.store.generation or self._needs_rebuild
+                or bool(self._pending))
 
     def refresh(self) -> dict:
         """Bring the sharded copy up to date with the store: the dirty rows
         copied into the shards that own them, or a re-shard (see the module
         docstring). Returns {"refreshed": False} when already current, else
-        {"refreshed": True, "mode": "scatter:<rows>" or "rebuild"}."""
-        if not self.stale:
-            return {"refreshed": False}
-        if self._needs_rebuild or len(self._pending) > _REBUILD_ROWS:
-            self._shard_index()
-            mode = "rebuild"
-        else:
-            self._apply_rows(sorted(self._pending))
-            mode = f"scatter:{len(self._pending)}"
-        self._pending.clear()
-        self._needs_rebuild = False
-        self._synced_generation = self.store.generation
-        return {"refreshed": True, "mode": mode}
+        {"refreshed": True, "mode": "scatter:<rows>" or "rebuild"}. Safe to
+        call from any thread, while the store takes writes."""
+        with self._lock:
+            if not self.stale:
+                return {"refreshed": False}
+            generation = self.store.generation
+            if self._needs_rebuild or len(self._pending) > _REBUILD_ROWS:
+                self._shard_index()
+                mode = "rebuild"
+            else:
+                self._apply_rows(sorted(self._pending))
+                mode = f"scatter:{len(self._pending)}"
+            self._pending.clear()
+            self._needs_rebuild = False
+            self._synced_generation = generation
+            return {"refreshed": True, "mode": mode}
 
     def _apply_rows(self, rows: list[int]) -> None:
         """Copy the store's current values of `rows` into each shard copy
@@ -190,6 +226,22 @@ class ShardedEngine:
         return ShardedEngine(store, mesh=self.mesh, cfg=self.cfg, axis=self.axis,
                              vector_backend=self.vector_backend)
 
+    def captured_programs(self) -> CapturedPrograms:
+        """This engine's captured programs, made at first use: one pool and
+        one LRU per sharded engine (a dense engine's graphs key on other
+        tables). Raises ValueError on a grid over several devices, whose
+        other devices' work a capture would run once and never replay,
+        and off a card."""
+        if not self.one_device:
+            raise ValueError(
+                f"a grid over several devices ({self.mesh}) cannot be one CUDA graph: a "
+                "capture records only the capturing device's stream, so the other devices' "
+                "work would run once, at capture, and never on replay; serve it eagerly "
+                "(graphs=False)")
+        if self._programs is None:
+            self._programs = CapturedPrograms(self.device)  # raises off a card
+        return self._programs
+
     # -- build ---------------------------------------------------------------
 
     def _shard_index(self) -> None:
@@ -198,22 +250,20 @@ class ShardedEngine:
         padded capacity, on each device of shard s's column of the grid."""
         index = self.store.index
         s = self.num_shards
-        self.c_pad = round_up(index.capacity, s)
-        self.c_local = self.c_pad // s
-        sparse = self._shard_sparse_tables() if "lex_cols" in index.fields else None
-        self._copies: dict[tuple[torch.device, int], DeviceIndex] = {}
-        self.shards: list[list[DeviceIndex]] = []
+        c_pad = round_up(index.capacity, s)
+        cs = c_pad // s
+        sparse = self._shard_sparse_tables(cs) if "lex_cols" in index.fields else None
+        copies: dict[tuple[torch.device, int], DeviceIndex] = {}
         for row in self.groups:
-            out = []
             for si, dev in enumerate(row):
-                key = (dev, si)
-                if key not in self._copies:
-                    self._copies[key] = self._one_shard(index, si, dev, sparse)
-                out.append(self._copies[key])
-            self.shards.append(out)
+                if (dev, si) not in copies:
+                    copies[(dev, si)] = self._one_shard(index, si, dev, cs, sparse)
+        shards = [[copies[(dev, si)] for si, dev in enumerate(row)] for row in self.groups]
+        # new containers, never mutated: a batch planned before keeps its own
+        self.c_pad, self.c_local, self._copies, self.shards = c_pad, cs, copies, shards
 
-    def _one_shard(self, index: DeviceIndex, si: int, dev: torch.device, sparse) -> DeviceIndex:
-        cs = self.c_local
+    def _one_shard(self, index: DeviceIndex, si: int, dev: torch.device, cs: int,
+                   sparse) -> DeviceIndex:
         arrays = {}
         for f in index.fields:
             if f in ("lex_cols", "lex_wts"):
@@ -237,13 +287,13 @@ class ShardedEngine:
             arrays["lex_wts"] = torch.from_numpy(wts[si]).to(dev).to(torch.bfloat16)
         return DeviceIndex(**arrays)
 
-    def _shard_sparse_tables(self) -> tuple[np.ndarray, np.ndarray]:
-        """The store's sparse postings re-keyed per shard: shard s's table
-        holds its own rows' postings under local row ids, so its lexical
-        arm adds into [B, Cs] directly. Returns (cols [S, H, P] int32, wts
-        [S, H, P] float32), P the largest shard-bucket fill rounded up to
-        8, every shard's postings in the store's order."""
-        s, cs = self.num_shards, self.c_local
+    def _shard_sparse_tables(self, cs: int) -> tuple[np.ndarray, np.ndarray]:
+        """The store's sparse postings re-keyed per shard of `cs` rows: shard
+        s's table holds its own rows' postings under local row ids, so its
+        lexical arm adds into [B, Cs] directly. Returns (cols [S, H, P]
+        int32, wts [S, H, P] float32), P the largest shard-bucket fill
+        rounded up to 8, every shard's postings in the store's order."""
+        s = self.num_shards
         cols_np = self.store._lex_cols_np  # [H, P] global row ids
         wts_np = self.store._lex_wts_np
         h = cols_np.shape[0]
@@ -325,64 +375,89 @@ class ShardedEngine:
 
     # -- query ---------------------------------------------------------------
 
-    @torch.inference_mode()
-    def run(self, q: dict, k: int, funnel: int = 0) -> dict[str, torch.Tensor]:
-        """The sharded device program for one prepared batch (tensors on the
-        merge device, as ``SearchEngine.prepare_batch`` returns them):
-        per-shard arm scans, the merge and the rerank, enqueued without a
-        host wait. Returns ``engine.search_batch``'s schema on the merge
-        device: the fused top k, each arm's merged top 2k, the global strict
-        counts and, when ``funnel`` > 0, the funnel block."""
-        self.refresh()
-        ann = self.ensure_ann()
-        s, c_total, c_local = self.num_shards, self.c_pad, self.c_local
+    def plan(self, b: int, k: int, funnel: int = 0
+             ) -> tuple[tuple, list[torch.Tensor], Callable[[dict], dict]]:
+        """The host part of a batch of `b` queries: refresh the shards, the
+        ANN tables, the per-shard widths. Returns (key, held, program):
+        the device program of the batch (:meth:`run`'s, a function of the
+        prepared batch alone, bound to the shard and ANN tables as they
+        stand now: a refresh or rebuild on another thread reaches the next
+        batch), its key (the JAX ``run``'s static arguments as passed: k,
+        funnel, over_fetch, rrf_k, nprobe, approx, the ANN tables' class;
+        and the grid's shape) and every tensor of the tables it reads."""
+        with self._lock:  # one layout: a refresh on another thread waits for it
+            self.refresh()
+            ann = self.ensure_ann()
+            shards, c_total, c_local = self.shards, self.c_pad, self.c_local
+        cfg, groups, s = self.cfg, self.groups, self.num_shards
         w = min(funnel, c_total)
         # Per-shard widths: an arm's global top pool (and the global funnel
         # top-w) may lie entirely on one shard. Under a funnel (host
         # residency) `k` arrives already over-fetched, so the pool is k.
-        pool = k if funnel else k * self.cfg.over_fetch
+        pool = k if funnel else k * cfg.over_fetch
         m = min(max(pool, w), c_local)
         m_other = min(pool, c_local)
         m_global = min(pool, c_total)
-        q = dict(q, vec=q["vec"].float())  # bf16-rounded queries, widened once
-        b = q["vec"].shape[0]
-        b_loc = -(-b // len(self.groups))
-        parts, totals = [], []
-        for g, row in enumerate(self.groups):
-            lo, hi = g * b_loc, min((g + 1) * b_loc, b)
-            if lo >= hi:
-                continue
-            qg = {key: (v if key == "lex_buckets" else v[lo:hi]) for key, v in q.items()}
-            on: dict[torch.device, dict] = {}
-            qs = [on.setdefault(dev, qg if dev == self.device else _to(qg, dev))
-                  for dev in row]
-            # the global strict count, the shards' counts summed on the merge
-            # device; one shard's own count is already the global one
-            total = None if s == 1 else sum(
-                gating.strict_counts(idx, qd).to(self.device, non_blocking=True)
-                for idx, qd in zip(self.shards[g], qs))[:, None]
-            out = [eng.arm_candidates(
-                idx, qd, k, m, m_other=m_other, ann=None if ann is None else ann[g][si],
-                nprobe=self.cfg.ivf_nprobe, approx=self.cfg.ann_approx_topk,
-                strict_total=None if total is None else total.to(dev, non_blocking=True),
-                offset=si * c_local)
-                for si, (idx, qd, dev) in enumerate(zip(self.shards[g], qs, row))]
-            totals.append(out[0][3].to(self.device, non_blocking=True) if total is None
-                          else total)
-            parts.append([torch.stack([o[i].to(self.device, non_blocking=True) for o in out],
-                                      dim=1) for i in range(3)])  # [3, S, B_g, m(, N_SIG)]
-        # each arm re-sorted once over the shards' lists, as wide as fusion,
-        # the traces and the funnel read
-        vals, gidx, sigs = eng.merge_shard_lists(
-            *(torch.cat([p[i] for p in parts], dim=2) for i in range(3)),
-            min(max(m_global, 2 * k, w), s * m))
-        out = eng.fuse_and_rerank(vals, gidx, sigs, q, k, self.cfg.rrf_k, m_global)
-        for a, name in enumerate(("vec", "lex", "dtag")):
-            out[f"{name}_idx"], out[f"{name}_vals"] = gidx[a][:, :2 * k], vals[a][:, :2 * k]
-        out["strict_count"] = torch.cat(totals)[:, 0]
-        if w:
-            out.update(eng.wide_outputs(vals, gidx, sigs, w))
-        return out
+        b_loc = -(-b // len(groups))
+        nprobe, approx, rrf_k = cfg.ivf_nprobe, cfg.ann_approx_topk, cfg.rrf_k
+        key = (k, funnel, cfg.over_fetch, rrf_k, nprobe, approx,
+               None if ann is None else type(ann[0][0]).__name__, len(groups), s)
+        tables: dict = {}  # (device, shard) -> (its index copy, its ANN tables)
+        for g, row in enumerate(groups):
+            for si, dev in enumerate(row):
+                tables.setdefault((dev, si), (shards[g][si], None if ann is None else ann[g][si]))
+        held = [t for idx, a in tables.values() for t in tables_held(idx, a)]
+        dev0 = self.device
+
+        @torch.inference_mode()
+        def program(q: dict) -> dict[str, torch.Tensor]:
+            q = dict(q, vec=q["vec"].float())  # bf16-rounded queries, widened once
+            parts, totals = [], []
+            for g, row in enumerate(groups):
+                lo, hi = g * b_loc, min((g + 1) * b_loc, b)
+                if lo >= hi:
+                    continue
+                qg = {key: (v if key == "lex_buckets" else v[lo:hi]) for key, v in q.items()}
+                on: dict[torch.device, dict] = {}
+                qs = [on.setdefault(dev, qg if dev == dev0 else _to(qg, dev)) for dev in row]
+                # the global strict count, the shards' counts summed on the
+                # merge device; one shard's own count is already the global one
+                total = None if s == 1 else sum(
+                    gating.strict_counts(idx, qd).to(dev0, non_blocking=True)
+                    for idx, qd in zip(shards[g], qs))[:, None]
+                out = [eng.arm_candidates(
+                    idx, qd, k, m, m_other=m_other, ann=None if ann is None else ann[g][si],
+                    nprobe=nprobe, approx=approx,
+                    strict_total=None if total is None else total.to(dev, non_blocking=True),
+                    offset=si * c_local)
+                    for si, (idx, qd, dev) in enumerate(zip(shards[g], qs, row))]
+                totals.append(out[0][3].to(dev0, non_blocking=True) if total is None
+                              else total)
+                parts.append([torch.stack([o[i].to(dev0, non_blocking=True) for o in out],
+                                          dim=1) for i in range(3)])  # [3, S, B_g, m(, N_SIG)]
+            # each arm re-sorted once over the shards' lists, as wide as
+            # fusion, the traces and the funnel read
+            vals, gidx, sigs = eng.merge_shard_lists(
+                *(torch.cat([p[i] for p in parts], dim=2) for i in range(3)),
+                min(max(m_global, 2 * k, w), s * m))
+            out = eng.fuse_and_rerank(vals, gidx, sigs, q, k, rrf_k, m_global)
+            for a, name in enumerate(("vec", "lex", "dtag")):
+                out[f"{name}_idx"], out[f"{name}_vals"] = gidx[a][:, :2 * k], vals[a][:, :2 * k]
+            out["strict_count"] = torch.cat(totals)[:, 0]
+            if w:
+                out.update(eng.wide_outputs(vals, gidx, sigs, w))
+            return out
+
+        return key, held, program
+
+    def run(self, q: dict, k: int, funnel: int = 0) -> dict[str, torch.Tensor]:
+        """The sharded device program for one prepared batch (tensors on the
+        merge device, as ``SearchEngine.prepare_batch`` returns them):
+        per-shard arm scans, the merge and the rerank, enqueued without a
+        host wait, eagerly. Returns ``engine.search_batch``'s schema on the
+        merge device: the fused top k, each arm's merged top 2k, the global
+        strict counts and, when ``funnel`` > 0, the funnel block."""
+        return self.plan(q["vec"].shape[0], k, funnel)[2](q)
 
     def search_arrays(self, q: dict, k: int) -> dict[str, np.ndarray]:
         """The sharded program on a prepared batch (``SearchEngine.
@@ -398,4 +473,5 @@ class ShardedEngine:
         if engine.sharded is not self:
             engine = copy.copy(engine)
             engine.sharded, engine.vector_backend = self, self.vector_backend
+            engine.graphs = engine.graphs and self.one_device
         return engine.search(reqs, k or self.cfg.default_k)

@@ -70,8 +70,25 @@ adds them on every replay.
 
 Every single-device backend captures: exact, ivf, packed, pq and proj,
 under dense and candidate-local gating and under host residency; none
-reads a device value back inside its program. A sharded engine
-(``parallel.ShardedEngine``) runs eagerly.
+reads a device value back inside its program.
+
+A sharded engine (``parallel.ShardedEngine``, the port of the JAX
+``run`` over ``shard_map``, ``mobius_rag_tpu/parallel/sharded.py``)
+captures its program too, under one rule: every device of its grid
+(``mesh.groups(axis)``) is the merge device (``sharded.on_one_device``),
+as on one card named S times. A capture records only the capturing
+device's stream; work a program sends to another device would run once,
+at capture, and never on replay. So a grid over several devices serves
+eagerly, and ``graphs=True`` on it raises. The sharded engine keeps its
+own instance (its tables are not the dense engine's, and a dense and a
+sharded engine often serve one store in turns); its key is the JAX
+``run``'s static arguments as the engine passes them (device k, funnel,
+over_fetch, rrf_k, nprobe, approximate top-k, the ANN tables' class) and
+the grid's shape (dp, S), its tables every shard copy's and every
+per-shard ANN table's tensors (:func:`tables_held`). A refresh that
+copies rows writes in place; a re-shard and an ANN rebuild (at every
+store generation) replace tensors, so each publish costs the next batch
+a capture.
 
 The encoder's and the cross-encoder's forwards (the ports of
 ``encode_jit`` and ``score_pairs_jit``) are captured by the same class
@@ -159,6 +176,20 @@ class _Entry:
     held: tuple  # the tables' tensors, kept alive while the graph is
     deltas: tuple[int, ...]  # launches per replay, one per COUNTED wrapper
     capture_ms: float
+
+
+def tables_held(index, ann=None, local=None) -> list[torch.Tensor]:
+    """Every tensor of the tables a device program reads, in a fixed order:
+    the index fields (a ``DeviceIndex``), the ANN tables (any class) and
+    the local-gating structures ((words, d-tag postings)). A sharded
+    program's are those of every shard copy and its ANN tables."""
+    held = [getattr(index, f) for f in index.fields]
+    if ann is not None:
+        held += [v for _, v in sorted(vars(ann).items()) if isinstance(v, torch.Tensor)]
+    if local is not None:
+        words, dtag = local
+        held += [words, *dtag]
+    return held
 
 
 def identity(tensors: Sequence[torch.Tensor]) -> tuple:

@@ -59,7 +59,7 @@ Semantics follow the JAX engine line by line; where torch differs:
   postings row: on a card the live ones rounded up to a power of two
   (:func:`_union_width`; a captured program, ``query/compiled.py``, is
   kept per width, as the JAX program is compiled per width), on the CPU
-  and under sharding exactly the live ones;
+  exactly the live ones;
 - the sparse lexical arm sums each row's postings in float64, so its
   float32 score does not depend on the order of the device's atomics;
 - the JAX engine's ``optimization_barrier`` sequencing of the ANN arms and
@@ -97,6 +97,9 @@ shards' candidate lists merge on the engine's device; the merged output
 has this engine's schema, so results carry the global arm traces and
 strict counts (the JAX sharded engine ships the fused subset only, with
 empty traces and a strict count of -1). Gating is dense under sharding.
+On a grid whose devices are all this engine's card, the sharded program
+is captured too, one CUDA graph per key in the sharded engine's own
+cache; a grid over several cards runs eagerly.
 """
 from __future__ import annotations
 
@@ -122,7 +125,7 @@ from mobius_rag_tpu_torch.ops.proj import (PackedProj, ProjGate, encode_qmeta,
                                            scatter_slots)
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
 from mobius_rag_tpu_torch.query import gating
-from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms, to_device
+from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms, tables_held, to_device
 from mobius_rag_tpu_torch.query.gating import query_dtag_ids
 from mobius_rag_tpu_torch.query.lexicon import Lexicon, LexiconExpansion
 from mobius_rag_tpu_torch.utils import native
@@ -793,7 +796,9 @@ class SearchEngine:
     ``graphs``: None (the default) serves each batch as a captured CUDA
     graph on a card and eagerly on the CPU; False runs the program eagerly
     on a card too; True on the CPU raises. A capture or replay that fails
-    raises (``query/compiled.py``). A sharded engine runs eagerly."""
+    raises (``query/compiled.py``). Under a sharded engine the graphs are
+    its own, on a grid whose devices are all this engine's; a grid over
+    several devices serves eagerly, and True on it raises."""
 
     def __init__(self, store: ChunkStore, lexicon: Lexicon | None = None,
                  cfg: Config | None = None, embed_fn=None, telemetry=None,
@@ -840,10 +845,6 @@ class SearchEngine:
         self._strict_cache: "OrderedDict[tuple, float]" = OrderedDict()
         # the stream of the strict counts on a card (made at first use)
         self._count_stream: torch.cuda.Stream | None = None
-        # the captured device programs (query/compiled.py), made when first on
-        self._programs: CapturedPrograms | None = None
-        self.graphs = self.device.type == "cuda" if graphs is None else graphs
-        store.listeners.append(self._on_store_mutation)
         # parallel.ShardedEngine over the same store: the device program then
         # runs over its device grid, for every caller of this engine (agent,
         # API). The backend propagates into it, or is inherited from it.
@@ -855,6 +856,12 @@ class SearchEngine:
                 sharded.set_vector_backend(vector_backend)
             else:
                 self.vector_backend = sharded.vector_backend
+        # the captured device programs (query/compiled.py), made when first on
+        self._programs: CapturedPrograms | None = None
+        if graphs is None:
+            graphs = self.device.type == "cuda" and (sharded is None or sharded.one_device)
+        self.graphs = graphs
+        store.listeners.append(self._on_store_mutation)
 
     @property
     def graphs(self) -> bool:
@@ -864,9 +871,21 @@ class SearchEngine:
 
     @graphs.setter
     def graphs(self, on: bool) -> None:
-        if on and self._programs is None:
-            self._programs = CapturedPrograms(self.device)  # raises off a card
+        if on:
+            self.programs  # made now: raises off a card or over a grid of several devices
         self._graphs = bool(on)
+
+    @property
+    def programs(self) -> CapturedPrograms:
+        """The captured programs this engine's batches replay, made at first
+        use: the attached sharded engine's own (``ShardedEngine.
+        captured_programs``: it raises on a grid over several devices), else
+        this engine's. Raises off a card."""
+        if self.sharded is not None:
+            return self.sharded.captured_programs()
+        if self._programs is None:
+            self._programs = CapturedPrograms(self.device)
+        return self._programs
 
     # -- vector-arm backend -------------------------------------------------
 
@@ -1343,9 +1362,9 @@ class SearchEngine:
     def _union_read(self, q: PreparedBatch) -> int:
         """The lexical union columns this engine's device program reads.
         On a card, the live ones rounded up (:func:`_union_width`) so that
-        the captured graphs stay few, eager or captured alike; the CPU and
-        a sharded engine, which never capture, read exactly the live ones."""
-        if self.device.type == "cuda" and self.sharded is None:
+        the captured graphs stay few, eager or captured alike, sharded or
+        not; the CPU, which never captures, reads exactly the live ones."""
+        if self.device.type == "cuda":
             return _union_width(q.union, q["lex_buckets"].shape[0])
         return q.union
 
@@ -1493,51 +1512,46 @@ class SearchEngine:
 
     # -- public API ---------------------------------------------------------
 
-    @staticmethod
-    def _tables_held(index: DeviceIndex, ann, local) -> list[torch.Tensor]:
-        """Every tensor of the tables the device program reads: the index
-        fields, the ANN tables, the local-gating structures."""
-        held = [getattr(index, f) for f in index.fields]
-        if ann is not None:
-            held += [v for _, v in sorted(vars(ann).items()) if isinstance(v, torch.Tensor)]
-        if local is not None:
-            words, dtag = local
-            held += [words, *dtag]
-        return held
-
     def _packed(self, q: PreparedBatch, exps, ann, local, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """One prepared batch (:meth:`prepare_host`'s, or the host arrays
         behind :meth:`prepare_batch`'s tensors) through its device program,
         and the program's two packed output arrays, enqueued: over the
-        device grid when a sharded engine is attached; else on this
-        engine's device, as a captured graph's replay when ``graphs`` is
-        on. The program is search_batch at the device width (k, or
-        k·over_fetch with a funnel under host residency)."""
+        device grid when a sharded engine is attached, else on this
+        engine's device; as a captured graph's replay when ``graphs`` is
+        on. The program is search_batch (or the sharded engine's program)
+        at the device width (k, or k·over_fetch with a funnel under host
+        residency), then pack_device."""
         q = getattr(q, "host", q)
         kd, fw = self._device_k(k), self._device_funnel(k)
         if self.sharded is not None:
-            return pack_device(self.sharded.run(self._device_batch(q), kd, fw), fw)
-        cfg = self.cfg
-        nprobe = self.effective_nprobe
-        tag_level = self._batch_tag_level(exps) if local else 2
-        # the tables as they stand now: a write on another thread that
-        # replaces one (a grow, a postings resize) reaches the next batch
-        index = self.store.index
-        index = DeviceIndex(**{f: getattr(index, f) for f in index.fields})
+            # the host part (refresh, ANN tables, widths) before any capture
+            key, held, run = self.sharded.plan(q["vec"].shape[0], kd, fw)
+        else:
+            cfg = self.cfg
+            nprobe = self.effective_nprobe
+            tag_level = self._batch_tag_level(exps) if local else 2
+            # the tables as they stand now: a write on another thread that
+            # replaces one (a grow, a postings resize) reaches the next batch
+            index = self.store.index
+            index = DeviceIndex(**{f: getattr(index, f) for f in index.fields})
+
+            def run(qd):
+                return search_batch(index, qd, kd, cfg.over_fetch, cfg.rrf_k, ann=ann,
+                                    nprobe=nprobe, approx=cfg.ann_approx_topk, local=local,
+                                    tag_level=tag_level, funnel=fw)
+
+            key = (kd, fw, cfg.over_fetch, cfg.rrf_k, nprobe, cfg.ann_approx_topk, tag_level,
+                   type(ann).__name__)
+            held = tables_held(index, ann, local)
 
         def program(qd):
-            out = search_batch(index, _bf16(qd), kd, cfg.over_fetch, cfg.rrf_k, ann=ann,
-                               nprobe=nprobe, approx=cfg.ann_approx_topk, local=local,
-                               tag_level=tag_level, funnel=fw)
-            return pack_device(out, fw)
+            return pack_device(run(_bf16(qd)), fw)
 
         host = _cut_union(q, self._union_read(q))
         if not self.graphs:
             return program(to_device(host, self.device))
-        key = (kd, fw, cfg.over_fetch, cfg.rrf_k, nprobe, cfg.ann_approx_topk, tag_level,
-               type(ann).__name__)
-        return self._programs.run(key, self._tables_held(index, ann, local), host, program)
+        return self.programs.run(key, held, host, program)
 
     def _dispatch(self, q: PreparedBatch, exps, ann, local, k: int) -> PendingFetch:
         """The device side of one batch (`q` as :meth:`_packed` takes it):
@@ -1545,8 +1559,7 @@ class SearchEngine:
         arrays to the host, all enqueued; nothing here waits for the
         device. A captured program runs under ``compiled.LOCK`` up to its
         copies (see query/compiled.py)."""
-        captured = self.graphs and self.sharded is None
-        with LOCK if captured else contextlib.nullcontext():
+        with LOCK if self.graphs else contextlib.nullcontext():
             return PendingFetch(self._packed(q, exps, ann, local, k))
 
     def _finish(self, reqs, exps, fetched, k: int) -> dict[str, np.ndarray]:
@@ -1562,8 +1575,12 @@ class SearchEngine:
         """(ANN tables, local-gating structures) of this engine's own device
         program, built before a batch is prepared (local gating bakes the
         host strict counts into it); (None, None) under sharding, whose
-        tables the sharded engine keeps."""
+        tables the sharded engine keeps: brought up to date here, outside
+        ``compiled.LOCK`` (a re-shard or a per-shard ANN build takes
+        seconds at 1M rows), so a batch's host part finds them current."""
         if self.sharded is not None:
+            self.sharded.refresh()
+            self.sharded.ensure_ann()
             return None, None
         ann = self.ensure_ann()
         return ann, self._ensure_local_structs(ann)

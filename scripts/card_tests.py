@@ -4,8 +4,11 @@ bitwise against the eager ones, the captured encoder and cross-encoder
 forwards bitwise against the eager ones, an ingesting, a searching and a
 profiling thread on one engine and encoder, the encoder's bf16 against
 float32 activations, a training step and a (2, 2) grid training step
-against their CPU twins, and the sharded engine against the dense one)
-on a CUDA card whose machine has no JAX. Those tests
+against their CPU twins, the sharded engine against the dense one, its
+captured programs bitwise against its eager one on grids of this card
+(exact over 4 shards and a [2, 4] grid, sparse postings, ivf, pq under
+host residency) and a writer thread publishing and refreshing while
+another searches it) on a CUDA card whose machine has no JAX. Those tests
 use only the torch side; their modules import the JAX package for their
 CPU tests, so those imports become mocks here and only the `on_card`
 tests are collected.

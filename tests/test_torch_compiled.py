@@ -8,7 +8,7 @@ On the CPU:
   search results of those batches against the JAX engine's, at
   tests/test_torch_engine.py's tolerances;
 - the union columns the device program reads: on a card the live ones
-  rounded up (``_union_width``), on the CPU and under sharding exactly the
+  rounded up (``_union_width``), sharded or not, on the CPU exactly the
   live ones; ``_device_batch`` (profile_engine's) reads the same;
 - the cache's bookkeeping with a stand-in for the capture (the program run
   eagerly, a replay running it again into the static outputs): the key
@@ -131,11 +131,12 @@ def test_union_columns_read(union, u, want):
 
 @pytest.mark.parametrize("device,sharded,rounded", [("cpu", None, False),
                                                     ("cuda", None, True),
-                                                    ("cuda", "a grid", False)])
+                                                    ("cuda", "a grid", True),
+                                                    ("cpu", "a grid", False)])
 def test_union_columns_read_by_engine(device, sharded, rounded):
-    """A card's one-device program (captured or not) reads _union_width
-    columns; the CPU's and a sharded engine's, which never capture, read
-    exactly the live ones. The rule alone: no card is touched."""
+    """A card's program, one-device or sharded, captured or not, reads
+    _union_width columns; the CPU's, which never captures, reads exactly
+    the live ones. The rule alone: no card is touched."""
     engine = _toy_engine()
     host, _ = engine.prepare_host(_reqs(3))
     assert 16 < host.union < 32 and host["lex_buckets"].shape == (128,)
@@ -144,8 +145,8 @@ def test_union_columns_read_by_engine(device, sharded, rounded):
 
 
 def test_device_batch_is_what_the_program_reads():
-    """``_device_batch`` (profile_engine's batch and the sharded engine's)
-    is the batch cut to the columns read, queries in bf16; prepare_batch
+    """``_device_batch`` (profile_engine's batch) is the batch cut to the
+    columns read, queries in bf16; prepare_batch
     keeps the JAX engine's padded union, and its host arrays ride along."""
     engine = _toy_engine()
     host, _ = engine.prepare_host(_reqs(3))
@@ -657,16 +658,18 @@ def _add(store, name: str, **fields) -> list[QueryRequest]:
     return [QueryRequest(query=text, embedding=emb)] * 2
 
 
-def _writes_replay_bitwise(case: str, engine: SearchEngine) -> None:
+def _writes_replay_bitwise(engine: SearchEngine, kernel=None, per_batch: int | None = None
+                           ) -> None:
     """The replay against the eager program (``graphs=False``, the same
     engine) over every batch, searched and pipelined, bitwise; each
-    counted kernel launched as often captured as eager. Then again after
-    an add (in place for exact and proj: the graphs kept; ivf, packed and
-    pq rebuild their tables), after an add that carries d-tags (local
-    gating rebuilds its d-tag postings: new graphs) and after a grow (new
-    graphs)."""
-    store, cache = engine.store, engine._programs
-    kernel = _CARD_CASES[case][1]
+    counted kernel launched as often captured as eager (`kernel`, on a
+    card: `per_batch` times a batch, or at all). Then again after an add
+    (in place for exact and proj: the graphs kept; ivf, packed and pq
+    rebuild their tables; under sharding a refresh copies the row in
+    place, or re-shards the sparse postings), after an add that carries
+    d-tags (local gating rebuilds its d-tag postings: new graphs) and
+    after a grow (new graphs)."""
+    store, cache = engine.store, engine.programs
     batches = _card_batches()
     widths = {engine._union_read(engine.prepare_host(b)[0]) for b in batches}
     assert len(widths) >= 2 and len({len(b) for b in batches}) >= 2
@@ -684,7 +687,7 @@ def _writes_replay_bitwise(case: str, engine: SearchEngine) -> None:
         assert graph == [2 * n for n in eager], tag
         if kernel is not None and engine.device.type == "cuda":  # the CPU counts none
             launched = eager[compiled.COUNTED.index(kernel)]
-            assert launched == len(batches) if case in _ONE_LAUNCH else launched > 0, tag
+            assert launched == per_batch * len(batches) if per_batch else launched > 0, tag
         assert got == want, tag
         assert piped == want, tag
 
@@ -703,6 +706,8 @@ def _writes_replay_bitwise(case: str, engine: SearchEngine) -> None:
         return all(same)
 
     in_place = engine.vector_backend in ("exact", "proj")
+    if engine.sharded is not None:
+        in_place = engine.vector_backend == "exact" and engine.cfg.lexical_format == "dense"
     before = dict(cache.graphs)
     batches.append(_add(store, "fresh"))
     both("after an add")
@@ -731,7 +736,7 @@ def test_writes_replay_like_eager_with_stand_in(case):
     rebuilds, ANN rebuilds and a grow."""
     engine = _case_engine(case, "cpu")
     _stand_in(engine)
-    _writes_replay_bitwise(case, engine)
+    _writes_replay_bitwise(engine)
 
 
 @pytest.mark.cuda
@@ -741,7 +746,7 @@ def test_replay_bitwise_on_card(case):
         pytest.skip("needs a CUDA card")
     engine = _case_engine(case, "cuda")
     assert engine.graphs
-    _writes_replay_bitwise(case, engine)
+    _writes_replay_bitwise(engine, _CARD_CASES[case][1], 1 if case in _ONE_LAUNCH else None)
 
 
 # Captures open on the main thread, one for each call another thread makes

@@ -42,8 +42,12 @@ from mobius_rag_tpu_torch.ops import proj as tproj
 from mobius_rag_tpu_torch.ops.topk import NEG_INF
 from mobius_rag_tpu_torch.parallel import sharded as tsharded
 from mobius_rag_tpu_torch.parallel.mesh import make_mesh, make_serve_mesh
-from mobius_rag_tpu_torch.parallel.sharded import ShardedEngine
+from mobius_rag_tpu_torch.parallel.sharded import ShardedEngine, on_one_device
+from mobius_rag_tpu_torch.query import compiled
+from mobius_rag_tpu_torch.query import engine as tengine
 from mobius_rag_tpu_torch.query.engine import SearchEngine as TEngine, search_batch
+from test_torch_compiled import (StandIn, _add, _card_batches, _fields, _reads_as_card,
+                                 _words, _writes_replay_bitwise)
 from test_torch_engine import ATOL, K, TOY_REQUESTS, _jq, _tq, assert_topk_equal, check_results
 
 torch.set_num_threads(1)
@@ -581,6 +585,286 @@ def test_agent_over_sharded_engine_matches_dense():
 
 
 # ---------------------------------------------------------------------------
+# the sharded program captured (query/compiled.py), with the stand-in
+# capture of tests/test_torch_compiled.py
+# ---------------------------------------------------------------------------
+
+# grid name -> (the port's grid over `devices`, the JAX package's)
+_GRIDS = {"1d": (lambda devices: make_mesh(4, devices=devices), lambda: jmake_mesh(4)),
+          "dp": (lambda devices: make_serve_mesh(2, 4, devices=devices),
+                 lambda: jmake_serve(2, 4))}
+
+
+def _sharded_serving(store, lexicon, cfg, mesh, **kw) -> TEngine:
+    return TEngine(store, lexicon, cfg=cfg, embed_fn=ttesting.hash_embed, device=store.device,
+                   sharded=ShardedEngine(store, mesh=mesh, cfg=cfg), **kw)
+
+
+def _captured(serving: TEngine, max_graphs: int = compiled.MAX_GRAPHS) -> StandIn:
+    """`serving` replaying its sharded engine's programs through the
+    stand-in capture, reading the lexical union as a card does."""
+    _reads_as_card(serving)
+    serving.sharded._programs = StandIn(serving.device, max_graphs)
+    serving.graphs = True
+    return serving.sharded._programs
+
+
+def _eager_twin(serving: TEngine) -> TEngine:
+    """A second engine over `serving`'s store and grid, eager, reading the
+    union as a card does."""
+    tse = serving.sharded
+    return _reads_as_card(_sharded_serving(serving.store, serving.lexicon, tse.cfg, tse.mesh,
+                                           vector_backend=tse.vector_backend))
+
+
+@pytest.mark.parametrize("grid", sorted(_GRIDS))
+def test_sharded_graph_keys_match_eager_and_jax(toy, grid):
+    """One graph per key of the sharded program: B, the union columns read
+    and k change it; the grid's shape (dp, S) is in it; every replay gives
+    the eager sharded program's results, and the JAX sharded engine's."""
+    je, te = toy["je"], toy["te"]
+    mesh, jmesh = _GRIDS[grid]
+    serving = _sharded_serving(te.store, te.lexicon, te.cfg, mesh(CPU))
+    eager = _eager_twin(serving)
+    cache = _captured(serving)
+    jr, tr = _reqs()
+    wide = " " + " ".join(_words(40))
+    runs = [(tr[:4], K), (tr[:5], K), (tr[:4], K), ([_tq(q.query + wide, {}) for q in tr[:4]], K),
+            (tr[:4], K + 1), (tr[:5], K), (tr[:4], K)]
+    for batch, k in runs:
+        got = serving.search(batch, k=k)
+        assert [_fields(r) for r in got] == [_fields(r) for r in eager.search(batch, k=k)]
+    assert cache.captures == 4 and cache.replays == 3
+    dp = 2 if grid == "dp" else 1
+    assert {key[0] for key, _ in cache.graphs} == {K, K + 1}
+    assert all(key[-2:] == (dp, 4) and key[6] is None for key, _ in cache.graphs)
+    widths = {dict((n, shape) for n, shape, _ in layout)["lex_buckets"][0]
+              for _, layout in cache.graphs}
+    assert len(widths) == 2 and max(widths) >= 64  # the live columns rounded up
+    jres = JSharded(je.store, mesh=jmesh()).search(je, jr, k=K)
+    tres = serving.search(tr, k=K)  # its first run, then a replay
+    tres = serving.search(tr, k=K)
+    for i in range(len(jr)):
+        check_hits(jres, tres, i)
+
+
+@pytest.mark.parametrize("grid", sorted(_GRIDS))
+def test_sharded_replay_adds_a_launch_per_shard_and_group(toy, grid, monkeypatch):
+    """The masked top-k (counted here on the CPU by a stand-in wrapper)
+    launches S x dp times a batch: the capture's deltas, added on every
+    replay."""
+    def kernel(*a, **kw):
+        kernel.launches += 1
+        return masked(*a, **kw)
+
+    masked, kernel.launches = tengine.masked_topk, 0
+    monkeypatch.setattr(tengine, "masked_topk", kernel)
+    monkeypatch.setattr(compiled, "COUNTED", (kernel,))
+    te = toy["te"]
+    serving = _sharded_serving(te.store, te.lexicon, te.cfg, _GRIDS[grid][0](CPU))
+    cache = _captured(serving)
+    per = 4 * (2 if grid == "dp" else 1)
+    for _ in range(4):
+        serving.search(_reqs(4)[1], k=K)
+    assert cache.captures == 1 and cache.replays == 3
+    assert next(iter(cache.graphs.values())).deltas == (per,)
+    assert kernel.launches == 4 * per
+
+
+# case -> (config fields, grid)
+_SHARDED_CASES = {
+    "exact_S4": ({}, "1d"),
+    "exact_dp2xS4": ({}, "dp"),
+    "exact_sparse_S4": (dict(lexical_format="sparse"), "1d"),
+    "ivf_S4": (dict(vector_backend="ivf", ivf_nlist=16, ivf_nprobe=8, lexical_format="sparse"),
+               "1d"),
+    "host_pq_S4": (dict(vector_residency="host", vector_dtype="int8", vector_backend="pq",
+                        ivf_nprobe=10 ** 6, over_fetch=8, ivf_nlist=8, pq_m=32,
+                        lexical_format="sparse", host_funnel=64), "1d"),
+}
+
+
+def _sharded_case(case: str, device: str) -> TEngine:
+    fields, grid = _SHARDED_CASES[case]
+    cfg = dataclasses.replace(tget_config(), initial_capacity=1024, **fields)
+    lex = ttesting.sample_lexicon()
+    store = TStore(cfg, device=device)
+    store.add_chunks(ttesting.toy_corpus(lex, pad_docs=60))
+    return _sharded_serving(store, lex, cfg, _GRIDS[grid][0]([device] * 8))
+
+
+@pytest.mark.parametrize("case", sorted(_SHARDED_CASES))
+def test_sharded_writes_replay_like_eager_with_stand_in(case):
+    """The card test's write sequence on the CPU with the stand-in capture:
+    a refresh that copies rows keeps the graphs (dense lexical, exact), a
+    re-shard (sparse postings, a grow) and an ANN rebuild drop them, and
+    every replay is the eager sharded program's."""
+    serving = _sharded_case(case, "cpu")
+    _captured(serving)
+    _writes_replay_bitwise(serving)
+
+
+def test_sharded_graphs_drop_after_bulk_load_and_reshard(monkeypatch):
+    """A bulk_load into the empty store re-shards, and so does a refresh
+    past _REBUILD_ROWS dirty rows: the next batch drops every graph and
+    captures anew; the results stay the eager program's."""
+    cfg = dataclasses.replace(tget_config(), initial_capacity=1024)
+    lex = ttesting.sample_lexicon()
+    store = TStore(cfg, device="cpu")
+    serving = _sharded_serving(store, lex, cfg, make_mesh(4, devices=CPU))
+    eager, cache = _eager_twin(serving), _captured(serving)
+    tse = serving.sharded
+    batch = _reqs(4)[1]
+
+    def same():
+        got = serving.search(batch, k=K)
+        assert [_fields(r) for r in got] == [_fields(r) for r in eager.search(batch, k=K)]
+        return got
+
+    assert not any(r.hits for r in same())  # an empty store
+    store.bulk_load(ttesting.toy_corpus(lex, pad_docs=30))
+    assert any(r.hits for r in same())
+    assert cache.captures == 2 and len(cache.graphs) == 1
+    assert any(t is tse.shards[0][0].vectors for t in next(iter(cache.graphs.values())).held)
+    monkeypatch.setattr(tsharded, "_REBUILD_ROWS", 0)
+    _add(store, "many")
+    same()
+    assert cache.captures == 3 and len(cache.graphs) == 1
+    assert any(t is tse.shards[0][0].vectors for t in next(iter(cache.graphs.values())).held)
+
+
+def test_sharded_graph_keys_on_funnel_and_backend():
+    """The funnel (host residency) and the backend's tables' class are
+    in the key; the results stay the eager program's."""
+    serving = _sharded_case("host_pq_S4", "cpu")
+    eager, cache = _eager_twin(serving), _captured(serving)
+    batch = _reqs(4)[1]
+    for funnel in (64, 96, 64):
+        serving.cfg = eager.cfg = dataclasses.replace(serving.cfg, host_funnel=funnel)
+        got = serving.search(batch, k=K)
+        assert [_fields(r) for r in got] == [_fields(r) for r in eager.search(batch, k=K)]
+    assert sorted(key[1] for key, _ in cache.graphs) == [64, 96]
+    assert {key[6] for key, _ in cache.graphs} == {"PackedPQ"}
+    assert cache.captures == 2 and cache.replays == 1
+    serving = _sharded_case("exact_S4", "cpu")
+    cache = _captured(serving)
+    serving.search(batch, k=K)
+    assert next(iter(cache.graphs))[0][6] is None
+    serving.set_vector_backend("ivf")
+    serving.search(batch, k=K)
+    assert [key[0][6] for key in cache.graphs] == ["IVFIndex"] and cache.captures == 2
+
+
+@pytest.mark.parametrize("groups,merge,one", [
+    ([["cuda:0"] * 4], "cuda:0", True),
+    ([["cuda:0"] * 4] * 2, "cuda:0", True),
+    ([["cpu"] * 4], "cpu", True),
+    ([["cuda:0", "cuda:1", "cuda:2", "cuda:3"]], "cuda:0", False),
+    ([["cuda:0"] * 4, ["cuda:1"] * 4], "cuda:0", False),
+    ([["cuda:1"] * 4], "cuda:0", False)])
+def test_one_device_rule(groups, merge, one):
+    """A grid captures only when every device of it is the merge device:
+    the rule alone, no card touched."""
+    grid = [[torch.device(d) for d in row] for row in groups]
+    assert on_one_device(grid, torch.device(merge)) is one
+
+
+def test_graphs_true_refused_on_a_grid_of_devices(toy):
+    """On a grid whose devices are not all the merge device (here the CPU
+    and the meta device: no card touched), graphs=True raises, passed to
+    the constructor or set later; the default serves eagerly."""
+    te = toy["te"]
+    listeners = list(te.store.listeners)
+    tse = ShardedEngine(te.store, mesh=make_mesh(2, devices=["cpu", "meta"]))
+    assert not tse.one_device
+    try:
+        with pytest.raises(ValueError, match="several devices"):
+            TEngine(te.store, te.lexicon, device="cpu", sharded=tse, graphs=True)
+        serving = TEngine(te.store, te.lexicon, device="cpu", sharded=tse)
+        assert serving.graphs is False
+        with pytest.raises(ValueError, match="several devices"):
+            serving.graphs = True
+        assert serving.graphs is False and tse._programs is None
+    finally:
+        te.store.listeners[:] = listeners
+
+
+def _shards_equal_store(tse) -> None:
+    cs, valid = tse.c_local, tse.store.index.valid
+    for si, idx in enumerate(tse.shards[0]):
+        n = max(0, min(cs, valid.shape[0] - si * cs))
+        assert torch.equal(idx.valid[:n], valid[si * cs:si * cs + n]), si
+
+
+def test_refresh_keeps_rows_reported_after_it_read_the_generation():
+    """The store bumps its generation before it tells its listeners: a
+    refresh on another thread that runs between the two must leave the
+    copy stale, so that the next refresh copies the rows."""
+    _, te = _twins(pad_docs=16)
+    store = te.store
+    tse = ShardedEngine(store, mesh=make_mesh(4, devices=CPU))
+    events, listeners = [], store.listeners
+    store.listeners = [lambda event, rows: events.append((event, list(rows)))]
+    try:
+        store.publish_document("zephyr_doc", [_zephyr("port")])
+    finally:
+        store.listeners = listeners
+    tse.refresh()  # the generation moved; no row reported yet
+    for event, rows in events:
+        tse._on_store_event(event, rows)
+    assert tse.stale
+    assert tse.refresh()["mode"] == "scatter:1"
+    _shards_equal_store(tse)
+
+
+def test_refresh_from_a_writer_thread_loses_no_rows():
+    """Publishes on one thread, refresh() on another, as the API's handlers
+    and a searching thread do: after both, one refresh leaves every shard
+    equal to the store (an event the store reports after a refresh read
+    its generation still marks the copy stale)."""
+    import sys
+    import threading
+
+    _, te = _twins(pad_docs=16)
+    store = te.store
+    tse = ShardedEngine(store, mesh=make_mesh(4, devices=CPU))
+    errors = []
+
+    def write():
+        try:
+            for i in range(60):
+                text = f"writer row {i}"
+                store.publish_document(f"w{i}", [TRecord(
+                    chunk_id=f"w{i}", doc_id=f"w{i}", text=text,
+                    embedding=ttesting.hash_embed([text])[0])])
+        except Exception as e:  # reported by the assertion below
+            errors.append(repr(e))
+
+    def refresh():
+        try:
+            while writer.is_alive():
+                tse.refresh()
+        except Exception as e:  # reported by the assertion below
+            errors.append(repr(e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        writer = threading.Thread(target=write)
+        threads = [writer] + [threading.Thread(target=refresh) for _ in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    tse.refresh()
+    assert not tse.stale
+    _shards_equal_store(tse)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -588,8 +872,9 @@ def test_agent_over_sharded_engine_matches_dense():
 def test_sharded_on_card_matches_dense():
     """On the card, [cuda:0] * 4 shards: the exact sharded engine gives the
     dense engine's results (ids, scores within 1e-5) through the masked
-    top-k kernel (4 launches a batch), and search_pipelined's dispatch
-    reads nothing back from the card."""
+    top-k kernel (4 launches a batch), captured and eager; the dispatch
+    reads nothing back from the card, eager or captured (a replay: a new
+    key's capture synchronizes the device on purpose)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from mobius_rag_tpu_torch.ops.topk import masked_topk
@@ -600,25 +885,109 @@ def test_sharded_on_card_matches_dense():
     dense = TEngine(store, lex, embed_fn=ttesting.hash_embed, device="cuda")
     tse = ShardedEngine(store, mesh=make_mesh(4, devices=["cuda"] * 4))
     serving = TEngine(store, lex, embed_fn=ttesting.hash_embed, device="cuda", sharded=tse)
+    assert serving.graphs and tse.one_device
     _, tr = _reqs()
     want = dense.search(tr, k=K)
-    serving.search(tr, k=K)  # warm-up: lazy module loads
-    before = masked_topk.launches
-    got = serving.search(tr, k=K)
-    assert masked_topk.launches - before == 4
-    for a, b in zip(want, got):
-        assert [h.chunk_id for h in b.hits] == [h.chunk_id for h in a.hits]
-        np.testing.assert_allclose([h.score for h in b.hits], [h.score for h in a.hits],
-                                   rtol=0, atol=ATOL)
-    q, exps = serving.prepare_batch(tr)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        fetch = serving._dispatch(q, exps, None, None, K)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    out = serving._finish(tr, exps, fetch.wait(), K)
-    assert out["idx"].shape == (len(tr), K)
+    for graphs in (False, True):
+        serving.graphs = graphs
+        serving.search(tr, k=K)  # warm-up: lazy module loads; captured: the capture
+        before = masked_topk.launches
+        got = serving.search(tr, k=K)
+        assert masked_topk.launches - before == 4
+        for a, b in zip(want, got):
+            assert [h.chunk_id for h in b.hits] == [h.chunk_id for h in a.hits]
+            np.testing.assert_allclose([h.score for h in b.hits], [h.score for h in a.hits],
+                                       rtol=0, atol=ATOL)
+    assert serving.programs.captures == 1 and serving.programs.replays == 1
+    for graphs in (False, True):
+        serving.graphs = graphs
+        q, exps = serving.prepare_batch(tr)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fetch = serving._dispatch(q, exps, None, None, K)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out = serving._finish(tr, exps, fetch.wait(), K)
+        assert out["idx"].shape == (len(tr), K)
+    assert serving.programs.captures == 1 and serving.programs.replays == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_SHARDED_CASES))
+def test_sharded_graphs_bitwise_on_card(case):
+    """The sharded program captured on a grid of this card against the same
+    engine eager (``graphs=False``), bitwise, over 9 batches searched and
+    pipelined, with the masked top-k launched S x dp times a batch
+    captured and eager; again after a publish (a refresh in place, or a
+    re-shard under sparse postings; the ANN tables rebuild), a publish
+    with d-tags and a grow."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+
+    serving = _sharded_case(case, "cuda")
+    assert serving.graphs
+    tse = serving.sharded
+    exact = tse.vector_backend == "exact"
+    _writes_replay_bitwise(serving, masked_topk if exact else None,
+                           len(tse.groups) * tse.num_shards if exact else None)
+
+
+@pytest.mark.cuda
+def test_sharded_writer_thread_on_card():
+    """A writer thread publishes documents and refresh()es the sharded
+    engine (as the API's publish handlers do) while another thread searches
+    it, batches of new keys captured and replayed; one publish grows the
+    store (a re-shard), the rest are copied in place. Both succeed, and
+    afterwards every batch replays bitwise what the eager program
+    returns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import threading
+
+    serving = _sharded_case("exact_S4", "cuda")
+    store, tse = serving.store, serving.sharded
+    batches = _card_batches()
+    errors, published = [], []
+
+    def write():
+        try:
+            for i in range(8):
+                n = store.capacity - store.size + 1 if i == 4 else 2  # the fifth grows
+                texts = [f"writer doc {i} row {j}" for j in range(n)]
+                embs = ttesting.hash_embed(texts)
+                store.publish_document(f"w{i}", [
+                    TRecord(chunk_id=f"w{i}-{j}", doc_id=f"w{i}", text=t, embedding=embs[j])
+                    for j, t in enumerate(texts)])
+                tse.refresh()
+                published.append(i)
+        except Exception as e:  # reported by the assertion below
+            errors.append(("write", repr(e)))
+
+    def search():
+        try:
+            for _ in range(3):
+                for b in batches:
+                    serving.search(b, k=K)
+        except Exception as e:  # reported by the assertion below
+            errors.append(("search", repr(e)))
+
+    threads = [threading.Thread(target=write), threading.Thread(target=search)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    assert len(published) == 8 and serving.programs.captures >= 2
+    serving.graphs = False
+    want = [[_fields(r) for r in serving.search(b, k=K)] for b in batches]
+    serving.graphs = True
+    assert [[_fields(r) for r in serving.search(b, k=K)] for b in batches] == want
+    assert any(h.chunk_id == "w7-0" for h in serving.search(
+        [tengine.QueryRequest(query="writer doc 7 row 0",
+                              embedding=ttesting.hash_embed(["writer doc 7 row 0"])[0])],
+        k=K)[0].hits)
 
 
 # ---------------------------------------------------------------------------
