@@ -3107,6 +3107,16 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def _reset_train(model, opt, params) -> None:
+    """`model` back to `params` and `opt`'s state to zero, in place: the
+    tensors a captured step's graphs hold stay, and so do the graphs."""
+    model.load_tree(params)
+    with torch.no_grad():
+        for state in opt.state.values():
+            for t in state.values():
+                t.zero_()
+
+
 def train_step_twin(dev: str = "cuda", grid: tuple[int, int] | None = None
                     ) -> tuple[float, float, float]:
     """One step of train_demo's tiny config (float32 activations) on `dev`
@@ -3114,7 +3124,9 @@ def train_step_twin(dev: str = "cuda", grid: tuple[int, int] | None = None
     over a (dp, tp) `grid` of the device named dp x tp times: (gradients'
     worst difference relative to each parameter's largest |gradient|, the
     updates' worst difference above TWIN_FLOOR, the share of elements below
-    it)."""
+    it). On a card the step is captured, and the step held against the
+    CPU's is a replay: the first step (eager, then the capture) is undone
+    in place before it."""
     import dataclasses
 
     from mobius_rag_tpu_torch.models.encoder import EncoderConfig, init_params
@@ -3132,7 +3144,13 @@ def train_step_twin(dev: str = "cuda", grid: tuple[int, int] | None = None
         module = shard(_to(params, where))
         before = [p.detach().clone() for p in module.parameters()]
         opt = init(module)
-        module, opt, _ = step(module, opt, batch(q), batch(d))
+        qb, db = batch(q), batch(d)
+        if step.programs is not None:
+            step(module, opt, qb, db)
+            _reset_train(module, opt, _to(params, where))
+        module, opt, _ = step(module, opt, qb, db)
+        if step.programs is not None and step.programs.replays != 1:
+            raise AssertionError(f"the step on {where} was not a replay of its graph")
         out[where] = ([p.grad.detach().cpu() for p in module.parameters()],
                       [(p.detach() - b).cpu() for p, b in zip(module.parameters(), before)])
     grad_err, step_err, below, total = 0.0, 0.0, 0, 0
@@ -3188,79 +3206,174 @@ def _reset_peak(dev) -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
+def _train_modes(dev) -> tuple:
+    """The turns' modes (graphs off or on): TURNS on a card; two eager
+    turns off it (a step is captured only on a card)."""
+    return TURNS if torch.device(dev).type == "cuda" else (False, False)
+
+
+def _train_turns(name: str, trainers: dict, model, opt, params, blocks: list, n_timed: int,
+                 n_prof: int, dev) -> list[dict]:
+    """The training step eager (`trainers[False]`) against captured
+    (`trainers[True]`) on one model and optimizer, in turns (eager, graph,
+    graph, eager), each from `params` and a zero optimizer state over the
+    same `blocks`: first one step of each trimmed shape's first block (the
+    graph turns capture there), then from `params` again TRAIN_WARMUP
+    steps, `n_timed` between CUDA events and `n_prof` more (profiled in the
+    first two turns). Returns per turn: graphs, ms of the timed steps,
+    (loss, accuracy) of every step, and where profiled the device's busy ms,
+    the wall ms, the device operations and the top kernels a step. Raises
+    unless the graph turns' per-step losses and accuracies equal the eager
+    turns' (bitwise, or within the spread of the two eager turns where
+    those differ)."""
+    import gc
+
+    from mobius_rag_tpu_torch.models.encoder import seq_bucket
+
+    firsts = {}
+    for qs, ds in blocks:
+        firsts.setdefault((seq_bucket(qs).shape, seq_bucket(ds).shape), (qs, ds))
+    turns = []
+    gc.collect()
+    gc.freeze()  # no full collection inside a timed or profiled window
+    try:
+        for graphs in _train_modes(dev):
+            step_fn, _, shard_batch, _ = trainers[graphs]
+            _reset_train(model, opt, params)
+            for qs, ds in firsts.values():
+                step_fn(model, opt, shard_batch(qs), shard_batch(ds))
+            _reset_train(model, opt, params)
+            it = iter(blocks)
+            every = []
+
+            def step():
+                qs, ds = next(it)
+                every.append(step_fn(model, opt, shard_batch(qs), shard_batch(ds))[2])
+                return every[-1]
+
+            ms, _ = _timed_steps(step, TRAIN_WARMUP, n_timed, dev)
+            turn = {"graphs": graphs, "ms": ms}
+            if len(turns) < 2:
+                by_name, n_ops, wall = _device_profile(lambda: [step() for _ in range(n_prof)],
+                                                       n_prof, dev)
+                turn.update(busy=sum(by_name.values()), device_ops=n_ops, wall_ms=wall,
+                            top=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+            else:
+                for _ in range(n_prof):
+                    step()
+            _sync(dev)
+            turn["steps"] = [(float(m["loss"]), float(m["accuracy"])) for m in every]
+            turns.append(turn)
+    finally:
+        gc.unfreeze()
+
+    def gap(steps, other) -> float:
+        return max(abs(x - y) for a, b in zip(steps, other) for x, y in zip(a, b))
+
+    eager = [t["steps"] for t in turns if not t["graphs"]]
+    spread = gap(*eager)
+    for t in turns:
+        diff = gap(t["steps"], eager[0])
+        if diff > spread:
+            raise AssertionError(f"{name}: a {'graph' if t['graphs'] else 'eager'} turn's "
+                                 f"per-step losses differ from the first eager turn's by "
+                                 f"{diff} (the eager turns' spread {spread}): {t['steps']} "
+                                 f"against {eager[0]}")
+    log(f"{name}: per-step losses and accuracies of every turn "
+        f"{'bitwise equal' if spread == 0 else f'within the eager turns spread {spread}'}"
+        f" ({len(eager[0])} steps a turn, turns eager, graph, graph, eager on a card)")
+    return turns
+
+
+def _turn_lines(name: str, turns: list, trainers: dict, batch: int, flops: list,
+                smi: str, dev) -> None:
+    """The turns' ms a step, pairs/s, train_mfu (`flops` of each timed step),
+    busy share and device operations a step, then the graphs' captures,
+    capture ms and pool."""
+    for t in turns:
+        ms = t["ms"]
+        med = float(np.median(ms))
+        mfu = sum(flops) / (sum(ms) / 1e3) / PEAK_OPS["bfloat16"]
+        line = (f"{name}: {'graph' if t['graphs'] else 'eager'}: {med:.2f} ms per step "
+                f"(median; mean {np.mean(ms):.2f}, min {min(ms):.2f}, max {max(ms):.2f}), "
+                f"{batch / med * 1e3:.1f} pairs/s, train_mfu {_on_card(mfu, '.4f', dev)}")
+        if "busy" in t:
+            share = _on_card(100 * t["busy"] / t["wall_ms"], ".1f", dev, "%")
+            line += (f"; profiled step: device busy {_on_card(t['busy'], '.2f', dev, ' ms')} of "
+                     f"{t['wall_ms']:.2f} ms ({share}), device operations (kernels and copies) "
+                     f"{_on_card(t['device_ops'], '.0f', dev)}; top kernels (ms a step) "
+                     f"{ {k[:60]: round(v, 3) for k, v in t['top'].items()} }")
+        log(line + f" on {smi}")
+        t["median_ms"], t["mfu"] = med, mfu
+    if True in trainers:
+        cache = trainers[True][0].programs
+        cms = cache.capture_ms
+        log(f"{name}: {cache.captures} captures (ms median {np.median(cms):.1f}, max "
+            f"{max(cms):.1f}), {cache.replays} replays, {len(cache.graphs)} graphs kept; the "
+            f"graphs' pool holds {cache.pool_bytes() / 2**20:.1f} MiB on {smi}")
+
+
 def phase9a_encoder_train(smi: str, store, pairs, cfg, dev: str = "cuda") -> dict:
     """The encoder at `cfg`'s width (EncoderConfig.from_env() on the card)
-    trained on the fixture stack's ICT pairs: TRAIN_WARMUP steps, then
-    TRAIN_TIMED steps at TRAIN_BATCH pairs between CUDA events; ms per step,
-    pairs/s, peak device memory, each step's loss and accuracy, train_mfu
-    (3 x both towers' forward product FLOPs at their trimmed lengths / the
-    step time / 989 TFLOP/s), the profiler's top kernels of a step; then one
-    step of the tiny config against its CPU twin."""
+    trained on the fixture stack's ICT pairs at TRAIN_BATCH pairs a step,
+    eager against captured in turns (`_train_turns`: TRAIN_WARMUP steps,
+    TRAIN_TIMED between CUDA events, 2 profiled): ms per step, pairs/s,
+    train_mfu (3 x both towers' forward product FLOPs at their trimmed
+    lengths / the step time / 989 TFLOP/s), busy share, device operations,
+    captures and pool, each step's loss and accuracy (the graph turns'
+    equal to the eager turns'), peak device memory; then one step of the
+    tiny config, captured, against its CPU twin."""
     from mobius_rag_tpu_torch.models.data import pretokenized_batches
     from mobius_rag_tpu_torch.models.encoder import flops_per_token, init_params, seq_bucket
     from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
     from mobius_rag_tpu_torch.models.train import TrainConfig, make_train_step
 
     on_card = torch.device(dev).type == "cuda"
-    n_steps = TRAIN_WARMUP + TRAIN_TIMED + 2  # +2 profiled
+    n_prof = 2
     tok = HashTokenizer(cfg.vocab_size, cfg.max_seq)
-    blocks = list(pretokenized_batches(pairs, tok, TRAIN_BATCH, steps=n_steps, seed=0))
-    step_fn, shard_params, shard_batch, init_opt = make_train_step(cfg, TrainConfig(),
-                                                                   device=dev)
+    blocks = list(pretokenized_batches(pairs, tok, TRAIN_BATCH,
+                                       steps=TRAIN_WARMUP + TRAIN_TIMED + n_prof, seed=0))
+    trainers = {g: make_train_step(cfg, TrainConfig(), device=dev, graphs=g)
+                for g in set(_train_modes(dev))}
     _reset_peak(dev)
     t0 = time.perf_counter()
-    module = shard_params(init_params(cfg, torch.Generator(device=dev).manual_seed(0)))
-    opt = init_opt(module)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    module = trainers[False][1](params)
+    opt = trainers[False][3](module)
     n_params = sum(p.numel() for p in module.parameters())
     log(f"phase 9a: encoder {cfg.num_layers} x {cfg.model_dim} (heads {cfg.num_heads}, mlp "
         f"{cfg.mlp_dim}, max_seq {cfg.max_seq}, out {cfg.out_dim}, {cfg.dtype} activations, "
         f"float32 parameters), {n_params / 1e6:.1f} M parameters, AdamW set up in "
         f"{time.perf_counter() - t0:.2f} s; {len(pairs)} ICT pairs from {store.size} chunks")
-    it = iter(blocks)
-    lengths, every = [], []
-
-    def step():
-        qs, ds = next(it)
-        lengths.append((seq_bucket(qs).shape[1], seq_bucket(ds).shape[1]))
-        every.append(step_fn(module, opt, shard_batch(qs), shard_batch(ds))[2])
-        return every[-1]
-
-    ms, metrics = _timed_steps(step, TRAIN_WARMUP, TRAIN_TIMED, dev)
-    timed_lengths = lengths[TRAIN_WARMUP:]
-    flops = [3 * TRAIN_BATCH * sum(n * flops_per_token(cfg, n) for n in pair)
-             for pair in timed_lengths]
-    mfu = sum(flops) / (sum(ms) / 1e3) / PEAK_OPS["bfloat16"]
+    t0 = time.perf_counter()
+    turns = _train_turns("phase 9a", trainers, module, opt, params, blocks, TRAIN_TIMED,
+                         n_prof, dev)
+    timed = [(seq_bucket(qs).shape[1], seq_bucket(ds).shape[1])
+             for qs, ds in blocks[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]]
+    flops = [3 * TRAIN_BATCH * sum(n * flops_per_token(cfg, n) for n in pair) for pair in timed]
+    _turn_lines("phase 9a", turns, trainers, TRAIN_BATCH, flops, smi, dev)
     peak = _peak_gib(dev)
-    if not all(np.isfinite(m["loss"]) for m in metrics):
-        raise AssertionError(f"phase 9a: a non-finite loss {metrics}")
-    by_name, n_ops, wall = _device_profile(lambda: [step() for _ in range(2)], 2, dev)
-    busy = sum(by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    med = float(np.median(ms))
-    log(f"phase 9a: {TRAIN_TIMED} steps at batch {TRAIN_BATCH} (after {TRAIN_WARMUP} "
-        f"warm-up): {med:.2f} ms per step (median; mean {np.mean(ms):.2f}, min {min(ms):.2f}, "
-        f"max {max(ms):.2f}), {TRAIN_BATCH / med * 1e3:.1f} pairs/s, train_mfu "
-        f"{_on_card(mfu, '.4f', dev)} "
-        f"(3 x forward product FLOPs, {sum(flops) / len(flops) / 1e12:.3f} TFLOP a step, "
-        f"of {PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 dense), trimmed lengths (query, "
-        f"doc) {timed_lengths}, peak device memory {_on_card(peak, '.2f', dev, ' GiB')} on {smi}")
-    log(f"phase 9a: loss by step {[round(m['loss'], 4) for m in metrics]}, accuracy "
-        f"{[round(m['accuracy'], 4) for m in metrics]}")
-    log(f"phase 9a: profiled step: device busy {busy:.2f} of {wall:.2f} ms "
-        f"({100 * busy / wall:.1f}%), device operations (kernels and copies) "
-        f"{_on_card(n_ops, '.0f', dev)}; top kernels (ms per step) "
-        f"{ {k[:60]: round(v, 3) for k, v in top.items()} }")
-    del module, opt
+    steps = turns[0]["steps"]
+    if not all(np.isfinite(loss) for loss, _ in steps):
+        raise AssertionError(f"phase 9a: a non-finite loss {steps}")
+    log(f"phase 9a: {len(turns)} turns in {time.perf_counter() - t0:.1f} s; "
+        f"{sum(flops) / len(flops) / 1e12:.3f} TFLOP a step (3 x forward product FLOPs, of "
+        f"{PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 dense); trimmed lengths (query, "
+        f"doc) of the timed steps {timed}; peak device memory "
+        f"{_on_card(peak, '.2f', dev, ' GiB')} on {smi}")
+    log(f"phase 9a: loss by step {[round(x, 4) for x, _ in steps]}, accuracy "
+        f"{[round(a, 4) for _, a in steps]}")
+    del module, opt, trainers
     grad_err, step_err, below = train_step_twin(dev)
     if on_card and not (grad_err <= TWIN_GRAD and step_err <= TWIN_STEP):
         raise AssertionError(f"phase 9a: the card's step differs from its CPU twin: "
                              f"gradients {grad_err} (bound {TWIN_GRAD}), updates {step_err} "
                              f"(bound {TWIN_STEP})")
-    log(f"phase 9a: tiny float32 step on {dev} vs its CPU twin: gradients max rel diff "
-        f"{grad_err:.2e} (bound {TWIN_GRAD}), updates max |diff| {step_err:.2e} (bound "
-        f"{TWIN_STEP}) where |g| >= {TWIN_FLOOR} x max ({100 * below:.3f}% of elements below)")
-    return {"ms": ms, "mfu": mfu, "peak_gib": peak, "metrics": metrics,
-            "loss_step1": float(every[0]["loss"])}
+    log(f"phase 9a: tiny float32 step on {dev} ({'a replay of its graph' if on_card else 'eager'})"
+        f" vs its CPU twin: gradients max rel diff {grad_err:.2e} (bound {TWIN_GRAD}), updates "
+        f"max |diff| {step_err:.2e} (bound {TWIN_STEP}) where |g| >= {TWIN_FLOOR} x max "
+        f"({100 * below:.3f}% of elements below)")
+    return {"turns": turns, "peak_gib": peak, "loss_step1": steps[0][0]}
 
 
 def vector_arm_citation_at_10(store, embed_fn, bank, dev) -> float:
@@ -4119,14 +4232,15 @@ GRID_LOSS_REL = 0.01  # step 1's loss against phase 9a's single-device step 1
 def phase12a_grid_train(smi: str, pairs, cfg, loss_step1: float, dev: str = "cuda") -> dict:
     """The encoder at `cfg`'s width trained over each GRID_SHAPES grid of
     `dev` named dp x tp times, on phase 9a's batches (TRAIN_BATCH pairs of
-    `pairs`, seed 0) from phase 9a's initial parameters: TRAIN_WARMUP
-    steps, then GRID_TIMED between CUDA events; ms per step, the profiled
-    step's device busy share, top kernels and device operations, peak
-    device memory and each step's loss; step 1's loss within GRID_LOSS_REL
-    of phase 9a's (`loss_step1`). Then one tiny float32 step over a (4, 2)
-    grid against its CPU twin."""
+    `pairs`, seed 0) from phase 9a's initial parameters, eager against
+    captured in turns (`_train_turns`: TRAIN_WARMUP steps, GRID_TIMED
+    between CUDA events, one profiled): ms per step, pairs/s, busy share,
+    device operations, captures and pool, peak device memory and each
+    step's loss (the graph turns' equal to the eager turns'); step 1's loss
+    within GRID_LOSS_REL of phase 9a's (`loss_step1`). Then one tiny
+    float32 step over a (4, 2) grid, captured, against its CPU twin."""
     from mobius_rag_tpu_torch.models.data import pretokenized_batches
-    from mobius_rag_tpu_torch.models.encoder import init_params
+    from mobius_rag_tpu_torch.models.encoder import flops_per_token, init_params, seq_bucket
     from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
     from mobius_rag_tpu_torch.models.train import TrainConfig, make_train_step
     from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
@@ -4135,62 +4249,48 @@ def phase12a_grid_train(smi: str, pairs, cfg, loss_step1: float, dev: str = "cud
     tok = HashTokenizer(cfg.vocab_size, cfg.max_seq)
     blocks = list(pretokenized_batches(pairs, tok, TRAIN_BATCH,
                                        steps=TRAIN_WARMUP + GRID_TIMED + 1, seed=0))
+    timed = [(seq_bucket(qs).shape[1], seq_bucket(ds).shape[1])
+             for qs, ds in blocks[TRAIN_WARMUP:TRAIN_WARMUP + GRID_TIMED]]
+    flops = [3 * TRAIN_BATCH * sum(n * flops_per_token(cfg, n) for n in pair) for pair in timed]
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     out = {}
     for dp, tp in GRID_SHAPES:
         t0 = time.perf_counter()
+        name = f"phase 12a: grid ({dp}, {tp})"
         mesh = make_train_mesh(dp, tp, devices=[dev] * (dp * tp))
-        step_fn, shard_params, shard_batch, init_opt = make_train_step(cfg, TrainConfig(), mesh)
+        trainers = {g: make_train_step(cfg, TrainConfig(), mesh, graphs=g)
+                    for g in set(_train_modes(dev))}
         _reset_peak(dev)
-        model = shard_params(params)
-        opt = init_opt(model)
-        setup_s = time.perf_counter() - t0
-        it = iter(blocks)
-        every = []
-
-        def step():
-            qs, ds = next(it)
-            every.append(step_fn(model, opt, shard_batch(qs), shard_batch(ds))[2])
-            return every[-1]
-
-        ms, _ = _timed_steps(step, TRAIN_WARMUP, GRID_TIMED, dev)
-        by_name, n_ops, wall = _device_profile(step, 1, dev)
+        model = trainers[False][1](params)
+        opt = trainers[False][3](model)
+        log(f"{name}: dp={dp} x tp={tp} on {dev} x {dp * tp}, encoder {cfg.num_layers} x "
+            f"{cfg.model_dim} (heads {cfg.num_heads}, mlp {cfg.mlp_dim}, max_seq "
+            f"{cfg.max_seq}, vocab {cfg.vocab_size}, out {cfg.out_dim}, {cfg.dtype} "
+            f"activations), batch {TRAIN_BATCH}: sharded and AdamW set up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        turns = _train_turns(name, trainers, model, opt, params, blocks, GRID_TIMED, 1, dev)
+        _turn_lines(name, turns, trainers, TRAIN_BATCH, flops, smi, dev)
         peak = _peak_gib(dev)
-        losses = [float(m["loss"]) for m in every]
+        losses = [loss for loss, _ in turns[0]["steps"]]
         if not all(np.isfinite(losses)):
-            raise AssertionError(f"phase 12a ({dp}, {tp}): a non-finite loss {losses}")
+            raise AssertionError(f"{name}: a non-finite loss {losses}")
         rel = abs(losses[0] - loss_step1) / loss_step1
         if rel > GRID_LOSS_REL:
-            raise AssertionError(f"phase 12a ({dp}, {tp}): step 1's loss {losses[0]} is not "
-                                 f"within {GRID_LOSS_REL} of phase 9a's {loss_step1}")
-        busy = sum(by_name.values())
-        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-        med = float(np.median(ms))
-        log(f"phase 12a: grid dp={dp} x tp={tp} on {dev} x {dp * tp}, encoder "
-            f"{cfg.num_layers} x {cfg.model_dim} (heads {cfg.num_heads}, mlp {cfg.mlp_dim}, "
-            f"max_seq {cfg.max_seq}, vocab {cfg.vocab_size}, out {cfg.out_dim}, {cfg.dtype} "
-            f"activations), batch {TRAIN_BATCH}: sharded and AdamW set up in {setup_s:.2f} s; "
-            f"{GRID_TIMED} steps (after {TRAIN_WARMUP} warm-up) {med:.2f} ms per step (median; "
-            f"min {min(ms):.2f}, max {max(ms):.2f}), peak device memory "
-            f"{_on_card(peak, '.2f', dev, ' GiB')} on {smi}")
-        log(f"phase 12a: grid ({dp}, {tp}) profiled step: device busy "
-            f"{_on_card(busy, '.2f', dev, ' ms')} of {wall:.2f} ms "
-            f"({_on_card(100 * busy / wall, '.1f', dev, '%')}), device operations (kernels and "
-            f"copies) {_on_card(n_ops, '.0f', dev)}; top kernels (ms) "
-            f"{ {k[:60]: round(v, 3) for k, v in top.items()} }")
-        log(f"phase 12a: grid ({dp}, {tp}) loss by step {[round(x, 4) for x in losses]}; step 1 "
-            f"{losses[0]:.6f} against phase 9a's single-device {loss_step1:.6f} (rel diff "
-            f"{rel:.2e}, bound {GRID_LOSS_REL})")
-        out[(dp, tp)] = {"ms": ms, "busy_ms": busy, "wall_ms": wall, "device_ops": n_ops,
-                         "peak_gib": peak, "losses": losses}
-        del model, opt, step_fn
-        log(f"phase 12a: grid ({dp}, {tp}) in {time.perf_counter() - t0:.1f} s")
+            raise AssertionError(f"{name}: step 1's loss {losses[0]} is not within "
+                                 f"{GRID_LOSS_REL} of phase 9a's {loss_step1}")
+        log(f"{name}: loss by step {[round(x, 4) for x in losses]}; step 1 {losses[0]:.6f} "
+            f"against phase 9a's single-device {loss_step1:.6f} (rel diff {rel:.2e}, bound "
+            f"{GRID_LOSS_REL}); peak device memory {_on_card(peak, '.2f', dev, ' GiB')}; "
+            f"{time.perf_counter() - t0:.1f} s on {smi}")
+        out[(dp, tp)] = {"turns": turns, "peak_gib": peak, "losses": losses}
+        del model, opt, trainers
     grad_err, step_err, below = train_step_twin(dev, grid=(4, 2))
     if on_card and not (grad_err <= TWIN_GRAD and step_err <= TWIN_STEP):
         raise AssertionError(f"phase 12a: the card's grid step differs from its CPU twin: "
                              f"gradients {grad_err} (bound {TWIN_GRAD}), updates {step_err} "
                              f"(bound {TWIN_STEP})")
-    log(f"phase 12a: tiny float32 grid (4, 2) step on {dev} vs its CPU twin: gradients max "
+    log(f"phase 12a: tiny float32 grid (4, 2) step on {dev} "
+        f"({'a replay of its graph' if on_card else 'eager'}) vs its CPU twin: gradients max "
         f"rel diff {grad_err:.2e} (bound {TWIN_GRAD}), updates max |diff| {step_err:.2e} "
         f"(bound {TWIN_STEP}) where |g| >= {TWIN_FLOOR} x max ({100 * below:.3f}% below)")
     return out

@@ -26,11 +26,19 @@ keeps ``opt_state`` sharded like the parameters; the other rows then copy
 them. A grid of one device repeated runs the whole program on one card.
 ``mesh=None`` means one device, ``device=``: the JAX package then builds a
 mesh over every device, which on one card is dp=1, tp=1, the same program.
-JAX pads
-every batch to ``max_seq`` to bound compiles; eager PyTorch compiles
-nothing, so each token block is trimmed to the encoder's sequence buckets
-(``seq_bucket``): PAD columns are masked out of attention and pooling, so
-their gradients are zero either way.
+
+On a card the step is the port of the JAX ``train_step`` (one XLA program,
+``params`` and ``opt_state`` donated): one captured CUDA graph per key
+(``query/compiled.CapturedPrograms``), covering both towers' forward, the
+loss, the backward, the zero fill of missing gradients, the clip and AdamW,
+with the parameters and the optimizer's state updated in place (JAX's
+donation). A step then costs the host one upload of its token blocks into
+the graph's static input and one replay. The key is the batch's shape:
+(B, Lq, Ld), with (dp, tp) on a grid. JAX pads every batch to ``max_seq``
+to bound its compiles; the port trims each token block to the encoder's
+sequence buckets (``seq_bucket``), so at most a few lengths each, and the
+buckets are the graph keys: PAD columns are masked out of attention and
+pooling, so their gradients are zero either way.
 
     python -m mobius_rag_tpu_torch.models.train [--steps 200] [--batch 64]
         [--distractors 1200] [--out DIR] [--device cuda]
@@ -51,6 +59,7 @@ from mobius_rag_tpu_torch.models.encoder import (Encoder, EncoderConfig, GridEnc
                                                  check_tp, gather_tree, init_params,
                                                  param_specs, seq_bucket, shard_tree,
                                                  tree_map)
+from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +71,24 @@ class TrainConfig:
 
 
 def make_optimizer(params, tc: TrainConfig) -> torch.optim.AdamW:
-    """optax.adamw's update (b1 0.9, b2 0.999, eps 1e-8, decoupled decay)."""
-    return torch.optim.AdamW(params, lr=tc.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=tc.weight_decay)
+    """optax.adamw's update (b1 0.9, b2 0.999, eps 1e-8, decoupled decay).
+    Its whole state is made here, on the parameters' devices, as optax's
+    ``opt_state`` exists before the first step. torch.optim would make it
+    in the first ``step()``: under a capture it would land in the graphs'
+    pool, and a captured step needs its tensors to keep their identities.
+    On a card the update is capturable (its step counts on the device),
+    eager and captured alike, so that both run one program; on the CPU the
+    step counts stay on the host."""
+    params = list(params)
+    capturable = all(p.device.type == "cuda" for p in params)
+    opt = torch.optim.AdamW(params, lr=tc.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=tc.weight_decay, capturable=capturable)
+    for p in params:  # the state torch.optim's Adam makes lazily
+        opt.state[p] = {
+            "step": torch.zeros((), device=p.device if capturable else "cpu"),
+            "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+            "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+    return opt
 
 
 @torch.no_grad()
@@ -113,6 +137,13 @@ def detached_tree(tree):
     if isinstance(tree, list):
         return [detached_tree(v) for v in tree]
     return tree.detach()
+
+
+def host_batch(tokens: np.ndarray) -> np.ndarray:
+    """A [B, L] token block as int32, trimmed to its sequence bucket: what a
+    captured step uploads into its graph's static input (4-byte types
+    only; the forward widens the tokens on the device)."""
+    return np.ascontiguousarray(seq_bucket(tokens), dtype=np.int32)
 
 
 def to_device(tokens: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -173,6 +204,16 @@ class GridModel:
                     leaf.grad = None
 
     @torch.no_grad()
+    def load_tree(self, tree: dict) -> None:
+        """Every position's shard of ``tree`` written in place (as
+        ``Encoder.load_tree``): the tensors, and so a captured step's
+        graphs, stay."""
+        fresh = shard_tree(tree, self.specs, self.mesh)
+        for idx in np.ndindex(self.grid.shape):
+            for leaf, new in zip(_leaves(self.grid[idx]), _leaves(fresh[idx])):
+                leaf.copy_(new)
+
+    @torch.no_grad()
     def copy_from_owners(self) -> None:
         for pairs in self._pairs.values():
             for leaf, owner in pairs:
@@ -192,21 +233,103 @@ def _leaves(tree) -> list:
     return out
 
 
-def _update(module, opt, tc: TrainConfig) -> None:
-    """The optimizer's step on the gradients in place: missing ones zero,
-    clipped by their global norm, then AdamW."""
-    fill_missing_grads(module)
-    clip_by_global_norm_([p.grad for p in module.parameters()], tc.grad_clip)
+def _step(model: "Encoder | GridModel", opt, q, d, tc: TrainConfig) -> dict:
+    """One training step in place, eager or under capture alike: the
+    gradients from None (so a capture allocates them in its pool and every
+    replay writes them there), the loss's backward, on a grid the dp sum,
+    the missing gradients zero, the clip by their global norm, AdamW, on a
+    grid the copies from the owners. Returns the metrics on the device."""
+    opt.zero_grad(set_to_none=True)
+    loss, acc = contrastive_loss(model, q, d, tc.temperature)
+    loss.backward()
+    grid = isinstance(model, GridModel)
+    if grid:
+        model.sum_grads_over_dp()
+    fill_missing_grads(model)
+    clip_by_global_norm_([p.grad for p in model.parameters()], tc.grad_clip)
     opt.step()
+    if grid:
+        model.copy_from_owners()
+    return {"loss": loss.detach(), "accuracy": acc}
 
 
-def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="cuda"):
+def _held(model: "Encoder | GridModel", opt) -> list[torch.Tensor]:
+    """Every tensor a captured step reads or writes in place: the
+    parameters (every grid position's) and the optimizer's state."""
+    params = ([leaf for tree in model.grid.flat for leaf in _leaves(tree)]
+              if isinstance(model, GridModel) else list(model.parameters()))
+    return params + [t for group in opt.param_groups for p in group["params"]
+                     for t in opt.state[p].values()]
+
+
+def _train_step(tc: TrainConfig, programs: CapturedPrograms | None, key: tuple, split):
+    """train_step over ``shard_batch``'s batches: eager when ``programs`` is
+    None, else one CUDA graph per (``key``, the blocks' shapes) of
+    ``programs``. ``split`` cuts an uploaded [B, L] block into what the
+    model takes (a grid: one part per dp row)."""
+    def train_step(model, opt, q_tokens, d_tokens):
+        if programs is None:
+            return model, opt, _step(model, opt, q_tokens, d_tokens, tc)
+        if not (isinstance(q_tokens, np.ndarray) and isinstance(d_tokens, np.ndarray)):
+            raise TypeError("a captured train_step takes the host blocks its shard_batch "
+                            f"gives, not {type(q_tokens).__name__}")
+
+        def program(static: dict) -> dict:
+            return _step(model, opt, split(static["q"]), split(static["d"]), tc)
+
+        # a replay rewrites the static outputs of every graph in the pool,
+        # so the metrics go back as copies, enqueued under the lock
+        with LOCK:
+            out = programs.run(key, _held(model, opt), {"q": q_tokens, "d": d_tokens},
+                               program)
+            return model, opt, {name: v.clone() for name, v in out.items()}
+
+    train_step.programs = programs
+    return train_step
+
+
+def _programs(home: torch.device, devices, graphs: bool | None) -> CapturedPrograms | None:
+    """The step's captured programs, or None for an eager step. A capture
+    records one device's stream, so only a grid whose devices are all
+    ``home`` captures (``parallel.sharded.on_one_device``'s rule): a grid
+    over several devices trains eagerly, and ``graphs=True`` on it
+    raises. ``graphs=None`` captures on a card; True off a card raises."""
+    one_device = all(dev == home for dev in devices)
+    if graphs and not one_device:
+        raise ValueError("a captured training step runs on one device: this grid spans "
+                         f"{sorted({str(dev) for dev in devices})}, so it trains eagerly "
+                         "(graphs=None or False)")
+    if graphs is None:
+        graphs = one_device and home.type == "cuda"
+    return CapturedPrograms(home) if graphs else None  # raises off a card
+
+
+def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="cuda",
+                    graphs: bool | None = None):
     """Returns (train_step, shard_params, shard_batch, init_opt_state), the
     JAX package's four functions: ``shard_params(tree)`` gives the model
-    (parameters taking gradients), ``shard_batch(np tokens)`` the device
-    batch (trimmed to its sequence bucket), ``init_opt_state(model)`` the
-    optimizer and ``train_step(model, opt, q, d) -> (model, opt, {"loss",
-    "accuracy"})`` with the metrics left on the device.
+    (parameters taking gradients), ``shard_batch(np tokens)`` the batch
+    (trimmed to its sequence bucket), ``init_opt_state(model)`` the
+    optimizer with its whole state (``make_optimizer``) and
+    ``train_step(model, opt, q, d) -> (model, opt, {"loss", "accuracy"})``,
+    which updates the model and the optimizer in place, with the metrics
+    on the device (copies of a captured step's static outputs).
+
+    ``graphs``: None (the default) captures the step on a card and runs it
+    eagerly on the CPU; False runs it eagerly on a card too; True on the
+    CPU, or on a grid over several devices, raises. Captured, one CUDA graph
+    per (B, Lq, Ld) (and (dp, tp)) of ``train_step.programs`` (a
+    ``CapturedPrograms``: its captures, replays and pool) holds every
+    parameter and the optimizer's state: a new model or optimizer drops the
+    graphs at its first step. The first step of a key runs eagerly (its
+    result) and is then captured; a failed capture or replay raises, and
+    nothing trains eagerly after one. Every captured step holds
+    ``compiled.LOCK`` across its upload, its replay (or eager run and
+    capture) and the copies of its metrics. ``shard_batch`` then keeps the
+    batch on the host (int32, ``host_batch``): the step uploads it into
+    the graph's static input. A parameter's ``.grad`` after a captured step
+    lies in the graphs' pool: the gradient of the last captured key's
+    latest replay.
 
     ``mesh=None``: an ``Encoder`` on ``device`` and [B, L] tensors there.
     A training grid (``make_train_mesh``): a ``GridModel``, batches as one
@@ -214,39 +337,37 @@ def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="c
     evenly, as JAX's device_put onto P("dp", None) requires), the metrics
     on the grid's first device; ``device`` is not read."""
     if mesh is not None:
-        return _grid_train_step(cfg, tc, mesh)
+        return _grid_train_step(cfg, tc, mesh, graphs)
     device = torch.device(device)
+    programs = _programs(device, [device], graphs)
 
     def shard_params(params: dict) -> Encoder:
         return Encoder(cfg, params, device=device).requires_grad_(True)
 
-    def shard_batch(tokens: np.ndarray) -> torch.Tensor:
-        return to_device(tokens, device)
+    def shard_batch(tokens: np.ndarray):
+        return host_batch(tokens) if programs is not None else to_device(tokens, device)
 
     def init_opt_state(module: Encoder) -> torch.optim.AdamW:
         return make_optimizer(module.parameters(), tc)
 
-    def train_step(module: Encoder, opt, q_tokens, d_tokens):
-        opt.zero_grad(set_to_none=True)
-        loss, acc = contrastive_loss(module, q_tokens, d_tokens, tc.temperature)
-        loss.backward()
-        _update(module, opt, tc)
-        return module, opt, {"loss": loss.detach(), "accuracy": acc}
-
-    return train_step, shard_params, shard_batch, init_opt_state
+    return (_train_step(tc, programs, ("train",), lambda t: t), shard_params, shard_batch,
+            init_opt_state)
 
 
-def _grid_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh):
+def _grid_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh, graphs: bool | None):
     row_devices = list(mesh.devices[:, 0])
-    dp = len(row_devices)
+    dp, tp = mesh.devices.shape
+    programs = _programs(mesh.devices[0, 0], list(mesh.devices.flat), graphs)
 
     def shard_params(params: dict) -> GridModel:
         return GridModel(cfg, params, mesh)
 
-    def shard_batch(tokens: np.ndarray) -> list[torch.Tensor]:
+    def shard_batch(tokens: np.ndarray):
         if len(tokens) % dp:
             raise ValueError(f"a batch of {len(tokens)} rows does not split evenly over "
                              f"dp={dp}: its size should be divisible by {dp}")
+        if programs is not None:
+            return host_batch(tokens)
         tokens = seq_bucket(tokens)
         n = len(tokens) // dp
         return [to_device(tokens[i * n:(i + 1) * n], d) for i, d in enumerate(row_devices)]
@@ -254,16 +375,11 @@ def _grid_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh):
     def init_opt_state(model: GridModel) -> torch.optim.AdamW:
         return make_optimizer(model.parameters(), tc)
 
-    def train_step(model: GridModel, opt, q_parts, d_parts):
-        opt.zero_grad(set_to_none=True)
-        loss, acc = contrastive_loss(model, q_parts, d_parts, tc.temperature)
-        loss.backward()
-        model.sum_grads_over_dp()
-        _update(model, opt, tc)
-        model.copy_from_owners()
-        return model, opt, {"loss": loss.detach(), "accuracy": acc}
+    def split(block: torch.Tensor) -> list[torch.Tensor]:
+        return list(block.split(len(block) // dp))  # every row's device is the block's
 
-    return train_step, shard_params, shard_batch, init_opt_state
+    return (_train_step(tc, programs, ("train", dp, tp), split), shard_params, shard_batch,
+            init_opt_state)
 
 
 def train_encoder_on_corpus(

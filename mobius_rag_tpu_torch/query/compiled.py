@@ -96,6 +96,23 @@ The encoder's and the cross-encoder's forwards (the ports of
 pool and one LRU; the key is the padded token block's (rows, length),
 the tables are the module's parameters, and the rules above hold alike
 (the forward launches no counted kernel, so its deltas are zero).
+
+The training step (the port of the JAX ``train_step``, jitted with
+``params`` and ``opt_state`` donated; ``models/train.make_train_step``) is
+captured by the same class: one instance per trainer, so one pool; the
+key is ("train",), or ("train", dp, tp) on a training grid whose devices
+are all one card (the sharded engine's rule and reason), and the layout
+is the trimmed int32 token blocks' (B, Lq, Ld). The tables held are every
+parameter (every grid position's) and the optimizer's state, which
+``models/train.make_optimizer`` makes before the first step: torch.optim
+would make it lazily in the first step, so that its identities changed
+after it. The program updates them in place, so a replay is one training
+step (JAX's donation); the capture, after the key's eager first step,
+runs nothing, so that step happens once. Each step sets the gradients to
+None before its backward: a capture allocates them in the pool, as
+transients every replay rewrites, and the clip and AdamW read them there.
+The metrics are static outputs, copied under :data:`LOCK` right behind
+the replay. Nothing in the step reads a device value back.
 """
 from __future__ import annotations
 

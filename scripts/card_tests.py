@@ -3,8 +3,11 @@ dispatch without a device-to-host wait, the captured search programs
 bitwise against the eager ones, the captured encoder and cross-encoder
 forwards bitwise against the eager ones, an ingesting, a searching and a
 profiling thread on one engine and encoder, the encoder's bf16 against
-float32 activations, a training step and a (2, 2) grid training step
-against their CPU twins, the sharded engine against the dense one, its
+float32 activations, a captured training step and a (2, 2) grid training
+step against their CPU twins, the captured training steps bitwise against
+the eager ones on one device and on a (2, 2) grid of this card, the
+capturable AdamW against the CPU's update, a replayed training step that
+reads nothing back, the sharded engine against the dense one, its
 captured programs bitwise against its eager one on grids of this card
 (exact over 4 shards and a [2, 4] grid, sparse postings, ivf, pq under
 host residency) and a writer thread publishing and refreshing while

@@ -29,7 +29,23 @@ the same tensors: gradients within TWIN_GRAD = 1e-4 of each parameter's
 largest |gradient|, the updates within TWIN_STEP = 1e-6 (1% of the learning
 rate) wherever |gradient| >= TWIN_FLOOR = 1e-3 of that largest (below it
 Adam's sign can rightly differ), through chip_smoke.train_step_twin, which
-phase 9a runs too (measured on an H100: 3.0e-6 and 3.7e-9).
+phase 9a runs too (measured on an H100: 3.0e-6 and 3.7e-9); there the
+card's step is a replay of its captured CUDA graph.
+
+The captured step (``make_train_step(graphs=...)``): on the CPU
+``graphs=True`` raises, and a stand-in capture (``StepStandIn``: its
+capture changes no state and leaves its static outputs unwritten, its
+replay runs the step again) holds the captured step's plumbing bitwise to
+the eager step over steps whose trimmed lengths switch between two keys and
+come back, with the hybrid anchor's zero gradient filled inside; the metrics
+a step returns are copies no later step rewrites; ``init_opt_state`` makes
+the optimizer's whole state before the first step, and steps keep its
+tensors (optax's match held through it). On the card (``cuda``): the
+captured step against ``graphs=False`` over such steps, per-step losses
+and final parameters bitwise, as two eager runs are (measured on an H100);
+the card's capturable AdamW within OPT_ULPS of the CPU's update on the
+same gradients; a replayed step under
+``torch.cuda.set_sync_debug_mode("error")``.
 """
 import dataclasses
 import json
@@ -56,6 +72,7 @@ from mobius_rag_tpu_torch.models import data as tdata
 from mobius_rag_tpu_torch.models import encoder as tenc
 from mobius_rag_tpu_torch.models import train as ttrain
 from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
+from mobius_rag_tpu_torch.query.compiled import CapturedPrograms, identity
 from mobius_rag_tpu_torch.testing import sample_lexicon, toy_corpus
 
 torch.set_num_threads(1)
@@ -207,17 +224,18 @@ def test_missing_gradient_is_zero_not_none():
     assert m.anchor_proj.grad is not None and not m.anchor_proj.grad.any()
 
 
-@pytest.mark.parametrize("scale", [1e-3, 50.0], ids=["under_clip", "clipped"])
-def test_optimizer_steps_match_optax(scale):
+def _steps_against_optax(scale, init_opt):
     """Three steps of clip_by_global_norm(1.0) + adamw(1e-4, wd 0.01) on the
-    same gradients (the anchor's zero), the port's against optax's."""
+    same gradients (the anchor's zero), the port's optimizer (``init_opt(module)``)
+    against optax's: the parameters within OPT_ULPS, the anchor decayed.
+    Returns (module, optimizer)."""
     jcfg, tcfg = _cfgs(hybrid=True)
     params = _jax_params(jcfg)
     tc = ttrain.TrainConfig()
     opt = jtrain.make_optimizer(jtrain.TrainConfig())
     state = opt.init(params)
     module = _port_module(tcfg, params)
-    topt = ttrain.make_optimizer(module.parameters(), tc)
+    topt = init_opt(module)
     rng = np.random.default_rng(4)
     jp = params
     for _ in range(3):
@@ -242,6 +260,44 @@ def test_optimizer_steps_match_optax(scale):
     decayed = module.anchor_proj.detach().numpy()
     np.testing.assert_allclose(decayed, anchor * (1 - 1e-4 * 0.01) ** 3, rtol=1e-6, atol=0)
     assert not np.array_equal(decayed, anchor)
+    return module, topt
+
+
+@pytest.mark.parametrize("scale", [1e-3, 50.0], ids=["under_clip", "clipped"])
+def test_optimizer_steps_match_optax(scale):
+    """Three steps of clip_by_global_norm(1.0) + adamw(1e-4, wd 0.01) on the
+    same gradients (the anchor's zero), the port's against optax's."""
+    _steps_against_optax(scale,
+                         lambda m: ttrain.make_optimizer(m.parameters(), ttrain.TrainConfig()))
+
+
+@pytest.mark.parametrize("scale", [1e-3, 50.0], ids=["under_clip", "clipped"])
+def test_init_opt_state_makes_the_state_and_steps_keep_it(scale):
+    """make_train_step's init_opt_state makes the optimizer's whole state
+    before the first step (torch.optim would make it in the first step()),
+    and steps update it in place: a captured step's graphs hold its
+    tensors. Optax's match holds through it."""
+    _, tcfg = _cfgs(hybrid=True)
+    init = ttrain.make_train_step(tcfg, ttrain.TrainConfig(), device="cpu")[3]
+    made = {}
+
+    def init_opt(module):
+        opt = init(module)
+        assert not opt.param_groups[0]["capturable"]  # the CPU's update
+        for p in module.parameters():
+            state = opt.state[p]
+            assert sorted(state) == ["exp_avg", "exp_avg_sq", "step"]
+            assert state["step"].device.type == "cpu" and float(state["step"]) == 0
+            assert state["exp_avg"].shape == p.shape and not state["exp_avg"].any()
+        made["held"] = ttrain._held(module, opt)
+        made["ids"] = identity(made["held"])
+        return opt
+
+    module, opt = _steps_against_optax(scale, init_opt)
+    held = ttrain._held(module, opt)
+    assert identity(held) == made["ids"]
+    assert all(a is b for a, b in zip(held, made["held"]))
+    assert all(float(opt.state[p]["step"]) == 3 for p in module.parameters())
 
 
 def test_loss_trajectory_follows_jax():
@@ -293,6 +349,125 @@ def test_trimmed_steps_match_untrimmed():
                                    for p in tenc.flatten_params(module.params_tree())])
     assert abs(out[True][0] - out[False][0]) <= 1e-6
     assert _rel_err(out[True][1], out[False][1]) <= GRAD_F32
+
+
+# ---- the captured step -------------------------------------------------------
+
+# trimmed lengths by step: (query, document) buckets 64 x 64 or 64 x 128,
+# switching between the two keys and coming back to the first
+SWITCHING = (64, 64, 128, 64, 128, 128, 64)
+
+
+def switching_batches(vocab: int, b: int = B, seed: int = 0, lengths=SWITCHING) -> list:
+    """[b, 128] query and document blocks whose documents trim to each
+    length of `lengths` (queries to 64), from a seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for ld in lengths:
+        q = np.zeros((b, 128), np.int32)
+        d = np.zeros((b, 128), np.int32)
+        for i in range(b):
+            nq, nd = rng.integers(8, 64), rng.integers(ld // 2 + 1, ld + 1)
+            q[i, :nq] = rng.integers(2, vocab, nq)
+            d[i, :nd] = rng.integers(2, vocab, nd)
+            d[i, :4] = q[i, :4]
+        out.append((q, d))
+    return out
+
+
+def run_steps(cfg, params, batches, mesh=None, device="cpu", graphs=None) -> tuple:
+    """make_train_step's steps over `batches` from `params` (a tree on
+    `device`): (each step's (loss, accuracy) read right after it, the
+    metrics the steps returned, the final parameters flat on the CPU, the
+    train_step)."""
+    step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(), mesh,
+                                                      device=device, graphs=graphs)
+    model = shard(params)
+    opt = init(model)
+    seen, metrics = [], []
+    for q, d in batches:
+        model, opt, m = step(model, opt, batch(q), batch(d))
+        metrics.append(m)
+        seen.append((float(m["loss"]), float(m["accuracy"])))
+    final = [t.detach().cpu() for t in tenc.flatten_params(model.params_tree())]
+    return seen, metrics, final, step
+
+
+def assert_steps_equal(got, want) -> None:
+    """Per-step losses and accuracies and final parameters of two runs,
+    bitwise."""
+    (seen, _, final, _), (wseen, _, wfinal, _) = got, want
+    assert seen == wseen
+    assert len(final) == len(wfinal) and all(torch.equal(t, w) for t, w in zip(final, wfinal))
+
+
+class _StepReplay:
+    """A stand-in graph: a replay runs the step again on the static inputs
+    and writes its metrics into the static outputs."""
+
+    def __init__(self, program, static, outputs):
+        self.program, self.static, self.outputs = program, static, outputs
+
+    def replay(self):
+        for name, value in self.program(self.static).items():
+            self.outputs[name].copy_(value)
+
+
+class StepStandIn(CapturedPrograms):
+    """CapturedPrograms for a training step on the CPU. As a real capture,
+    its capture changes no state (it runs the step and puts the held
+    tensors back) and leaves the static outputs unwritten (NaN) until a
+    replay."""
+
+    def _check_device(self) -> None:
+        pass
+
+    def run(self, key, held, q, program):
+        self._held = held
+        return super().run(key, held, q, program)
+
+    def _capture(self, program, static):
+        saved = [t.detach().clone() for t in self._held]
+        outputs = program(static)
+        with torch.no_grad():
+            for t, v in zip(self._held, saved):
+                t.copy_(v)
+            for v in outputs.values():
+                v.fill_(float("nan"))
+        return _StepReplay(program, static, outputs), outputs
+
+
+def test_graphs_true_on_cpu_raises():
+    _, tcfg = _cfgs()
+    with pytest.raises(ValueError, match="CUDA device"):
+        ttrain.make_train_step(tcfg, ttrain.TrainConfig(), device="cpu", graphs=True)
+    for graphs in (None, False):  # eager on the CPU
+        assert ttrain.make_train_step(tcfg, ttrain.TrainConfig(), device="cpu",
+                                      graphs=graphs)[0].programs is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stand_in_captured_steps_equal_eager(monkeypatch, dtype):
+    """The captured step's path (host blocks uploaded into a graph's static
+    input, one graph per trimmed shape, the first step of a key eager,
+    replays after it) over a stand-in capture, bitwise the eager step
+    over 7 steps switching between two keys, the anchor's zero gradient
+    filled inside; the returned metrics are copies no later replay
+    rewrites."""
+    _, tcfg = _cfgs(dtype, hybrid=True, max_seq=128)
+    params = tenc.init_params(tcfg, torch.Generator().manual_seed(5))
+    batches = switching_batches(tcfg.vocab_size)
+    eager = run_steps(tcfg, params, batches)
+    monkeypatch.setattr(ttrain, "CapturedPrograms", StepStandIn)
+    captured = run_steps(tcfg, params, batches, graphs=True)
+    assert_steps_equal(captured, eager)
+    seen, metrics, _, step = captured
+    assert [(float(m["loss"]), float(m["accuracy"])) for m in metrics] == seen
+    assert step.programs.captures == 2 and step.programs.replays == len(batches) - 2
+    assert sorted(k[1][0][1] + k[1][1][1] for k in step.programs.graphs) == \
+        [(B, 64, B, 64), (B, 64, B, 128)]
+    with pytest.raises(TypeError, match="host blocks"):
+        step(None, None, torch.zeros(B, 64, dtype=torch.long), torch.zeros(B, 64))
 
 
 # ---- the corpus trainer (tests/test_train_corpus.py's twins) ----------------
@@ -398,3 +573,87 @@ def test_train_step_on_card_matches_cpu_twin():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     grad_err, step_err, _ = chip_smoke.train_step_twin("cuda")
     assert grad_err <= TWIN_GRAD and step_err <= TWIN_STEP
+
+
+def _card_cfg(**kw):
+    """test_torch_train's tiny widths without the JAX package (the card's
+    machine has none): max_seq 128 for two sequence buckets."""
+    return dataclasses.replace(tenc.EncoderConfig.tiny(), max_seq=128, vocab_size=512, **kw)
+
+
+@pytest.mark.cuda
+def test_captured_steps_equal_eager_on_card():
+    """The captured step against graphs=False on the card, 7 steps
+    switching between two keys and back, the hybrid anchor's zero gradient
+    filled inside the graph: per-step losses and final parameters bitwise
+    (two eager runs are bitwise alike on the card: no kernel of the step
+    accumulates in a varying order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the step is captured on it")
+    cfg = _card_cfg(hybrid_anchor=True)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(5))
+    batches = switching_batches(cfg.vocab_size)
+    eager = [run_steps(cfg, params, batches, device="cuda", graphs=False) for _ in range(2)]
+    captured = run_steps(cfg, params, batches, device="cuda")
+    assert_steps_equal(eager[1], eager[0])
+    assert_steps_equal(captured, eager[0])
+    step = captured[3]
+    assert step.programs.captures == 2 and step.programs.replays == len(batches) - 2
+    assert [(float(m["loss"]), float(m["accuracy"])) for m in captured[1]] == captured[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-3, 50.0], ids=["under_clip", "clipped"])
+def test_capturable_adamw_on_card_matches_cpu(scale):
+    """Three clipped AdamW steps on the same gradients: the card's
+    capturable update (step counts on the device) within OPT_ULPS of each
+    tensor's largest |parameter| of the CPU's, which
+    test_optimizer_steps_match_optax pins to optax."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the update runs on it")
+    cfg = _card_cfg(hybrid_anchor=True, dtype="float32")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(1))
+    tc = ttrain.TrainConfig()
+    out = {}
+    for where in ("cpu", "cuda"):
+        module = tenc.Encoder(cfg, params, device=where).requires_grad_(True)
+        opt = ttrain.make_optimizer(module.parameters(), tc)
+        assert opt.param_groups[0]["capturable"] == (where == "cuda")
+        rng = np.random.default_rng(4)
+        for _ in range(3):
+            opt.zero_grad(set_to_none=True)
+            for name, p in module.named_parameters():
+                g = np.asarray(scale * rng.standard_normal(p.shape), np.float32)
+                if name == "anchor_proj":
+                    g = np.zeros_like(g)
+                p.grad = torch.from_numpy(g).to(where)
+            ttrain.clip_by_global_norm_([p.grad for p in module.parameters()], tc.grad_clip)
+            opt.step()
+        out[where] = [p.detach().cpu() for p in module.parameters()]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        ulp = float(np.spacing(np.float32(want.abs().max())))
+        assert float((got - want).abs().max()) <= OPT_ULPS * ulp
+
+
+@pytest.mark.cuda
+def test_captured_step_syncs_nothing_on_card():
+    """A replayed training step (upload, replay, the metrics' copies) under
+    torch.cuda.set_sync_debug_mode("error"): nothing in it waits for the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the step is captured on it")
+    cfg = _card_cfg()
+    step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(),
+                                                      device="cuda")
+    model = shard(tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    opt = init(model)
+    (q, d), = switching_batches(cfg.vocab_size, lengths=(64,))
+    step(model, opt, batch(q), batch(d))  # eager, then captured
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, m = step(model, opt, batch(q), batch(d))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert step.programs.captures == 1 and step.programs.replays == 1
+    assert np.isfinite(float(m["loss"]))

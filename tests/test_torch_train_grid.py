@@ -26,9 +26,17 @@ whose constants and helpers these tests reuse:
   BF16_COS = 0.999, BF16_ABS = 3e-2 max abs on unit rows), and the same
   forward at float32 activations within its F32_TOL = 1e-5.
 
-The card case (marked ``cuda``; scripts/card_tests.py runs it) holds a
-(2, 2) grid step on ``["cuda:0"] * 4`` against the same step on the CPU copy
-within TWIN_GRAD = 1e-4 and TWIN_STEP.
+The captured grid step: on ``["cpu"] * 4`` as (2, 2), through
+test_torch_train's stand-in capture, bitwise the eager grid step over steps
+switching between two keys; ``graphs=True`` on a grid over several devices
+raises (a capture records one device's stream), and such a grid trains
+eagerly by default.
+
+The card cases (marked ``cuda``; scripts/card_tests.py runs them) hold a
+(2, 2) grid step on ``["cuda:0"] * 4``, a replay of its captured graph,
+against the same step on the CPU copy within TWIN_GRAD = 1e-4 and
+TWIN_STEP, and the captured grid step against ``graphs=False`` on that grid
+over the switching steps, as test_torch_train's one-device card case.
 """
 import dataclasses
 import os
@@ -52,9 +60,10 @@ from mobius_rag_tpu_torch.models import train as ttrain
 from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
 from mobius_rag_tpu_torch.testing import sample_lexicon, toy_corpus
 from test_torch_encoder import BF16_ABS, BF16_COS, F32_TOL, _rowwise_cos
-from test_torch_train import (GRAD_F32, TRAJ_REL, TWIN_FLOOR, TWIN_GRAD, TWIN_STEP, _cfgs,
-                              _jax_grads, _jax_params, _port_grads, _rel_err, _tokens,
-                              assert_bf16_grads)
+from test_torch_train import (GRAD_F32, TRAJ_REL, TWIN_FLOOR, TWIN_GRAD, TWIN_STEP,
+                              StepStandIn, _card_cfg, _cfgs, _jax_grads, _jax_params,
+                              _port_grads, _rel_err, _tokens, assert_bf16_grads,
+                              assert_steps_equal, run_steps, switching_batches)
 
 CLIP_REL = 1e-6
 CPU8 = ["cpu"] * 8
@@ -368,6 +377,36 @@ def test_new_entry_points_default_to_cuda():
             make_train_mesh(1, 1)
 
 
+def test_stand_in_captured_grid_steps_equal_eager(monkeypatch):
+    """The captured grid step's path (one host block uploaded, cut into dp
+    parts on the grid's device) over a stand-in capture on a (2, 2) grid of
+    the CPU, bitwise the eager grid step over the switching steps."""
+    _, tcfg = _cfgs(hybrid=True, max_seq=128)
+    params = tenc.init_params(tcfg, torch.Generator().manual_seed(5))
+    batches = switching_batches(tcfg.vocab_size)
+    mesh = make_train_mesh(2, 2, devices=["cpu"] * 4)
+    eager = run_steps(tcfg, params, batches, mesh)
+    monkeypatch.setattr(ttrain, "CapturedPrograms", StepStandIn)
+    captured = run_steps(tcfg, params, batches, mesh, graphs=True)
+    assert_steps_equal(captured, eager)
+    seen, metrics, _, step = captured
+    assert [(float(m["loss"]), float(m["accuracy"])) for m in metrics] == seen
+    assert step.programs.captures == 2 and step.programs.replays == len(batches) - 2
+    assert {k[0] for k in step.programs.graphs} == {("train", 2, 2)}
+
+
+def test_graphs_true_on_a_grid_over_several_devices_raises():
+    """A capture records one device's stream: a grid over several devices
+    trains eagerly (the default), and graphs=True on it raises."""
+    _, tcfg = _cfgs()
+    mesh = make_train_mesh(1, 2, devices=["cpu", "meta"])
+    with pytest.raises(ValueError, match="one device"):
+        ttrain.make_train_step(tcfg, ttrain.TrainConfig(), mesh, graphs=True)
+    assert ttrain.make_train_step(tcfg, ttrain.TrainConfig(), mesh)[0].programs is None
+    with pytest.raises(ValueError, match="CUDA device"):  # one device, not a card
+        ttrain.make_train_step(tcfg, ttrain.TrainConfig(), _grid(2, 2), graphs=True)
+
+
 # ---- the graft_entry twin ----------------------------------------------------
 
 def test_dryrun_multichip_runs_all_stages_on_cpu(capsys):
@@ -416,3 +455,21 @@ def test_grid_step_on_card_matches_cpu_twin():
 
     grad_err, step_err, _ = chip_smoke.train_step_twin("cuda", grid=(2, 2))
     assert grad_err <= TWIN_GRAD and step_err <= TWIN_STEP
+
+
+@pytest.mark.cuda
+def test_captured_grid_steps_equal_eager_on_card():
+    """The captured (2, 2) grid step on ["cuda:0"] * 4 against graphs=False
+    there, over the switching steps: per-step losses and final parameters
+    bitwise, as two eager runs are."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the grid step is captured on it")
+    cfg = _card_cfg(hybrid_anchor=True)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(5))
+    batches = switching_batches(cfg.vocab_size)
+    mesh = make_train_mesh(2, 2, devices=["cuda:0"] * 4)
+    eager = [run_steps(cfg, params, batches, mesh, graphs=False) for _ in range(2)]
+    captured = run_steps(cfg, params, batches, mesh)
+    assert_steps_equal(eager[1], eager[0])
+    assert_steps_equal(captured, eager[0])
+    assert captured[3].programs.captures == 2
