@@ -57,10 +57,17 @@ refresh; 10c phase 5's host-residency store over 4 shards with pq, the
 funnel and the exact host re-rank. Each sharded engine serves its batches
 as captured CUDA graphs too (the grid is one card), one per key in its
 own cache, and every path of 10a-c times its program eager against
-captured in turns and holds one batch bitwise across the two (10b's
-packed and pq and 10c at half depth). Phase 11 drives the host wiring on
+captured in turns and holds one batch bitwise across the two (10a's 70k
+S=4 and 1M S=1 and every 10b backend at half depth, 10c at a quarter:
+script time). 10a's 1M S=8 and 70k [2, 4] paths
+also run the route of a grid over several cards, forced on this card
+(one graph per device and stage, joined by copies outside the graphs),
+eager against staged in turns, its outputs bitwise the one-graph route's
+and the eager program's. Phase 11 drives the host wiring on
 the card: the stage profiler and a Chrome trace (phase 3's engine),
-integrity, the PDF export, a Drive folder import, data-parallel encode,
+integrity, the PDF export, a Drive folder import, data-parallel encode
+(MeshEncoderModel at the front door's width over this card named 2 and 4
+times, eager against captured in turns, bitwise),
 an npz checkpoint round trip, the embedding worker CLI as a subprocess
 and, with aiohttp, the routes and the index RPC over a live server
 (phase 7's context). Phase 12 trains the encoder at full width over a
@@ -3668,13 +3675,14 @@ def _dense_reference(engine, reqs, pipe) -> dict:
 
 
 def _sharded_path(name: str, ref: dict, serving, reqs, pipe, kernel, per_batch: int,
-                  smi: str, dev) -> dict:
+                  smi: str, dev, half: bool = False) -> dict:
     """The counted run of a sharded engine, captured on a card: search and
     search_pipelined held to the dense engine's results (_same_results);
     `kernel` must launch `per_batch` times a batch (once per shard and data
     group; a replay adds its capture's launches). Then its program eager
-    against captured in turns (_graph_turns), beside the dense engine's
-    queries/s and busy share."""
+    against captured in turns (_graph_turns; at half depth, 4 + 4 batches
+    a turn, where `half`), beside the dense engine's queries/s and busy
+    share."""
     kernel.launches = 0
     got = serving.search(reqs, k=K)
     got_pipe = serving.search_pipelined(pipe, k=K)
@@ -3691,7 +3699,8 @@ def _sharded_path(name: str, ref: dict, serving, reqs, pipe, kernel, per_batch: 
         f"== {per_batch} x {batches} batches ({'captured' if serving.graphs else 'eager'}); "
         f"the dense engine: {ref['qps']:.1f} queries/s at batch {BATCH} sync, {ref['busy']} "
         f"on {smi}")
-    turns = _graph_turns(serving, reqs, pipe, name, smi, dev)
+    turns = (_graph_turns(serving, reqs, pipe[:N_BATCHES // 2], name, smi, dev, N_BATCHES // 2)
+             if half else _graph_turns(serving, reqs, pipe, name, smi, dev))
     return {"launches": launches, "max_score_gap": worst, "graphs": turns}
 
 
@@ -3702,6 +3711,78 @@ def _release_sharded(tse) -> None:
     if tse._programs is not None:
         tse._programs.clear()
     tse.shards = tse._copies = tse._ann = tse._programs = None
+
+
+@contextlib.contextmanager
+def _forced_stages():
+    """Sharded engines built inside serve a grid of this one card by the
+    route of a grid over several cards: one CUDA graph per device and stage
+    (strict counts, arm scans, merge), the stages joined by copies outside
+    any graph (here all on this card: same-device copies)."""
+    from mobius_rag_tpu_torch.parallel import sharded
+
+    saved = sharded.on_one_device
+    sharded.on_one_device = lambda groups, device: False
+    try:
+        yield
+    finally:
+        sharded.on_one_device = saved
+
+
+def _staged_path(name: str, one, reqs, pipe, kernel, per_batch: int, smi: str, dev) -> dict:
+    """The staged route (``_forced_stages``) over the store, grid and config
+    of `one`, a sharded engine on the one-graph route: its counted run
+    (`kernel` launched `per_batch` times a batch over the stages), one
+    batch's packed outputs bitwise equal on the staged route (its first run
+    and a replay), the one-graph route and the eager program, every result
+    equal to the one-graph route's, then its program eager against staged
+    in turns (_graph_turns)."""
+    from mobius_rag_tpu_torch.parallel import ShardedEngine
+    from mobius_rag_tpu_torch.query.compiled import ProgramsByDevice
+    from mobius_rag_tpu_torch.query.engine import SearchEngine
+
+    name = f"{name} staged"
+    t0 = time.perf_counter()
+    with _forced_stages():
+        tse = ShardedEngine(one.store, mesh=one.sharded.mesh, cfg=one.cfg)
+    staged = SearchEngine(one.store, one.lexicon, cfg=one.cfg, embed_fn=one.embed_fn,
+                          device=dev, sharded=tse)
+    on_card = torch.device(dev).type == "cuda"
+    if on_card and not isinstance(staged.programs, ProgramsByDevice):
+        raise AssertionError(f"{name}: not the staged route")
+    kernel.launches = 0
+    got = staged.search(reqs, k=K)
+    got_pipe = staged.search_pipelined(pipe, k=K)
+    launches = kernel.launches
+    batches = 1 + len(pipe)
+    if on_card and launches != per_batch * batches:
+        raise AssertionError(f"{name}: {launches} launches of {kernel.__name__} for "
+                             f"{batches} batches x {per_batch}")
+    if [_hits(r) for r in got] != [_hits(r) for r in one.search(reqs, k=K)] or \
+            [[_hits(r) for r in b] for b in got_pipe] != \
+            [[_hits(r) for r in b] for b in one.search_pipelined(pipe, k=K)]:
+        raise AssertionError(f"{name}: results differ from the one-graph route's")
+    q, exps = staged.prepare_host(reqs)
+    outs = []
+    for engine, graphs in (((staged, True), (staged, True), (one, True), (staged, False))
+                           if on_card else ((staged, False), (one, False))):
+        engine.graphs = graphs
+        f, i = engine._packed(q, exps, None, None, K)
+        outs.append((f.cpu().numpy().view(np.int32), i.cpu().numpy()))
+    staged.graphs = one.graphs = on_card
+    if not all(np.array_equal(f, outs[0][0]) and np.array_equal(i, outs[0][1])
+               for f, i in outs[1:]):
+        raise AssertionError(f"{name}: the staged, one-graph and eager programs' packed "
+                             "outputs differ")
+    log(f"{name}: search and search_pipelined ({len(pipe)} batches) give the one-graph "
+        f"route's hits; one batch's packed outputs bitwise equal staged (first run and "
+        f"replay), one graph and eager; {kernel.__name__} launches {launches} == "
+        f"{per_batch} x {batches} batches over the stages on {smi}")
+    turns = _graph_turns(staged, reqs, pipe, name, smi, dev)
+    _release_sharded(tse)
+    one.store.listeners.remove(staged._on_store_mutation)
+    log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "graphs": turns}
 
 
 def phase10_70k(smi: str, engine, reqs, pipe, dev) -> dict:
@@ -3722,7 +3803,10 @@ def phase10_70k(smi: str, engine, reqs, pipe, dev) -> dict:
                                embed_fn=engine.embed_fn, device=dev, sharded=tse)
         per_batch = len(tse.groups) * tse.num_shards
         out[grid] = _sharded_path(f"phase 10a: 70k float32 {grid}", ref, serving, reqs, pipe,
-                                  masked_topk, per_batch, smi, dev)
+                                  masked_topk, per_batch, smi, dev, half=grid == "S=4")
+        if grid == "dp2xS4":
+            out["dp2xS4 staged"] = _staged_path(f"phase 10a: 70k float32 {grid}", serving,
+                                                reqs, pipe, masked_topk, per_batch, smi, dev)
         _release_sharded(tse)
         serving.store.listeners.remove(serving._on_store_mutation)
     return out
@@ -3752,7 +3836,11 @@ def phase10a_sharded_exact(smi: str, store, lexicon, base, reqs: dict, dev: str)
             f"in {time.perf_counter() - t0:.2f} s")
         serving = SearchEngine(store, lexicon, cfg=cfg, device=dev, sharded=tse)
         out[s] = _sharded_path(f"phase 10a: 1M bf16 S={s}", ref, serving, reqs["bench"],
-                               reqs["pipe"], masked_topk, s, smi, dev)
+                               reqs["pipe"], masked_topk, s, smi, dev, half=s == 1)
+        if s == SHARDS_1M:
+            out[f"{s} staged"] = _staged_path(f"phase 10a: 1M bf16 S={s}", serving,
+                                              reqs["bench"], reqs["pipe"], masked_topk, s,
+                                              smi, dev)
         _release_sharded(tse)
         store.listeners.remove(serving._on_store_mutation)
         if torch.device(dev).type == "cuda":
@@ -3829,11 +3917,9 @@ def phase10b_sharded_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -
             f"{r['recall']:.4f} ({len(recalls)} noisy queries); search_pipelined over "
             f"{len(reqs['pipe'])} batches (its first batch equals search's, ids and scores "
             f"bitwise); launches {launches} for {batches} batches on {smi}")
-        # ivf and proj at full depth; packed and pq at half (script time)
-        full = backend in ("ivf", "proj")
-        r["graphs"] = _graph_turns(serving, reqs["bench"],
-                                   reqs["pipe"] if full else reqs["pipe"][:N_BATCHES // 2],
-                                   name, smi, dev, N_BATCHES if full else N_BATCHES // 2)
+        # every backend at half depth (script time)
+        r["graphs"] = _graph_turns(serving, reqs["bench"], reqs["pipe"][:N_BATCHES // 2],
+                                   name, smi, dev, N_BATCHES // 2)
         if backend == "ivf":
             r["refresh"] = _sharded_refresh(name, store, serving, tse, cfg)
         out[backend] = r
@@ -3945,9 +4031,9 @@ def phase10c_sharded_host(smi: str, store, lexicon, cfg5, reqs: dict, dev: str) 
                 f"{wall:.3f} ms per batch ({100 * busy / wall:.1f}%); by kernel (ms/batch) "
                 + ", ".join(f"{k} {v:.3f}" for k, v in top.items())
                 + f"; peak device memory {peak:.2f} GiB on {smi}")
-            # half depth (script time): 4 sync searches, 4 batches pipelined
-            r["graphs"] = _graph_turns(serving, reqs["bench"], [reqs["bench"]] * 4, name, smi,
-                                       dev, 4)
+            # quarter depth (script time): 2 sync searches, 2 batches pipelined
+            r["graphs"] = _graph_turns(serving, reqs["bench"], [reqs["bench"]] * 2, name, smi,
+                                       dev, 2)
             log(f"{name}: {time.perf_counter() - t_all:.1f} s")
         _release_sharded(tse)
         store.listeners.remove(serving._on_store_mutation)
@@ -4040,7 +4126,7 @@ def phase11_profile(smi: str, engine, reqs, dev: str) -> dict:
 def phase11_host_wiring(smi: str, ctx, model, dev: str) -> dict:
     """On phase 7's context: integrity_report, the document PDF, an
     InMemoryDrive folder imported into the on-card pipeline, MeshEncoderModel
-    over [card] * 2 against EncoderModel, an npz checkpoint round trip, the
+    over [card] * 2 and * 4 (phase11_mesh_encoder), an npz checkpoint round trip, the
     embedding worker CLI as a subprocess (it embeds on the card and publishes
     into a snapshot the serving side reloads), and, where aiohttp is
     installed, the HTTP routes and RemoteIndexClient over a live server."""
@@ -4054,9 +4140,7 @@ def phase11_host_wiring(smi: str, ctx, model, dev: str) -> dict:
     from mobius_rag_tpu_torch.ingest.worker import EMBEDDING_KIND
     from mobius_rag_tpu_torch.integrity import integrity_report
     from mobius_rag_tpu_torch.models.checkpoint import load_encoder, save_encoder
-    from mobius_rag_tpu_torch.models.encoder import (EncoderConfig, EncoderModel,
-                                                     MeshEncoderModel, flatten_params)
-    from mobius_rag_tpu_torch.parallel import make_mesh
+    from mobius_rag_tpu_torch.models.encoder import EncoderConfig, EncoderModel, flatten_params
     from mobius_rag_tpu_torch.query.engine import QueryRequest, SearchEngine
 
     t_all = time.perf_counter()
@@ -4088,14 +4172,7 @@ def phase11_host_wiring(smi: str, ctx, model, dev: str) -> dict:
                              f"{hit.telemetry['arms']['vector'][:3]}")
 
     texts = [r.text for r in recs[:8]] + ["timely filing deadline", "prior authorization"] * 8
-    mesh = MeshEncoderModel(make_mesh(2, devices=[dev] * 2), model.cfg,
-                            model.module.params_tree())
-    a, b = mesh(texts), model(texts)
-    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
-    if cos.min() < PRECISION_COS or len(mesh.modules) != 2 or len({id(m) for m in
-                                                                    mesh.modules}) != 1:
-        raise AssertionError(f"phase 11: MeshEncoderModel rows: cosine {cos.min()}")
-    del mesh
+    mesh_cos = phase11_mesh_encoder(smi, model, dev)
 
     tiny = EncoderModel(EncoderConfig.tiny(), device=dev, seed=3)
     path = os.path.join(data_dir, "tiny_ckpt")
@@ -4135,11 +4212,105 @@ def phase11_host_wiring(smi: str, ctx, model, dev: str) -> dict:
     http = _phase11_http(dev)
     log(f"phase 11: integrity ok ({rep['counts']}); PDF of {doc} {len(pdf)} bytes; drive "
         f"import {len(imp.imported)} of {imp.scanned} files served; MeshEncoderModel over "
-        f"[{dev}] * 2 vs EncoderModel per-row cosine min {cos.min():.6f} (bound "
+        f"[{dev}] * 2 and * 4 vs EncoderModel per-row cosine min {mesh_cos:.6f} (bound "
         f"{PRECISION_COS}); npz round trip bitwise (outputs within {gap:.2g}); the worker CLI embedded and published "
         f"2 chunks in {t_cli:.1f} s (a subprocess on {dev}), served from its snapshot; "
         f"{http}; phase 11 {time.perf_counter() - t_all:.1f} s on {smi}")
     return {"cli_s": t_cli}
+
+
+MESH_DPS = (2, 4)  # data positions of MeshEncoderModel's grids, all on this card
+MESH_BLOCKS = ((128, 64), (128, 256), (32, 64))  # (texts, length) a timed batch
+MESH_BULK = 1024  # texts of the bulk embed, each turn
+
+
+def phase11_mesh_encoder(smi: str, model, dev: str) -> float:
+    """MeshEncoderModel at `model`'s width and parameters (the AppContext
+    default: 12 x 768, bf16) over [dev] * dp for each of MESH_DPS, captured
+    (one graph per (bucket / dp rows, length) on the card's one replica)
+    against graphs=False, in turns (eager, graph, graph, eager): ms a batch
+    of each MESH_BLOCKS block (texts/s), a bulk embed of MESH_BULK policy
+    texts (chunks/s), captures, capture ms and the pool; every captured
+    batch bitwise the eager one, and the rows' cosine with EncoderModel's
+    at least PRECISION_COS. Returns the smallest cosine."""
+    from mobius_rag_tpu_torch.models.encoder import MeshEncoderModel
+    from mobius_rag_tpu_torch.parallel import make_mesh
+
+    on_card = torch.device(dev).type == "cuda"
+    t_all = time.perf_counter()
+    cfg = model.cfg
+    g = np.random.default_rng(29)
+    blocks = {}
+    for b, length in (block for block in MESH_BLOCKS if block[1] <= cfg.max_seq):
+        toks = g.integers(3, cfg.vocab_size, (b, length)).astype(np.int32)
+        toks[:, 0] = 1  # CLS
+        blocks[b, length] = toks
+    texts = policy_texts(np.random.default_rng(31), MESH_BULK)
+    want = model(texts[:PRECISION_TEXTS])
+    worst = 1.0
+    for dp in MESH_DPS:
+        mesh = MeshEncoderModel(make_mesh(dp, devices=[dev] * dp), cfg,
+                                model.module.params_tree())
+        if len(mesh.modules) != dp or len({id(m) for m in mesh.modules}) != 1:
+            raise AssertionError(f"phase 11: MeshEncoderModel over [{dev}] * {dp}: "
+                                 f"{len({id(m) for m in mesh.modules})} replicas")
+        ms = {key: [] for key in blocks}
+        bulk, first = [], {}
+        for graphs in TURNS if on_card else (False,):
+            mesh.graphs = graphs
+            for key, toks in blocks.items():
+                out = mesh.encode_tokens(toks)  # warm; a graph turn's first call captures
+                _sync(dev)
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    out = mesh.encode_tokens(toks)
+                _sync(dev)
+                ms[key].append((time.perf_counter() - t0) * 1e3 / 3)
+                if key not in first:
+                    first[key] = out.clone()
+                elif not torch.equal(out, first[key]):
+                    raise AssertionError(
+                        f"phase 11: MeshEncoderModel over [{dev}] * {dp}, block {key}: "
+                        f"{'captured' if graphs else 'eager'} rows differ from the first "
+                        f"turn's (max |diff| {(out - first[key]).abs().max().item()})")
+            t0 = time.perf_counter()
+            vecs = mesh(texts)
+            bulk.append(len(texts) / (time.perf_counter() - t0))
+            if "bulk" not in first:
+                first["bulk"] = vecs
+            elif not np.array_equal(vecs, first["bulk"]):
+                raise AssertionError(f"phase 11: MeshEncoderModel over [{dev}] * {dp}: the "
+                                     f"bulk embed differs between turns")
+        mesh.graphs = on_card
+        a = mesh(texts[:PRECISION_TEXTS])
+        cos = (a * want).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(want, axis=1))
+        worst = min(worst, float(cos.min()))
+        if not cos.min() >= PRECISION_COS:
+            raise AssertionError(f"phase 11: MeshEncoderModel over [{dev}] * {dp} rows: "
+                                 f"cosine {cos.min()} with EncoderModel's")
+        how = [("graph" if graphs else "eager") for graphs in (TURNS if on_card else (False,))]
+        line = "; ".join(
+            f"{b} x L={length}: " + ", ".join(f"{h} {t:.3f} ms ({b / t * 1e3:.1f} texts/s)"
+                                               for h, t in zip(how, ms[b, length]))
+            for b, length in blocks)
+        line += "; bulk embed of " + f"{len(texts)} texts: " + ", ".join(
+            f"{h} {r:.1f} chunks/s" for h, r in zip(how, bulk))
+        if on_card:
+            reps = dict.fromkeys(mesh.replicas)
+            caches = [r._programs for r in reps]
+            cap_ms = [x for c in caches for x in c.capture_ms] or [0.0]
+            keys = sorted(key for c in caches for key, _ in c.graphs)
+            line += (f"; {sum(c.captures for c in caches)} captures (ms median "
+                     f"{np.median(cap_ms):.1f}, max {max(cap_ms):.1f}) over {len(reps)} "
+                     f"device(s), {sum(c.replays for c in caches)} replays, graphs {keys}; "
+                     f"the pool holds {sum(c.pool_bytes() for c in caches) / 2**20:.1f} MiB")
+        log(f"phase 11: MeshEncoderModel over [{dev}] * {dp} ({cfg.num_layers} x "
+            f"{cfg.model_dim}, {cfg.dtype}), in turns: {line}; every captured batch bitwise "
+            f"the eager one; per-row cosine with EncoderModel min {cos.min():.6f} (bound "
+            f"{PRECISION_COS}) on {smi}")
+        del mesh
+    log(f"phase 11: MeshEncoderModel {time.perf_counter() - t_all:.1f} s")
+    return worst
 
 
 def _phase11_http(dev: str) -> str:
@@ -4367,10 +4538,14 @@ def main() -> None:
                                "phase 10a sharded 70k S=4": s["phase10"]["S=4"]["launches"],
                                "phase 10a sharded 70k dp2xS4":
                                    s["phase10"]["dp2xS4"]["launches"],
+                               "phase 10a sharded 70k dp2xS4 staged":
+                                   s["phase10"]["dp2xS4 staged"]["launches"],
                                "phase 12b dryrun": p12["launches"]},
                "masked_topk_int8": {"phase 3b": s8["launches"]},
-               "masked_topk_bf16": {f"phase 10a sharded 1M S={n}": p4["phase10"]["a"][n]["launches"]
-                                    for n in (1, SHARDS_1M)}}
+               "masked_topk_bf16": {**{f"phase 10a sharded 1M S={n}":
+                                       p4["phase10"]["a"][n]["launches"] for n in (1, SHARDS_1M)},
+                                    f"phase 10a sharded 1M S={SHARDS_1M} staged":
+                                        p4["phase10"]["a"][f"{SHARDS_1M} staged"]["launches"]}}
     # float32 and int8 rows at the 70k store's shape, B=32 and B=1, with the
     # queries the engine sends (bf16-exact); float32 queries beside them
     for name, timing, err in (("masked_topk", "main_f32", "max_abs_err"),

@@ -70,7 +70,7 @@ class CrossEncoder(Encoder):
 
     HEAD = "score_head"
 
-    def __init__(self, cfg: CrossEncoderConfig, params: dict | None = None, device="cpu"):
+    def __init__(self, cfg: CrossEncoderConfig, params: dict | None = None, device="cuda"):
         super().__init__(cfg.base, params, device)
 
     @staticmethod

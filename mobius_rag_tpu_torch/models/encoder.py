@@ -25,6 +25,7 @@ over the grid).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -35,7 +36,7 @@ from torch import nn
 
 from mobius_rag_tpu_torch.config import get_config
 from mobius_rag_tpu_torch.models.tokenizer import PAD_ID, HashTokenizer
-from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms, to_device
+from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms, join, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,7 +264,7 @@ class Encoder(nn.Module):
     HEAD = "proj"  # the output head's parameter (the tree's key)
 
     def __init__(self, cfg: EncoderConfig, params: dict | None = None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.cfg = cfg
         dm = cfg.model_dim
@@ -600,18 +601,26 @@ class CapturedForward:
     def _program(self, static: dict) -> torch.Tensor:
         return self.module(static["tokens"])
 
-    @torch.inference_mode()
-    def _forward(self, block: np.ndarray, n: int) -> torch.Tensor:
-        """The module's output for the first `n` rows of `block`, a padded
-        int32 [rows, L] token block, on the device: a copy of the captured
-        program's static output, or the eager output's rows."""
+    def _run(self, block: np.ndarray) -> torch.Tensor:
+        """The module's output for `block`, a padded int32 [rows, L] token
+        block, on the device: the eager output, or the captured program's
+        static output (the caller holds ``compiled.LOCK`` and copies it
+        before the next replay of any of this forward's graphs)."""
         host = {"tokens": block}
         if not self.graphs:
-            return self._program(to_device(host, self.device))[:n]
+            return self._program(to_device(host, self.device))
+        return self._programs.run(block.shape, list(self.module.parameters()), host,
+                                  self._program)
+
+    @torch.inference_mode()
+    def _forward(self, block: np.ndarray, n: int) -> torch.Tensor:
+        """The module's output for the first `n` rows of `block` on the
+        device: a copy of the captured program's static output, or the
+        eager output's rows."""
+        if not self.graphs:
+            return self._run(block)[:n]
         with LOCK:
-            out = self._programs.run(block.shape, list(self.module.parameters()), host,
-                                     self._program)
-            return out[:n].clone()
+            return self._run(block)[:n].clone()
 
 
 class EncoderModel(CapturedForward):
@@ -651,53 +660,102 @@ class EncoderModel(CapturedForward):
         return (torch.cat(outs) if len(outs) > 1 else outs[0]).cpu().numpy()
 
 
+class _Replica(CapturedForward):
+    """One device's encoder of a :class:`MeshEncoderModel`, with its own
+    captured forward (one ``CapturedPrograms``: a pool and a capture stream
+    belong to one device)."""
+
+    def __init__(self, module: "Encoder", device: torch.device, graphs: bool | None):
+        self.module, self.device = module, device
+        self._init_graphs(graphs)
+
+
 class MeshEncoderModel:
-    """Data-parallel encode over a device grid (``parallel.mesh.Mesh``): one
-    process splits each token batch contiguously over the grid's first
-    axis and runs the same forward on each part, where the reference ran N
-    embedding workers over a row-locked queue. The parameters go once to
-    each distinct device of that axis (a device listed twice holds one
-    replica); batch-parallel encode needs no communication, so each row
-    equals EncoderModel's for the same parameters. A drop-in ``embed_fn``,
-    like EncoderModel."""
+    """Data-parallel encode over a device grid (``parallel.mesh.Mesh``): the
+    port of the JAX ``MeshEncoderModel``, ``encode_jit`` as one SPMD program
+    with the batch split over the grid's first axis. One process pads each
+    token batch to the JAX model's bucket (:meth:`_bucket`: the smallest
+    batch bucket that dp divides, else a multiple of max(top bucket, dp)),
+    gives each data position a contiguous part of ``bucket / dp`` rows
+    (rounded up where dp does not divide it) and runs the same forward on
+    each, where the reference ran N embedding workers over a row-locked
+    queue. The parameters go once to each distinct device of that axis (a
+    device listed twice holds one replica, which runs both parts);
+    batch-parallel encode needs no communication, so each row is
+    EncoderModel's function of the same parameters. A drop-in
+    ``embed_fn``, like EncoderModel.
+
+    ``graphs``, as on EncoderModel: None (the default) captures on a card,
+    False runs eagerly, True on the CPU raises. Captured, each distinct
+    device keeps its own forward (:class:`CapturedForward`: one graph per
+    (part rows, length)); a call holds ``compiled.LOCK`` across every
+    part's upload, replay (or eager first run and capture) and the copy of
+    its output to the first device, made right behind its replay (the
+    next part on that device replays the same graph), on the device's
+    stream behind an event (``compiled.join``)."""
 
     def __init__(self, mesh, cfg: EncoderConfig | None = None, params: dict | None = None,
-                 seed: int = 0):
+                 seed: int = 0, graphs: bool | None = None):
         self.cfg = cfg or EncoderConfig.from_env()
         self.mesh = mesh
         grid = mesh.devices.reshape(mesh.devices.shape[0], -1)
         self.devices = [torch.device(d) for d in grid[:, 0]]  # one per data position
+        self.dp = len(self.devices)
         if params is None:
             params = init_params(
                 self.cfg, torch.Generator(device=self.devices[0]).manual_seed(seed))
-        replicas: dict[torch.device, Encoder] = {}
-        self.modules = [replicas.setdefault(d, Encoder(self.cfg, params, device=d).eval())
-                        for d in self.devices]
+        replicas: dict[torch.device, _Replica] = {}
+        self.replicas = [replicas.setdefault(
+            d, _Replica(Encoder(self.cfg, params, device=d).eval(), d, graphs))
+            for d in self.devices]
         self.tokenizer = HashTokenizer(self.cfg.vocab_size, self.cfg.max_seq)
+
+    @property
+    def modules(self) -> list["Encoder"]:
+        """Each data position's module (positions on one device share it)."""
+        return [r.module for r in self.replicas]
+
+    @property
+    def graphs(self) -> bool:
+        """Whether the parts replay captured CUDA graphs; settable."""
+        return self.replicas[0].graphs
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        for r in dict.fromkeys(self.replicas):
+            r.graphs = on
+
+    def _bucket(self, n: int) -> int:
+        """The rows a batch of n texts is padded to (the JAX
+        ``MeshEncoderModel._bucket``)."""
+        for b in _BATCH_BUCKETS:
+            if n <= b and b % self.dp == 0:
+                return b
+        step = max(_BATCH_BUCKETS[-1], self.dp)
+        return -(-n // step) * step
 
     @torch.inference_mode()
     def encode_tokens(self, tokens: np.ndarray) -> torch.Tensor:
-        """One [B, L] token block split over the devices (contiguous parts
-        of ceil(B / dp) rows) → [B, out_dim] float32 on the first device;
-        every part is enqueued before any result is used."""
-        n = len(self.devices)
-        step = -(-len(tokens) // n)
+        """One [B, L] token block padded to its bucket and split over the
+        data positions → [B, out_dim] float32 on the first device, the
+        padded rows dropped; every part is enqueued before any result is
+        used."""
+        rows = -(-self._bucket(len(tokens)) // self.dp)
+        block = pad_rows(tokens, rows * self.dp)
+        home = self.devices[0]
         outs = []
-        for i, (dev, module) in enumerate(zip(self.devices, self.modules)):
-            part = tokens[i * step:(i + 1) * step]
-            if not len(part):
-                continue
-            host = torch.from_numpy(np.ascontiguousarray(part))
-            if dev.type == "cuda":
-                host = host.pin_memory()
-            outs.append(module(host.to(dev, non_blocking=True)).to(self.devices[0],
-                                                                   non_blocking=True))
-        return torch.cat(outs)
+        with LOCK if self.graphs else contextlib.nullcontext():
+            for i, rep in enumerate(self.replicas):
+                part = rep._run(block[i * rows:(i + 1) * rows])
+                out = torch.empty(part.shape, dtype=part.dtype, device=home)
+                join(out, part)
+                outs.append(out)
+        return torch.cat(outs)[:len(tokens)]
 
     def __call__(self, texts: list[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.cfg.out_dim), np.float32)
-        step = max(_BATCH_BUCKETS[-1], len(self.devices))
+        step = max(_BATCH_BUCKETS[-1], self.dp)
         outs = [self.encode_tokens(seq_bucket(self.tokenizer.encode_batch(texts[off:off + step])))
                 for off in range(0, len(texts), step)]
         return torch.cat(outs).cpu().numpy()

@@ -51,12 +51,24 @@ stood when the batch was planned. On a grid whose devices are all the
 merge device (:func:`on_one_device`: a card named S times), the program
 is the JAX ``run``'s counterpart as one CUDA graph per key, kept by the
 sharded engine's own :class:`~mobius_rag_tpu_torch.query.compiled.CapturedPrograms`
-(``SearchEngine`` replays it; see ``query/compiled.py``). A grid over
-several devices runs eagerly.
+(``SearchEngine`` replays it; see ``query/compiled.py``). On a grid over
+several devices it runs as three stages, split where the program crosses
+devices, each one graph per device (a ``ProgramsByDevice``: a pool and a
+capture stream belong to one device): every device computes its shards'
+strict counts; every device sums all S counts (the JAX ``psum``: exact,
+the counts are integers below 2^24) and scans its shards' arms; the merge
+device sums them too and merges and reranks. Between stages, outside any
+graph, each stage's outputs leave its pool right behind its replay and
+are copied into the next stage's static inputs on the devices that read
+them, each copy behind a CUDA event of the source's stream
+(``compiled.join``). The stages run the whole program's operations on
+the same values, so they give its outputs bitwise; the launches of the
+kernels they count add up to the whole program's.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import threading
 from typing import Callable
 
@@ -71,7 +83,7 @@ from mobius_rag_tpu_torch.ops.proj import PackedProj, pad_shard_proj
 from mobius_rag_tpu_torch.parallel.mesh import Mesh, make_mesh, make_serve_mesh
 from mobius_rag_tpu_torch.query import engine as eng
 from mobius_rag_tpu_torch.query import gating
-from mobius_rag_tpu_torch.query.compiled import CapturedPrograms, tables_held
+from mobius_rag_tpu_torch.query.compiled import CapturedPrograms, ProgramsByDevice, tables_held
 from mobius_rag_tpu_torch.utils import round_up
 
 # More dirty rows than this re-shard the index instead of copying rows.
@@ -93,15 +105,46 @@ def _tables_to(tables, device: torch.device):
 
 def on_one_device(groups: list[list[torch.device]], device: torch.device) -> bool:
     """Whether every device of the grid (``mesh.groups(axis)``) is `device`,
-    the merge device: then the whole sharded program runs on it and can be
+    the merge device: then the whole sharded program runs on it and is
     captured as one CUDA graph. A capture records only the capturing
-    device's stream, so a grid over several devices runs eagerly."""
+    device's stream, so a grid over several devices is captured as stages,
+    one graph per device and stage (:meth:`ShardedEngine.plan`)."""
     return all(dev == device for row in groups for dev in row)
 
 
 def _to(q: dict, device: torch.device) -> dict:
     """A prepared batch on `device`, copied without blocking."""
     return {key: v.to(device, non_blocking=True) for key, v in q.items()}
+
+
+def _flat(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """Tensors of one type as one flat tensor, in order (a stage's outputs
+    leave its pool as one copy)."""
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unflat(flat: torch.Tensor, shapes: list[tuple]) -> list[torch.Tensor]:
+    """Views of `flat` in `shapes`, in order (:func:`_flat`'s inverse)."""
+    out, off = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        out.append(flat[off:off + n].view(shape))
+        off += n
+    return out
+
+
+@dataclasses.dataclass
+class Plan:
+    """One batch's device side (:meth:`ShardedEngine.plan`): its key, every
+    tensor of the tables it reads, the program whole (a function of the
+    prepared batch on the merge device: eager, or captured as one graph
+    where the grid is one device) and ``staged(programs, host, prep,
+    finish)``, the same program as one graph per device and stage over a
+    :class:`~mobius_rag_tpu_torch.query.compiled.ProgramsByDevice`."""
+    key: tuple
+    held: list
+    program: Callable[[dict], dict]
+    staged: Callable
 
 
 class ShardedEngine:
@@ -226,20 +269,20 @@ class ShardedEngine:
         return ShardedEngine(store, mesh=self.mesh, cfg=self.cfg, axis=self.axis,
                              vector_backend=self.vector_backend)
 
-    def captured_programs(self) -> CapturedPrograms:
-        """This engine's captured programs, made at first use: one pool and
-        one LRU per sharded engine (a dense engine's graphs key on other
-        tables). Raises ValueError on a grid over several devices, whose
-        other devices' work a capture would run once and never replay,
-        and off a card."""
-        if not self.one_device:
-            raise ValueError(
-                f"a grid over several devices ({self.mesh}) cannot be one CUDA graph: a "
-                "capture records only the capturing device's stream, so the other devices' "
-                "work would run once, at capture, and never on replay; serve it eagerly "
-                "(graphs=False)")
+    def captured_programs(self) -> CapturedPrograms | ProgramsByDevice:
+        """This engine's captured programs, made at first use (a dense
+        engine's graphs key on other tables): on a grid whose devices are
+        all the merge device one ``CapturedPrograms``, one graph a key;
+        on a grid over several devices a ``ProgramsByDevice`` over the
+        merge device and every device of the grid, one graph per device
+        and stage (a capture records only its own device's stream).
+        Raises ValueError off a card."""
         if self._programs is None:
-            self._programs = CapturedPrograms(self.device)  # raises off a card
+            if self.one_device:
+                self._programs = CapturedPrograms(self.device)  # raises off a card
+            else:
+                self._programs = ProgramsByDevice(
+                    [self.device] + [dev for row in self.groups for dev in row])
         return self._programs
 
     # -- build ---------------------------------------------------------------
@@ -375,16 +418,16 @@ class ShardedEngine:
 
     # -- query ---------------------------------------------------------------
 
-    def plan(self, b: int, k: int, funnel: int = 0
-             ) -> tuple[tuple, list[torch.Tensor], Callable[[dict], dict]]:
+    def plan(self, b: int, k: int, funnel: int = 0) -> Plan:
         """The host part of a batch of `b` queries: refresh the shards, the
-        ANN tables, the per-shard widths. Returns (key, held, program):
-        the device program of the batch (:meth:`run`'s, a function of the
-        prepared batch alone, bound to the shard and ANN tables as they
-        stand now: a refresh or rebuild on another thread reaches the next
-        batch), its key (the JAX ``run``'s static arguments as passed: k,
-        funnel, over_fetch, rrf_k, nprobe, approx, the ANN tables' class;
-        and the grid's shape) and every tensor of the tables it reads."""
+        ANN tables, the per-shard widths. Returns its :class:`Plan`: the
+        device program of the batch, whole (:meth:`run`'s) and as stages,
+        each a function of the prepared batch alone, bound to the shard and
+        ANN tables as they stand now (a refresh or rebuild on another
+        thread reaches the next batch); its key (the JAX ``run``'s static
+        arguments as passed: k, funnel, over_fetch, rrf_k, nprobe, approx,
+        the ANN tables' class; and the grid's shape) and every tensor of the
+        tables it reads."""
         with self._lock:  # one layout: a refresh on another thread waits for it
             self.refresh()
             ann = self.ensure_ann()
@@ -406,35 +449,30 @@ class ShardedEngine:
         for g, row in enumerate(groups):
             for si, dev in enumerate(row):
                 tables.setdefault((dev, si), (shards[g][si], None if ann is None else ann[g][si]))
-        held = [t for idx, a in tables.values() for t in tables_held(idx, a)]
+        held_on: dict[torch.device, list[torch.Tensor]] = {}
+        for (dev, _), (idx, a) in tables.items():
+            held_on.setdefault(dev, []).extend(tables_held(idx, a))
         dev0 = self.device
+        # the groups that get rows (a batch smaller than dp leaves some
+        # empty) and, per device, the (group, shard) positions it scans
+        live = [g for g in range(len(groups)) if g * b_loc < b]
+        at: dict[torch.device, list[tuple[int, int]]] = {}
+        for g in live:
+            for si, dev in enumerate(groups[g]):
+                at.setdefault(dev, []).append((g, si))
 
-        @torch.inference_mode()
-        def program(q: dict) -> dict[str, torch.Tensor]:
-            q = dict(q, vec=q["vec"].float())  # bf16-rounded queries, widened once
-            parts, totals = [], []
-            for g, row in enumerate(groups):
-                lo, hi = g * b_loc, min((g + 1) * b_loc, b)
-                if lo >= hi:
-                    continue
-                qg = {key: (v if key == "lex_buckets" else v[lo:hi]) for key, v in q.items()}
-                on: dict[torch.device, dict] = {}
-                qs = [on.setdefault(dev, qg if dev == dev0 else _to(qg, dev)) for dev in row]
-                # the global strict count, the shards' counts summed on the
-                # merge device; one shard's own count is already the global one
-                total = None if s == 1 else sum(
-                    gating.strict_counts(idx, qd).to(dev0, non_blocking=True)
-                    for idx, qd in zip(shards[g], qs))[:, None]
-                out = [eng.arm_candidates(
-                    idx, qd, k, m, m_other=m_other, ann=None if ann is None else ann[g][si],
-                    nprobe=nprobe, approx=approx,
-                    strict_total=None if total is None else total.to(dev, non_blocking=True),
-                    offset=si * c_local)
-                    for si, (idx, qd, dev) in enumerate(zip(shards[g], qs, row))]
-                totals.append(out[0][3].to(dev0, non_blocking=True) if total is None
-                              else total)
-                parts.append([torch.stack([o[i].to(dev0, non_blocking=True) for o in out],
-                                          dim=1) for i in range(3)])  # [3, S, B_g, m(, N_SIG)]
+        def rows(g: int) -> slice:
+            return slice(g * b_loc, min((g + 1) * b_loc, b))
+
+        def group(q: dict, g: int) -> dict:
+            return {key: (v if key == "lex_buckets" else v[rows(g)]) for key, v in q.items()}
+
+        def arms(g: int, si: int, qd: dict, total):
+            return eng.arm_candidates(
+                shards[g][si], qd, k, m, m_other=m_other, ann=None if ann is None else ann[g][si],
+                nprobe=nprobe, approx=approx, strict_total=total, offset=si * c_local)
+
+        def merged(q: dict, parts: list, totals: list) -> dict[str, torch.Tensor]:
             # each arm re-sorted once over the shards' lists, as wide as
             # fusion, the traces and the funnel read
             vals, gidx, sigs = eng.merge_shard_lists(
@@ -448,7 +486,117 @@ class ShardedEngine:
                 out.update(eng.wide_outputs(vals, gidx, sigs, w))
             return out
 
-        return key, held, program
+        @torch.inference_mode()
+        def program(q: dict) -> dict[str, torch.Tensor]:
+            q = dict(q, vec=q["vec"].float())  # bf16-rounded queries, widened once
+            parts, totals = [], []
+            for g in live:
+                row, qg = groups[g], group(q, g)
+                on: dict[torch.device, dict] = {}
+                qs = [on.setdefault(dev, qg if dev == dev0 else _to(qg, dev)) for dev in row]
+                # the global strict count, the shards' counts summed on the
+                # merge device; one shard's own count is already the global one
+                total = None if s == 1 else sum(
+                    gating.strict_counts(idx, qd).to(dev0, non_blocking=True)
+                    for idx, qd in zip(shards[g], qs))[:, None]
+                out = [arms(g, si, qd, None if total is None
+                            else total.to(dev, non_blocking=True))
+                       for si, (qd, dev) in enumerate(zip(qs, row))]
+                totals.append(out[0][3].to(dev0, non_blocking=True) if total is None
+                              else total)
+                parts.append([torch.stack([o[i].to(dev0, non_blocking=True) for o in out],
+                                          dim=1) for i in range(3)])  # [3, S, B_g, m(, N_SIG)]
+            return merged(q, parts, totals)
+
+        # -- the same program as stages, one graph per device and stage ----
+        devs = list(at)
+        shapes = {g: (rows(g).stop - rows(g).start, m) for g in live}
+
+        def float_shapes(g: int) -> list[tuple]:
+            """A shard's float outputs as an arm stage flattens them: vals,
+            sigs and, at S = 1, its own strict count."""
+            bg, mg = shapes[g]
+            return [(3, bg, mg), (3, bg, mg, eng.N_SIG)] + ([(bg, 1)] if s == 1 else [])
+
+        def counted(static: dict) -> torch.Tensor:
+            """[S, B] float32: every shard's strict counts over its group's
+            rows, summed over the devices' count stages (each writes only
+            its own shards' entries: the sum adds zeros, and every count is
+            an integer below 2^24, so any order is exact)."""
+            return sum(static[f"count{j}"] for j in range(len(devs)))
+
+        def count_stage(dev: torch.device, batch):
+            @torch.inference_mode()
+            def stage(static: dict) -> torch.Tensor:
+                q = batch(static)
+                cnt = torch.zeros((s, b), dtype=torch.float32, device=dev)
+                for g, si in at[dev]:
+                    cnt[si, rows(g)] = gating.strict_counts(shards[g][si], group(q, g))
+                return cnt
+            return stage
+
+        def arms_stage(dev: torch.device, batch):
+            @torch.inference_mode()
+            def stage(static: dict) -> tuple[torch.Tensor, torch.Tensor]:
+                q = batch(static)
+                total = None if s == 1 else sum(counted(static))  # [B]: the psum
+                floats, ints = [], []
+                for g, si in at[dev]:
+                    vals, gidx, sigs, strict = arms(
+                        g, si, group(q, g), None if total is None else total[rows(g), None])
+                    floats += [vals, sigs] + ([strict] if s == 1 else [])
+                    ints.append(gidx)
+                return _flat(floats), _flat(ints)
+            return stage
+
+        def merge_stage(batch, finish):
+            @torch.inference_mode()
+            def stage(static: dict):
+                q = batch(static)
+                lists = {}  # (group, shard) -> (vals, gidx, sigs, strict or None)
+                for j, dev in enumerate(devs):
+                    fl = iter(_unflat(static[f"floats{j}"],
+                                      [sh for g, _ in at[dev] for sh in float_shapes(g)]))
+                    il = iter(_unflat(static[f"ints{j}"], [(3, *shapes[g]) for g, _ in at[dev]]))
+                    for g, si in at[dev]:
+                        vals, sigs = next(fl), next(fl)
+                        lists[g, si] = (vals, next(il), sigs, next(fl) if s == 1 else None)
+                parts, totals = [], []
+                total = None if s == 1 else sum(counted(static))
+                for g in live:
+                    parts.append([torch.stack([lists[g, si][i] for si in range(s)], dim=1)
+                                  for i in range(3)])
+                    totals.append(lists[g, 0][3] if total is None else total[rows(g), None])
+                return finish(merged(q, parts, totals))
+            return stage
+
+        def staged(programs: ProgramsByDevice, host: dict, prep, finish):
+            """The program as stages over `programs` (one CapturedPrograms
+            per device), on the host arrays `host`: each device's count
+            stage (S > 1), each device's arm stage, the merge stage on the
+            merge device. `prep` takes a stage's uploaded batch to the
+            program's input (the engine's bf16 rounding of the queries),
+            `finish` the merged outputs to what the merge stage returns.
+            Every stage's outputs are copied out of its pool right behind
+            its replay; the caller holds ``compiled.LOCK``."""
+            def batch(static: dict) -> dict:  # the host arrays' views, as `program` gets q
+                q = prep({name: static[name] for name in host})
+                return dict(q, vec=q["vec"].float())
+
+            counts: dict[str, torch.Tensor] = {}
+            if s > 1:
+                for j, dev in enumerate(devs):
+                    counts[f"count{j}"] = programs[dev].run(
+                        ("count", *key), held_on[dev], host, count_stage(dev, batch)).clone()
+            lists: dict[str, torch.Tensor] = {}
+            for j, dev in enumerate(devs):
+                fl, il = programs[dev].run(("arms", *key), held_on[dev], host,
+                                           arms_stage(dev, batch), counts)
+                lists[f"floats{j}"], lists[f"ints{j}"] = fl.clone(), il.clone()
+            return programs[dev0].run(("merge", *key), held_on.get(dev0, []), host,
+                                      merge_stage(batch, finish), {**counts, **lists})
+
+        return Plan(key, [t for ts in held_on.values() for t in ts], program, staged)
 
     def run(self, q: dict, k: int, funnel: int = 0) -> dict[str, torch.Tensor]:
         """The sharded device program for one prepared batch (tensors on the
@@ -457,7 +605,7 @@ class ShardedEngine:
         host wait, eagerly. Returns ``engine.search_batch``'s schema on the
         merge device: the fused top k, each arm's merged top 2k, the global
         strict counts and, when ``funnel`` > 0, the funnel block."""
-        return self.plan(q["vec"].shape[0], k, funnel)[2](q)
+        return self.plan(q["vec"].shape[0], k, funnel).program(q)
 
     def search_arrays(self, q: dict, k: int) -> dict[str, np.ndarray]:
         """The sharded program on a prepared batch (``SearchEngine.
@@ -473,5 +621,4 @@ class ShardedEngine:
         if engine.sharded is not self:
             engine = copy.copy(engine)
             engine.sharded, engine.vector_backend = self, self.vector_backend
-            engine.graphs = engine.graphs and self.one_device
         return engine.search(reqs, k or self.cfg.default_k)

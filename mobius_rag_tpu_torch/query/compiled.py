@@ -51,7 +51,11 @@ thread's replay and its copies (the port's threads share the legacy
 default stream, so the order they enqueue in is the order the device
 runs). The capture stream is one of PyTorch's pool streams, which do not
 synchronize with the legacy default stream, so another thread's work
-there neither joins nor breaks a capture.
+there neither joins nor breaks a capture. The cyclic garbage collector is
+off during a capture (torch no longer collects on entry): a dead cycle
+that holds a graph (an engine dropped earlier, its store's listeners
+pointing back at it) collected mid-capture destroys that graph on the
+capturing thread, which CUDA refuses and which invalidates the capture.
 
 Memory: one engine's graphs share one memory pool
 (``torch.cuda.graph_pool_handle``), and an LRU bounds them to
@@ -74,34 +78,47 @@ reads a device value back inside its program.
 
 A sharded engine (``parallel.ShardedEngine``, the port of the JAX
 ``run`` over ``shard_map``, ``mobius_rag_tpu/parallel/sharded.py``)
-captures its program too, under one rule: every device of its grid
-(``mesh.groups(axis)``) is the merge device (``sharded.on_one_device``),
-as on one card named S times. A capture records only the capturing
-device's stream; work a program sends to another device would run once,
-at capture, and never on replay. So a grid over several devices serves
-eagerly, and ``graphs=True`` on it raises. The sharded engine keeps its
-own instance (its tables are not the dense engine's, and a dense and a
-sharded engine often serve one store in turns); its key is the JAX
-``run``'s static arguments as the engine passes them (device k, funnel,
-over_fetch, rrf_k, nprobe, approximate top-k, the ANN tables' class) and
-the grid's shape (dp, S), its tables every shard copy's and every
-per-shard ANN table's tensors (:func:`tables_held`). A refresh that
+captures its program too. A capture records only the capturing device's
+stream: work a program sent to another device would run once, at
+capture, and never on replay. So the program is one graph only where
+every device of its grid (``mesh.groups(axis)``) is the merge device
+(``sharded.on_one_device``, as on one card named S times). Elsewhere it
+runs as stages, each one graph per device (:class:`ProgramsByDevice`:
+one instance per device, since a pool and a capture stream belong to
+one device): every device's shards' strict counts, then every device's
+arm scans, then the merge on the merge device. Between stages, outside
+any graph, each stage's outputs are copied out of its pool right behind
+its replay and joined into the next stage's static inputs on the other
+devices (``run``'s ``inputs``: :func:`join`, ordered by a CUDA event of
+the source's stream). The sharded engine keeps its own instance (its
+tables are not the dense engine's, and a dense and a sharded engine
+often serve one store in turns); its key is the JAX ``run``'s static
+arguments as the engine passes them (device k, funnel, over_fetch,
+rrf_k, nprobe, approximate top-k, the ANN tables' class) and the grid's
+shape (dp, S), and a stage's its stage's name too; its tables every
+shard copy's and every per-shard ANN table's tensors
+(:func:`tables_held`), a stage's those on its device. A refresh that
 copies rows writes in place; a re-shard and an ANN rebuild (at every
 store generation) replace tensors, so each publish costs the next batch
-a capture.
+a capture on every device.
 
 The encoder's and the cross-encoder's forwards (the ports of
 ``encode_jit`` and ``score_pairs_jit``) are captured by the same class
 (``models/encoder.CapturedForward``): one instance per model, so one
 pool and one LRU; the key is the padded token block's (rows, length),
 the tables are the module's parameters, and the rules above hold alike
-(the forward launches no counted kernel, so its deltas are zero).
+(the forward launches no counted kernel, so its deltas are zero). The
+data-parallel encoder (``models/encoder.MeshEncoderModel``) keeps one
+such forward per distinct device of its grid, keyed on (part rows,
+length); a part's static output is copied out right behind its replay.
 
 The training step (the port of the JAX ``train_step``, jitted with
 ``params`` and ``opt_state`` donated; ``models/train.make_train_step``) is
 captured by the same class: one instance per trainer, so one pool; the
 key is ("train",), or ("train", dp, tp) on a training grid whose devices
-are all one card (the sharded engine's rule and reason), and the layout
+are all one card (a grid over several cards trains eagerly: its tp
+all-reduces and dp gradient sums cross devices inside every layer, so the
+sharded engine's stages do not carry over), and the layout
 is the trimmed int32 token blocks' (B, Lq, Ld). The tables held are every
 parameter (every grid position's) and the optimizer's state, which
 ``models/train.make_optimizer`` makes before the first step: torch.optim
@@ -116,7 +133,9 @@ the replay. Nothing in the step reads a device value back.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -214,6 +233,25 @@ def identity(tensors: Sequence[torch.Tensor]) -> tuple:
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
 
 
+def join(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst`` ← ``src`` without a host wait, across devices. Between two
+    cards the destination's current stream first waits on an event recorded
+    on the source's, so that the copy reads what the source's stream wrote
+    (the replay that made ``src``); torch then runs the copy on the source's
+    stream, so the source's next work (its next replay) waits for it."""
+    if src.device != dst.device and src.device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(src.device))
+        torch.cuda.current_stream(dst.device).wait_event(ready)
+    dst.copy_(src, non_blocking=True)
+
+
+def _on(device: torch.device):
+    """`device` made current on a card (a replay launches on the current
+    device's current stream); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 class CapturedPrograms:
     """One engine's (or one model's) captured programs on a CUDA device
     (see the module docstring). ``run`` serves one batch; ``captures``,
@@ -245,33 +283,47 @@ class CapturedPrograms:
         self._pool = None
 
     def run(self, key: tuple, held: Sequence[torch.Tensor], q: dict[str, np.ndarray],
-            program: Callable[[dict], Any]) -> Any:
+            program: Callable[[dict], Any], inputs: dict[str, torch.Tensor] | None = None
+            ) -> Any:
         """One batch: `q` (host arrays) through the graph of (`key`, its
         layout) over the tables `held`, replayed, or run eagerly and
-        captured when the key is new. Returns
-        the program's outputs: a graph's static outputs, valid until the
-        next replay of any graph of this instance."""
+        captured when the key is new. `inputs`, device tensors on any
+        device (a staged program's earlier stages' outputs), are joined
+        into static tensors on this device before it (:func:`join`); the
+        program finds them beside the host arrays' views, and their
+        layout is part of the key. Returns the program's outputs: a
+        graph's static outputs, valid until the next replay of any graph
+        of this instance."""
         tables = identity(held)
         if tables != self.tables:  # the store or the ANN tables replaced a tensor
             self.clear()
             self.tables = tables
-        full = (key, batch_layout(q))
+        inputs = inputs or {}
+        full = (key, batch_layout(q) + tuple((name, tuple(t.shape), t.dtype)
+                                             for name, t in inputs.items()))
         entry = self.graphs.get(full)
-        if entry is None:
-            return self._first(full, tuple(held), q, program)
-        self.graphs.move_to_end(full)
-        to_device(q, self.device, out=entry.block)
-        entry.graph.replay()
+        with _on(self.device):
+            if entry is None:
+                return self._first(full, tuple(held), q, inputs, program)
+            self.graphs.move_to_end(full)
+            to_device(q, self.device, out=entry.block)
+            for name, t in inputs.items():
+                join(entry.static[name], t)
+            entry.graph.replay()
         self.replays += 1
         for fn, d in zip(COUNTED, entry.deltas):
             fn.launches += d
         return entry.outputs
 
-    def _first(self, full: tuple, held: tuple, q: dict[str, np.ndarray], program) -> Any:
+    def _first(self, full: tuple, held: tuple, q: dict[str, np.ndarray],
+               inputs: dict[str, torch.Tensor], program) -> Any:
         block = torch.empty((sum(a.nbytes for a in q.values()),), dtype=torch.uint8,
                             device=self.device)
         entry = _Entry(None, block, to_device(q, self.device, out=block), None, held, (),
                        0.0)
+        for name, t in inputs.items():
+            entry.static[name] = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+            join(entry.static[name], t)
         answer = program(entry.static)  # eager: this batch's answer
         before = [fn.launches for fn in COUNTED]
         t0 = time.perf_counter()
@@ -294,9 +346,16 @@ class CapturedPrograms:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(device=self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), torch.cuda.graph(
-                graph, pool=self._pool, stream=self._stream, capture_error_mode="thread_local"):
-            outputs = program(static)
+        collecting = gc.isenabled()
+        gc.disable()  # a dead cycle freed mid-capture could destroy a graph here
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._stream,
+                    capture_error_mode="thread_local"):
+                outputs = program(static)
+        finally:
+            if collecting:
+                gc.enable()
         return graph, outputs
 
     def pool_bytes(self) -> int:
@@ -307,3 +366,45 @@ class CapturedPrograms:
         pool = tuple(self._pool)
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg["segment_pool_id"]) == pool)
+
+
+class ProgramsByDevice:
+    """The captured programs of a program staged over several devices: one
+    :class:`CapturedPrograms` per device (its own pool, capture stream and
+    LRU), made up front, so that it raises off a card; ``[device]`` is
+    that device's. ``captures``, ``capture_ms``, ``replays``, ``graphs``
+    (keyed ((device, *key), layout)) and :meth:`pool_bytes` report on
+    all of them."""
+
+    def __init__(self, devices: Sequence, max_graphs: int = MAX_GRAPHS,
+                 make: Callable[..., CapturedPrograms] | None = None):
+        make = make or CapturedPrograms
+        self.by_device = {d: make(d, max_graphs)
+                          for d in dict.fromkeys(torch.device(d) for d in devices)}
+
+    def __getitem__(self, device) -> CapturedPrograms:
+        return self.by_device[torch.device(device)]
+
+    @property
+    def captures(self) -> int:
+        return sum(p.captures for p in self.by_device.values())
+
+    @property
+    def capture_ms(self) -> list[float]:
+        return [ms for p in self.by_device.values() for ms in p.capture_ms]
+
+    @property
+    def replays(self) -> int:
+        return sum(p.replays for p in self.by_device.values())
+
+    @property
+    def graphs(self) -> dict:
+        return {((str(dev), *key), layout): entry for dev, p in self.by_device.items()
+                for (key, layout), entry in p.graphs.items()}
+
+    def clear(self) -> None:
+        for p in self.by_device.values():
+            p.clear()
+
+    def pool_bytes(self) -> int:
+        return sum(p.pool_bytes() for p in self.by_device.values())

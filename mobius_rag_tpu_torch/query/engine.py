@@ -97,9 +97,10 @@ shards' candidate lists merge on the engine's device; the merged output
 has this engine's schema, so results carry the global arm traces and
 strict counts (the JAX sharded engine ships the fused subset only, with
 empty traces and a strict count of -1). Gating is dense under sharding.
-On a grid whose devices are all this engine's card, the sharded program
-is captured too, one CUDA graph per key in the sharded engine's own
-cache; a grid over several cards runs eagerly.
+On a card the sharded program is captured too, in the sharded engine's
+own cache: one CUDA graph per key on a grid whose devices are all this
+engine's card, one per device and stage, joined between devices by CUDA
+events, on a grid over several cards.
 """
 from __future__ import annotations
 
@@ -125,7 +126,8 @@ from mobius_rag_tpu_torch.ops.proj import (PackedProj, ProjGate, encode_qmeta,
                                            scatter_slots)
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
 from mobius_rag_tpu_torch.query import gating
-from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms, tables_held, to_device
+from mobius_rag_tpu_torch.query.compiled import (LOCK, CapturedPrograms, ProgramsByDevice,
+                                               tables_held, to_device)
 from mobius_rag_tpu_torch.query.gating import query_dtag_ids
 from mobius_rag_tpu_torch.query.lexicon import Lexicon, LexiconExpansion
 from mobius_rag_tpu_torch.utils import native
@@ -797,8 +799,8 @@ class SearchEngine:
     graph on a card and eagerly on the CPU; False runs the program eagerly
     on a card too; True on the CPU raises. A capture or replay that fails
     raises (``query/compiled.py``). Under a sharded engine the graphs are
-    its own, on a grid whose devices are all this engine's; a grid over
-    several devices serves eagerly, and True on it raises."""
+    its own: one a key on a grid whose devices are all this engine's, one
+    per device and stage on a grid over several devices."""
 
     def __init__(self, store: ChunkStore, lexicon: Lexicon | None = None,
                  cfg: Config | None = None, embed_fn=None, telemetry=None,
@@ -859,7 +861,7 @@ class SearchEngine:
         # the captured device programs (query/compiled.py), made when first on
         self._programs: CapturedPrograms | None = None
         if graphs is None:
-            graphs = self.device.type == "cuda" and (sharded is None or sharded.one_device)
+            graphs = self.device.type == "cuda"
         self.graphs = graphs
         store.listeners.append(self._on_store_mutation)
 
@@ -872,14 +874,14 @@ class SearchEngine:
     @graphs.setter
     def graphs(self, on: bool) -> None:
         if on:
-            self.programs  # made now: raises off a card or over a grid of several devices
+            self.programs  # made now: raises off a card
         self._graphs = bool(on)
 
     @property
-    def programs(self) -> CapturedPrograms:
+    def programs(self) -> CapturedPrograms | ProgramsByDevice:
         """The captured programs this engine's batches replay, made at first
         use: the attached sharded engine's own (``ShardedEngine.
-        captured_programs``: it raises on a grid over several devices), else
+        captured_programs``: one per device over a grid of several), else
         this engine's. Raises off a card."""
         if self.sharded is not None:
             return self.sharded.captured_programs()
@@ -1526,7 +1528,8 @@ class SearchEngine:
         kd, fw = self._device_k(k), self._device_funnel(k)
         if self.sharded is not None:
             # the host part (refresh, ANN tables, widths) before any capture
-            key, held, run = self.sharded.plan(q["vec"].shape[0], kd, fw)
+            plan = self.sharded.plan(q["vec"].shape[0], kd, fw)
+            key, held, run = plan.key, plan.held, plan.program
         else:
             cfg = self.cfg
             nprobe = self.effective_nprobe
@@ -1551,6 +1554,9 @@ class SearchEngine:
         host = _cut_union(q, self._union_read(q))
         if not self.graphs:
             return program(to_device(host, self.device))
+        if self.sharded is not None and not self.sharded.one_device:
+            # a graph per device and stage, the stages joined between devices
+            return plan.staged(self.programs, host, _bf16, lambda out: pack_device(out, fw))
         return self.programs.run(key, held, host, program)
 
     def _dispatch(self, q: PreparedBatch, exps, ann, local, k: int) -> PendingFetch:

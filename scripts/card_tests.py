@@ -10,8 +10,12 @@ capturable AdamW against the CPU's update, a replayed training step that
 reads nothing back, the sharded engine against the dense one, its
 captured programs bitwise against its eager one on grids of this card
 (exact over 4 shards and a [2, 4] grid, sparse postings, ivf, pq under
-host residency) and a writer thread publishing and refreshing while
-another searches it) on a CUDA card whose machine has no JAX. Those tests
+host residency), the same cases on the route of a grid over several
+cards forced on this card (one graph per device and stage) bitwise
+against the eager program and the one-graph route, a writer thread
+publishing and refreshing while another searches it on either route,
+and the data-parallel encoder over this card named 2 and 4 times,
+captured bitwise against eager) on a CUDA card whose machine has no JAX. Those tests
 use only the torch side; their modules import the JAX package for their
 CPU tests, so those imports become mocks here and only the `on_card`
 tests are collected.

@@ -11,12 +11,17 @@ limit. Needs one CUDA card.
 
     python3 scripts/sharded_turns.py PARENT . . PARENT
     python3 scripts/sharded_turns.py PARENT PARENT+cpu . .   # +cpu: see below
+    python3 scripts/sharded_turns.py PARENT+graph .+graph .+graph PARENT+graph
 
 Each argument is the root of a checkout (a `git archive` of a commit
 unpacked under a directory .gitignore lists, or "." for this one). A
 "+cpu" suffix runs that checkout with a sync search that fetches its two
 packed arrays with blocking ``.cpu()`` copies, as the engine did before it
-fetched through page-locked buffers and an event (``PendingFetch``).
+fetched through page-locked buffers and an event (``PendingFetch``). A
+"+graph" suffix serves every sharded path captured (the checkout's
+default on a card: one CUDA graph per key on these grids of one card)
+instead of eagerly, and adds its pipelined q/s (search_pipelined over 8
+batches, median of 3 rounds).
 
 Stages of a sync batch (host clock, no synchronisation inside): prepare
 (``prepare_host``, or ``prepare_batch`` in a checkout without it), program
@@ -79,7 +84,7 @@ def _busy(engine, reqs, k: int) -> tuple[float, float]:
     return busy, wall
 
 
-def _measure(engine, reqs, smoke) -> dict:
+def _measure(engine, reqs, smoke, pipelined: bool = False) -> dict:
     engine.search(reqs, k=smoke.K)  # warm
     rounds = []
     for _ in range(ROUNDS):
@@ -88,6 +93,13 @@ def _measure(engine, reqs, smoke) -> dict:
             engine.search(reqs, k=smoke.K)
         rounds.append(smoke.BATCH * smoke.N_BATCHES / (time.perf_counter() - t0))
     out = {"qps": sorted(rounds)[ROUNDS // 2], "rounds": rounds}
+    if pipelined:
+        piped = []
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            engine.search_pipelined([reqs] * smoke.N_BATCHES, k=smoke.K)
+            piped.append(smoke.BATCH * smoke.N_BATCHES / (time.perf_counter() - t0))
+        out["pipelined_qps"], out["pipelined_rounds"] = sorted(piped)[ROUNDS // 2], piped
     if engine.sharded is None:
         return out
     stages: dict = {}
@@ -143,17 +155,21 @@ def one(arg: str) -> None:
     smoke._sync = lambda dev: torch.cuda.synchronize()  # a checkout may lack compiled.LOCK
     if variant == "cpu":
         _cpu_fetch(SearchEngine)
-    elif variant:
+    elif variant not in ("", "graph"):
         raise SystemExit(f"unknown variant {variant!r}")
+    graph = variant == "graph"
     dev = "cuda"
     out = {"arg": arg}
 
     def sharded(name, store, lexicon, cfg, mesh, reqs):
         tse = ShardedEngine(store, mesh=mesh, cfg=cfg)
         serving = SearchEngine(store, lexicon, cfg=cfg, device=dev, sharded=tse)
-        if getattr(serving, "graphs", False) and getattr(tse, "_programs", None) is not None:
+        if graph:
+            if not getattr(serving, "graphs", False):
+                raise SystemExit(f"{arg}: {name} does not serve captured")
+        elif getattr(serving, "graphs", False) and getattr(tse, "_programs", None) is not None:
             serving.graphs = False  # the eager sharded program, in every checkout
-        out[name] = _measure(serving, reqs, smoke)
+        out[name] = _measure(serving, reqs, smoke, graph)
         store.listeners.remove(tse._on_store_event)
         store.listeners.remove(serving._on_store_mutation)
 
@@ -221,6 +237,9 @@ def main() -> None:
                 continue
             line = f"{r['arg']}: {name}: {m['qps']:.1f} q/s sync (rounds " \
                    f"{[round(x, 1) for x in m['rounds']]})"
+            if "pipelined_qps" in m:
+                line += (f", {m['pipelined_qps']:.1f} pipelined (rounds "
+                         f"{[round(x, 1) for x in m['pipelined_rounds']]})")
             if "host_ms" in m:
                 line += "; host ms " + ", ".join(f"{k} {v:.3f}" for k, v in m["host_ms"].items())
                 line += (f"; device busy {m['busy_ms']:.3f} of {m['busy_wall_ms']:.3f} ms "

@@ -186,10 +186,11 @@ class _Replay:
     def replay(self):
         counts = [fn.launches for fn in compiled.COUNTED]  # a replay runs no Python
         outputs, new = self.outputs, self.program(self.static)
-        if isinstance(outputs, torch.Tensor):  # an encoder's forward
+        if isinstance(outputs, torch.Tensor):  # an encoder's forward, a sharded stage
             outputs, new = (outputs,), (new,)
-        for out, fresh in zip(outputs, new):
-            out.copy_(fresh)
+        with torch.inference_mode():  # a sharded stage's outputs are inference tensors
+            for out, fresh in zip(outputs, new):
+                out.copy_(fresh)
         for fn, n in zip(compiled.COUNTED, counts):
             fn.launches = n
 
@@ -205,11 +206,11 @@ class StandIn(CapturedPrograms):
         outputs = program(static)
         return _Replay(program, static, outputs), outputs
 
-    def run(self, key, held, q, program):
+    def run(self, key, held, q, program, inputs=None):
         # on a card the engine copies a replay's static outputs to the host
         # right behind it (PendingFetch); on the CPU it keeps the arrays
         # it is given, so the stand-in hands out the copies
-        out = super().run(key, held, q, program)
+        out = super().run(key, held, q, program, inputs)
         if isinstance(out, torch.Tensor):  # an encoder's forward
             return out.clone()
         return tuple(t.clone() for t in out)
@@ -486,7 +487,7 @@ def test_encoder_graphs_follow_the_module():
     got = model(texts)
     assert cache.captures == 1 and cache.replays == 1
     np.testing.assert_array_equal(got, _encoder(params=fresh, graphs=False)(texts))
-    model.module = tenc.Encoder(model.cfg, fresh)
+    model.module = tenc.Encoder(model.cfg, fresh, device="cpu")
     np.testing.assert_array_equal(model(texts), got)
     assert cache.captures == 2 and len(cache.graphs) == 1
     assert next(iter(cache.graphs.values())).held[0] is model.module.embed

@@ -93,7 +93,7 @@ def test_score_pairs_float32_matches_jax(seed):
     params = jce.init_cross_params(jcfg, jax.random.PRNGKey(seed))
     pairs = _pairs(jcfg.base.max_seq)
     want = np.asarray(jce.score_pairs_jit(params, jnp.asarray(pairs), jcfg))
-    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(_np_tree(params)))
+    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(_np_tree(params)), device="cpu")
     with torch.no_grad():
         got = module(torch.from_numpy(pairs)).numpy()
     assert got.shape == want.shape == (len(DOCS),) and got.dtype == np.float32
@@ -110,8 +110,8 @@ def test_score_pairs_bfloat16_matches_jax(seed):
     want32 = np.asarray(jce.score_pairs_jit(params, jnp.asarray(pairs), j32))
     tree = tenc.params_from_numpy(_np_tree(params))
     with torch.no_grad():
-        got = tce.CrossEncoder(tcfg, tree)(torch.from_numpy(pairs)).numpy()
-        got32 = tce.CrossEncoder(t32, tree)(torch.from_numpy(pairs)).numpy()
+        got = tce.CrossEncoder(tcfg, tree, device="cpu")(torch.from_numpy(pairs)).numpy()
+        got32 = tce.CrossEncoder(t32, tree, device="cpu")(torch.from_numpy(pairs)).numpy()
     bound = BF16_REL * np.abs(want32).max()
     assert np.abs(got - want).max() <= bound
     assert np.abs(got - got32).max() <= bound
@@ -225,7 +225,7 @@ def test_cross_checkpoints_both_ways(tmp_path, monkeypatch):
     assert sorted(got) == ["embed", "layers", "ln_f_scale", "pos", "score_head"]
     for g, w in zip(tenc.flatten_params(got), want):
         np.testing.assert_array_equal(g.numpy(), w)
-    module = tce.CrossEncoder(tcfg, got)
+    module = tce.CrossEncoder(tcfg, got, device="cpu")
     tckpt.save_encoder(str(tmp_path / "t"), module.params_tree(), tcfg.base, kind="cross")
     back, bcfg = jckpt.load_encoder(str(tmp_path / "t"))
     assert bcfg == jcfg.base
@@ -370,7 +370,8 @@ def test_margin_loss_grads_match_jax(dtype):
     idx = np.arange(len(pairs))
     pos, neg = tce.cross_pairs(tok, pairs, idx)
     jloss, jacc, want = _margin_grads(jcfg, params, pos, neg)
-    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(params)).requires_grad_(True)
+    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(params),
+                              device="cpu").requires_grad_(True)
     step, opt_init = tce.make_cross_train_step(tcfg, device="cpu")
     opt = opt_init(module)
     grads = {}
@@ -402,7 +403,8 @@ def test_cross_optimizer_is_optax_adamw_default():
 
     jcfg, tcfg = _cfgs("float32")
     params = _np_tree(jce.init_cross_params(jcfg, jax.random.PRNGKey(2)))
-    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(params)).requires_grad_(True)
+    module = tce.CrossEncoder(tcfg, tenc.params_from_numpy(params),
+                              device="cpu").requires_grad_(True)
     _, opt_init = tce.make_cross_train_step(tcfg, device="cpu")
     opt = opt_init(module)
     assert opt.defaults["weight_decay"] == tce.CROSS_WEIGHT_DECAY == 1e-4

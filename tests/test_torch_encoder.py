@@ -75,7 +75,7 @@ def _rowwise_cos(a, b):
 
 
 def _port(tcfg, jparams):
-    return tenc.Encoder(tcfg, tenc.params_from_numpy(_numpy_tree(jparams)))
+    return tenc.Encoder(tcfg, tenc.params_from_numpy(_numpy_tree(jparams)), device="cpu")
 
 
 @torch.no_grad()
@@ -122,7 +122,7 @@ def test_hybrid_anchor_alpha_zero_is_the_bag_of_tokens():
     params = _numpy_tree(_jax_params(jcfg))
     params["alpha"] = np.zeros((), np.float32)
     toks = _tokens(jcfg)[:4]
-    got = tenc.Encoder(tcfg, tenc.params_from_numpy(params))(torch.from_numpy(toks))
+    got = tenc.Encoder(tcfg, tenc.params_from_numpy(params), device="cpu")(torch.from_numpy(toks))
     mask = toks != 0
     bag = (params["anchor_proj"][toks] * mask[..., None]).sum(1)
     bag /= np.linalg.norm(bag, axis=1, keepdims=True)
@@ -135,7 +135,8 @@ def test_seq_bucket_equals_full_length(dtype, monkeypatch):
     out of attention and pooling."""
     monkeypatch.setattr(tenc, "_SEQ_BUCKETS", (8, 16, 32))
     _, tcfg = _cfgs(dtype, False)
-    model = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(1)))
+    model = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(1)),
+                         device="cpu")
     full = _tokens(tcfg, TEXTS[:4])
     trimmed = tenc.seq_bucket(full)
     assert trimmed.shape[1] < full.shape[1]
@@ -206,7 +207,7 @@ def test_checkpoint_from_jax_npz(tmp_path, monkeypatch, hybrid):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
-    model = tenc.Encoder(cfg, tree)
+    model = tenc.Encoder(cfg, tree, device="cpu")
     for p, w in zip(tenc.flatten_params(model.params_tree()), want):
         np.testing.assert_array_equal(p.detach().numpy(), w)
 
@@ -216,7 +217,8 @@ def test_checkpoint_to_jax(tmp_path, hybrid):
     """The port's save_encoder → JAX load_encoder: the same parameters, bit
     for bit, and the same embeddings in float32."""
     jcfg, tcfg = _cfgs("float32", hybrid)
-    model = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(9)))
+    model = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(9)),
+                         device="cpu")
     tckpt.save_encoder(str(tmp_path), model.params_tree(), tcfg)
     params, cfg = jckpt.load_encoder(str(tmp_path))
     assert cfg == jcfg
@@ -290,6 +292,133 @@ def test_mesh_encoder_matches_encoder_model(dp):
     assert mesh([]).shape == (0, tcfg.out_dim)
 
 
+_MESH_BUCKETS_PROBE = r"""
+import json
+import types
+from mobius_rag_tpu.models import encoder as jenc
+from mobius_rag_tpu_torch.models import encoder as tenc
+ns = range(1, 301)
+print(json.dumps([[[tenc.MeshEncoderModel._bucket(types.SimpleNamespace(dp=dp), n) for n in ns],
+                   [jenc.MeshEncoderModel._bucket(types.SimpleNamespace(dp=dp), n) for n in ns]]
+                  for dp in range(1, 9)]))
+"""
+
+
+@pytest.mark.parametrize("ladder", [None, "2,16,48"], ids=["default", "custom"])
+def test_mesh_bucket_matches_jax(ladder):
+    """MeshEncoderModel's batch bucket (the smallest batch bucket that dp
+    divides, else a multiple of max(top bucket, dp)) against the JAX
+    MeshEncoderModel._bucket for dp = 1..8 and n = 1..300, under the
+    default ladder and a custom MRAG_ENCODER_BATCH_BUCKETS (read at import
+    by both packages, so each runs in a fresh interpreter)."""
+    got_want = json.loads(_probe(_MESH_BUCKETS_PROBE, ladder))
+    for dp, (got, want) in enumerate(got_want, start=1):
+        assert got == want, dp
+        assert all(b >= n for n, b in enumerate(got, start=1))
+
+
+@pytest.mark.parametrize("dp", [2, 8])
+def test_mesh_model_matches_jax_mesh_model(dp):
+    """MeshEncoderModel's rows against the JAX MeshEncoderModel's over dp
+    devices (the JAX model over dp of the 8 virtual CPU devices, as
+    tests/test_encoder.py runs it), on the same float32 parameters, at
+    n = 1, 3, 8 and 17 (a sub-dp batch, uneven ones, a bucket past 8),
+    within F32_TOL."""
+    from mobius_rag_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from mobius_rag_tpu_torch.parallel.mesh import make_mesh
+
+    jcfg, tcfg = _cfgs("float32", False)
+    params = _jax_params(jcfg, seed=13)
+    jmesh = jenc.MeshEncoderModel(jmake_mesh(dp), jcfg, params)
+    tmesh = tenc.MeshEncoderModel(make_mesh(dp, devices=["cpu"] * dp), tcfg,
+                                  tenc.params_from_numpy(_numpy_tree(params)))
+    for n in (1, 3, 8, 17):
+        texts = [f"timely filing rule variant {i}" for i in range(n)]
+        want, got = jmesh(texts), tmesh(texts)
+        assert got.shape == want.shape == (n, jcfg.out_dim)
+        assert np.abs(got - want).max() <= F32_TOL, n
+
+
+# a grid of dp = 4 positions over two distinct (CPU) devices
+_MESH_DEVICES = ["cpu:0", "cpu:1", "cpu:0", "cpu:1"]
+
+
+def _mesh_stand_in(mesh) -> list:
+    """`mesh` replaying through the stand-in capture: one per distinct
+    device, as on a card."""
+    from test_torch_compiled import StandIn
+
+    caches = []
+    for rep in dict.fromkeys(mesh.replicas):
+        rep._programs = StandIn(rep.device)
+        rep._graphs = True
+        caches.append(rep._programs)
+    return caches
+
+
+def test_mesh_encoder_keys_are_part_rows_and_length():
+    """Captured (the stand-in), each distinct device of the grid keeps its
+    own programs, one graph per (part rows, sequence bucket): bucket / dp
+    rows a part; every call gives the eager model's rows bitwise, and
+    EncoderModel's within F32_TOL."""
+    from mobius_rag_tpu_torch.parallel.mesh import make_mesh
+
+    jcfg, tcfg = _cfgs("float32", False)
+    tcfg = dataclasses.replace(tcfg, max_seq=256)
+    params = tenc.init_params(tcfg, torch.Generator().manual_seed(6))
+    grid = make_mesh(4, devices=_MESH_DEVICES)
+    mesh = tenc.MeshEncoderModel(grid, tcfg, params)
+    eager = tenc.MeshEncoderModel(grid, tcfg, params, graphs=False)
+    one = tenc.EncoderModel(tcfg, params, device="cpu")
+    assert mesh.graphs is False and len({id(m) for m in mesh.modules}) == 2
+    caches = _mesh_stand_in(mesh)
+    calls = [(3, 10), (3, 10), (9, 100), (130, 10), (3, 200), (9, 100)]
+    for n, words in calls:
+        texts = [" ".join(f"w{(i * 7 + j) % 50}" for j in range(words)) + f" r{i}"
+                 for i in range(n)]
+        got = mesh(texts)
+        np.testing.assert_array_equal(got, eager(texts))
+        assert np.abs(got - one(texts)).max() <= F32_TOL
+    # 3 texts: bucket 8, 2 rows a part; 9: 32, 8; 130: 128 and 8 (32, 2)
+    keys = {(2, 64), (8, 128), (32, 64), (2, 256)}
+    for cache in caches:
+        assert {key for key, _ in cache.graphs} == keys
+        assert cache.captures == len(keys)
+    # each device runs 2 of the 4 parts a block: 7 blocks, 14 parts a device
+    assert [c.captures + c.replays for c in caches] == [14, 14]
+
+
+def test_mesh_encoder_graphs_true_on_cpu_raises():
+    from mobius_rag_tpu_torch.parallel.mesh import make_mesh
+
+    grid = make_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tenc.MeshEncoderModel(grid, tenc.EncoderConfig.tiny(), graphs=True)
+    mesh = tenc.MeshEncoderModel(grid, tenc.EncoderConfig.tiny())
+    assert mesh.graphs is False
+    with pytest.raises(ValueError, match="CUDA"):
+        mesh.graphs = True
+    assert mesh.graphs is False
+
+
+def _probe(code: str, ladder) -> str:
+    """The last line `code` prints in a fresh interpreter with the JAX
+    package on the CPU, under the batch ladder `ladder` (None: the
+    default)."""
+    import subprocess
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("MRAG_ENCODER_BATCH_BUCKETS", None)
+    if ladder:
+        env["MRAG_ENCODER_BATCH_BUCKETS"] = ladder
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    return run.stdout.strip().splitlines()[-1]
+
+
 _BUCKETS_PROBE = r"""
 import json
 from mobius_rag_tpu.models import encoder as jenc
@@ -306,18 +435,7 @@ def test_batch_bucket_matches_jax(ladder):
     EncoderModel._bucket for n = 1..300, under the default ladder and a
     custom MRAG_ENCODER_BATCH_BUCKETS (read at import by both packages, so
     each runs in a fresh interpreter)."""
-    import subprocess
-
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    env.pop("MRAG_ENCODER_BATCH_BUCKETS", None)
-    if ladder:
-        env["MRAG_ENCODER_BATCH_BUCKETS"] = ladder
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
-    run = subprocess.run([sys.executable, "-c", _BUCKETS_PROBE], capture_output=True,
-                         text=True, env=env, cwd=root, timeout=300)
-    assert run.returncode == 0, run.stderr[-2000:]
-    ladder_got, got, want = json.loads(run.stdout.strip().splitlines()[-1])
+    ladder_got, got, want = json.loads(_probe(_BUCKETS_PROBE, ladder))
     assert ladder_got == [int(x) for x in (ladder or "1,8,32,128").split(",")]
     assert got == want
     assert got[300 - 1] == -(-300 // ladder_got[-1]) * ladder_got[-1]
@@ -377,7 +495,8 @@ def test_all_pad_row_is_finite(dtype, hybrid):
     pooled denominator clamped to 1) gives a finite output, and leaves the
     real rows as they are alone."""
     _, tcfg = _cfgs(dtype, hybrid)
-    module = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(4)))
+    module = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(4)),
+                          device="cpu")
     toks = tenc.pad_rows(_tokens(tcfg, TEXTS[:2]), 8)
     assert not toks[2:].any()
     with torch.no_grad():
@@ -443,3 +562,37 @@ def test_captured_forward_bitwise_on_card(hybrid):
     assert keys == {(b, length) for b in (1, 8, 32, 128) for length in (64, 128, 256, 512)}
     assert model._programs.captures == 16 and model._programs.replays == 16
     assert _graphs_bitwise(model, "encoder") == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", [2, 4])
+def test_mesh_encoder_captured_bitwise_on_card(dp):
+    """On the card, the served width's layers (2 of 12) over [cuda:0] * dp:
+    each part replays its device's graph of (bucket / dp, sequence bucket),
+    bitwise the eager model (graphs=False: the same parts eagerly) over
+    keys that switch, first run and replay alike; the rows within a
+    per-row cosine of 0.999 of EncoderModel's (other GEMM shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mobius_rag_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(tenc.EncoderConfig(), num_layers=2)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    grid = make_mesh(dp, devices=["cuda:0"] * dp)
+    mesh = tenc.MeshEncoderModel(grid, cfg, params)
+    eager = tenc.MeshEncoderModel(grid, cfg, params, graphs=False)
+    one = tenc.EncoderModel(cfg, params, device="cuda")
+    assert mesh.graphs and not eager.graphs and len(set(mesh.replicas)) == 1
+    calls = [(5, 30), (100, 100), (5, 30), (20, 200), (100, 100), (1, 400), (20, 200)]
+    for n, words in calls:
+        texts = _long_texts(words, n)
+        got, want = mesh(texts), eager(texts)
+        assert got.shape == (n, cfg.out_dim)
+        np.testing.assert_array_equal(got, want)
+        assert _rowwise_cos(got, one(texts)).min() >= BF16_COS
+    cache = mesh.replicas[0]._programs
+    buckets = {5: 8, 100: 128, 20: 32, 1: 8 if dp > 1 else 1}
+    lengths = {30: 64, 100: 128, 200: 256, 400: 512}
+    keys = {(buckets[n] // dp, lengths[w]) for n, w in calls}
+    assert {key for key, _ in cache.graphs} == keys and cache.captures == len(keys)
+    assert cache.captures + cache.replays == dp * len(calls)

@@ -769,24 +769,183 @@ def test_one_device_rule(groups, merge, one):
     assert on_one_device(grid, torch.device(merge)) is one
 
 
-def test_graphs_true_refused_on_a_grid_of_devices(toy):
+def test_graphs_true_refused_on_a_grid_of_devices(toy, monkeypatch):
     """On a grid whose devices are not all the merge device (here the CPU
-    and the meta device: no card touched), graphs=True raises, passed to
-    the constructor or set later; the default serves eagerly."""
+    and the meta device: no card touched), graphs=True makes one captured
+    program set per device (the staged route), and still raises off a
+    card, passed to the constructor or set later; the default off a card
+    serves eagerly."""
     te = toy["te"]
     listeners = list(te.store.listeners)
     tse = ShardedEngine(te.store, mesh=make_mesh(2, devices=["cpu", "meta"]))
     assert not tse.one_device
     try:
-        with pytest.raises(ValueError, match="several devices"):
+        with pytest.raises(ValueError, match="CUDA"):
             TEngine(te.store, te.lexicon, device="cpu", sharded=tse, graphs=True)
         serving = TEngine(te.store, te.lexicon, device="cpu", sharded=tse)
         assert serving.graphs is False
-        with pytest.raises(ValueError, match="several devices"):
+        with pytest.raises(ValueError, match="CUDA"):
             serving.graphs = True
         assert serving.graphs is False and tse._programs is None
+        monkeypatch.setattr(compiled, "CapturedPrograms", StandIn)
+        serving.graphs = True
+        programs = serving.programs
+        assert isinstance(programs, compiled.ProgramsByDevice) and tse._programs is programs
+        assert list(programs.by_device) == [torch.device("cpu"), torch.device("meta")]
+        assert all(isinstance(p, StandIn) for p in programs.by_device.values())
     finally:
         te.store.listeners[:] = listeners
+
+
+# -- the staged route: one graph per device and stage ----------------------
+
+# a grid over four distinct (CPU) devices, the first the store's (the merge
+# device): the staged route unforced
+NAMED = ["cpu", "cpu:1", "cpu:2", "cpu:3"]
+
+
+def _staged(serving: TEngine) -> compiled.ProgramsByDevice:
+    """`serving`, whose grid is not one device, replaying its sharded
+    engine's stages through the stand-in capture (one per device),
+    reading the lexical union as a card does."""
+    tse = serving.sharded
+    assert not tse.one_device
+    _reads_as_card(serving)
+    tse._programs = compiled.ProgramsByDevice(
+        [tse.device] + [d for row in tse.groups for d in row], make=StandIn)
+    serving._graphs = True
+    return tse._programs
+
+
+def _forced(monkeypatch, make):
+    """What `make()` builds while ``on_one_device`` answers False: a grid of
+    one device served by the staged route, as on a card the card tests
+    force it."""
+    with monkeypatch.context() as m:
+        m.setattr(tsharded, "on_one_device", lambda groups, device: False)
+        return make()
+
+
+# case -> the JAX twins' config (the card cases' fields), grid
+_STAGED_CASES = {case: _SHARDED_CASES[case]
+                 for case in ("exact_S4", "exact_dp2xS4", "ivf_S4", "host_pq_S4")}
+
+
+@pytest.mark.parametrize("case", sorted(_STAGED_CASES))
+def test_staged_route_matches_one_graph_and_jax(case, monkeypatch):
+    """The staged route (forced over ["cpu"] * 8, the stand-in capture)
+    gives the one-graph route's results bitwise, batch by batch through
+    keys that switch, and the JAX ShardedEngine's hits (its ANN tables
+    carried across); its keys are the one graph's with the stage's name."""
+    fields, grid = _STAGED_CASES[case]
+    je, te = _twins(pad_docs=60, initial_capacity=1024, **fields)
+    mesh, jmesh = _GRIDS[grid]
+    one = _sharded_serving(te.store, te.lexicon, te.cfg, mesh(CPU))
+    staged = _forced(monkeypatch,
+                     lambda: _sharded_serving(te.store, te.lexicon, te.cfg, mesh(CPU)))
+    jse = JSharded(je.store, mesh=jmesh(), cfg=je.cfg)
+    if te.cfg.vector_backend != "exact":
+        for serving in (one, staged):
+            _carry_tables(jse, serving.sharded)
+    cache, programs = _captured(one), _staged(staged)
+    jr, tr = _reqs()
+    for batch in (tr[:4], tr[:5], tr, tr[:4], tr):
+        want = [_fields(r) for r in one.search(batch, k=K)]
+        assert [_fields(r) for r in staged.search(batch, k=K)] == want
+    stages = {key[1] for key, _ in programs.graphs}
+    assert stages == {"count", "arms", "merge"}
+    assert {key[2:] for key, _ in programs.graphs} == {key for key, _ in cache.graphs}
+    assert programs.captures == 3 * cache.captures and programs.replays == 3 * cache.replays
+    jres = jse.search(je, jr, k=K)
+    tres = staged.search(tr, k=K)
+    for i in range(len(jr)):
+        check_hits(jres, tres, i)
+
+
+@pytest.mark.parametrize("case", sorted(_SHARDED_CASES))
+def test_staged_writes_replay_like_eager_with_stand_in(case, monkeypatch):
+    """The card test's write sequence on the staged route (forced over
+    ["cpu"] * 8, the stand-in capture): a refresh that copies rows keeps
+    every stage's graphs, a re-shard and an ANN rebuild drop them, and
+    every replay is the eager sharded program's."""
+    serving = _forced(monkeypatch, lambda: _sharded_case(case, "cpu"))
+    _staged(serving)
+    _writes_replay_bitwise(serving)
+
+
+@pytest.mark.parametrize("grid", ["named", "forced_dp"])
+def test_staged_replay_adds_a_launch_per_shard_and_group(toy, grid, monkeypatch):
+    """The staged route's launches (the masked top-k, counted here on the
+    CPU by a stand-in wrapper) add up over its devices' stages to S x dp a
+    batch, as the one graph's: over four named devices (S = 4) and forced
+    over [dp 2, S 4] on one."""
+    def kernel(*a, **kw):
+        kernel.launches += 1
+        return masked(*a, **kw)
+
+    masked, kernel.launches = tengine.masked_topk, 0
+    monkeypatch.setattr(tengine, "masked_topk", kernel)
+    monkeypatch.setattr(compiled, "COUNTED", (kernel,))
+    te = toy["te"]
+    if grid == "named":
+        serving, per = _sharded_serving(te.store, te.lexicon, te.cfg,
+                                        make_mesh(4, devices=NAMED)), 4
+    else:
+        serving, per = _forced(monkeypatch, lambda: _sharded_serving(
+            te.store, te.lexicon, te.cfg, make_serve_mesh(2, 4, devices=CPU))), 8
+    eager = _eager_twin(serving)
+    programs = _staged(serving)
+    batch = _reqs(4)[1]
+    for _ in range(4):
+        got = serving.search(batch, k=K)
+    assert kernel.launches == 4 * per
+    assert [_fields(r) for r in got] == [_fields(r) for r in eager.search(batch, k=K)]
+    arms = [e for key, e in programs.graphs.items() if key[0][1] == "arms"]
+    assert sum(e.deltas[0] for e in arms) == per
+    assert all(e.deltas == (0,) for key, e in programs.graphs.items() if key[0][1] != "arms")
+    assert programs.replays == 3 * len(programs.graphs)
+
+
+def test_staged_graphs_drop_on_every_device_after_reshard(monkeypatch):
+    """Over four named devices, the stages' tables are each device's own: a
+    refresh that copies rows keeps every graph; a grow and a refresh past
+    _REBUILD_ROWS re-shard, and the next batch drops every device's graphs
+    and captures anew on each; the results stay the eager program's."""
+    cfg = dataclasses.replace(tget_config(), initial_capacity=1024)
+    lex = ttesting.sample_lexicon()
+    store = TStore(cfg, device="cpu")
+    store.add_chunks(ttesting.toy_corpus(lex, pad_docs=30))
+    serving = _sharded_serving(store, lex, cfg, make_mesh(4, devices=NAMED))
+    eager, programs = _eager_twin(serving), _staged(serving)
+    tse = serving.sharded
+    batch = _reqs(4)[1]
+
+    def same():
+        got = serving.search(batch, k=K)
+        assert [_fields(r) for r in got] == [_fields(r) for r in eager.search(batch, k=K)]
+
+    same()
+    assert [p.captures for p in programs.by_device.values()] == [3, 2, 2, 2]
+    for si, dev in enumerate(tse.groups[0]):
+        held = next(iter(programs[dev].graphs.values())).held
+        assert any(t is tse.shards[0][si].vectors for t in held)
+        assert not any(t is tse.shards[0][(si + 1) % 4].vectors for t in held)
+    before = dict(programs.graphs)
+    _add(store, "fresh")
+    same()
+    assert all(programs.graphs[key] is e for key, e in before.items())  # in place: kept
+    n = store.capacity - store.size + 1  # one row past capacity: a grow
+    embs = ttesting.hash_embed([f"growth row {i}" for i in range(n)])
+    store.add_chunks([TRecord(chunk_id=f"g{i}", doc_id=f"g{i}", text=f"growth row {i}",
+                              embedding=embs[i]) for i in range(n)])
+    same()
+    assert [p.captures for p in programs.by_device.values()] == [6, 4, 4, 4]
+    assert not {id(e) for e in programs.graphs.values()} & {id(e) for e in before.values()}
+    monkeypatch.setattr(tsharded, "_REBUILD_ROWS", 0)
+    _add(store, "many")
+    same()
+    assert [p.captures for p in programs.by_device.values()] == [9, 6, 6, 6]
+    assert len(programs.graphs) == 9
 
 
 def _shards_equal_store(tse) -> None:
@@ -935,6 +1094,58 @@ def test_sharded_graphs_bitwise_on_card(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_SHARDED_CASES))
+def test_staged_graphs_bitwise_on_card(case, monkeypatch):
+    """The staged route, forced over a grid of this card (one graph per
+    stage: every shard on the one device, the joins same-device copies),
+    against the same engine eager, bitwise, through the write sequence of
+    test_sharded_graphs_bitwise_on_card (a refresh in place or a re-shard,
+    a d-tag publish, a grow), the masked top-k launched S x dp times a
+    batch; then against the one-graph route on the same store, bitwise,
+    through another refresh and another grow (a re-shard)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mobius_rag_tpu_torch.ops.topk import masked_topk
+
+    serving = _forced(monkeypatch, lambda: _sharded_case(case, "cuda"))
+    tse = serving.sharded
+    assert serving.graphs and isinstance(serving.programs, compiled.ProgramsByDevice)
+    exact = tse.vector_backend == "exact"
+    _writes_replay_bitwise(serving, masked_topk if exact else None,
+                           len(tse.groups) * tse.num_shards if exact else None)
+    assert {key[0][1] for key in serving.programs.graphs} == {"count", "arms", "merge"}
+    one = _sharded_serving(serving.store, serving.lexicon, tse.cfg, tse.mesh,
+                           vector_backend=tse.vector_backend)
+    assert one.graphs and one.sharded.one_device
+    batches = _card_batches()
+
+    def same(tag):
+        # one ANN build for both (two k-means builds on the card need not agree)
+        for t in (tse, one.sharded):
+            t.refresh()
+        if not exact:
+            tse.ensure_ann()
+            one.sharded._ann, one.sharded._ann_generation, one.sharded._ann_backend = \
+                tse._ann, tse._ann_generation, tse._ann_backend
+        for b in batches:
+            want = [_fields(r) for r in one.search(b, k=K)]
+            assert [_fields(r) for r in serving.search(b, k=K)] == want, tag
+        piped = serving.search_pipelined(batches, k=K)
+        assert [[_fields(r) for r in b] for b in piped] == \
+            [[_fields(r) for r in b] for b in one.search_pipelined(batches, k=K)], tag
+
+    same("first")
+    batches.append(_add(serving.store, "again"))
+    same("after a refresh")
+    store = serving.store
+    n = store.capacity - store.size + 1
+    embs = ttesting.hash_embed([f"regrowth row {i}" for i in range(n)])
+    store.add_chunks([TRecord(chunk_id=f"r{i}", doc_id=f"r{i}", text=f"regrowth row {i}",
+                              embedding=embs[i]) for i in range(n)])
+    same("after a re-shard")
+
+
+@pytest.mark.cuda
 def test_sharded_writer_thread_on_card():
     """A writer thread publishes documents and refresh()es the sharded
     engine (as the API's publish handlers do) while another thread searches
@@ -944,10 +1155,26 @@ def test_sharded_writer_thread_on_card():
     returns."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    _writer_and_searcher(_sharded_case("exact_S4", "cuda"))
+
+
+@pytest.mark.cuda
+def test_staged_writer_thread_on_card(monkeypatch):
+    """The writer and the searching thread of
+    test_sharded_writer_thread_on_card on the staged route (forced over
+    [cuda:0] * 4: one graph per stage, joined by same-device copies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    serving = _forced(monkeypatch, lambda: _sharded_case("exact_S4", "cuda"))
+    assert isinstance(serving.programs, compiled.ProgramsByDevice)
+    _writer_and_searcher(serving)
+
+
+def _writer_and_searcher(serving: TEngine) -> None:
     import threading
 
-    serving = _sharded_case("exact_S4", "cuda")
     store, tse = serving.store, serving.sharded
+    assert serving.graphs
     batches = _card_batches()
     errors, published = [], []
 

@@ -111,7 +111,7 @@ def _tokens(vocab, seed=0):
 
 
 def _port_module(tcfg, params):
-    return tenc.Encoder(tcfg, tenc.params_from_numpy(params)).requires_grad_(True)
+    return tenc.Encoder(tcfg, tenc.params_from_numpy(params), device="cpu").requires_grad_(True)
 
 
 def _port_grads(tcfg, params, q, d):
@@ -214,7 +214,7 @@ def test_contrastive_grads_match_jax(dtype, hybrid):
 def test_missing_gradient_is_zero_not_none():
     """The anchor takes no gradient, yet gets a zero one, so AdamW decays it."""
     _, tcfg = _cfgs(hybrid=True)
-    m = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(0)))
+    m = tenc.Encoder(tcfg, tenc.init_params(tcfg, torch.Generator().manual_seed(0)), device="cpu")
     m.requires_grad_(True)
     q, d = _tokens(tcfg.vocab_size)
     loss, _ = ttrain.contrastive_loss(m, torch.from_numpy(q), torch.from_numpy(d), 20.0)
@@ -321,7 +321,8 @@ def test_loss_trajectory_follows_jax():
         module, topt, tm = tstep(module, topt, tbatch(q), tbatch(d))
         assert abs(float(tm["loss"]) - float(jm["loss"])) <= TRAJ_REL * float(jm["loss"])
     assert float(tm["loss"]) < 0.5 * ttrain.contrastive_loss(
-        tenc.Encoder(tcfg, tenc.params_from_numpy(params)), torch.from_numpy(q).long(),
+        tenc.Encoder(tcfg, tenc.params_from_numpy(params), device="cpu"),
+        torch.from_numpy(q).long(),
         torch.from_numpy(d).long(), 20.0)[0].item()
 
 

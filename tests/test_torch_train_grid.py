@@ -172,7 +172,7 @@ def test_grid_forward_equals_encoder(dp, tp):
     _, tcfg = _cfgs(hybrid=True)
     params = tenc.init_params(tcfg, torch.Generator().manual_seed(3))
     q, _ = _tokens(tcfg.vocab_size)
-    want = tenc.Encoder(tcfg, params)(torch.from_numpy(q)).detach()
+    want = tenc.Encoder(tcfg, params, device="cpu")(torch.from_numpy(q)).detach()
     mesh = _grid(dp, tp)
     grid = tenc.shard_tree(params, tenc.param_specs(tcfg), mesh)
     row = tenc.GridEncoder(tcfg, list(grid[0]), list(mesh.devices[0]))
@@ -438,7 +438,7 @@ def test_entry_forward_matches_jax_entry():
                              mlp_dim=2048, max_seq=128, out_dim=1536, dtype="float32")
     jcfg = jenc.EncoderConfig(**dataclasses.asdict(cfg))
     want32 = np.asarray(jenc.encode_jit(jparams, jtokens, jcfg))
-    got32 = tenc.Encoder(cfg, carried)(tokens).detach().numpy()
+    got32 = tenc.Encoder(cfg, carried, device="cpu")(tokens).detach().numpy()
     assert np.abs(got32 - want32).max() <= F32_TOL
 
 
