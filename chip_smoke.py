@@ -74,8 +74,11 @@ and, with aiohttp, the routes and the index RPC over a live server
 device grid (``models.train.GridModel``: Megatron tensor parallelism
 over tp, the batch over dp), every grid position on this card, as (dp 4,
 tp 2) and (dp 2, tp 4) on phase 9's batches, its first loss held to
-phase 9a's, and one tiny grid step held against its CPU twin; then it
-runs ``graft_entry.dryrun_multichip(8)`` over this card named 8 times.
+phase 9a's, captured as one graph and, forced, as the segment graphs of a
+grid over several cards (``models/segments.py``), each against eager in
+turns, and one tiny grid step on each route held against its CPU twin;
+then it runs ``graft_entry.dryrun_multichip(8)`` over this card named 8
+times.
 The phases run in the order 1, 2, 3 (with 6 and the 70k part of 10a and
 11's profiler), 3b, 4 (with 6, 8, 10a and 10b), 5 (with 8b and 10c), 7
 (with 7d and 11), 9, 12: phase 5 chooses its N from the time left, and
@@ -93,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import time
 
@@ -967,11 +971,20 @@ def _exact_top(vectors: torch.Tensor, q: torch.Tensor, k: int) -> np.ndarray:
     return best_i.cpu().numpy()
 
 
-def _device_profile(run, n_batches: int, dev) -> tuple[dict, float, float]:
+# the host's calls that put work on a device: kernel launches, graph
+# launches (a replay), copies and fills
+HOST_OP = re.compile(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
+
+
+def _device_profile(run, n_batches: int, dev, counts: dict | None = None
+                    ) -> tuple[dict, float, float]:
     """torch.profiler over run(), which runs n_batches batches (or steps):
     (device ms per batch by kernel name, device operations per batch, wall
     ms per batch). Counts the device-side events only (the CPU-side
-    operator events carry their kernels' time too)."""
+    operator events carry their kernels' time too). `counts`, where given,
+    takes "host_ops": the host's CUDA calls that launch a kernel or a graph
+    or enqueue a copy or a fill, per batch (HOST_OP), 0 where the profiler
+    recorded none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -986,7 +999,7 @@ def _device_profile(run, n_batches: int, dev) -> tuple[dict, float, float]:
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3 / n_batches
     by_name: dict = {}
-    n_ops = 0
+    n_ops = host = 0
     for ev in prof.events():
         # a user annotation's device range (e.g. the optimizer's step) spans
         # kernels that are counted on their own
@@ -995,6 +1008,10 @@ def _device_profile(run, n_batches: int, dev) -> tuple[dict, float, float]:
             name = name.split("<")[0].split("(")[0] or ev.name[:40]
             by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n_batches
             n_ops += 1
+        elif HOST_OP.match(ev.name):
+            host += 1
+    if counts is not None:
+        counts["host_ops"] = host / n_batches
     return by_name, n_ops / n_batches, wall
 
 
@@ -3124,21 +3141,23 @@ def _reset_train(model, opt, params) -> None:
                 t.zero_()
 
 
-def train_step_twin(dev: str = "cuda", grid: tuple[int, int] | None = None
-                    ) -> tuple[float, float, float]:
+def train_step_twin(dev: str = "cuda", grid: tuple[int, int] | None = None,
+                    segmented: bool = False) -> tuple[float, float, float]:
     """One step of train_demo's tiny config (float32 activations) on `dev`
     and on the CPU copy of the same parameters and tokens, on one device or
     over a (dp, tp) `grid` of the device named dp x tp times: (gradients'
     worst difference relative to each parameter's largest |gradient|, the
     updates' worst difference above TWIN_FLOOR, the share of elements below
-    it). On a card the step is captured, and the step held against the
-    CPU's is a replay: the first step (eager, then the capture) is undone
-    in place before it."""
+    it). On a card the step is captured (`segmented`: on the route of a
+    grid over several cards, forced, its segment graphs), and the step held
+    against the CPU's is a replay of every graph: the first step (eager,
+    then the captures) is undone in place before it."""
     import dataclasses
 
     from mobius_rag_tpu_torch.models.encoder import EncoderConfig, init_params
     from mobius_rag_tpu_torch.models.train import TrainConfig, demo_tokens, make_train_step
     from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
+    from mobius_rag_tpu_torch.query.compiled import ProgramsByDevice
 
     cfg = dataclasses.replace(EncoderConfig.tiny(), dtype="float32")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -3147,7 +3166,11 @@ def train_step_twin(dev: str = "cuda", grid: tuple[int, int] | None = None
     for where in (dev, "cpu"):
         mesh = None if grid is None else \
             make_train_mesh(*grid, devices=[where] * (grid[0] * grid[1]))
-        step, shard, batch, init = make_train_step(cfg, TrainConfig(), mesh, device=where)
+        with _forced_stages() if segmented and where == dev else contextlib.nullcontext():
+            step, shard, batch, init = make_train_step(cfg, TrainConfig(), mesh, device=where)
+        if segmented and where == dev and torch.device(dev).type == "cuda" and \
+                not isinstance(step.programs, ProgramsByDevice):
+            raise AssertionError("the grid step is not on the segmented route")
         module = shard(_to(params, where))
         before = [p.detach().clone() for p in module.parameters()]
         opt = init(module)
@@ -3156,8 +3179,8 @@ def train_step_twin(dev: str = "cuda", grid: tuple[int, int] | None = None
             step(module, opt, qb, db)
             _reset_train(module, opt, _to(params, where))
         module, opt, _ = step(module, opt, qb, db)
-        if step.programs is not None and step.programs.replays != 1:
-            raise AssertionError(f"the step on {where} was not a replay of its graph")
+        if step.programs is not None and step.programs.replays != step.programs.captures:
+            raise AssertionError(f"the step on {where} was not a replay of its graphs")
         out[where] = ([p.grad.detach().cpu() for p in module.parameters()],
                       [(p.detach() - b).cpu() for p, b in zip(module.parameters(), before)])
     grad_err, step_err, below, total = 0.0, 0.0, 0, 0
@@ -3220,7 +3243,7 @@ def _train_modes(dev) -> tuple:
 
 
 def _train_turns(name: str, trainers: dict, model, opt, params, blocks: list, n_timed: int,
-                 n_prof: int, dev) -> list[dict]:
+                 n_prof: int, dev, state_bitwise: bool = True) -> list[dict]:
     """The training step eager (`trainers[False]`) against captured
     (`trainers[True]`) on one model and optimizer, in turns (eager, graph,
     graph, eager), each from `params` and a zero optimizer state over the
@@ -3229,18 +3252,23 @@ def _train_turns(name: str, trainers: dict, model, opt, params, blocks: list, n_
     steps, `n_timed` between CUDA events and `n_prof` more (profiled in the
     first two turns). Returns per turn: graphs, ms of the timed steps,
     (loss, accuracy) of every step, and where profiled the device's busy ms,
-    the wall ms, the device operations and the top kernels a step. Raises
-    unless the graph turns' per-step losses and accuracies equal the eager
-    turns' (bitwise, or within the spread of the two eager turns where
-    those differ)."""
+    the wall ms, the device operations, the host's operations and the top
+    kernels a step. Raises unless the graph turns' per-step losses and
+    accuracies equal the eager turns' (bitwise, or within the spread of the
+    two eager turns where those differ), and, where the two eager turns end
+    on bitwise equal parameters and optimizer state, unless every turn does
+    (`state_bitwise`; else that is only printed)."""
     import gc
 
     from mobius_rag_tpu_torch.models.encoder import seq_bucket
+    from mobius_rag_tpu_torch.models.train import _held
 
-    firsts = {}
+    firsts = {}  # one block of each key, of every trainer's keys
+    keys = [step.key for step, *_ in trainers.values() if hasattr(step, "key")]
     for qs, ds in blocks:
-        firsts.setdefault((seq_bucket(qs).shape, seq_bucket(ds).shape), (qs, ds))
-    turns = []
+        firsts.setdefault((seq_bucket(qs).shape, seq_bucket(ds).shape,
+                           *(key(seq_bucket(qs), seq_bucket(ds)) for key in keys)), (qs, ds))
+    turns, first = [], None
     gc.collect()
     gc.freeze()  # no full collection inside a timed or profiled window
     try:
@@ -3261,18 +3289,26 @@ def _train_turns(name: str, trainers: dict, model, opt, params, blocks: list, n_
             ms, _ = _timed_steps(step, TRAIN_WARMUP, n_timed, dev)
             turn = {"graphs": graphs, "ms": ms}
             if len(turns) < 2:
+                counts: dict = {}
                 by_name, n_ops, wall = _device_profile(lambda: [step() for _ in range(n_prof)],
-                                                       n_prof, dev)
+                                                       n_prof, dev, counts)
                 turn.update(busy=sum(by_name.values()), device_ops=n_ops, wall_ms=wall,
+                            host_ops=counts["host_ops"],
                             top=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
             else:
                 for _ in range(n_prof):
                     step()
             _sync(dev)
             turn["steps"] = [(float(m["loss"]), float(m["accuracy"])) for m in every]
+            with torch.no_grad():  # the parameters and the optimizer's state it ends on
+                state = _held(model, opt)
+                if first is None:
+                    first = [t.clone() for t in state]
+                turn["state_equal"] = all(torch.equal(t, f) for t, f in zip(state, first))
             turns.append(turn)
     finally:
         gc.unfreeze()
+        del first
 
     def gap(steps, other) -> float:
         return max(abs(x - y) for a, b in zip(steps, other) for x, y in zip(a, b))
@@ -3286,9 +3322,14 @@ def _train_turns(name: str, trainers: dict, model, opt, params, blocks: list, n_
                                  f"per-step losses differ from the first eager turn's by "
                                  f"{diff} (the eager turns' spread {spread}): {t['steps']} "
                                  f"against {eager[0]}")
+    same = [t["state_equal"] for t in turns]
+    if state_bitwise and turns[-1]["state_equal"] and not all(same):
+        raise AssertionError(f"{name}: the eager turns end on bitwise equal parameters and "
+                             f"optimizer state, the turns {same} (against the first)")
     log(f"{name}: per-step losses and accuracies of every turn "
         f"{'bitwise equal' if spread == 0 else f'within the eager turns spread {spread}'}"
-        f" ({len(eager[0])} steps a turn, turns eager, graph, graph, eager on a card)")
+        f" ({len(eager[0])} steps a turn, turns eager, graph, graph, eager on a card); final "
+        f"parameters and optimizer state bitwise equal to the first turn's: {same}")
     return turns
 
 
@@ -3306,18 +3347,27 @@ def _turn_lines(name: str, turns: list, trainers: dict, batch: int, flops: list,
                 f"{batch / med * 1e3:.1f} pairs/s, train_mfu {_on_card(mfu, '.4f', dev)}")
         if "busy" in t:
             share = _on_card(100 * t["busy"] / t["wall_ms"], ".1f", dev, "%")
+            host = (f"{t['host_ops']:.0f}" if t["host_ops"] else "not measured (no runtime "
+                    "events)")
             line += (f"; profiled step: device busy {_on_card(t['busy'], '.2f', dev, ' ms')} of "
                      f"{t['wall_ms']:.2f} ms ({share}), device operations (kernels and copies) "
-                     f"{_on_card(t['device_ops'], '.0f', dev)}; top kernels (ms a step) "
+                     f"{_on_card(t['device_ops'], '.0f', dev)}, host operations (kernel and "
+                     f"graph launches, copies, fills) {host}; top kernels (ms a step) "
                      f"{ {k[:60]: round(v, 3) for k, v in t['top'].items()} }")
         log(line + f" on {smi}")
         t["median_ms"], t["mfu"] = med, mfu
     if True in trainers:
-        cache = trainers[True][0].programs
+        step = trainers[True][0]
+        cache = step.programs
         cms = cache.capture_ms
+        route = "" if not hasattr(step, "ops_per_step") else (
+            f"; the route's host operations a step {step.ops_per_step} (replays, copies, "
+            f"uploads), {step.graphs_per_key} graphs a step replays; rows' towers "
+            f"captured {len(step._rows)} (one a width), keys {len(step._keys)}")
         log(f"{name}: {cache.captures} captures (ms median {np.median(cms):.1f}, max "
-            f"{max(cms):.1f}), {cache.replays} replays, {len(cache.graphs)} graphs kept; the "
-            f"graphs' pool holds {cache.pool_bytes() / 2**20:.1f} MiB on {smi}")
+            f"{max(cms):.1f}, sum {sum(cms) / 1e3:.2f} s), {cache.replays} replays, "
+            f"{len(cache.graphs)} graphs kept; the graphs' pool holds "
+            f"{cache.pool_bytes() / 2**20:.1f} MiB{route} on {smi}")
 
 
 def phase9a_encoder_train(smi: str, store, pairs, cfg, dev: str = "cuda") -> dict:
@@ -3715,10 +3765,13 @@ def _release_sharded(tse) -> None:
 
 @contextlib.contextmanager
 def _forced_stages():
-    """Sharded engines built inside serve a grid of this one card by the
-    route of a grid over several cards: one CUDA graph per device and stage
-    (strict counts, arm scans, merge), the stages joined by copies outside
-    any graph (here all on this card: same-device copies)."""
+    """Sharded engines and grid trainers built inside take a grid of this
+    one card by the route of a grid over several cards (the predicate both
+    read, ``parallel.sharded.on_one_device``, answers False): an engine one
+    CUDA graph per device and stage (strict counts, arm scans, merge), a
+    trainer segment graphs per grid position (``models/segments.py``),
+    joined by copies outside any graph (here all on this card:
+    same-device copies)."""
     from mobius_rag_tpu_torch.parallel import sharded
 
     saved = sharded.on_one_device
@@ -4408,8 +4461,11 @@ def phase12a_grid_train(smi: str, pairs, cfg, loss_step1: float, dev: str = "cud
     between CUDA events, one profiled): ms per step, pairs/s, busy share,
     device operations, captures and pool, peak device memory and each
     step's loss (the graph turns' equal to the eager turns'); step 1's loss
-    within GRID_LOSS_REL of phase 9a's (`loss_step1`). Then one tiny
-    float32 step over a (4, 2) grid, captured, against its CPU twin."""
+    within GRID_LOSS_REL of phase 9a's (`loss_step1`). On a card each grid
+    then trains on the route of a grid over several cards, forced
+    (`_segmented_turns`: segment graphs against eager in turns, host
+    operations a step). Then one tiny float32 step over a (4, 2) grid,
+    captured (one graph, then segment graphs), against its CPU twin."""
     from mobius_rag_tpu_torch.models.data import pretokenized_batches
     from mobius_rag_tpu_torch.models.encoder import flops_per_token, init_params, seq_bucket
     from mobius_rag_tpu_torch.models.tokenizer import HashTokenizer
@@ -4439,7 +4495,8 @@ def phase12a_grid_train(smi: str, pairs, cfg, loss_step1: float, dev: str = "cud
             f"{cfg.max_seq}, vocab {cfg.vocab_size}, out {cfg.out_dim}, {cfg.dtype} "
             f"activations), batch {TRAIN_BATCH}: sharded and AdamW set up in "
             f"{time.perf_counter() - t0:.2f} s")
-        turns = _train_turns(name, trainers, model, opt, params, blocks, GRID_TIMED, 1, dev)
+        turns = _train_turns(name, trainers, model, opt, params, blocks, GRID_TIMED, 1, dev,
+                             state_bitwise=False)
         _turn_lines(name, turns, trainers, TRAIN_BATCH, flops, smi, dev)
         peak = _peak_gib(dev)
         losses = [loss for loss, _ in turns[0]["steps"]]
@@ -4454,16 +4511,71 @@ def phase12a_grid_train(smi: str, pairs, cfg, loss_step1: float, dev: str = "cud
             f"{GRID_LOSS_REL}); peak device memory {_on_card(peak, '.2f', dev, ' GiB')}; "
             f"{time.perf_counter() - t0:.1f} s on {smi}")
         out[(dp, tp)] = {"turns": turns, "peak_gib": peak, "losses": losses}
+        if on_card:
+            trainers[True][0].programs.clear()  # its pool goes before the segments'
+            out[(dp, tp)]["segmented"] = _segmented_turns(
+                name, cfg, mesh, trainers[False], model, opt, params, blocks, flops, turns,
+                smi, dev)
         del model, opt, trainers
-    grad_err, step_err, below = train_step_twin(dev, grid=(4, 2))
-    if on_card and not (grad_err <= TWIN_GRAD and step_err <= TWIN_STEP):
-        raise AssertionError(f"phase 12a: the card's grid step differs from its CPU twin: "
-                             f"gradients {grad_err} (bound {TWIN_GRAD}), updates {step_err} "
-                             f"(bound {TWIN_STEP})")
-    log(f"phase 12a: tiny float32 grid (4, 2) step on {dev} "
-        f"({'a replay of its graph' if on_card else 'eager'}) vs its CPU twin: gradients max "
-        f"rel diff {grad_err:.2e} (bound {TWIN_GRAD}), updates max |diff| {step_err:.2e} "
-        f"(bound {TWIN_STEP}) where |g| >= {TWIN_FLOOR} x max ({100 * below:.3f}% below)")
+    for segmented in (False, True) if on_card else (False,):
+        grad_err, step_err, below = train_step_twin(dev, grid=(4, 2), segmented=segmented)
+        route = "segment graphs, forced" if segmented else "its graph"
+        if on_card and not (grad_err <= TWIN_GRAD and step_err <= TWIN_STEP):
+            raise AssertionError(f"phase 12a: the card's grid step ({route}) differs from its "
+                                 f"CPU twin: gradients {grad_err} (bound {TWIN_GRAD}), updates "
+                                 f"{step_err} (bound {TWIN_STEP})")
+        log(f"phase 12a: tiny float32 grid (4, 2) step on {dev} "
+            f"({f'a replay of {route}' if on_card else 'eager'}) vs its CPU twin: gradients "
+            f"max rel diff {grad_err:.2e} (bound {TWIN_GRAD}), updates max |diff| "
+            f"{step_err:.2e} (bound {TWIN_STEP}) where |g| >= {TWIN_FLOOR} x max "
+            f"({100 * below:.3f}% below)")
+    return out
+
+
+SEGMENTED_HOST_SHARE = 0.25  # the segmented step's host operations against eager's, at (4, 2)
+
+
+def _segmented_turns(name: str, cfg, mesh, eager, model, opt, params, blocks: list,
+                     flops: list, one: list, smi: str, dev) -> dict:
+    """The grid's step on the route of a grid over several cards, forced on
+    this card (segment graphs: ``_forced_stages``), against the eager step
+    in turns (eager, segmented, segmented, eager) on the one-graph turns'
+    model, optimizer and batches (`one`: those turns), as ``_train_turns``
+    checks them; then the host's operations a step, segmented against
+    eager (under SEGMENTED_HOST_SHARE at (4, 2)), and ms a step beside the
+    one graph's."""
+    from mobius_rag_tpu_torch.models.train import TrainConfig, make_train_step
+    from mobius_rag_tpu_torch.query.compiled import ProgramsByDevice
+
+    name = f"{name} segmented"
+    t0 = time.perf_counter()
+    with _forced_stages():
+        trainers = {False: eager, True: make_train_step(cfg, TrainConfig(), mesh, graphs=True)}
+    if not isinstance(trainers[True][0].programs, ProgramsByDevice):
+        raise AssertionError(f"{name}: not the segmented route")
+    turns = _train_turns(name, trainers, model, opt, params, blocks, GRID_TIMED, 1, dev)
+    _turn_lines(name, turns, trainers, TRAIN_BATCH, flops, smi, dev)
+    host = [t["host_ops"] for t in turns[:2]]
+    if torch.device(dev).type == "cuda" and not (host[0] and host[1]):
+        raise AssertionError(f"{name}: the profiler counted no host operations ({host}): "
+                             "the share cannot be measured")
+    share = host[1] / host[0] if host[0] else None
+    if share is not None and tuple(mesh.devices.shape) == (4, 2) and \
+            share >= SEGMENTED_HOST_SHARE:
+        raise AssertionError(f"{name}: {host[1]:.0f} host operations a step against eager's "
+                             f"{host[0]:.0f} (share {share:.3f}, bound {SEGMENTED_HOST_SHARE})")
+    med = {label: [float(np.median(t["ms"])) for t in ts if t["graphs"] == g]
+           for label, ts, g in (("eager", turns, False), ("segmented", turns, True),
+                                ("one graph", one, True))}
+    log(f"{name}: ms a step (median of each turn) "
+        f"{ {k: [round(x, 2) for x in v] for k, v in med.items()} }; host operations a step "
+        f"eager {host[0]:.0f}, segmented {host[1]:.0f} "
+        f"({'share not measured' if share is None else f'share {share:.3f}'}); "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    step = trainers[True][0]
+    out = {"turns": turns, "host_ops": host, "share": share, "ops_per_step": step.ops_per_step,
+           "graphs_per_key": step.graphs_per_key}
+    step.programs.clear()
     return out
 
 

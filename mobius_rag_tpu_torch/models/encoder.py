@@ -27,7 +27,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
+from typing import Callable
 
 import numpy as np
 import torch
@@ -444,10 +446,120 @@ def gather_tree(grid: np.ndarray, specs: dict, mesh) -> dict:
     return tree_map(whole, specs, *grid.flat)
 
 
-def _cols(shards: list[torch.Tensor], home: torch.device) -> torch.Tensor:
-    """A column-split table whole on ``home`` (differentiable: each shard
-    receives its columns' gradient)."""
-    return torch.cat([t.to(home) for t in shards], dim=1)
+@dataclasses.dataclass(eq=False)
+class Piece:
+    """One step of a dp row's forward on one grid position: ``fn(env)``
+    reads the names ``reads`` from ``env`` and writes ``writes``."""
+    pos: tuple
+    reads: tuple
+    writes: tuple
+    fn: Callable[[dict], None]
+
+
+def row_pieces(cfg: EncoderConfig, tower: str, i: int, tp: int) -> list[Piece]:
+    """Row i's forward in tensor-parallel form as pieces, in order (the one
+    definition of it: ``GridEncoder`` runs them eagerly, the segmented
+    training step captures runs of them, ``models/segments.py``). Names:
+    (tower, i, ...) for activations, ("p", i, j, *path) for grid position
+    (i, j)'s parameters. The embedding and the first norm, then per layer
+    each shard's attention on its position, the psum of the partials, the
+    residual and the next norm on the row's first position, each shard's
+    MLP, the psum, the residual and the next norm; then the final norm,
+    the pooling and the projection."""
+    def a(*s):
+        return (tower, i) + s
+
+    def w(j, *path):
+        return ("p", i, j) + path
+
+    home, dt, scale, last = (i, 0), cfg.torch_dtype, _scale(cfg), cfg.num_layers - 1
+    shards = range(tp)
+    pieces = []
+
+    def embed(env):
+        tokens = env[a("tok")].long()
+        mask = tokens != PAD_ID
+        x = _embed_tokens(tokens, torch.cat([env[w(j, "embed")] for j in shards], dim=1),
+                          torch.cat([env[w(j, "pos")] for j in shards], dim=1), dt)
+        env[a("tokens")], env[a("mask")], env[a("x", 0)] = tokens, mask, x
+        env[a("y", 0)] = _rms_norm(x, env[w(0, "layers", 0, "ln1_scale")])
+
+    pieces.append(Piece(home, (a("tok"), *(w(j, t) for t in ("embed", "pos") for j in shards),
+                               w(0, "layers", 0, "ln1_scale")),
+                        (a("tokens"), a("mask"), a("x", 0), a("y", 0)), embed))
+
+    def attention(env, l, j):
+        env[a("pa", l, j)] = _attention(env[a("y", 2 * l)], env[a("mask")],
+                                        env[w(j, "layers", l, "qkv")],
+                                        env[w(j, "layers", l, "attn_out")], scale)
+
+    def mlp(env, l, j):
+        env[a("pm", l, j)] = _mlp(env[a("y", 2 * l + 1)], env[w(j, "layers", l, "mlp_in")],
+                                  env[w(j, "layers", l, "mlp_out")])
+
+    def residual(env, s, part, l, norm):  # the psum over tp, the residual, a norm
+        total = env[a(part, l, 0)]
+        for j in shards[1:]:
+            total = total + env[a(part, l, j)]
+        x = env[a("x", s - 1)] + total
+        env[a("x", s)] = x
+        if norm is not None:
+            env[a("y", s)] = _rms_norm(x, env[norm])
+
+    def head(env):
+        x = _rms_norm(env[a("x", 2 * last + 2)], env[w(0, "ln_f_scale")])
+        anchor = ((torch.cat([env[w(j, "anchor_proj")] for j in shards], dim=1),
+                   env[w(0, "alpha")]) if cfg.hybrid_anchor else ())
+        env[a("out")] = _pool_project(cfg, x, env[a("mask")], env[a("tokens")],
+                                      torch.cat([env[w(j, "proj")] for j in shards], dim=1),
+                                      *anchor)
+
+    for l in range(cfg.num_layers):
+        for part, s, fn, params in (("pa", 2 * l + 1, attention, ("qkv", "attn_out")),
+                                    ("pm", 2 * l + 2, mlp, ("mlp_in", "mlp_out"))):
+            for j in shards:
+                reads = (a("y", s - 1), *((a("mask"),) if part == "pa" else ()),
+                         *(w(j, "layers", l, p) for p in params))
+                pieces.append(Piece((i, j), reads, (a(part, l, j),),
+                                    functools.partial(fn, l=l, j=j)))
+            if part == "pa":
+                norm = w(0, "layers", l, "ln2_scale")
+            else:
+                norm = w(0, "layers", l + 1, "ln1_scale") if l < last else None
+            pieces.append(Piece(home, (a("x", s - 1), *(a(part, l, j) for j in shards),
+                                       *((norm,) if norm else ())),
+                                (a("x", s),) + ((a("y", s),) if norm else ()),
+                                functools.partial(residual, s=s, part=part, l=l, norm=norm)))
+    reads = [a("x", 2 * last + 2), w(0, "ln_f_scale"), a("mask"), a("tokens"),
+             *(w(j, "proj") for j in shards)]
+    if cfg.hybrid_anchor:
+        reads += [*(w(j, "anchor_proj") for j in shards), w(0, "alpha")]
+    pieces.append(Piece(home, tuple(reads), (a("out"),), head))
+    return pieces
+
+
+class _RowEnv(dict):
+    """The names of one eager run of :func:`row_pieces`: a read from a piece
+    on another device than the tensor's copies it there (``.to``, once a
+    device, differentiable: autograd carries each shard its gradient); a
+    parameter name reads its shard's leaf."""
+
+    def __init__(self, shards: list[dict], devices: list[torch.device]):
+        super().__init__()
+        self.shards, self.at, self.copies = shards, devices[0], {}
+
+    def __getitem__(self, name):
+        if (name, self.at) in self.copies:
+            return self.copies[(name, self.at)]
+        if name[0] == "p":
+            value = self.shards[name[2]]
+            for k in name[3:]:
+                value = value[k]
+        else:
+            value = super().__getitem__(name)
+        if value.device != self.at:
+            value = self.copies[(name, self.at)] = value.to(self.at)
+        return value
 
 
 class GridEncoder:
@@ -463,41 +575,21 @@ class GridEncoder:
     copy of the replicated parameters, so that each gets one gradient. The
     column-split tables are concatenated there where they are used. All of
     it is differentiable, so the backward carries each shard its gradient:
-    autograd sums the activations' gradients copied back from the shards."""
+    autograd sums the activations' gradients copied back from the shards.
+    The forward is :func:`row_pieces`, run in order, each piece on its
+    shard's device."""
 
     def __init__(self, cfg: EncoderConfig, shards: list[dict], devices: list[torch.device]):
         self.cfg, self.shards, self.devices = cfg, shards, devices
-        self.home = devices[0]
-        self.scale = _scale(cfg)
-
-    def _psum(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part.to(self.home)
-        return total
 
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, L] on the row's first device → [B, out_dim] float32 there."""
-        cfg, first, home = self.cfg, self.shards[0], self.home
-        tokens = tokens.long()
-        mask = tokens != PAD_ID
-        masks = [mask.to(d) for d in self.devices]
-
-        def table(name):
-            return _cols([s[name] for s in self.shards], home)
-
-        x = _embed_tokens(tokens, table("embed"), table("pos"), cfg.torch_dtype)
-        for li, layer in enumerate(first["layers"]):
-            ls = [s["layers"][li] for s in self.shards]
-            y = _rms_norm(x, layer["ln1_scale"])
-            x = x + self._psum([_attention(y.to(d), m, p["qkv"], p["attn_out"], self.scale)
-                                for d, m, p in zip(self.devices, masks, ls)])
-            y = _rms_norm(x, layer["ln2_scale"])
-            x = x + self._psum([_mlp(y.to(d), p["mlp_in"], p["mlp_out"])
-                                for d, p in zip(self.devices, ls)])
-        x = _rms_norm(x, first["ln_f_scale"])
-        anchor = (table("anchor_proj"), first["alpha"]) if cfg.hybrid_anchor else ()
-        return _pool_project(cfg, x, mask, tokens, table("proj"), *anchor)
+        env = _RowEnv(self.shards, self.devices)
+        env[("x", 0, "tok")] = tokens
+        for piece in row_pieces(self.cfg, "x", 0, len(self.shards)):
+            env.at = self.devices[piece.pos[1]]
+            piece.fn(env)
+        return env[("x", 0, "out")]
 
 
 def flops_per_token(cfg: EncoderConfig, length: int) -> int:

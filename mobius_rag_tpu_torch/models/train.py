@@ -38,7 +38,12 @@ the graph's static input and one replay. The key is the batch's shape:
 to bound its compiles; the port trims each token block to the encoder's
 sequence buckets (``seq_bucket``), so at most a few lengths each, and the
 buckets are the graph keys: PAD columns are masked out of attention and
-pooling, so their gradients are zero either way.
+pooling, so their gradients are zero either way. A grid whose positions
+span several devices cannot be one graph (a capture records one device's
+stream): its step is captured as segment graphs, one forward and one
+backward per run of the step on one grid position between two edges
+across devices, and a tail per position, joined by copies
+(``models/segments.py``).
 
     python -m mobius_rag_tpu_torch.models.train [--steps 200] [--batch 64]
         [--distractors 1200] [--out DIR] [--device cuda]
@@ -59,7 +64,7 @@ from mobius_rag_tpu_torch.models.encoder import (Encoder, EncoderConfig, GridEnc
                                                  check_tp, gather_tree, init_params,
                                                  param_specs, seq_bucket, shard_tree,
                                                  tree_map)
-from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms
+from mobius_rag_tpu_torch.query.compiled import LOCK, CapturedPrograms, ProgramsByDevice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +104,18 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
     and the norm is taken on the first's. Returns the norm."""
     home = grads[0].device
     norm = torch.sqrt(sum((g * g).sum().to(home) for g in grads))
-    keep = norm < max_norm
-    one = torch.ones((), device=home)
-    div, mul = torch.where(keep, one, norm), torch.where(keep, one, max_norm * one)
+    div, mul = clip_factors(norm, max_norm)
     for g in grads:
         g.div_(div.to(g.device)).mul_(mul.to(g.device))
     return norm
+
+
+def clip_factors(norm: torch.Tensor, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The clip's (divisor, multiplier) for a global norm, on its device:
+    (1, 1) below ``max_norm``, else (norm, max_norm)."""
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    return torch.where(keep, one, norm), torch.where(keep, one, max_norm * one)
 
 
 def contrastive_loss(module: "Encoder | GridModel", q_tokens, d_tokens,
@@ -115,6 +126,12 @@ def contrastive_loss(module: "Encoder | GridModel", q_tokens, d_tokens,
     batch's either way)."""
     qe = module(q_tokens)  # [B, out] normalized
     de = module(d_tokens)
+    return infonce(qe, de, temperature)
+
+
+def infonce(qe: torch.Tensor, de: torch.Tensor, temperature: float
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """contrastive_loss's (loss, accuracy) from the batch's embeddings."""
     logits = (qe @ de.T) * temperature  # [B, B]
     labels = torch.arange(logits.shape[0], device=logits.device)
     loss = 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
@@ -288,20 +305,26 @@ def _train_step(tc: TrainConfig, programs: CapturedPrograms | None, key: tuple, 
     return train_step
 
 
-def _programs(home: torch.device, devices, graphs: bool | None) -> CapturedPrograms | None:
-    """The step's captured programs, or None for an eager step. A capture
-    records one device's stream, so only a grid whose devices are all
-    ``home`` captures (``parallel.sharded.on_one_device``'s rule): a grid
-    over several devices trains eagerly, and ``graphs=True`` on it
-    raises. ``graphs=None`` captures on a card; True off a card raises."""
-    one_device = all(dev == home for dev in devices)
-    if graphs and not one_device:
-        raise ValueError("a captured training step runs on one device: this grid spans "
-                         f"{sorted({str(dev) for dev in devices})}, so it trains eagerly "
-                         "(graphs=None or False)")
+def _programs(home: torch.device, devices, graphs: bool | None, grid: bool = False
+              ) -> CapturedPrograms | ProgramsByDevice | None:
+    """The step's captured programs, or None for an eager step.
+    ``graphs=None`` captures on a card and runs eagerly on the CPU; True
+    off a card raises. A capture records one device's stream, so a grid
+    whose positions are all ``home`` (``parallel.sharded.on_one_device``,
+    the predicate the sharded engine reads) captures the whole step as one
+    graph per key (a ``CapturedPrograms``); a grid over several devices
+    captures it as segment graphs per device (a ``ProgramsByDevice``:
+    ``models/segments.py``)."""
     if graphs is None:
-        graphs = one_device and home.type == "cuda"
-    return CapturedPrograms(home) if graphs else None  # raises off a card
+        graphs = all(torch.device(d).type == "cuda" for d in devices)
+    if not graphs:
+        return None
+    if grid:
+        from mobius_rag_tpu_torch.parallel import sharded
+
+        if not sharded.on_one_device([list(devices)], home):
+            return ProgramsByDevice(devices, make=CapturedPrograms)
+    return CapturedPrograms(home)  # raises off a card
 
 
 def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="cuda",
@@ -316,14 +339,17 @@ def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="c
     on the device (copies of a captured step's static outputs).
 
     ``graphs``: None (the default) captures the step on a card and runs it
-    eagerly on the CPU; False runs it eagerly on a card too; True on the
-    CPU, or on a grid over several devices, raises. Captured, one CUDA graph
-    per (B, Lq, Ld) (and (dp, tp)) of ``train_step.programs`` (a
-    ``CapturedPrograms``: its captures, replays and pool) holds every
-    parameter and the optimizer's state: a new model or optimizer drops the
-    graphs at its first step. The first step of a key runs eagerly (its
-    result) and is then captured; a failed capture or replay raises, and
-    nothing trains eagerly after one. Every captured step holds
+    eagerly on the CPU; False runs it eagerly on a card too; True off a
+    card raises. Captured, one CUDA graph per (B, Lq, Ld) (and (dp, tp)) of
+    ``train_step.programs`` (a ``CapturedPrograms``: its captures, replays
+    and pool) holds every parameter and the optimizer's state: a new model
+    or optimizer drops the graphs at its first step. On a grid over several
+    devices the step is a ``models.segments.SegmentedStep``, its programs a
+    ``ProgramsByDevice`` of segment graphs, a key the widths of the dp parts
+    as the eager ``shard_batch`` trims them (a row's tower captured once a
+    width, a tail a key). The first step of a key runs
+    eagerly (its result) and is then captured; a failed capture or replay
+    raises, and nothing trains eagerly after one. Every captured step holds
     ``compiled.LOCK`` across its upload, its replay (or eager run and
     capture) and the copies of its metrics. ``shard_batch`` then keeps the
     batch on the host (int32, ``host_batch``): the step uploads it into
@@ -357,7 +383,7 @@ def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="c
 def _grid_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh, graphs: bool | None):
     row_devices = list(mesh.devices[:, 0])
     dp, tp = mesh.devices.shape
-    programs = _programs(mesh.devices[0, 0], list(mesh.devices.flat), graphs)
+    programs = _programs(mesh.devices[0, 0], list(mesh.devices.flat), graphs, grid=True)
 
     def shard_params(params: dict) -> GridModel:
         return GridModel(cfg, params, mesh)
@@ -378,8 +404,13 @@ def _grid_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh, graphs: bool | N
     def split(block: torch.Tensor) -> list[torch.Tensor]:
         return list(block.split(len(block) // dp))  # every row's device is the block's
 
-    return (_train_step(tc, programs, ("train", dp, tp), split), shard_params, shard_batch,
-            init_opt_state)
+    if isinstance(programs, ProgramsByDevice):
+        from mobius_rag_tpu_torch.models.segments import SegmentedStep
+
+        step = SegmentedStep(tc, mesh, programs)
+    else:
+        step = _train_step(tc, programs, ("train", dp, tp), split)
+    return step, shard_params, shard_batch, init_opt_state
 
 
 def train_encoder_on_corpus(

@@ -116,10 +116,14 @@ The training step (the port of the JAX ``train_step``, jitted with
 ``params`` and ``opt_state`` donated; ``models/train.make_train_step``) is
 captured by the same class: one instance per trainer, so one pool; the
 key is ("train",), or ("train", dp, tp) on a training grid whose devices
-are all one card (a grid over several cards trains eagerly: its tp
-all-reduces and dp gradient sums cross devices inside every layer, so the
-sharded engine's stages do not carry over), and the layout
-is the trimmed int32 token blocks' (B, Lq, Ld). The tables held are every
+are all one card, and the layout is the trimmed int32 token blocks' (B,
+Lq, Ld). A grid over several cards crosses devices inside every layer
+(the tp psum and its scatter, the dp gradient sum) in both directions, so
+its step is captured as segment graphs (``models/segments.py``): each
+segment's forward and backward graph and the tail's graphs per position,
+held by :meth:`CapturedPrograms.capture` in each device's instance of a
+:class:`ProgramsByDevice`, replayed in their capture order, joined by
+copies between them. The tables held are every
 parameter (every grid position's) and the optimizer's state, which
 ``models/train.make_optimizer`` makes before the first step: torch.optim
 would make it lazily in the first step, so that its identities changed
@@ -339,6 +343,42 @@ class CapturedPrograms:
             self.graphs.popitem(last=False)
         return answer
 
+    def capture(self, key: tuple, held: Sequence[torch.Tensor], program: Callable[[], Any]
+                ) -> _Entry:
+        """``program()`` captured as the graph of ``key``: a segment of a
+        program its caller stages, reading and writing only device tensors
+        it holds (static inputs, earlier segments' static outputs, `held`:
+        the tables it reads or writes in place, kept alive with the graph).
+        Nothing runs. Returns the entry (``.outputs``, its static outputs);
+        :meth:`replay` runs it. Unlike :meth:`run`, the caller keeps the
+        order (graphs of one pool replay in the order they were captured)
+        and the LRU: it drops a key's graphs together (:meth:`drop`)."""
+        before = [fn.launches for fn in COUNTED]
+        t0 = time.perf_counter()
+        graph, outputs = self._capture(lambda _: program(), None)
+        ms = (time.perf_counter() - t0) * 1e3
+        deltas = tuple(fn.launches - n for fn, n in zip(COUNTED, before))
+        for fn, n in zip(COUNTED, before):
+            fn.launches = n
+        entry = _Entry(graph, None, {}, outputs, tuple(held), deltas, ms)
+        self.graphs[(key, ())] = entry
+        self.captures += 1
+        self.capture_ms.append(ms)
+        return entry
+
+    def replay(self, entry: _Entry) -> None:
+        """One replay of a graph that :meth:`capture` made."""
+        with _on(self.device):
+            entry.graph.replay()
+        self.replays += 1
+        for fn, d in zip(COUNTED, entry.deltas):
+            fn.launches += d
+
+    def drop(self, keys) -> None:
+        """Forget the graphs of `keys` (:meth:`capture`'s)."""
+        for key in keys:
+            self.graphs.pop((key, ()), None)
+
     def _capture(self, program, static: dict) -> tuple[Any, Any]:
         """Capture `program` on `static` into a new graph of the shared
         pool. Returns (graph, its static outputs)."""
@@ -372,39 +412,66 @@ class ProgramsByDevice:
     """The captured programs of a program staged over several devices: one
     :class:`CapturedPrograms` per device (its own pool, capture stream and
     LRU), made up front, so that it raises off a card; ``[device]`` is
-    that device's. ``captures``, ``capture_ms``, ``replays``, ``graphs``
-    (keyed ((device, *key), layout)) and :meth:`pool_bytes` report on
-    all of them."""
+    that device's. :meth:`pool` adds instances of a named group (a pool
+    of their own on each device, for graphs whose replays interleave with
+    others'), :meth:`drop_group` releases one. ``captures``,
+    ``capture_ms``, ``replays``, ``graphs`` (keyed ((device, *key),
+    layout)) and :meth:`pool_bytes` report on all of them (the counts
+    include dropped groups')."""
 
     def __init__(self, devices: Sequence, max_graphs: int = MAX_GRAPHS,
                  make: Callable[..., CapturedPrograms] | None = None):
-        make = make or CapturedPrograms
-        self.by_device = {d: make(d, max_graphs)
+        self.make, self.max_graphs = make or CapturedPrograms, max_graphs
+        self.by_device = {d: self.make(d, max_graphs)
                           for d in dict.fromkeys(torch.device(d) for d in devices)}
+        self.groups: dict[tuple, CapturedPrograms] = {}  # (group, device) -> its programs
+        self._gone = (0, [], 0)  # dropped groups' captures, capture ms, replays
 
     def __getitem__(self, device) -> CapturedPrograms:
         return self.by_device[torch.device(device)]
 
+    def pool(self, device, group=None) -> CapturedPrograms:
+        """`device`'s programs of `group` (None: ``[device]``)."""
+        device = torch.device(device)
+        if group is None:
+            return self.by_device[device]
+        if (group, device) not in self.groups:
+            self.groups[(group, device)] = self.make(device, self.max_graphs)
+        return self.groups[(group, device)]
+
+    def drop_group(self, group) -> None:
+        """Forget `group`'s graphs on every device, and its pools."""
+        for gd in [gd for gd in self.groups if gd[0] == group]:
+            p = self.groups.pop(gd)
+            captures, ms, replays = self._gone
+            self._gone = (captures + p.captures, ms + p.capture_ms, replays + p.replays)
+            p.clear()
+
+    def _all(self) -> list[CapturedPrograms]:
+        return [*self.by_device.values(), *self.groups.values()]
+
     @property
     def captures(self) -> int:
-        return sum(p.captures for p in self.by_device.values())
+        return self._gone[0] + sum(p.captures for p in self._all())
 
     @property
     def capture_ms(self) -> list[float]:
-        return [ms for p in self.by_device.values() for ms in p.capture_ms]
+        return self._gone[1] + [ms for p in self._all() for ms in p.capture_ms]
 
     @property
     def replays(self) -> int:
-        return sum(p.replays for p in self.by_device.values())
+        return self._gone[2] + sum(p.replays for p in self._all())
 
     @property
     def graphs(self) -> dict:
-        return {((str(dev), *key), layout): entry for dev, p in self.by_device.items()
+        return {((str(p.device), *key), layout): entry for p in self._all()
                 for (key, layout), entry in p.graphs.items()}
 
     def clear(self) -> None:
         for p in self.by_device.values():
             p.clear()
+        for group in {g for g, _ in self.groups}:
+            self.drop_group(group)
 
     def pool_bytes(self) -> int:
-        return sum(p.pool_bytes() for p in self.by_device.values())
+        return sum(p.pool_bytes() for p in self._all())

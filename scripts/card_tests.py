@@ -6,6 +6,10 @@ profiling thread on one engine and encoder, the encoder's bf16 against
 float32 activations, a captured training step and a (2, 2) grid training
 step against their CPU twins, the captured training steps bitwise against
 the eager ones on one device and on a (2, 2) grid of this card, the
+segment graphs of a grid over several cards forced on this card ((2, 2)
+and (4, 1) bitwise against eager, a (4, 2) step against its CPU twin, a
+failed capture that leaves nothing behind; with four cards a (2, 2) grid
+over cuda:0..3), the
 capturable AdamW against the CPU's update, a replayed training step that
 reads nothing back, the sharded engine against the dense one, its
 captured programs bitwise against its eager one on grids of this card

@@ -56,8 +56,11 @@ from mobius_rag_tpu_torch import graft_entry
 from mobius_rag_tpu_torch.index.store import ChunkStore as TStore
 from mobius_rag_tpu_torch.models import checkpoint as tckpt
 from mobius_rag_tpu_torch.models import encoder as tenc
+from mobius_rag_tpu_torch.models import segments as tsegments
 from mobius_rag_tpu_torch.models import train as ttrain
+from mobius_rag_tpu_torch.parallel import sharded as tsharded
 from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
+from mobius_rag_tpu_torch.query import compiled
 from mobius_rag_tpu_torch.testing import sample_lexicon, toy_corpus
 from test_torch_encoder import BF16_ABS, BF16_COS, F32_TOL, _rowwise_cos
 from test_torch_train import (GRAD_F32, TRAJ_REL, TWIN_FLOOR, TWIN_GRAD, TWIN_STEP,
@@ -395,16 +398,366 @@ def test_stand_in_captured_grid_steps_equal_eager(monkeypatch):
     assert {k[0] for k in step.programs.graphs} == {("train", 2, 2)}
 
 
-def test_graphs_true_on_a_grid_over_several_devices_raises():
-    """A capture records one device's stream: a grid over several devices
-    trains eagerly (the default), and graphs=True on it raises."""
+def test_graphs_true_on_a_grid_over_several_devices_raises(monkeypatch):
+    """A grid over several devices (named CPU devices here) trains eagerly
+    off a card by default, graphs=True there raises (a capture needs a
+    card), and where captures exist (a stand-in here) it selects the
+    segmented route: a ProgramsByDevice of segment graphs."""
     _, tcfg = _cfgs()
-    mesh = make_train_mesh(1, 2, devices=["cpu", "meta"])
-    with pytest.raises(ValueError, match="one device"):
-        ttrain.make_train_step(tcfg, ttrain.TrainConfig(), mesh, graphs=True)
+    mesh = make_train_mesh(1, 2, devices=["cpu", "cpu:1"])
     assert ttrain.make_train_step(tcfg, ttrain.TrainConfig(), mesh)[0].programs is None
-    with pytest.raises(ValueError, match="CUDA device"):  # one device, not a card
-        ttrain.make_train_step(tcfg, ttrain.TrainConfig(), _grid(2, 2), graphs=True)
+    for grid in (mesh, _grid(2, 2)):  # several devices, or one that is not a card
+        with pytest.raises(ValueError, match="CUDA device"):
+            ttrain.make_train_step(tcfg, ttrain.TrainConfig(), grid, graphs=True)
+    monkeypatch.setattr(ttrain, "CapturedPrograms", SegmentStandIn)
+    step = ttrain.make_train_step(tcfg, ttrain.TrainConfig(), mesh, graphs=True)[0]
+    assert isinstance(step.programs, compiled.ProgramsByDevice)
+    assert isinstance(step, tsegments.SegmentedStep)
+    one = ttrain.make_train_step(tcfg, ttrain.TrainConfig(), _grid(2, 2), graphs=True)[0]
+    assert isinstance(one.programs, SegmentStandIn)  # one device: one graph a key
+
+
+# ---- the segmented route: a grid over several devices -------------------------
+
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    return [t for v in (x or ()) for t in _tensors(v)]
+
+
+class _Rerun:
+    """A stand-in graph: a replay runs the program again and writes what
+    it returns into the static outputs of the capture (held detached, as a
+    real graph holds memory and no autograd graph)."""
+
+    def __init__(self, program, static, outputs):
+        self.program, self.static = program, static
+        self.outputs = [t.detach() for t in _tensors(outputs)]
+
+    def replay(self):
+        new = self.program(self.static)
+        with torch.no_grad():
+            for old, value in zip(self.outputs, _tensors(new)):
+                if old.data_ptr() != value.data_ptr():
+                    old.copy_(value)
+
+
+class SegmentStandIn(StepStandIn):
+    """CapturedPrograms for the segmented route on the CPU: a capture runs
+    the segment's program once (so a forward leaves its autograd graph for
+    its backward's capture, as a real capture does) and puts back the
+    tensors it holds (the tail's parameters and optimizer state: a real
+    capture changes no state); a replay runs it again."""
+
+    def capture(self, key, held, program):
+        self._held = held
+        return super().capture(key, held, program)
+
+    def _capture(self, program, static):
+        saved = [t.detach().clone() for t in self._held]
+        outputs = program(static)
+        with torch.no_grad():
+            for t, v in zip(self._held, saved):
+                t.copy_(v)
+        return _Rerun(program, static, outputs), outputs
+
+
+@pytest.fixture
+def segmented(monkeypatch):
+    """The segmented route forced through the predicate the trainer and the
+    sharded engine share, over stand-in captures."""
+    monkeypatch.setattr(tsharded, "on_one_device", lambda groups, device: False)
+    monkeypatch.setattr(ttrain, "CapturedPrograms", SegmentStandIn)
+
+
+def _segment_cfg(dtype):
+    return _cfgs(dtype, hybrid=True, max_seq=128)[1]
+
+
+# float32 CPU matmuls on several threads differ from run to run (two eager
+# runs disagree), so float32 runs on one thread; bfloat16 agrees on any
+SEGMENT_CASES = [(2, 2, "bfloat16"), (4, 1, "bfloat16"), (2, 4, "bfloat16"),
+                 (2, 2, "float32")]
+
+
+@pytest.mark.parametrize("dp,tp,dtype", SEGMENT_CASES)
+def test_segmented_grid_steps_equal_eager(segmented, dp, tp, dtype):
+    """The segmented route (every position on the CPU, forced) bitwise the
+    eager grid step over the switching steps: per-step losses and
+    accuracies, the final parameters and the owners' gradients. At tp = 4
+    the normed stream's gradient sums four shards': only eager autograd's
+    order (the last shard first) is bitwise."""
+    threads = torch.get_num_threads()
+    if dtype == "float32":
+        torch.set_num_threads(1)
+    try:
+        cfg = _segment_cfg(dtype)
+        params = tenc.init_params(cfg, torch.Generator().manual_seed(5))
+        batches = switching_batches(cfg.vocab_size)
+        mesh = make_train_mesh(dp, tp, devices=["cpu"] * (dp * tp))
+        eager = run_steps(cfg, params, batches, mesh, graphs=False)
+        captured = run_steps(cfg, params, batches, mesh, graphs=True)
+    finally:
+        torch.set_num_threads(threads)
+    assert_steps_equal(captured, eager)
+    seen, metrics, _, step = captured
+    assert isinstance(step, tsegments.SegmentedStep)
+    assert [(float(m["loss"]), float(m["accuracy"])) for m in metrics] == seen
+
+
+def trim_apart_batches(vocab: int) -> list:
+    """Four [8, 128] blocks over a dp = 2 grid: queries of 20 tokens (64),
+    documents of 40 tokens (64) but 100 (128) in rows {0}, {5}, {0} and
+    {0, 6}, so that the document parts trim to (128, 64), (64, 128), the
+    first again, then (128, 128): each part's width seen before."""
+    rng = np.random.default_rng(3)
+
+    def block(long_rows):
+        q, d = np.zeros((8, 128), np.int32), np.zeros((8, 128), np.int32)
+        for i in range(8):
+            q[i, :20] = rng.integers(2, vocab, 20)
+            d[i, :100 if i in long_rows else 40] = rng.integers(2, vocab,
+                                                                100 if i in long_rows else 40)
+        return q, d
+
+    return [block({0}), block({5}), block({0}), block({0, 6})]
+
+
+def test_segmented_parts_trim_as_eager(segmented):
+    """Each dp part runs at its own sequence bucket, as the eager step's
+    shard_batch trims it, and blocks whose parts trim apart stay bitwise
+    eager. A key is the parts' widths, but a row's tower is captured once a
+    width: a key whose parts' widths were all seen captures only its
+    tail."""
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(7))
+    batches = trim_apart_batches(cfg.vocab_size)
+    mesh = _grid(2, 2)
+    captured = run_steps(cfg, params, batches, mesh, graphs=True)
+    assert_steps_equal(captured, run_steps(cfg, params, batches, mesh, graphs=False))
+    step = captured[3]
+    _, _, tbatch, _ = ttrain.make_train_step(cfg, ttrain.TrainConfig(), mesh)
+    q, d = batches[1]
+    assert [p.shape[1] for p in tbatch(d)] == [64, 128]  # eager's parts
+    assert step.key(q, d) == ("train", 2, 2, 8, (64, 64), (64, 128))
+    graphs = [k[0][1:] for k in step.programs.graphs]  # (device, *key): the key
+    assert {k[:6] for k in graphs if "tail" in k} == {
+        ("train", 2, 2, 8, (64, 64), (128, 64)), ("train", 2, 2, 8, (64, 64), (64, 128)),
+        ("train", 2, 2, 8, (64, 64), (128, 128))}
+    rows = {k[4:7] for k in graphs if k[4] in tsegments.TOWERS}
+    assert rows == {("q", 0, 64), ("q", 1, 64), ("d", 0, 128), ("d", 1, 64), ("d", 0, 64),
+                    ("d", 1, 128)}
+    plan = tsegments.graphs_per_key(cfg, 2, 2)
+    assert step.programs.captures == len(rows) * plan["row"] + 2 + 3 * plan["tail"]
+    assert step.programs.replays == plan["graphs"]  # the third block's key
+
+
+def test_segmented_keys_past_the_limit_drop_their_captures(segmented, monkeypatch):
+    """Past MAX_KEYS keys the least recently used key's tail goes, and with
+    it the rows' captures and the losses no kept key uses (their pools);
+    a key that comes back is captured again, and every step stays bitwise
+    eager."""
+    monkeypatch.setattr(tsegments, "MAX_KEYS", 1)
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(8))
+    batches = switching_batches(cfg.vocab_size, lengths=(64, 128, 64))
+    mesh = _grid(2, 1)
+    captured = run_steps(cfg, params, batches, mesh, graphs=True)
+    assert_steps_equal(captured, run_steps(cfg, params, batches, mesh, graphs=False))
+    step = captured[3]
+    plan = tsegments.graphs_per_key(cfg, 2, 1)
+    # three keys in turn: the documents' rows at 64 captured twice
+    assert step.programs.captures == 8 * plan["row"] + 2 + 3 * plan["tail"]
+    assert len(step._keys) == 1 and sorted(step._rows) == [
+        (8, "d", 0, 64), (8, "d", 1, 64), (8, "q", 0, 64), (8, "q", 1, 64)]
+    assert {g for g, _ in step.programs.groups} == {("loss", 8)} | {
+        ("rows",) + n for n in step._rows}
+    assert len(step.programs.graphs) == plan["graphs"]
+
+
+def test_segmented_named_devices_unforced(monkeypatch):
+    """Named CPU devices compare unequal: the grid is over several devices,
+    so the route is chosen without forcing, and stays bitwise eager."""
+    monkeypatch.setattr(ttrain, "CapturedPrograms", SegmentStandIn)
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(6))
+    batches = switching_batches(cfg.vocab_size, lengths=(64, 128, 64))
+    mesh = make_train_mesh(2, 2, devices=["cpu", "cpu:1", "cpu:2", "cpu:3"])
+    captured = run_steps(cfg, params, batches, mesh, graphs=True)
+    assert isinstance(captured[3].programs, compiled.ProgramsByDevice)
+    assert_steps_equal(captured, run_steps(cfg, params, batches, mesh, graphs=False))
+
+
+@pytest.mark.parametrize("dp,tp", [(2, 2), (4, 1)])
+def test_segment_captures_follow_the_plan(segmented, dp, tp):
+    """Replays per step equal the plan's graph count, and captures are the
+    plan's: each row's tower once a width, the loss once, a tail a key.
+    Every graph's key names its grid position and segment; a (4, 1) grid
+    has one forward segment per row and tower (and the loss)."""
+    cfg = _segment_cfg("bfloat16")
+    plan = tsegments.graphs_per_key(cfg, dp, tp)
+    assert plan["graphs"] == 2 * plan["forward"] + plan["tail"]
+    assert plan["forward"] == dp * plan["row"] + 1
+    if tp == 1:
+        assert plan["row"] == 2
+    else:  # the embedding and every layer's 2 tp + ... segments
+        assert plan["row"] == 2 * (1 + 2 * tp * cfg.num_layers)
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(5))
+    batches = switching_batches(cfg.vocab_size)  # queries at 64, documents at 64 or 128
+    step = run_steps(cfg, params, batches, make_train_mesh(dp, tp, ["cpu"] * (dp * tp)),
+                     graphs=True)[3]
+    keys = 2
+    assert step.graphs_per_key == plan["graphs"]
+    assert step.programs.captures == 3 * dp * plan["row"] + 2 + keys * plan["tail"]
+    assert step.programs.replays == (len(batches) - keys) * plan["graphs"]
+    graphs = [k[0][1:] for k in step.programs.graphs]  # (device, *key): the key
+    assert len(graphs) == len(set(graphs)) == step.programs.captures
+    assert {k[1:3] for k in graphs} == {(dp, tp)}
+    assert {k[-2] for k in graphs} == set(np.ndindex(dp, tp))  # each one's position
+    assert step.ops_per_step > plan["graphs"]  # its replays, joins and uploads
+
+
+def test_segmented_loss_follows_jax_mesh(segmented):
+    """Five steps of the segmented route at (2, 2) over different batches:
+    losses within TRAJ_REL of the JAX trainer on the same mesh shape."""
+    jcfg, tcfg = _cfgs()
+    params = _jax_params(jcfg, seed=2)
+    step, shard_params, shard_batch, init_opt = jtrain.make_train_step(
+        jcfg, jtrain.TrainConfig(), jmake_train_mesh(2, 2))
+    jp = shard_params(jax.tree_util.tree_map(jnp.asarray, params))
+    js = init_opt(jp)
+    tstep, tshard, tbatch, tinit = ttrain.make_train_step(tcfg, ttrain.TrainConfig(), _grid(2, 2),
+                                                          graphs=True)
+    assert isinstance(tstep, tsegments.SegmentedStep)
+    model = tshard(tenc.params_from_numpy(params))
+    topt = tinit(model)
+    for seed in range(5, 10):
+        q, d = _tokens(jcfg.vocab_size, seed=seed)
+        jp, js, jm = step(jp, js, shard_batch(jnp.asarray(q)), shard_batch(jnp.asarray(d)))
+        model, topt, tm = tstep(model, topt, tbatch(q), tbatch(d))
+        assert abs(float(tm["loss"]) - float(jm["loss"])) <= TRAJ_REL * float(jm["loss"])
+        assert float(tm["accuracy"]) == pytest.approx(float(jm["accuracy"]), abs=1 / 8 + 1e-6)
+    assert tstep.programs.replays == 4 * tstep.graphs_per_key  # one key, one capture
+
+
+def test_segment_captures_keep_no_autograd_graph(segmented, monkeypatch):
+    """After a key's capture no segment's forward outputs stay alive with
+    their autograd graph: on a card that graph holds the parameters'
+    gradient accumulators, made on the capture stream, and a later eager
+    backward that found them would accumulate on that stream."""
+    import gc
+    import weakref
+
+    alive = []
+    forward = tsegments.Segment.forward
+
+    def recording(self):
+        out = forward(self)
+        alive.extend(weakref.ref(t) for t in out.values() if t.grad_fn is not None)
+        return out
+
+    monkeypatch.setattr(tsegments.Segment, "forward", recording)
+    cfg = _segment_cfg("bfloat16")
+    (q, d), = switching_batches(cfg.vocab_size, lengths=(64,))
+    step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(), _grid(2, 2),
+                                                      graphs=True)
+    model = shard(tenc.init_params(cfg, torch.Generator().manual_seed(5)))
+    step(model, init(model), batch(q), batch(d))  # eager, then every capture
+    gc.collect()
+    assert alive and not [r for r in alive if r() is not None]
+
+
+def test_segment_optimizers_read_one_gradient_buffer(segmented, monkeypatch):
+    """The tail's per-position optimizers read the same ``.grad`` tensors
+    when captured and at every replay (a graph bakes in what it read)."""
+    seen = {}
+    adamw_step = torch.optim.AdamW.step
+
+    def recording(self, *a, **k):
+        params = self.param_groups[0]["params"]
+        seen.setdefault(tuple(id(p) for p in params), set()).add(
+            tuple(id(p.grad) for p in params))
+        return adamw_step(self, *a, **k)
+
+    monkeypatch.setattr(torch.optim.AdamW, "step", recording)
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(5))
+    step = run_steps(cfg, params, switching_batches(cfg.vocab_size, lengths=(64, 64, 64)),
+                     _grid(2, 2), graphs=True)[3]
+    trained = step._trained
+    for sub in trained.sub.values():
+        reads = seen[tuple(id(p) for p in sub.param_groups[0]["params"])]
+        assert len(reads) == 1
+        assert reads == {tuple(id(p.grad) for p in sub.param_groups[0]["params"])}
+
+
+def _failing_capture(monkeypatch, after: int) -> None:
+    """Captures of the stand-in fail from the `after`-th on."""
+    calls = {"n": 0}
+    real = SegmentStandIn._capture
+
+    def capture(self, program, static):
+        calls["n"] += 1
+        if calls["n"] > after:
+            raise RuntimeError("capture failed")
+        return real(self, program, static)
+
+    monkeypatch.setattr(SegmentStandIn, "_capture", capture)
+
+
+def test_failed_segment_capture_raises(segmented, monkeypatch):
+    """A failed segment capture raises, keeps none of the key's graphs and
+    leaves the parameters and the optimizer's state as they were before the
+    key's eager first step; nothing trains eagerly in its place: the next
+    step of the key tries the capture again, and raises again."""
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(5))
+    (q, d), = switching_batches(cfg.vocab_size, lengths=(64,))
+    step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(),
+                                                      _grid(2, 2), graphs=True)
+    model = shard(params)
+    opt = init(model)
+    before = [t.clone() for t in ttrain._held(model, opt)]
+    _failing_capture(monkeypatch, after=30)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture failed"):
+            step(model, opt, batch(q), batch(d))
+        assert not step.programs.graphs and step.programs.replays == 0
+        assert all(torch.equal(t, b) for t, b in zip(ttrain._held(model, opt), before))
+    assert isinstance(step.programs, compiled.ProgramsByDevice)
+
+
+def test_failed_capture_of_a_new_width_keeps_the_others(segmented, monkeypatch):
+    """A key whose new width fails to capture raises and drops only what
+    its step made: the earlier key's graphs and rows' captures stay, the
+    parameters and optimizer state are as before the failed step, and the
+    earlier key still replays, bitwise the eager steps without the failed
+    one."""
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(5))
+    b64, b128 = switching_batches(cfg.vocab_size, lengths=(64, 128))
+    step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(),
+                                                      _grid(2, 2), graphs=True)
+    model = shard(params)
+    opt = init(model)
+    step(model, opt, batch(b64[0]), batch(b64[1]))  # eager, then its captures
+    kept, rows = set(step.programs.graphs), set(step._rows)
+    before = [t.clone() for t in ttrain._held(model, opt)]
+    _failing_capture(monkeypatch, after=10)  # inside the documents' new width
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step(model, opt, batch(b128[0]), batch(b128[1]))
+    assert set(step.programs.graphs) == kept and set(step._rows) == rows
+    assert all(torch.equal(t, b) for t, b in zip(ttrain._held(model, opt), before))
+    monkeypatch.undo()
+    monkeypatch.setattr(tsharded, "on_one_device", lambda groups, device: False)
+    _, metrics = step(model, opt, batch(b64[0]), batch(b64[1]))[1:]
+    assert step.programs.replays == tsegments.graphs_per_key(cfg, 2, 2)["graphs"]
+    want = run_steps(cfg, params, [b64, b64], _grid(2, 2), graphs=False)
+    assert float(metrics["loss"]) == want[0][1][0]
+    final = [t.detach().cpu() for t in tenc.flatten_params(model.params_tree())]
+    assert all(torch.equal(t, w) for t, w in zip(final, want[2]))
 
 
 # ---- the graft_entry twin ----------------------------------------------------
@@ -473,3 +826,120 @@ def test_captured_grid_steps_equal_eager_on_card():
     assert_steps_equal(eager[1], eager[0])
     assert_steps_equal(captured, eager[0])
     assert captured[3].programs.captures == 2
+
+
+@pytest.fixture
+def forced(monkeypatch):
+    """The segmented route on this card: every grid position cuda:0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the segments are captured on it")
+    monkeypatch.setattr(tsharded, "on_one_device", lambda groups, device: False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,tp", [(2, 2), (4, 1)])
+def test_segmented_grid_steps_equal_eager_on_card(forced, dp, tp):
+    """The segmented route over ["cuda:0"] * dp * tp, forced, against
+    graphs=False on that grid over the switching steps: per-step losses,
+    accuracies and final parameters bitwise, as two eager runs are; the
+    captures and replays are the plan's."""
+    cfg = _card_cfg(hybrid_anchor=True)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(5))
+    batches = switching_batches(cfg.vocab_size)
+    mesh = make_train_mesh(dp, tp, devices=["cuda:0"] * (dp * tp))
+    eager = [run_steps(cfg, params, batches, mesh, graphs=False) for _ in range(2)]
+    captured = run_steps(cfg, params, batches, mesh)
+    assert_steps_equal(eager[1], eager[0])
+    assert_steps_equal(captured, eager[0])
+    step = captured[3]
+    assert isinstance(step, tsegments.SegmentedStep)
+    plan = tsegments.graphs_per_key(cfg, dp, tp)
+    assert step.programs.captures == 3 * dp * plan["row"] + 2 + 2 * plan["tail"]
+    assert step.programs.replays == (len(batches) - 2) * plan["graphs"]
+
+
+@pytest.mark.cuda
+def test_segmented_parts_trim_apart_on_card(forced):
+    """Blocks whose dp parts trim to different widths, on the segmented
+    route forced on this card, bitwise the eager step: the last block's key
+    replays rows' graphs captured in two earlier steps, one after the other
+    between their forwards and backwards (each row's tower has a pool of its
+    own: in one shared pool the later capture could take memory the
+    earlier one's saved tensors hold)."""
+    cfg = _card_cfg(hybrid_anchor=True)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    batches = trim_apart_batches(cfg.vocab_size)
+    batches += batches  # every key again: replays only
+    mesh = make_train_mesh(2, 2, devices=["cuda:0"] * 4)
+    eager = run_steps(cfg, params, batches, mesh, graphs=False)
+    captured = run_steps(cfg, params, batches, mesh)
+    assert_steps_equal(captured, eager)
+    plan = tsegments.graphs_per_key(cfg, 2, 2)
+    step = captured[3]
+    assert step.programs.captures == 6 * plan["row"] + 2 + 3 * plan["tail"]
+    assert step.programs.replays == 5 * plan["graphs"]
+
+
+@pytest.mark.cuda
+def test_segmented_grid_step_on_card_matches_cpu_twin():
+    """chip_smoke.train_step_twin over a (4, 2) grid of ["cuda:0"] * 8 on
+    the segmented route (its second step, a replay of every graph) against
+    the same grid step on ["cpu"] * 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the segments are captured on it")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    grad_err, step_err, _ = chip_smoke.train_step_twin("cuda", grid=(4, 2), segmented=True)
+    assert grad_err <= TWIN_GRAD and step_err <= TWIN_STEP
+
+
+@pytest.mark.cuda
+def test_failed_segment_capture_on_card_raises(forced, monkeypatch):
+    """A segment capture that fails on the card raises, keeps none of the
+    key's graphs and leaves the parameters and optimizer state as before
+    the call; the next step raises again (no eager step in its place)."""
+    cfg = _card_cfg()
+    params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(5))
+    (q, d), = switching_batches(cfg.vocab_size, lengths=(64,))
+    step, shard, batch, init = ttrain.make_train_step(
+        cfg, ttrain.TrainConfig(), make_train_mesh(2, 2, devices=["cuda:0"] * 4))
+    model = shard(params)
+    opt = init(model)
+    before = [t.clone() for t in ttrain._held(model, opt)]
+    calls = {"n": 0}
+    real = compiled.CapturedPrograms._capture
+
+    def capture(self, program, static):
+        calls["n"] += 1
+        if calls["n"] > 30:
+            raise RuntimeError("capture failed")
+        return real(self, program, static)
+
+    monkeypatch.setattr(compiled.CapturedPrograms, "_capture", capture)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture failed"):
+            step(model, opt, batch(q), batch(d))
+        assert not step.programs.graphs and step.programs.replays == 0
+        assert all(torch.equal(t, b) for t, b in zip(ttrain._held(model, opt), before))
+    monkeypatch.undo()
+    assert isinstance(step.programs, compiled.ProgramsByDevice)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,tp", [(2, 2), (4, 1)])
+def test_segmented_grid_over_cards_on_card(dp, tp):
+    """With four cards or more: a grid over cuda:0..3 (real copies between
+    cards, no forcing) on the segmented route against its eager step on the
+    same cards, bitwise (at tp <= 2 every cross-card sum has two terms)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    cfg = _card_cfg(hybrid_anchor=True)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda:0").manual_seed(5))
+    batches = switching_batches(cfg.vocab_size)
+    mesh = make_train_mesh(dp, tp, devices=[f"cuda:{i}" for i in range(4)])
+    eager = run_steps(cfg, params, batches, mesh, graphs=False)
+    captured = run_steps(cfg, params, batches, mesh)
+    assert isinstance(captured[3], tsegments.SegmentedStep)
+    assert_steps_equal(captured, eager)
+    assert set(captured[3].programs.by_device) == {torch.device("cuda", i) for i in range(4)}
