@@ -76,7 +76,8 @@ over tp, the batch over dp), every grid position on this card, as (dp 4,
 tp 2) and (dp 2, tp 4) on phase 9's batches, its first loss held to
 phase 9a's, captured as one graph and, forced, as the segment graphs of a
 grid over several cards (``models/segments.py``), each against eager in
-turns, and one tiny grid step on each route held against its CPU twin;
+turns (per-step losses and final state bitwise), and one tiny grid step
+on each route held against its CPU twin;
 then it runs ``graft_entry.dryrun_multichip(8)`` over this card named 8
 times.
 The phases run in the order 1, 2, 3 (with 6 and the 70k part of 10a and
@@ -1591,6 +1592,19 @@ def phase6_agent(store, lexicon, cfg, smi: str, dev) -> int:
     return launches
 
 
+def config_1m():
+    """bench_1m_e2e.py's configuration: bf16 rows, sparse lexical postings,
+    the proj backend (p 256, nprobe 64, 2 reserved slabs)."""
+    import dataclasses
+
+    from mobius_rag_tpu_torch.config import get_config
+
+    return dataclasses.replace(
+        get_config(), embed_dim=1536, vector_dtype="bfloat16", lexical_format="sparse",
+        lexical_buckets=16384, tag_words=8, phrase_words=64, vector_backend="proj",
+        proj_p=256, ivf_nlist=0, ivf_nprobe=64, ann_reserve_slabs=2, over_fetch=4)
+
+
 def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
     import dataclasses
     import tempfile
@@ -1608,10 +1622,7 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
         lexical_raw)
     from mobius_rag_tpu_torch.query.gating import DTagPostings
 
-    base = dataclasses.replace(
-        get_config(), embed_dim=1536, vector_dtype="bfloat16", lexical_format="sparse",
-        lexical_buckets=16384, tag_words=8, phrase_words=64, vector_backend="proj",
-        proj_p=256, ivf_nlist=0, ivf_nprobe=64, ann_reserve_slabs=2, over_fetch=4)
+    base = config_1m()
     cfg_a = dataclasses.replace(base, gating="dense")
     cfg_b = dataclasses.replace(base, gating="local")
     stages: dict = {}
@@ -3243,7 +3254,7 @@ def _train_modes(dev) -> tuple:
 
 
 def _train_turns(name: str, trainers: dict, model, opt, params, blocks: list, n_timed: int,
-                 n_prof: int, dev, state_bitwise: bool = True) -> list[dict]:
+                 n_prof: int, dev) -> list[dict]:
     """The training step eager (`trainers[False]`) against captured
     (`trainers[True]`) on one model and optimizer, in turns (eager, graph,
     graph, eager), each from `params` and a zero optimizer state over the
@@ -3256,8 +3267,8 @@ def _train_turns(name: str, trainers: dict, model, opt, params, blocks: list, n_
     kernels a step. Raises unless the graph turns' per-step losses and
     accuracies equal the eager turns' (bitwise, or within the spread of the
     two eager turns where those differ), and, where the two eager turns end
-    on bitwise equal parameters and optimizer state, unless every turn does
-    (`state_bitwise`; else that is only printed)."""
+    on bitwise equal parameters and optimizer state, unless every turn
+    does."""
     import gc
 
     from mobius_rag_tpu_torch.models.encoder import seq_bucket
@@ -3323,7 +3334,7 @@ def _train_turns(name: str, trainers: dict, model, opt, params, blocks: list, n_
                                  f"{diff} (the eager turns' spread {spread}): {t['steps']} "
                                  f"against {eager[0]}")
     same = [t["state_equal"] for t in turns]
-    if state_bitwise and turns[-1]["state_equal"] and not all(same):
+    if turns[-1]["state_equal"] and not all(same):
         raise AssertionError(f"{name}: the eager turns end on bitwise equal parameters and "
                              f"optimizer state, the turns {same} (against the first)")
     log(f"{name}: per-step losses and accuracies of every turn "
@@ -4495,8 +4506,7 @@ def phase12a_grid_train(smi: str, pairs, cfg, loss_step1: float, dev: str = "cud
             f"{cfg.max_seq}, vocab {cfg.vocab_size}, out {cfg.out_dim}, {cfg.dtype} "
             f"activations), batch {TRAIN_BATCH}: sharded and AdamW set up in "
             f"{time.perf_counter() - t0:.2f} s")
-        turns = _train_turns(name, trainers, model, opt, params, blocks, GRID_TIMED, 1, dev,
-                             state_bitwise=False)
+        turns = _train_turns(name, trainers, model, opt, params, blocks, GRID_TIMED, 1, dev)
         _turn_lines(name, turns, trainers, TRAIN_BATCH, flops, smi, dev)
         peak = _peak_gib(dev)
         losses = [loss for loss, _ in turns[0]["steps"]]

@@ -538,15 +538,48 @@ def row_pieces(cfg: EncoderConfig, tower: str, i: int, tp: int) -> list[Piece]:
     return pieces
 
 
+class _Broadcast(torch.autograd.Function):
+    """An activation copied at once to every other device that reads it, so
+    that its gradients come back into one node and are summed in one order,
+    from the last reader down, on the activation's device: the order of
+    eager autograd on one device (``((g[tp-1] + g[tp-2]) + ...)``, then the
+    source's own use) and of the segmented route. Separate copies would
+    have autograd add each gradient as its device's thread delivers it:
+    no fixed order past two terms."""
+
+    @staticmethod
+    def forward(ctx, x, *devices):
+        ctx.home = x.device
+        return tuple(x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in reversed(grads):
+            if g is not None:
+                g = g.to(ctx.home)
+                total = g if total is None else total + g
+        return (total, *(None for _ in grads))
+
+
 class _RowEnv(dict):
     """The names of one eager run of :func:`row_pieces`: a read from a piece
-    on another device than the tensor's copies it there (``.to``, once a
-    device, differentiable: autograd carries each shard its gradient); a
-    parameter name reads its shard's leaf."""
+    on another device than the tensor's copies it there (once a device,
+    differentiable: autograd carries each shard its gradient); a parameter
+    name reads its shard's leaf.
 
-    def __init__(self, shards: list[dict], devices: list[torch.device]):
+    Between devices an activation goes to all of its readers at once
+    (:class:`_Broadcast`; ``readers``: name -> the devices of the pieces
+    that read it, else the reading one), and a parameter goes through a
+    view of it made on its own device: its accumulator then takes its
+    gradient from a node on its own device and stream. Copied straight
+    from the leaf, the gradient would reach the accumulator from the
+    reading device's stream, which torch reports as a stream mismatch of
+    the AccumulateGrad node."""
+
+    def __init__(self, shards: list[dict], devices: list[torch.device], readers: dict):
         super().__init__()
-        self.shards, self.at, self.copies = shards, devices[0], {}
+        self.shards, self.at, self.readers, self.copies = shards, devices[0], readers, {}
 
     def __getitem__(self, name):
         if (name, self.at) in self.copies:
@@ -557,9 +590,16 @@ class _RowEnv(dict):
                 value = value[k]
         else:
             value = super().__getitem__(name)
-        if value.device != self.at:
-            value = self.copies[(name, self.at)] = value.to(self.at)
-        return value
+        if value.device == self.at:
+            return value
+        if name[0] == "p":
+            self.copies[(name, self.at)] = value.view_as(value).to(self.at)
+        elif value.requires_grad:
+            to = [d for d in self.readers.get(name, [self.at]) if d != value.device]
+            self.copies.update(((name, d), c) for d, c in zip(to, _Broadcast.apply(value, *to)))
+        else:
+            self.copies[(name, self.at)] = value.to(self.at)
+        return self.copies[(name, self.at)]
 
 
 class GridEncoder:
@@ -584,9 +624,15 @@ class GridEncoder:
 
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, L] on the row's first device → [B, out_dim] float32 there."""
-        env = _RowEnv(self.shards, self.devices)
+        pieces = row_pieces(self.cfg, "x", 0, len(self.shards))
+        readers: dict = {}  # activation -> the devices that read it, in order
+        for piece in pieces:
+            for name in piece.reads:
+                if name[0] != "p":
+                    readers.setdefault(name, {})[self.devices[piece.pos[1]]] = None
+        env = _RowEnv(self.shards, self.devices, {n: list(d) for n, d in readers.items()})
         env[("x", 0, "tok")] = tokens
-        for piece in row_pieces(self.cfg, "x", 0, len(self.shards)):
+        for piece in pieces:
             env.at = self.devices[piece.pos[1]]
             piece.fn(env)
         return env[("x", 0, "out")]

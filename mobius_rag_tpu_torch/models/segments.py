@@ -47,12 +47,13 @@ input (``compiled.join``: behind a CUDA event between cards), one copy per
 edge and position; after the tail it copies the owners into every other
 position's parameters (``GridModel.copy_from_owners``).
 
-A key is (B, the width of each dp part of each tower) with (dp, tp): each
-part trims to its own sequence bucket, as the eager ``shard_batch`` trims
-it. A row's tower reads only its own part, so its graphs are captured once
-per (B, tower, row, width) and shared by every key that has that part's
-width: at most the bucket ladder's length per row and tower, however the
-widths combine across rows. The loss is captured once per B; the tail,
+A key is the block's (B, Lq, Ld) with (dp, tp), the one graph's: each
+token block trims once to its sequence bucket, then splits over dp, as the
+eager ``shard_batch`` does, so every part of a block runs at the block's
+width. A row's tower reads only its own part, so its graphs are captured
+once per (B, tower, row, width) and shared by every key that has that
+width: at most the bucket ladder's length per row and tower. The loss is
+captured once per B; the tail,
 which reads the rows' gradients where their graphs left them, once per key
 (a few graphs and little memory; past MAX_KEYS keys the least recently
 used one's goes, with the rows' and losses' captures no kept key uses).
@@ -62,8 +63,11 @@ segment's forward and its backward, and in a shared pool a graph captured
 later could be given memory that those hold. The tails share a pool per
 device (one key's tail runs a step). Within a pool the graphs are captured
 in the order they replay, so that a graph reuses only pool memory the
-graphs before it had freed; a segment's backward captures on its
-forward's stream. The first step of a key runs eagerly (its result), then
+graphs before it had freed. Every graph of a device is captured on that
+device's one capture stream: a tower's forward graphs keep the
+AccumulateGrad nodes of the parameters they read alive until their
+backward is captured, and the other tower reads the same parameters. The
+first step of a key runs eagerly (its result), then
 the captures it lacks, which run nothing. A failed capture raises, drops
 what it made and leaves nothing to fall back on.
 
@@ -364,20 +368,21 @@ class SegmentedStep:
         self._trained = None
 
     def key(self, q_tokens: np.ndarray, d_tokens: np.ndarray) -> tuple:
-        """The key of a step on these host blocks: ("train", dp, tp, B, each
-        query part's width, each document part's)."""
+        """The key of a step on these host blocks: ("train", dp, tp, B, Lq,
+        Ld), the blocks' shapes once trimmed."""
         return self._key({t: self._parts(b) for t, b in zip(TOWERS, (q_tokens, d_tokens))})
 
     def _key(self, parts: dict) -> tuple:
         return ("train", self.dp, self.tp, sum(len(p) for p in parts[TOWERS[0]]),
-                *(tuple(p.shape[1] for p in parts[t]) for t in TOWERS))
+                *(parts[t][0].shape[1] for t in TOWERS))
 
     def _parts(self, block: np.ndarray) -> list[np.ndarray]:
         """A host block's dp parts as the eager step gets them
-        (``shard_batch``: each part trimmed to its own sequence bucket), as
-        int32: a key is their shapes."""
+        (``shard_batch``: the block trimmed to its sequence bucket, then
+        split), as int32."""
+        block = seq_bucket(block)
         n = len(block) // self.dp
-        return [np.ascontiguousarray(seq_bucket(block[i * n:(i + 1) * n]), dtype=np.int32)
+        return [np.ascontiguousarray(block[i * n:(i + 1) * n], dtype=np.int32)
                 for i in range(self.dp)]
 
     def __call__(self, model, opt, q_tokens, d_tokens):

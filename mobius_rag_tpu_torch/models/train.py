@@ -166,7 +166,12 @@ def host_batch(tokens: np.ndarray) -> np.ndarray:
 def to_device(tokens: np.ndarray, device: torch.device) -> torch.Tensor:
     """A [B, L] token block on ``device`` as int64 (the embedding gather's
     backward needs long indices), trimmed to its sequence bucket."""
-    host = torch.from_numpy(np.ascontiguousarray(seq_bucket(tokens)))
+    return upload(seq_bucket(tokens), device)
+
+
+def upload(tokens: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A [B, L] token block on ``device`` as int64, at the width it has."""
+    host = torch.from_numpy(np.ascontiguousarray(tokens))
     if device.type == "cuda":
         host = host.pin_memory()
     return host.to(device, non_blocking=True).long()
@@ -345,9 +350,9 @@ def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="c
     and pool) holds every parameter and the optimizer's state: a new model
     or optimizer drops the graphs at its first step. On a grid over several
     devices the step is a ``models.segments.SegmentedStep``, its programs a
-    ``ProgramsByDevice`` of segment graphs, a key the widths of the dp parts
-    as the eager ``shard_batch`` trims them (a row's tower captured once a
-    width, a tail a key). The first step of a key runs
+    ``ProgramsByDevice`` of segment graphs, a key the block's (B, Lq, Ld)
+    (a row's tower captured once a width, a tail a key). The first step of
+    a key runs
     eagerly (its result) and is then captured; a failed capture or replay
     raises, and nothing trains eagerly after one. Every captured step holds
     ``compiled.LOCK`` across its upload, its replay (or eager run and
@@ -361,7 +366,11 @@ def make_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh=None, *, device="c
     A training grid (``make_train_mesh``): a ``GridModel``, batches as one
     [B / dp, L] part per dp row on the row's first device (B must split
     evenly, as JAX's device_put onto P("dp", None) requires), the metrics
-    on the grid's first device; ``device`` is not read."""
+    on the grid's first device; ``device`` is not read. Every route trims
+    a grid block once, to the bucket of its longest text, and then splits
+    it: all dp parts run at the block's width (the JAX step pads every
+    part to ``max_seq``, one width too), so eager, the one graph and the
+    segment graphs read the same arrays."""
     if mesh is not None:
         return _grid_train_step(cfg, tc, mesh, graphs)
     device = torch.device(device)
@@ -394,9 +403,10 @@ def _grid_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh, graphs: bool | N
                              f"dp={dp}: its size should be divisible by {dp}")
         if programs is not None:
             return host_batch(tokens)
+        # one width for the whole block, as the captured routes read it
         tokens = seq_bucket(tokens)
         n = len(tokens) // dp
-        return [to_device(tokens[i * n:(i + 1) * n], d) for i, d in enumerate(row_devices)]
+        return [upload(tokens[i * n:(i + 1) * n], d) for i, d in enumerate(row_devices)]
 
     def init_opt_state(model: GridModel) -> torch.optim.AdamW:
         return make_optimizer(model.parameters(), tc)

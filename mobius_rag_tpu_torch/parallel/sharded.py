@@ -61,7 +61,10 @@ device sums them too and merges and reranks. Between stages, outside any
 graph, each stage's outputs leave its pool right behind its replay and
 are copied into the next stage's static inputs on the devices that read
 them, each copy behind a CUDA event of the source's stream
-(``compiled.join``). The stages run the whole program's operations on
+(``compiled.join``). A copy between cards runs on its source's stream, so
+every card's copies of the counts are enqueued before any card's arm
+scan: behind a scan, a copy would hold the next card's scan until the
+first ended. The stages run the whole program's operations on
 the same values, so they give its outputs bitwise; the launches of the
 kernels they count add up to the whole program's.
 """
@@ -83,7 +86,8 @@ from mobius_rag_tpu_torch.ops.proj import PackedProj, pad_shard_proj
 from mobius_rag_tpu_torch.parallel.mesh import Mesh, make_mesh, make_serve_mesh
 from mobius_rag_tpu_torch.query import engine as eng
 from mobius_rag_tpu_torch.query import gating
-from mobius_rag_tpu_torch.query.compiled import CapturedPrograms, ProgramsByDevice, tables_held
+from mobius_rag_tpu_torch.query.compiled import (CapturedPrograms, ProgramsByDevice, join,
+                                                 tables_held)
 from mobius_rag_tpu_torch.utils import round_up
 
 # More dirty rows than this re-shard the index instead of copying rows.
@@ -115,6 +119,15 @@ def on_one_device(groups: list[list[torch.device]], device: torch.device) -> boo
 def _to(q: dict, device: torch.device) -> dict:
     """A prepared batch on `device`, copied without blocking."""
     return {key: v.to(device, non_blocking=True) for key, v in q.items()}
+
+
+def _moved(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` on `device`: itself, or a copy joined there (``compiled.join``)."""
+    if t.device == device:
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    join(out, t)
+    return out
 
 
 def _flat(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -588,10 +601,15 @@ class ShardedEngine:
                 for j, dev in enumerate(devs):
                     counts[f"count{j}"] = programs[dev].run(
                         ("count", *key), held_on[dev], host, count_stage(dev, batch)).clone()
+            # every device's copy of the counts is enqueued before any arm
+            # scan: a copy between cards runs on its source's stream, where
+            # one queued behind that card's scan would hold the next card's
+            # scan until it ended (the cards would scan one after another)
+            here = {dev: {name: _moved(t, dev) for name, t in counts.items()} for dev in devs}
             lists: dict[str, torch.Tensor] = {}
             for j, dev in enumerate(devs):
                 fl, il = programs[dev].run(("arms", *key), held_on[dev], host,
-                                           arms_stage(dev, batch), counts)
+                                           arms_stage(dev, batch), here[dev])
                 lists[f"floats{j}"], lists[f"ints{j}"] = fl.clone(), il.clone()
             return programs[dev0].run(("merge", *key), held_on.get(dev0, []), host,
                                       merge_stage(batch, finish), {**counts, **lists})

@@ -272,6 +272,9 @@ class CapturedPrograms:
         self.replays = 0
         self._pool = None
         self._stream = None
+        # the instance whose capture stream this one's captures use (a
+        # ProgramsByDevice group shares its device's: see there)
+        self.stream_of: CapturedPrograms | None = None
 
     def _check_device(self) -> None:
         if self.device.type != "cuda":
@@ -384,19 +387,27 @@ class CapturedPrograms:
         pool. Returns (graph, its static outputs)."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(device=self.device)
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()  # a dead cycle freed mid-capture could destroy a graph here
         try:
             with torch.cuda.device(self.device), torch.cuda.graph(
-                    graph, pool=self._pool, stream=self._stream,
+                    graph, pool=self._pool, stream=self.capture_stream(),
                     capture_error_mode="thread_local"):
                 outputs = program(static)
         finally:
             if collecting:
                 gc.enable()
         return graph, outputs
+
+    def capture_stream(self) -> "torch.cuda.Stream":
+        """The stream this instance captures on, made at first use: its own,
+        or ``stream_of``'s."""
+        if self.stream_of is not None:
+            return self.stream_of.capture_stream()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        return self._stream
 
     def pool_bytes(self) -> int:
         """Bytes the graphs' shared pool holds on the device (its segments
@@ -414,7 +425,13 @@ class ProgramsByDevice:
     LRU), made up front, so that it raises off a card; ``[device]`` is
     that device's. :meth:`pool` adds instances of a named group (a pool
     of their own on each device, for graphs whose replays interleave with
-    others'), :meth:`drop_group` releases one. ``captures``,
+    others'), :meth:`drop_group` releases one. A group's instance captures
+    on its device's capture stream: a training segment's forward graph,
+    captured with autograd on, keeps the AccumulateGrad nodes of the
+    parameters it reads alive until its backward is captured, and each
+    such node belongs to the stream it was made on; another group's
+    segment reading the same parameter on another stream would feed it
+    from there (torch's AccumulateGrad stream mismatch). ``captures``,
     ``capture_ms``, ``replays``, ``graphs`` (keyed ((device, *key),
     layout)) and :meth:`pool_bytes` report on all of them (the counts
     include dropped groups')."""
@@ -436,7 +453,8 @@ class ProgramsByDevice:
         if group is None:
             return self.by_device[device]
         if (group, device) not in self.groups:
-            self.groups[(group, device)] = self.make(device, self.max_graphs)
+            programs = self.groups[(group, device)] = self.make(device, self.max_graphs)
+            programs.stream_of = self.by_device[device]
         return self.groups[(group, device)]
 
     def drop_group(self, group) -> None:

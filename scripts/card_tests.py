@@ -7,9 +7,12 @@ float32 activations, a captured training step and a (2, 2) grid training
 step against their CPU twins, the captured training steps bitwise against
 the eager ones on one device and on a (2, 2) grid of this card, the
 segment graphs of a grid over several cards forced on this card ((2, 2)
-and (4, 1) bitwise against eager, a (4, 2) step against its CPU twin, a
-failed capture that leaves nothing behind; with four cards a (2, 2) grid
-over cuda:0..3), the
+and (4, 1) bitwise against eager, blocks whose dp parts alone would trim
+apart run at the block's width bitwise against eager and the one graph, a
+(4, 2) step against its CPU twin, a failed capture that leaves nothing
+behind; with four cards (2, 2), (4, 1) and (2, 4) grids over cuda:0..3
+bitwise against their eager steps, which raise no AccumulateGrad stream
+warning), the
 capturable AdamW against the CPU's update, a replayed training step that
 reads nothing back, the sharded engine against the dense one, its
 captured programs bitwise against its eager one on grids of this card
@@ -19,12 +22,18 @@ cards forced on this card (one graph per device and stage) bitwise
 against the eager program and the one-graph route, a writer thread
 publishing and refreshing while another searches it on either route,
 and the data-parallel encoder over this card named 2 and 4 times,
-captured bitwise against eager) on a CUDA card whose machine has no JAX. Those tests
+captured bitwise against eager; with four cards the staged route over
+cuda:0..3 against the one graph on cuda:0 for each staged case, a writer
+thread on it, and the data-parallel encoder over cuda:0..3 bitwise against
+eager and against EncoderModel on cuda:0 part by part) on a CUDA card
+whose machine has no JAX; the four-card tests skip on fewer cards. Those tests
 use only the torch side; their modules import the JAX package for their
 CPU tests, so those imports become mocks here and only the `on_card`
 tests are collected.
 
-    python3 scripts/card_tests.py            # from the root of a checkout
+    python3 scripts/card_tests.py [-k EXPR]  # from the root of a checkout
+
+``-k`` narrows the tests further (``-k over_cards`` runs the four-card ones).
 """
 import os
 import sys
@@ -52,8 +61,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     for name in MOCKED:
         sys.modules[name] = MagicMock()
+    narrow = f" and ({sys.argv[2]})" if sys.argv[1:2] == ["-k"] else ""
     return pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest", "-m", "cuda",
-                        "-k", "on_card", "-rs",
+                        "-k", f"on_card{narrow}", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
                           for m in ("topk", "quant", "proj", "pipelined", "compiled", "encoder",
                                     "cross_encoder", "train", "train_grid", "sharded"))])

@@ -6,19 +6,19 @@ this card named dp x tp times:
 
 - eager (``graphs=False``);
 - segmented: the route of a grid over several cards, forced on this card
-  (``chip_smoke._forced_stages``): a key is each dp part's width, a row's
-  tower is captured once a width, a tail once a key;
-- one graph: the route of a grid of one card, keyed on the whole block's
-  widths (its final state may part from eager's by ~1e-11 where dp parts
-  trim apart).
+  (``chip_smoke._forced_stages``): a key is the block's (B, Lq, Ld), a
+  row's tower is captured once a width, a tail once a key;
+- one graph: the route of a grid of one card, one graph a key.
 
-Prints, per grid and route: the keys seen and the steps at which each new
-one came, the rows' captures, captures and their seconds, the pool's GiB,
-the whole run's seconds and ms a step with every capture and eager first
-step included, ms a step over the steps after the last new key, and the
+Every route trims a block once, then splits it over dp. Prints, per grid
+and route: the keys seen and the steps at which each new one came, the
+rows' captures, captures and their seconds, the pool's GiB, the whole
+run's seconds and ms a step with every capture and eager first step
+included, ms a step over the steps after the last new key, and the
 largest difference of the final parameters and optimizer state from the
-eager run's. Asserts the segmented run's per-step losses and final state
-bitwise the eager run's. About 10 minutes on an H100 at 300 steps.
+eager run's. Asserts each captured run's per-step losses and final state
+bitwise the eager run's, and the segmented route's keys the one graph's.
+About 10 minutes on an H100 at 300 steps.
 
     python3 scripts/grid_train_traffic.py [--steps 300] [--grids 4x2,2x4]
 
@@ -103,18 +103,24 @@ def main() -> None:
             seg_trainer = make_train_step(cfg, TrainConfig(), mesh, graphs=graphs)
         routes = {"segmented": seg_trainer,
                   "one graph": make_train_step(cfg, TrainConfig(), mesh, graphs=graphs)}
+        seen = {}
         for route, trainer in routes.items():
             step = trainer[0]
             keys, first = set(), []
             for s, (q, d) in enumerate(blocks):
-                # the segmented route's key: each part's width; the one graph's: the block's
-                k = (step.key(q, d) if route == "segmented" else
-                     (seq_bucket(q).shape[1], seq_bucket(d).shape[1]))
+                k = (len(q), seq_bucket(q).shape[1], seq_bucket(d).shape[1])
+                if route == "segmented" and step.key(q, d) != ("train", dp, tp, *k):
+                    raise AssertionError(f"{name}: the segmented key {step.key(q, d)} is not "
+                                         f"the block's {k}")
                 if k not in keys:
                     keys.add(k)
                     first.append(s)
             got = run(f"{name} {route}", trainer, params, blocks, log)
             programs = step.programs
+            # the keys each route captured, as (B, Lq, Ld)
+            seen[route] = ({k[3:] for k in step._keys} if route == "segmented" else
+                           {(lay[0][1][0], lay[0][1][1], lay[1][1][1])
+                            for _, lay in programs.graphs})
             pool = programs.pool_bytes() / 2 ** 30
             diff = max(float((a.double() - b.double()).abs().max())
                        for a, b in zip(got["state"], eager["state"]))
@@ -128,12 +134,14 @@ def main() -> None:
                 f"key: {1e3 * np.mean(after):.3f} against {1e3 * np.mean(eager_after):.3f}); "
                 f"final state's largest |difference| from eager's {diff:.3e}; losses "
                 f"{'equal' if got['losses'] == eager['losses'] else 'differ'}; on {smi}")
-            if route == "segmented" and (diff or got["losses"] != eager["losses"]):
-                raise AssertionError(f"{name}: the segmented run is not bitwise eager's")
+            if diff or got["losses"] != eager["losses"]:
+                raise AssertionError(f"{name}: the {route} run is not bitwise eager's")
             programs.clear()
             del got, step, programs
             if dev == "cuda":
                 c._empty_cache()
+        if seen["segmented"] != seen["one graph"]:
+            raise AssertionError(f"{name}: the routes captured different keys: {seen}")
         del eager, routes, seg_trainer
     log(f"all {time.perf_counter() - t_all:.1f} s")
 

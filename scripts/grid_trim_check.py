@@ -1,13 +1,16 @@
-"""Where do the eager grid step and the one-graph grid step part ways? The
-eager step's shard_batch trims each dp part to its own sequence bucket;
-the captured one graph runs every part at the block's width. A (4, 2)
-grid of this card (2 layers of the default encoder), four steps on
-batches whose parts trim apart and on batches whose parts do not: the
-losses and the final parameters and optimizer state of two eager runs
-and of the one graph. About a minute on an H100.
+"""Do the three routes of the grid trainer read one width? A (4, 2) grid
+of this card (2 layers of the default encoder), four steps on batches
+whose dp parts alone would trim to different sequence buckets and on
+batches whose parts would not, eager twice, the one graph (the route of a
+grid of one card) and the segment graphs (the route of a grid over
+several cards, forced on this card): the losses and the final parameters
+and optimizer state of each against the first eager run. Every route
+trims a block once, then splits it, so all must be bitwise; exits with 1
+where one is not. About a minute on an H100.
 
     python3 scripts/grid_trim_check.py      # from the root of a checkout
 """
+import contextlib
 import dataclasses
 import os
 import sys
@@ -18,11 +21,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main() -> None:
+def main() -> int:
+    import chip_smoke as c
     from mobius_rag_tpu_torch.models import encoder as tenc
     from mobius_rag_tpu_torch.models import train as ttrain
     from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
 
+    smi = c.phase0_device()[1]
     cfg = dataclasses.replace(tenc.EncoderConfig.from_env(), num_layers=2)
     params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)
@@ -36,9 +41,10 @@ def main() -> None:
             d[i, :nd] = rng.integers(2, cfg.vocab_size, nd)
         return q, d
 
-    def run(batches, mesh, graphs):
-        step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(), mesh,
-                                                          graphs=graphs)
+    def run(batches, mesh, graphs, forced=False):
+        with c._forced_stages() if forced else contextlib.nullcontext():
+            step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(), mesh,
+                                                              graphs=graphs)
         model = shard(params)
         opt = init(model)
         seen = []
@@ -47,18 +53,27 @@ def main() -> None:
             seen.append(float(m["loss"]))
         return seen, [t.detach().clone() for t in ttrain._held(model, opt)]
 
-    def same(a, b):
-        return all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
-
     mesh = make_train_mesh(4, 2, devices=["cuda:0"] * 8)
-    for label, rows in (("parts that trim apart", [{0}, {0}, {3, 17}, {0}]),
-                        ("parts that do not", [set(range(0, 32, 8))] * 4)):
+    failed = []
+    for label, rows in (("parts that would trim apart", [{0}, {0}, {3, 17}, {0}]),
+                        ("parts that would not", [set(range(0, 32, 8))] * 4)):
         batches = [block(r) for r in rows]
-        e1, e2, g = run(batches, mesh, False), run(batches, mesh, False), run(batches, mesh, None)
-        diff = max(float((x - y).abs().max()) for x, y in zip(g[1], e1[1]))
-        print(f"{label}: eager twice losses {e1[0] == e2[0]} state {same(e1, e2)}; one graph "
-              f"losses {g[0] == e1[0]} state {same(g, e1)}; max |diff| {diff:.3e}", flush=True)
+        e1 = run(batches, mesh, False)
+        for route, got in (("eager again", run(batches, mesh, False)),
+                           ("one graph", run(batches, mesh, None)),
+                           ("segmented", run(batches, mesh, None, forced=True))):
+            losses = got[0] == e1[0]
+            state = all(torch.equal(x, y) for x, y in zip(got[1], e1[1]))
+            diff = max(float((x.double() - y.double()).abs().max())
+                       for x, y in zip(got[1], e1[1]))
+            print(f"{label}: {route} against eager: losses {'equal' if losses else 'differ'}, "
+                  f"final state {'bitwise' if state else 'differs'} (max |diff| {diff:.3e}) "
+                  f"on {smi}", flush=True)
+            if not (losses and state):
+                failed.append(f"{label}: {route}")
+    print(f"routes parting from eager: {failed or 'none'}", flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -596,3 +596,34 @@ def test_mesh_encoder_captured_bitwise_on_card(dp):
     keys = {(buckets[n] // dp, lengths[w]) for n, w in calls}
     assert {key for key, _ in cache.graphs} == keys and cache.captures == len(keys)
     assert cache.captures + cache.replays == dp * len(calls)
+
+
+@pytest.mark.cuda
+def test_mesh_encoder_over_cards_on_card():
+    """With four cards or more: MeshEncoderModel over cuda:0..3 (dp 4, a
+    replica a card, the parts joined on cuda:0 by copies between cards),
+    the served width's layers (2 of 12), over keys that switch: captured
+    bitwise its eager twin, and each part's rows bitwise EncoderModel's on
+    cuda:0 for the same part (the same shapes on another card of the same
+    kind)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    from mobius_rag_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(tenc.EncoderConfig(), num_layers=2)
+    params = tenc.init_params(cfg, torch.Generator(device="cuda:0").manual_seed(0))
+    grid = make_mesh(4, devices=[f"cuda:{i}" for i in range(4)])
+    mesh = tenc.MeshEncoderModel(grid, cfg, params)
+    eager = tenc.MeshEncoderModel(grid, cfg, params, graphs=False)
+    one = tenc.EncoderModel(cfg, params, device="cuda:0")
+    assert [r.device for r in mesh.replicas] == [torch.device("cuda", i) for i in range(4)]
+    for n, words in [(5, 30), (100, 100), (5, 30), (128, 200), (100, 100)]:
+        tokens = tenc.seq_bucket(mesh.tokenizer.encode_batch(_long_texts(words, n)))
+        got = mesh.encode_tokens(tokens)
+        assert got.device == torch.device("cuda", 0) and got.shape == (n, cfg.out_dim)
+        np.testing.assert_array_equal(got.cpu().numpy(), eager.encode_tokens(tokens).cpu().numpy())
+        rows = mesh._bucket(n) // 4
+        block = tenc.pad_rows(tokens, 4 * rows)
+        parts = torch.cat([one._forward(block[i * rows:(i + 1) * rows], rows) for i in range(4)])
+        np.testing.assert_array_equal(got.cpu().numpy(), parts[:n].cpu().numpy())
+    assert all(r._programs.captures == 3 for r in mesh.replicas)

@@ -684,13 +684,15 @@ _SHARDED_CASES = {
 }
 
 
-def _sharded_case(case: str, device: str) -> TEngine:
+def _sharded_case(case: str, device: str, devices=None) -> TEngine:
+    """The case's store on `device`, served over its grid of `devices`
+    (default: `device` at every position)."""
     fields, grid = _SHARDED_CASES[case]
     cfg = dataclasses.replace(tget_config(), initial_capacity=1024, **fields)
     lex = ttesting.sample_lexicon()
     store = TStore(cfg, device=device)
     store.add_chunks(ttesting.toy_corpus(lex, pad_docs=60))
-    return _sharded_serving(store, lex, cfg, _GRIDS[grid][0]([device] * 8))
+    return _sharded_serving(store, lex, cfg, _GRIDS[grid][0](devices or [device] * 8))
 
 
 @pytest.mark.parametrize("case", sorted(_SHARDED_CASES))
@@ -1105,16 +1107,44 @@ def test_staged_graphs_bitwise_on_card(case, monkeypatch):
     through another refresh and another grow (a re-shard)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    serving = _forced(monkeypatch, lambda: _sharded_case(case, "cuda"))
+    _staged_writes_and_one_graph(serving, case)
+
+
+CARDS = [f"cuda:{i}" for i in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_STAGED_CASES))
+def test_staged_over_cards_on_card(case):
+    """With four cards or more: the sharded engine over cuda:0..3 (shard j
+    on cuda:j; on the [2, 4] grid shard j of each data row), on the staged
+    route unforced (its joins real copies between cards behind events),
+    through test_staged_graphs_bitwise_on_card's sequence: captured against
+    eager, then against the one-graph route on cuda:0, bitwise."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    serving = _sharded_case(case, "cuda:0", devices=CARDS * 2)
+    assert not serving.sharded.one_device
+    assert {d for row in serving.sharded.groups for d in row} == {torch.device(c) for c in CARDS}
+    _staged_writes_and_one_graph(serving, case)
+
+
+def _staged_writes_and_one_graph(serving: TEngine, case: str) -> None:
+    """`serving` on the staged route: its replays against its eager program
+    through the write sequence (_writes_replay_bitwise), then against the
+    one-graph route on the store's device over the same store, bitwise,
+    through another refresh and another grow (a re-shard)."""
     from mobius_rag_tpu_torch.ops.topk import masked_topk
 
-    serving = _forced(monkeypatch, lambda: _sharded_case(case, "cuda"))
     tse = serving.sharded
     assert serving.graphs and isinstance(serving.programs, compiled.ProgramsByDevice)
     exact = tse.vector_backend == "exact"
     _writes_replay_bitwise(serving, masked_topk if exact else None,
                            len(tse.groups) * tse.num_shards if exact else None)
     assert {key[0][1] for key in serving.programs.graphs} == {"count", "arms", "merge"}
-    one = _sharded_serving(serving.store, serving.lexicon, tse.cfg, tse.mesh,
+    grid = _GRIDS[_SHARDED_CASES[case][1]][0]([serving.store.device] * 8)
+    one = _sharded_serving(serving.store, serving.lexicon, tse.cfg, grid,
                            vector_backend=tse.vector_backend)
     assert one.graphs and one.sharded.one_device
     batches = _card_batches()
@@ -1123,10 +1153,14 @@ def test_staged_graphs_bitwise_on_card(case, monkeypatch):
         # one ANN build for both (two k-means builds on the card need not agree)
         for t in (tse, one.sharded):
             t.refresh()
-        if not exact:
+        if not exact:  # the staged engine's tables, on the one-graph route's device
             tse.ensure_ann()
-            one.sharded._ann, one.sharded._ann_generation, one.sharded._ann_backend = \
-                tse._ann, tse._ann_generation, tse._ann_backend
+            on: dict = {}
+            one.sharded._ann = [
+                [on.setdefault((d, si), tsharded._tables_to(tse._ann[g][si], d))
+                 for si, d in enumerate(row)] for g, row in enumerate(one.sharded.groups)]
+            one.sharded._ann_generation, one.sharded._ann_backend = (tse._ann_generation,
+                                                                     tse._ann_backend)
         for b in batches:
             want = [_fields(r) for r in one.search(b, k=K)]
             assert [_fields(r) for r in serving.search(b, k=K)] == want, tag
@@ -1166,6 +1200,18 @@ def test_staged_writer_thread_on_card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     serving = _forced(monkeypatch, lambda: _sharded_case("exact_S4", "cuda"))
+    assert isinstance(serving.programs, compiled.ProgramsByDevice)
+    _writer_and_searcher(serving)
+
+
+@pytest.mark.cuda
+def test_staged_writer_thread_over_cards_on_card():
+    """With four cards or more: the writer and the searching thread of
+    test_sharded_writer_thread_on_card on the staged route over cuda:0..3
+    (a refresh copies rows into every card's shards, a grow re-shards)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    serving = _sharded_case("exact_S4", "cuda:0", devices=CARDS)
     assert isinstance(serving.programs, compiled.ProgramsByDevice)
     _writer_and_searcher(serving)
 

@@ -510,8 +510,9 @@ def test_segmented_grid_steps_equal_eager(segmented, dp, tp, dtype):
 def trim_apart_batches(vocab: int) -> list:
     """Four [8, 128] blocks over a dp = 2 grid: queries of 20 tokens (64),
     documents of 40 tokens (64) but 100 (128) in rows {0}, {5}, {0} and
-    {0, 6}, so that the document parts trim to (128, 64), (64, 128), the
-    first again, then (128, 128): each part's width seen before."""
+    {0, 6}, so that the document parts alone would trim to (128, 64), (64,
+    128), the first again, then (128, 128); every block trims to (64, 128)
+    whole."""
     rng = np.random.default_rng(3)
 
     def block(long_rows):
@@ -526,11 +527,12 @@ def trim_apart_batches(vocab: int) -> list:
 
 
 def test_segmented_parts_trim_as_eager(segmented):
-    """Each dp part runs at its own sequence bucket, as the eager step's
-    shard_batch trims it, and blocks whose parts trim apart stay bitwise
-    eager. A key is the parts' widths, but a row's tower is captured once a
-    width: a key whose parts' widths were all seen captures only its
-    tail."""
+    """Every dp part of a block runs at the block's sequence bucket, as the
+    eager step's shard_batch trims it (the block once, then split), where
+    the parts alone would trim apart too, and the steps stay bitwise eager.
+    The key is the block's (B, Lq, Ld), the one graph's; the four blocks
+    share it, so each row's tower is captured once, at the block's widths,
+    and the key's tail once."""
     cfg = _segment_cfg("bfloat16")
     params = tenc.init_params(cfg, torch.Generator().manual_seed(7))
     batches = trim_apart_batches(cfg.vocab_size)
@@ -539,19 +541,125 @@ def test_segmented_parts_trim_as_eager(segmented):
     assert_steps_equal(captured, run_steps(cfg, params, batches, mesh, graphs=False))
     step = captured[3]
     _, _, tbatch, _ = ttrain.make_train_step(cfg, ttrain.TrainConfig(), mesh)
-    q, d = batches[1]
-    assert [p.shape[1] for p in tbatch(d)] == [64, 128]  # eager's parts
-    assert step.key(q, d) == ("train", 2, 2, 8, (64, 64), (64, 128))
+    for q, d in batches:
+        assert [p.shape[1] for p in tbatch(q)] == [64, 64]  # eager's parts
+        assert [p.shape[1] for p in tbatch(d)] == [128, 128]
+        assert step.key(q, d) == ("train", 2, 2, 8, 64, 128)
     graphs = [k[0][1:] for k in step.programs.graphs]  # (device, *key): the key
-    assert {k[:6] for k in graphs if "tail" in k} == {
-        ("train", 2, 2, 8, (64, 64), (128, 64)), ("train", 2, 2, 8, (64, 64), (64, 128)),
-        ("train", 2, 2, 8, (64, 64), (128, 128))}
+    assert {k[:6] for k in graphs if "tail" in k} == {("train", 2, 2, 8, 64, 128)}
     rows = {k[4:7] for k in graphs if k[4] in tsegments.TOWERS}
-    assert rows == {("q", 0, 64), ("q", 1, 64), ("d", 0, 128), ("d", 1, 64), ("d", 0, 64),
-                    ("d", 1, 128)}
+    assert rows == {("q", 0, 64), ("q", 1, 64), ("d", 0, 128), ("d", 1, 128)}
     plan = tsegments.graphs_per_key(cfg, 2, 2)
-    assert step.programs.captures == len(rows) * plan["row"] + 2 + 3 * plan["tail"]
-    assert step.programs.replays == plan["graphs"]  # the third block's key
+    assert step.programs.captures == len(rows) * plan["row"] + 2 + plan["tail"]
+    assert step.programs.replays == 3 * plan["graphs"]
+
+
+def _trained_state(cfg, params, batches, mesh, graphs) -> tuple:
+    """Per-step losses and accuracies, and the final parameters of every
+    grid position and the optimizer's state (copies), of make_train_step's
+    steps over `batches`."""
+    step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(), mesh,
+                                                      graphs=graphs)
+    model = shard(params)
+    opt = init(model)
+    seen = []
+    for q, d in batches:
+        model, opt, m = step(model, opt, batch(q), batch(d))
+        seen.append((float(m["loss"]), float(m["accuracy"])))
+    return seen, [t.detach().clone() for t in ttrain._held(model, opt)], step
+
+
+def test_three_routes_read_one_width(monkeypatch):
+    """On blocks whose dp parts alone would trim to different buckets,
+    eager, the one graph (the stand-in capture on a (2, 2) grid of one
+    device) and the segment graphs (its stand-in, forced) read one width
+    and give bitwise the same per-step losses and accuracies, final
+    parameters and optimizer state, with the same key."""
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(7))
+    batches = trim_apart_batches(cfg.vocab_size)
+    mesh = _grid(2, 2)
+    eager = _trained_state(cfg, params, batches, mesh, False)
+    monkeypatch.setattr(ttrain, "CapturedPrograms", StepStandIn)
+    one = _trained_state(cfg, params, batches, mesh, True)
+    monkeypatch.setattr(tsharded, "on_one_device", lambda groups, device: False)
+    monkeypatch.setattr(ttrain, "CapturedPrograms", SegmentStandIn)
+    segmented = _trained_state(cfg, params, batches, mesh, True)
+    assert isinstance(segmented[2], tsegments.SegmentedStep)
+    assert not isinstance(one[2], tsegments.SegmentedStep)
+    for got in (one, segmented):
+        assert got[0] == eager[0]
+        assert all(torch.equal(t, w) for t, w in zip(got[1], eager[1]))
+    (graph_key, layout), = one[2].programs.graphs  # one key: the block's shapes
+    assert graph_key == ("train", 2, 2)
+    assert [shape for _, shape, _ in layout] == [(8, 64), (8, 128)]
+    assert set(segmented[2]._keys) == {("train", 2, 2, 8, 64, 128)}
+
+
+NAMED4 = ["cpu", "cpu:1", "cpu:2", "cpu:3"]
+
+
+@pytest.mark.parametrize("dp,tp", [(2, 2), (2, 4)])
+def test_eager_grid_step_feeds_accumulators_on_their_device(dp, tp, monkeypatch):
+    """The eager grid step over named devices (they compare unequal, so a
+    read on another position copies between devices, as between cards):
+    no parameter's AccumulateGrad node takes its gradient straight from a
+    copy between devices (on cards that copy's backward runs on the
+    reading card's stream, which torch reports as the AccumulateGrad
+    node's stream mismatch); each goes through a view on the parameter's
+    own device. Every activation read on other devices is copied to all of
+    them by one node, which sums their gradients in one order: the steps
+    equal the same grid's on one device bitwise (at tp = 4 the normed
+    stream's gradient has four terms). No loss, whose autograd graph holds
+    the step's AccumulateGrad nodes, outlives its step."""
+    import gc
+    import weakref
+
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(9))
+    batches = switching_batches(cfg.vocab_size, lengths=(64, 128))
+    losses, loss_fn = [], ttrain.contrastive_loss
+
+    def recording(*a, **kw):
+        loss, acc = loss_fn(*a, **kw)
+        losses.append(weakref.ref(loss))
+        if len(losses) == 1:
+            graphs.append(loss.grad_fn)
+        return loss, acc
+
+    graphs = []
+
+    monkeypatch.setattr(ttrain, "contrastive_loss", recording)
+    named = make_train_mesh(dp, tp, devices=(NAMED4 * 2)[:dp * tp])
+    got = _trained_state(cfg, params, batches, named, False)
+    monkeypatch.setattr(ttrain, "contrastive_loss", loss_fn)
+    one = _trained_state(cfg, params, batches, _grid(dp, tp), False)
+    assert got[0] == one[0]
+    assert all(torch.equal(t, w) for t, w in zip(got[1], one[1]))
+
+    def moves(node) -> bool:  # a copy that keeps the type: between devices
+        return (node.name() == "ToCopyBackward0" and node._input_metadata[0].dtype
+                == node.next_functions[0][0]._input_metadata[0].dtype)
+
+    seen, edges, stack = set(), [], [graphs[0]]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if nxt is not None:
+                edges.append((node, nxt))
+                stack.append(nxt)
+    accumulator = "torch::autograd::AccumulateGrad"
+    fed = [a for a, b in edges if b.name() == accumulator]
+    assert fed and not [a for a in fed if moves(a)]
+    assert [a for a, b in edges if moves(a) and b.name() == "ViewBackward0"
+            and b.next_functions[0][0].name() == accumulator]
+    assert any(a.name() == "_BroadcastBackward" for a, _ in edges)
+    del graphs[:], seen, edges, fed, node, stack, nxt
+    gc.collect()
+    assert len(losses) == len(batches) and not [r for r in losses if r() is not None]
 
 
 def test_segmented_keys_past_the_limit_drop_their_captures(segmented, monkeypatch):
@@ -667,6 +775,37 @@ def test_segment_captures_keep_no_autograd_graph(segmented, monkeypatch):
     step(model, init(model), batch(q), batch(d))  # eager, then every capture
     gc.collect()
     assert alive and not [r for r in alive if r() is not None]
+
+
+def test_segments_of_a_device_capture_on_one_stream(monkeypatch):
+    """Every segment graph of a device is captured on one stream, its
+    pools' groups alike: a tower's forward graphs keep the AccumulateGrad
+    nodes of the parameters they read alive until their backward is
+    captured, and the other tower's segments read the same parameters; on
+    a card, captured on a stream of their own, they fed those nodes from
+    another stream (torch's AccumulateGrad stream mismatch). Each device
+    has its own."""
+    monkeypatch.setattr(ttrain, "CapturedPrograms", SegmentStandIn)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: object())
+    seen = []
+    real = SegmentStandIn._capture
+
+    def capture(self, program, static):
+        seen.append((self.device, id(self.capture_stream())))
+        return real(self, program, static)
+
+    monkeypatch.setattr(SegmentStandIn, "_capture", capture)
+    cfg = _segment_cfg("bfloat16")
+    params = tenc.init_params(cfg, torch.Generator().manual_seed(5))
+    batches = switching_batches(cfg.vocab_size, lengths=(64, 128))
+    step = run_steps(cfg, params, batches, make_train_mesh(2, 2, devices=NAMED4),
+                     graphs=True)[3]
+    streams = {}
+    for device, stream in seen:
+        streams.setdefault(device, set()).add(stream)
+    assert len(seen) == step.programs.captures and len(step.programs.groups) > 4
+    assert set(streams) == {torch.device(d) for d in NAMED4}
+    assert all(len(s) == 1 for s in streams.values()) and len(set.union(*streams.values())) == 4
 
 
 def test_segment_optimizers_read_one_gradient_buffer(segmented, monkeypatch):
@@ -859,25 +998,74 @@ def test_segmented_grid_steps_equal_eager_on_card(forced, dp, tp):
 
 
 @pytest.mark.cuda
-def test_segmented_parts_trim_apart_on_card(forced):
-    """Blocks whose dp parts trim to different widths, on the segmented
-    route forced on this card, bitwise the eager step: the last block's key
-    replays rows' graphs captured in two earlier steps, one after the other
-    between their forwards and backwards (each row's tower has a pool of its
-    own: in one shared pool the later capture could take memory the
-    earlier one's saved tensors hold)."""
+def test_segmented_parts_trim_apart_on_card(forced, monkeypatch):
+    """Blocks whose dp parts alone would trim to different widths: on the
+    segmented route forced on this card every part runs at the block's
+    width, bitwise the eager step and the one graph; one key (B, Lq, Ld),
+    each row's tower captured once, every later step a replay."""
     cfg = _card_cfg(hybrid_anchor=True)
     params = tenc.init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
     batches = trim_apart_batches(cfg.vocab_size)
-    batches += batches  # every key again: replays only
+    batches += batches  # the key again: replays only
     mesh = make_train_mesh(2, 2, devices=["cuda:0"] * 4)
     eager = run_steps(cfg, params, batches, mesh, graphs=False)
     captured = run_steps(cfg, params, batches, mesh)
     assert_steps_equal(captured, eager)
     plan = tsegments.graphs_per_key(cfg, 2, 2)
     step = captured[3]
-    assert step.programs.captures == 6 * plan["row"] + 2 + 3 * plan["tail"]
-    assert step.programs.replays == 5 * plan["graphs"]
+    assert set(step._keys) == {("train", 2, 2, 8, 64, 128)}
+    assert step.programs.captures == 4 * plan["row"] + 2 + plan["tail"]
+    assert step.programs.replays == 7 * plan["graphs"]
+    monkeypatch.undo()  # the one graph of this card's grid
+    one = run_steps(cfg, params, batches, mesh)
+    assert not isinstance(one[3], tsegments.SegmentedStep) and one[3].programs.captures == 1
+    assert_steps_equal(one, eager)
+
+
+_STREAM_WARNING_RUN = """
+import dataclasses, sys, warnings
+import numpy as np, torch
+sys.path.insert(0, {root!r})
+warnings.filterwarnings("error", message="The AccumulateGrad node's stream")
+from mobius_rag_tpu_torch.models import encoder as tenc, train as ttrain
+from mobius_rag_tpu_torch.parallel import sharded
+from mobius_rag_tpu_torch.parallel.mesh import make_train_mesh
+sharded.on_one_device = lambda groups, device: False
+cfg = dataclasses.replace(tenc.EncoderConfig.tiny(), max_seq=128, vocab_size=512)
+mesh = make_train_mesh(2, 2, devices={devices!r})
+rng = np.random.default_rng(0)
+for graphs in (False, True):
+    step, shard, batch, init = ttrain.make_train_step(cfg, ttrain.TrainConfig(), mesh,
+                                                      graphs=graphs)
+    model = shard(tenc.init_params(cfg, torch.Generator(device="cuda:0").manual_seed(0)))
+    opt = init(model)
+    for width in (64, 128, 64):
+        q = rng.integers(2, 512, (8, 128)).astype(np.int32)
+        q[:, width:] = 0
+        model, opt, m = step(model, opt, batch(q), batch(q))
+        float(m["loss"])
+print("no warning")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", [1, 4], ids=["forced_on_one_card", "over_cards"])
+def test_grid_steps_raise_no_stream_warning_on_card(cards):
+    """In a fresh process (torch warns once a process), with torch's
+    AccumulateGrad stream warning made an error: the eager (2, 2) step
+    and the segmented route, forced on cuda:0 or over cuda:0..3, three
+    steps over two keys. Captured with a stream of its own, each tower's
+    group fed AccumulateGrad nodes made on another's."""
+    import subprocess
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA cards")
+    devices = [f"cuda:{i % cards}" for i in range(4)]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c",
+                        _STREAM_WARNING_RUN.format(root=root, devices=devices)],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and "no warning" in r.stdout, r.stderr[-3000:]
 
 
 @pytest.mark.cuda
@@ -927,19 +1115,27 @@ def test_failed_segment_capture_on_card_raises(forced, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dp,tp", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("dp,tp", [(2, 2), (4, 1), (2, 4)])
 def test_segmented_grid_over_cards_on_card(dp, tp):
-    """With four cards or more: a grid over cuda:0..3 (real copies between
-    cards, no forcing) on the segmented route against its eager step on the
-    same cards, bitwise (at tp <= 2 every cross-card sum has two terms)."""
+    """With four cards or more: a grid over cuda:0..3 (at (2, 4) each row
+    over them; real copies between cards, no forcing) on the segmented
+    route against its eager step on the same cards, bitwise. At tp = 4 the
+    normed stream's gradient fans in from four cards: the eager step sums
+    it in one order (``encoder._Broadcast``). Neither route raises
+    torch's AccumulateGrad stream warning (made an error here)."""
+    import warnings
+
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA cards")
     cfg = _card_cfg(hybrid_anchor=True)
     params = tenc.init_params(cfg, torch.Generator(device="cuda:0").manual_seed(5))
     batches = switching_batches(cfg.vocab_size)
-    mesh = make_train_mesh(dp, tp, devices=[f"cuda:{i}" for i in range(4)])
-    eager = run_steps(cfg, params, batches, mesh, graphs=False)
-    captured = run_steps(cfg, params, batches, mesh)
+    cards = [f"cuda:{i}" for i in range(4)]
+    mesh = make_train_mesh(dp, tp, devices=(cards * 2)[:dp * tp])
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="The AccumulateGrad node's stream")
+        eager = run_steps(cfg, params, batches, mesh, graphs=False)
+        captured = run_steps(cfg, params, batches, mesh)
     assert isinstance(captured[3], tsegments.SegmentedStep)
     assert_steps_equal(captured, eager)
     assert set(captured[3].programs.by_device) == {torch.device("cuda", i) for i in range(4)}
