@@ -18,9 +18,19 @@ Reference parity (SURVEY §5.1/§5.5):
 Backing store is sqlite (host side; the hot path never blocks on it —
 writes go through a fire-and-forget buffer like the reference's
 fire-and-forget decision persistence, corpus_search_agent.py:3402).
+
+Spans and counters (the port's own; see that section): the query path's
+layer boundaries as spans, the device program's stages as timing events
+inside it, and plain counters, in one process-wide :data:`RECORDER`.
+Spans and stage marks record exactly while a ``torch.profiler`` session
+collects in the process, so a traced benchmark run or ``POST
+/admin/profile {"trace": true}`` traces, and nothing else does.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import itertools
 import json
 import logging
 import os
@@ -29,7 +39,10 @@ import sqlite3
 import threading
 import time
 import uuid
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
+
+import torch
+from torch.autograd import profiler as torch_profiler
 
 from mobius_rag_tpu_torch.config import get_config
 
@@ -428,3 +441,364 @@ class ProgressEmitter:
 
 
 PROGRESS = ProgressEmitter()
+
+
+# ---------------------------------------------------------------------------
+# Spans and counters
+# ---------------------------------------------------------------------------
+
+# Span records a recorder keeps; the oldest go first.
+RING = 65_536
+# The device program's stages, in order. Each is timed from the mark before
+# it (the program's start, for the first) to its own mark.
+STAGES = ("gate", "vector", "lexical", "dtag", "fusion")
+
+
+def tracing() -> bool:
+    """Whether spans and stage readings record: exactly while a
+    ``torch.profiler`` session collects in this process (torch's own
+    process-wide flag, which every profiler session sets)."""
+    return torch_profiler._is_profiler_enabled
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. Times are ns on ``time.time_ns``'s clock, the one
+    ``torch.profiler`` stamps its events on; ``parent`` is the id of the
+    span around it; ``self_ns`` is its duration less what its children
+    cover."""
+
+    id: int
+    name: str
+    start: int
+    end: int
+    parent: int | None
+    batch: int | None
+    thread: int
+    attrs: dict
+    self_ns: int
+
+
+class Span:
+    """A span while it is open (:meth:`Recorder.span`, :meth:`Recorder.open`).
+    ``start`` and ``end`` (ns, ``time.time_ns``) are stamped whether or not
+    tracing is on, so a caller can time its stages from them."""
+
+    __slots__ = ("rec", "name", "batch", "attrs", "start", "end", "id", "parent",
+                 "child_ns", "thread", "twin", "split")
+
+    def __init__(self, rec: "Recorder", name: str, batch: int | None, attrs: dict):
+        self.rec, self.name, self.batch, self.attrs = rec, name, batch, attrs
+        self.end = None
+        self.split: dict[str, int] | None = None  # an open()ed span's children, ns by name
+
+    def __enter__(self) -> "Span":
+        if tracing():
+            self.rec._begin(self, stacked=True)
+        else:  # the stamps alone
+            self.rec = None
+            self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.rec is None:
+            self.end = time.time_ns()
+        else:
+            self.rec._end(self)
+        return False
+
+
+class Recorder:
+    """The spans, stage readings and counters of one process (:data:`RECORDER`).
+
+    A span (:meth:`span`) is a context manager. While tracing it records its
+    name, start, end and parent (the span open around it on its thread), a
+    batch id (the one given, else its parent's, else the one its thread
+    last took up: :meth:`take_batch`) and a few attributes, into a ring of
+    :data:`RING` records (:meth:`records`; kept as plain tuples, which the
+    cyclic collector stops tracking, so that a full ring does not bring on
+    full collections) and running totals by name (count, total and self
+    time, and the time of each child name); and it is a
+    ``torch.profiler.record_function`` named ``mrag:<name>``, so it lands on
+    the profiler's timeline beside the device's events. Its start is
+    stamped as the twin's enter returns and its end as the twin's exit
+    returns, which keeps each within tens of microseconds of the twin's
+    own. Off, a span stamps its start and end and records nothing.
+
+    A span that closes after the profiler has stopped is not kept.
+    :meth:`open` and :meth:`close` make a span that opens in one call and
+    closes in another (``query.starved``). It stays off the thread's stack:
+    the spans that close on its thread outside any other span while it is
+    open count as its children, for the part of them it covers. The
+    recorder holds every such span until it ends, and it ends with its
+    profiler session at the latest: :meth:`end_session` (which
+    ``profiling.locked_profiler`` calls before it stops a profiler, and
+    :meth:`reset` first) ends every one still open; one closed while no
+    profiler runs is dropped. (A profiler started and stopped elsewhere,
+    twice with no dispatch between, would hand the first session's span
+    to the second.)
+
+    Counters (:attr:`counts`) are plain integers: the batches whose stage
+    marks were read and skipped (:meth:`read_stages`)."""
+
+    def __init__(self, size: int = RING):
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count()
+        self.size = size
+        self.reset()
+
+    def reset(self) -> None:
+        """Forget every record, total and count (the spans still open end
+        first: :meth:`end_session`)."""
+        if hasattr(self, "_floating"):
+            self.end_session()
+        with self._lock:
+            self.ring: collections.deque[tuple] = collections.deque(maxlen=self.size)
+            self.totals: dict[str, list[int]] = {}  # name -> [count, total ns, self ns]
+            self.children: dict[str, dict[str, int]] = {}  # name -> child name -> ns
+            self.stages: dict[str, list] = {}  # stage -> [batches read, total ms]
+            self.counts: collections.Counter = collections.Counter()
+            self._floating: list[Span] = []
+
+    def span(self, name: str, batch: int | None = None, **attrs) -> Span:
+        return Span(self, name, batch, attrs)
+
+    def open(self, name: str, batch: int | None = None, **attrs) -> Span | None:
+        """A span left open for :meth:`close`; None while tracing is off."""
+        if not tracing():
+            return None
+        sp = Span(self, name, batch, attrs)
+        self._begin(sp, stacked=False)
+        sp.split = {}
+        with self._lock:
+            self._floating.append(sp)
+        return sp
+
+    def close(self, sp: Span | None) -> None:
+        """End a span :meth:`open` made, unless :meth:`end_session` has
+        ended it. The span open outside any other on this thread now,
+        begun after it, counts as its child up to now."""
+        if sp is None:
+            return
+        stack = self._stack()
+        with self._lock:
+            if sp not in self._floating:
+                return
+            self._floating.remove(sp)
+            if stack and sp.thread == threading.get_ident():
+                part = time.time_ns() - max(stack[0].start, sp.start)
+                sp.child_ns += part
+                sp.split[stack[0].name] = sp.split.get(stack[0].name, 0) + part
+        self._end(sp)
+
+    def end_session(self) -> None:
+        """End every span :meth:`open` made that is still open, now: called
+        while a profiler still runs, its session keeps them up to its stop.
+        No later session may inherit one: a ``record_function`` exited, or
+        destroyed, under a session other than the one it entered in
+        crashes the process."""
+        with self._lock:
+            spans, self._floating = self._floating, []
+        for sp in spans:
+            self._end(sp)
+
+    def records(self) -> list[SpanRecord]:
+        """The ring's records, oldest first."""
+        with self._lock:
+            return [SpanRecord(*r[:7], dict(zip(r[8::2], r[9::2])), r[7]) for r in self.ring]
+
+    def take_batch(self, batch: int | None) -> None:
+        """The batch id this thread's spans take when given none outside
+        any other span: the batch the thread works on now."""
+        self._local.batch = batch
+
+    def read_stages(self, marks: "StageMarks", run: int, batch: int | None) -> None:
+        """One batch's stage marks (`marks`, from its dispatch, the `run`-th
+        that returned them) read into the stage totals, or counted skipped
+        where a later dispatch has recorded them again."""
+        if marks.runs != run:
+            with self._lock:
+                self.counts["marks_skipped"] += 1
+            return
+        ms = marks.elapsed_ms()
+        with self._lock:
+            self.counts["marks_read"] += 1
+            for stage, v in ms.items():
+                tot = self.stages.setdefault(stage, [0, 0.0])
+                tot[0] += 1
+                tot[1] += v
+
+    def summary(self) -> dict:
+        """The totals: by span name its count and total and self ms, and
+        the ms of each of its children's names; by stage the batches read
+        and their total ms; the counters."""
+        with self._lock:
+            return {
+                "spans": {n: {"count": c, "total_ms": t / 1e6, "self_ms": s / 1e6}
+                          for n, (c, t, s) in self.totals.items()},
+                "children": {n: {c: ns / 1e6 for c, ns in kids.items()}
+                             for n, kids in self.children.items()},
+                "stages": {s: {"count": c, "total_ms": ms} for s, (c, ms) in self.stages.items()},
+                "counts": dict(self.counts),
+            }
+
+    def _stack(self) -> list[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _begin(self, sp: Span, stacked: bool) -> None:
+        stack = self._stack()
+        parent = stack[-1] if stacked and stack else None
+        sp.parent = parent
+        if sp.batch is None:
+            sp.batch = parent.batch if parent is not None else getattr(self._local, "batch", None)
+        sp.id = next(self._ids)
+        sp.thread = threading.get_ident()
+        sp.child_ns = 0
+        sp.twin = torch_profiler.record_function(f"mrag:{sp.name}")
+        sp.twin.__enter__()
+        sp.start = time.time_ns()
+        if stacked:
+            stack.append(sp)
+
+    def _end(self, sp: Span) -> None:
+        sp.twin.__exit__(None, None, None)
+        sp.end = time.time_ns()
+        stack = self._stack()
+        if sp in stack:
+            stack.remove(sp)
+        if tracing():  # a span the profiler's stop cut is not kept
+            self._store(sp)
+        # what a caller keeps of a closed span is its stamps
+        sp.twin = sp.parent = sp.rec = None
+
+    def _store(self, sp: Span) -> None:
+        dur = sp.end - sp.start
+        parent = sp.parent
+        with self._lock:
+            if parent is not None:
+                parent.child_ns += dur
+                self._add_child(parent.name, sp.name, dur)
+            else:
+                for f in self._floating:
+                    part = sp.end - max(sp.start, f.start)
+                    if f.thread == sp.thread and part > 0:
+                        f.child_ns += part
+                        f.split[sp.name] = f.split.get(sp.name, 0) + part
+            for child, ns in (sp.split or {}).items():
+                self._add_child(sp.name, child, ns)
+            tot = self.totals.setdefault(sp.name, [0, 0, 0])
+            tot[0] += 1
+            tot[1] += dur
+            tot[2] += dur - sp.child_ns
+            # flat: a tuple holding no other container is untracked at once
+            self.ring.append((sp.id, sp.name, sp.start, sp.end,
+                              None if parent is None else parent.id, sp.batch, sp.thread,
+                              dur - sp.child_ns, *itertools.chain(*sp.attrs.items())))
+
+    def _add_child(self, name: str, child: str, ns: int) -> None:
+        kids = self.children.setdefault(name, {})
+        kids[child] = kids.get(child, 0) + ns
+
+
+RECORDER = Recorder()
+
+
+def span(name: str, batch: int | None = None, **attrs) -> Span:
+    """A span of :data:`RECORDER` (:meth:`Recorder.span`)."""
+    return RECORDER.span(name, batch, **attrs)
+
+
+class Flight:
+    """One engine's batches in flight (dispatched, not yet fetched), and its
+    ``query.starved`` span: open from the fetch that leaves none in flight
+    until the engine's next dispatch has put its batch in flight (its
+    program and copies enqueued), while the device has nothing of the
+    engine's to run. Whatever the host does meanwhile lies under it: the
+    last assembly, the caller's own loop, the next preparation and the
+    dispatch's upload and launch. A batch leaves the flight once
+    (``PendingFetch.leave``): at its fetch, or where its caller gives it
+    up unfetched (a failed batch before it)."""
+
+    def __init__(self, recorder: Recorder | None = None):
+        self.rec = recorder or RECORDER
+        self._lock = threading.Lock()
+        self.n = 0
+        self.starved: Span | None = None
+
+    def sent(self) -> None:
+        """A batch is in flight: ``query.starved`` closes."""
+        with self._lock:
+            self.n += 1
+            sp, self.starved = self.starved, None
+        self.rec.close(sp)
+
+    def left(self, batch: int | None) -> None:
+        """`batch` has left the flight; the last to leave opens
+        ``query.starved``."""
+        with self._lock:
+            self.n -= 1
+            if self.n == 0 and self.starved is None:
+                self.starved = self.rec.open("query.starved", batch=batch)
+
+
+class StageMarks:
+    """Timing events at the stage boundaries of one device program
+    (:data:`STAGES`; the first, "start", at the program's start), made by
+    :func:`mark` while :func:`stage_marks` collects them. On a card each is
+    a ``torch.cuda.Event(enable_timing=True, external=True)`` recorded on
+    the current stream: inside a CUDA graph's capture that is an
+    event-record node, which every replay records again, so the marks of a
+    captured program belong to its graph (they ride its static outputs).
+    On the CPU, which runs the program eagerly and in order, a mark takes
+    the host clock (ns, ``time.time_ns``). ``runs`` counts the dispatches
+    that returned these marks: a batch's reading is its own only while no
+    later dispatch has."""
+
+    def __init__(self, device):
+        self.on_card = torch.device(device).type == "cuda"
+        self.stamps: list[tuple[str, Any]] = []
+        self.runs = 0
+
+    def mark(self, stage: str) -> None:
+        if self.on_card:
+            stamp = torch.cuda.Event(enable_timing=True, external=True)
+            stamp.record()
+        else:
+            stamp = time.time_ns()
+        self.stamps.append((stage, stamp))
+
+    def elapsed_ms(self) -> dict[str, float]:
+        """ms of each stage, from the mark before it to its own. The events
+        are read without a synchronize: call it once they have completed."""
+        out = {}
+        for (_, a), (stage, b) in zip(self.stamps, self.stamps[1:]):
+            out[stage] = a.elapsed_time(b) if self.on_card else (b - a) / 1e6
+        return out
+
+
+_MARKS = threading.local()
+
+
+@contextlib.contextmanager
+def stage_marks(device):
+    """Collect this thread's :func:`mark` calls inside the block into a new
+    :class:`StageMarks` (yielded), marked "start" on entry."""
+    marks = StageMarks(device)
+    outer = getattr(_MARKS, "current", None)
+    _MARKS.current = marks
+    try:
+        marks.mark("start")
+        yield marks
+    finally:
+        _MARKS.current = outer
+
+
+def mark(stage: str) -> None:
+    """The end of `stage` of the device program this thread runs, where a
+    collector is open (:func:`stage_marks`); nothing elsewhere."""
+    marks = getattr(_MARKS, "current", None)
+    if marks is not None:
+        marks.mark(stage)

@@ -34,6 +34,7 @@ from typing import Any, Iterator, Sequence
 
 import torch
 
+from mobius_rag_tpu_torch.observability import RECORDER
 from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
 from mobius_rag_tpu_torch.query import compiled
 from mobius_rag_tpu_torch.query import engine as eng
@@ -44,7 +45,8 @@ def locked_profiler(activities) -> Iterator[torch.profiler.profile]:
     """``torch.profiler.profile`` over the block, its start and its stop
     each under ``compiled.LOCK``: both may synchronize the device, and a
     device-wide synchronize breaks a capture open on another thread. The
-    lock is not held inside the block (a search takes it itself)."""
+    lock is not held inside the block (a search takes it itself). The
+    recorder's spans still open (``query.starved``) end at the stop."""
     prof = torch.profiler.profile(activities=activities)
     with compiled.LOCK:
         prof.start()
@@ -52,6 +54,7 @@ def locked_profiler(activities) -> Iterator[torch.profiler.profile]:
         yield prof
     finally:
         with compiled.LOCK:
+            RECORDER.end_session()
             prof.stop()
 
 

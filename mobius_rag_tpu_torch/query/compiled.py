@@ -137,17 +137,18 @@ the replay. Nothing in the step reads a device value back.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
 import threading
-import time
 from collections import OrderedDict
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from mobius_rag_tpu_torch.observability import span
 from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_gated_blocks
 from mobius_rag_tpu_torch.ops.topk import masked_topk
 
@@ -259,7 +260,10 @@ def _on(device: torch.device):
 class CapturedPrograms:
     """One engine's (or one model's) captured programs on a CUDA device
     (see the module docstring). ``run`` serves one batch; ``captures``,
-    ``capture_ms``, ``replays`` and :meth:`pool_bytes` report on them."""
+    ``captures_by_key`` (a count by each graph's full key: the key and the
+    batch's layout), ``capture_ms``, ``replays`` and :meth:`pool_bytes`
+    report on them. Each capture is a ``programs.capture`` span (the
+    observability module's), with its key."""
 
     def __init__(self, device, max_graphs: int = MAX_GRAPHS):
         self.device = torch.device(device)
@@ -268,6 +272,7 @@ class CapturedPrograms:
         self.graphs: "OrderedDict[tuple, _Entry]" = OrderedDict()
         self.tables: tuple | None = None  # identity of the tables of every graph kept
         self.captures = 0
+        self.captures_by_key: collections.Counter = collections.Counter()
         self.capture_ms: list[float] = []  # one per capture, in order
         self.replays = 0
         self._pool = None
@@ -333,14 +338,13 @@ class CapturedPrograms:
             join(entry.static[name], t)
         answer = program(entry.static)  # eager: this batch's answer
         before = [fn.launches for fn in COUNTED]
-        t0 = time.perf_counter()
-        entry.graph, entry.outputs = self._capture(program, entry.static)
-        entry.capture_ms = (time.perf_counter() - t0) * 1e3
+        with span("programs.capture", key=full) as sp:
+            entry.graph, entry.outputs = self._capture(program, entry.static)
+        entry.capture_ms = (sp.end - sp.start) / 1e6
         entry.deltas = tuple(fn.launches - n for fn, n in zip(COUNTED, before))
         for fn, n in zip(COUNTED, before):
             fn.launches = n
-        self.captures += 1
-        self.capture_ms.append(entry.capture_ms)
+        self._count(full, entry.capture_ms)
         self.graphs[full] = entry
         while len(self.graphs) > self.max_graphs:
             self.graphs.popitem(last=False)
@@ -357,17 +361,21 @@ class CapturedPrograms:
         order (graphs of one pool replay in the order they were captured)
         and the LRU: it drops a key's graphs together (:meth:`drop`)."""
         before = [fn.launches for fn in COUNTED]
-        t0 = time.perf_counter()
-        graph, outputs = self._capture(lambda _: program(), None)
-        ms = (time.perf_counter() - t0) * 1e3
+        with span("programs.capture", key=key) as sp:
+            graph, outputs = self._capture(lambda _: program(), None)
+        ms = (sp.end - sp.start) / 1e6
         deltas = tuple(fn.launches - n for fn, n in zip(COUNTED, before))
         for fn, n in zip(COUNTED, before):
             fn.launches = n
         entry = _Entry(graph, None, {}, outputs, tuple(held), deltas, ms)
         self.graphs[(key, ())] = entry
-        self.captures += 1
-        self.capture_ms.append(ms)
+        self._count((key, ()), ms)
         return entry
+
+    def _count(self, full: tuple, ms: float) -> None:
+        self.captures += 1
+        self.captures_by_key[full] += 1
+        self.capture_ms.append(ms)
 
     def replay(self, entry: _Entry) -> None:
         """One replay of a graph that :meth:`capture` made."""
@@ -432,9 +440,9 @@ class ProgramsByDevice:
     such node belongs to the stream it was made on; another group's
     segment reading the same parameter on another stream would feed it
     from there (torch's AccumulateGrad stream mismatch). ``captures``,
-    ``capture_ms``, ``replays``, ``graphs`` (keyed ((device, *key),
-    layout)) and :meth:`pool_bytes` report on all of them (the counts
-    include dropped groups')."""
+    ``captures_by_key``, ``capture_ms``, ``replays``, ``graphs`` (both keyed
+    ((device, *key), layout)) and :meth:`pool_bytes` report on all of them
+    (the counts include dropped groups')."""
 
     def __init__(self, devices: Sequence, max_graphs: int = MAX_GRAPHS,
                  make: Callable[..., CapturedPrograms] | None = None):
@@ -442,7 +450,8 @@ class ProgramsByDevice:
         self.by_device = {d: self.make(d, max_graphs)
                           for d in dict.fromkeys(torch.device(d) for d in devices)}
         self.groups: dict[tuple, CapturedPrograms] = {}  # (group, device) -> its programs
-        self._gone = (0, [], 0)  # dropped groups' captures, capture ms, replays
+        # dropped groups' captures, capture ms, replays, captures by key
+        self._gone = (0, [], 0, collections.Counter())
 
     def __getitem__(self, device) -> CapturedPrograms:
         return self.by_device[torch.device(device)]
@@ -461,8 +470,9 @@ class ProgramsByDevice:
         """Forget `group`'s graphs on every device, and its pools."""
         for gd in [gd for gd in self.groups if gd[0] == group]:
             p = self.groups.pop(gd)
-            captures, ms, replays = self._gone
-            self._gone = (captures + p.captures, ms + p.capture_ms, replays + p.replays)
+            captures, ms, replays, by_key = self._gone
+            self._gone = (captures + p.captures, ms + p.capture_ms, replays + p.replays,
+                          by_key + self._by_device(p, p.captures_by_key))
             p.clear()
 
     def _all(self) -> list[CapturedPrograms]:
@@ -471,6 +481,16 @@ class ProgramsByDevice:
     @property
     def captures(self) -> int:
         return self._gone[0] + sum(p.captures for p in self._all())
+
+    @property
+    def captures_by_key(self) -> collections.Counter:
+        return sum((self._by_device(p, p.captures_by_key) for p in self._all()),
+                   self._gone[3])
+
+    @staticmethod
+    def _by_device(p: CapturedPrograms, counts: collections.Counter) -> collections.Counter:
+        return collections.Counter({((str(p.device), *key), layout): n
+                                    for (key, layout), n in counts.items()})
 
     @property
     def capture_ms(self) -> list[float]:

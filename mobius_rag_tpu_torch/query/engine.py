@@ -86,6 +86,16 @@ up as one non-blocking copy from page-locked memory (into the graph's
 static inputs), and the strict counts of candidate-local gating run on a
 stream of their own, whose event is the only thing the host waits for.
 
+Tracing (``observability``'s spans and counters): each batch's host
+stages are spans (``query.tables``, ``query.prepare`` with
+``query.embeddings``, ``query.dispatch`` with ``query.lock``,
+``query.fetch``, ``query.finish``, ``query.assemble``) that share the
+batch's id, and ``query.starved`` runs from the fetch that leaves none of
+the engine's batches in flight until the next one is. On the engine's own
+device the program marks its five stages (gate, vector, lexical, dtag,
+fusion) with timing events, read after the batch's fetch. All of it
+records only while a ``torch.profiler`` session runs.
+
 An optional cross-encoder (``cross_encoder``, e.g.
 ``models.cross_encoder.CrossEncoderModel``) rescores each result's hits
 on the host after assembly and re-sorts them stably by its logit; the
@@ -104,16 +114,16 @@ events, on a grid over several cards.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import itertools
 import sqlite3
-import time
 from collections import OrderedDict
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from mobius_rag_tpu_torch import observability as obs
 from mobius_rag_tpu_torch.config import Config, get_config
 from mobius_rag_tpu_torch.index.ivf import (IVFIndex, PackedIVF, calibrate_nprobe,
                                             ivf_search, ivf_search_packed)
@@ -431,6 +441,11 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
     same auto-relax branch (the JAX engine's ``psum``), and ``offset`` (the
     shard's first global row) is added to the returned row ids.
 
+    The ends of the gate, vector, lexical and d-tag stages are marked
+    (``observability.mark``: timing events where the engine's one-device
+    program collects them, nothing elsewhere); the rest, with the fusion,
+    is the program's last stage.
+
     Returns (vals [3, B, m] f32, gidx [3, B, m] int32, sigs [3, B, m,
     N_SIG] f32, strict_total [B, 1])."""
     m_oth = min(m_other or m, m)
@@ -445,13 +460,17 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
             else gating.strict_counts(index, q)
         strict_total = strict_local[:, None]
         qmeta, qbits = encode_qmeta(q, strict_local >= k)
+        obs.mark("gate")
         vec_vals, vec_idx = proj_search_gated(
             ann, gate_words, q["vec"], qmeta, qbits, m, nprobe, approx, tag_level,
             tw=index.j_tags.shape[1])
         vec_vals = _min_sim_filter(vec_vals, q)
+        obs.mark("vector")
         lex_vals, lex_idx, _ = gating.lexical_candidates_local(
             index, q, qmeta, qbits, m_oth, tag_level)
+        obs.mark("lexical")
         dtag_vals, dtag_idx = gating.dtag_candidates_local(dtag_t, q, qmeta, m_oth)
+        obs.mark("dtag")
 
         def lex_sig_of(idx):
             return gating.lex_signal_join(idx, lex_idx, lex_vals)
@@ -462,6 +481,7 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
         penalty = gate_penalty(strict, relaxed, open_mask, q, k, strict_total)
         # [B, C] each and read no more: freed before the arms' transients
         del strict, relaxed, open_mask
+        obs.mark("gate")
         if ann is None:
             scales = index.vec_scales if index.vectors.dtype == torch.int8 else None
             vec_vals, vec_idx = masked_topk(q["vec"], index.vectors, penalty,
@@ -469,9 +489,12 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
         else:
             vec_vals, vec_idx = ann_search(index, ann, q["vec"], penalty, m, nprobe, approx)
             vec_vals = _min_sim_filter(vec_vals, q)
+        obs.mark("vector")
         lex = lexical_raw(index, q)
         lex_vals, lex_idx = topk_stable(torch.where(lex > 0, lex, NEG_INF) + penalty, m_oth)
+        obs.mark("lexical")
         dtag_vals, dtag_idx = topk_stable(dtag_raw(index, q, meta_ok), m_oth)
+        obs.mark("dtag")
 
         def lex_sig_of(idx):
             return torch.gather(lex, 1, idx)
@@ -698,14 +721,29 @@ def pack_out(out: dict, w: int = 0) -> tuple[np.ndarray, np.ndarray]:
     return packed_f.cpu().numpy(), packed_i.cpu().numpy()
 
 
+class Packed(tuple):
+    """A device program's two packed output arrays (:func:`pack_device`),
+    and ``marks``: its stage marks (``observability.StageMarks``)."""
+
+    marks = None
+
+
 class PendingFetch:
     """The two packed output arrays of a dispatched batch on their way to
     the host. On a card: non-blocking copies into page-locked buffers,
     enqueued on the current stream behind the batch's program, and an
     event after them; :meth:`wait` waits for that event alone. On the CPU
-    the arrays are already on the host."""
+    the arrays are already on the host.
 
-    def __init__(self, packed: tuple[torch.Tensor, torch.Tensor]):
+    ``marks``: the program's stage marks (``observability.StageMarks``) or
+    None; ``flight``: the engine's batches in flight
+    (``observability.Flight``), which this batch joins until :meth:`leave`.
+    ``batch`` (the batch's id), ``prepared_end`` and ``sent_start`` (ns
+    stamps: the end of its ``query.prepare`` span and the start of its
+    ``query.dispatch``) are set by the engine after the dispatch."""
+
+    def __init__(self, packed: tuple[torch.Tensor, torch.Tensor], marks=None,
+                 flight: obs.Flight | None = None):
         self.done = None
         self.host = packed
         if packed[0].device.type == "cuda":
@@ -715,11 +753,40 @@ class PendingFetch:
                 h.copy_(t, non_blocking=True)
             self.done = torch.cuda.Event()
             self.done.record()
+        self.marks, self.flight = marks, flight
+        self.run = 0
+        if marks is not None:
+            marks.runs += 1
+            self.run = marks.runs
+        if flight is not None:
+            flight.sent()
+        self.batch = self.prepared_end = self.sent_start = None
+        self.gone = False
 
     def wait(self) -> tuple[np.ndarray, np.ndarray]:
-        if self.done is not None:
-            self.done.synchronize()
+        """The arrays, once on the host (span ``query.fetch``: the host
+        blocked on the device). The first wait leaves the engine's flight
+        and, while tracing, reads the batch's stage marks: the copies come
+        after the program, so its events have completed."""
+        obs.RECORDER.take_batch(self.batch)
+        first = not self.gone
+        try:
+            with obs.span("query.fetch"):
+                if self.done is not None:
+                    self.done.synchronize()
+        finally:
+            self.leave()
+        if first and self.marks is not None and obs.tracing():
+            obs.RECORDER.read_stages(self.marks, self.run, self.batch)
         return self.host[0].numpy(), self.host[1].numpy()
+
+    def leave(self) -> None:
+        """Take the batch out of the engine's flight, once: at its fetch,
+        or where its caller gives it up unfetched."""
+        if not self.gone:
+            self.gone = True
+            if self.flight is not None:
+                self.flight.left(self.batch)
 
 
 class PreparedBatch(dict):
@@ -860,6 +927,10 @@ class SearchEngine:
                 self.vector_backend = sharded.vector_backend
         # the captured device programs (query/compiled.py), made when first on
         self._programs: CapturedPrograms | None = None
+        # each batch's id, shared by its spans (observability.span), and the
+        # batches dispatched and not yet fetched
+        self._batch_ids = itertools.count()
+        self._flight = obs.Flight()
         if graphs is None:
             graphs = self.device.type == "cuda"
         self.graphs = graphs
@@ -1329,7 +1400,8 @@ class SearchEngine:
         here waits for work already enqueued on the device; ``ready`` (a
         CUDA event after the index's last write, default now) orders the
         strict counts of local gating after the index."""
-        vecs = self._embeddings(reqs)
+        with obs.span("query.embeddings"):
+            vecs = self._embeddings(reqs)
         prepared = [self.prepare_query(r) for r in reqs]
         host = {key: np.stack([p[0][key] for p in prepared]) for key in prepared[0][0]}
         union: dict[int, int] = {}
@@ -1523,7 +1595,10 @@ class SearchEngine:
         engine's device; as a captured graph's replay when ``graphs`` is
         on. The program is search_batch (or the sharded engine's program)
         at the device width (k, or k·over_fetch with a funnel under host
-        residency), then pack_device."""
+        residency), then pack_device. On this engine's own device the
+        program's stages are marked, and the arrays come as a
+        :class:`Packed` that holds the marks (a captured program's are its
+        graph's, which every replay records again)."""
         q = getattr(q, "host", q)
         kd, fw = self._device_k(k), self._device_funnel(k)
         if self.sharded is not None:
@@ -1549,7 +1624,13 @@ class SearchEngine:
             held = tables_held(index, ann, local)
 
         def program(qd):
-            return pack_device(run(_bf16(qd)), fw)
+            if self.sharded is not None:
+                return pack_device(run(_bf16(qd)), fw)
+            with obs.stage_marks(self.device) as marks:
+                packed = Packed(pack_device(run(_bf16(qd)), fw))
+                obs.mark("fusion")
+            packed.marks = marks
+            return packed
 
         host = _cut_union(q, self._union_read(q))
         if not self.graphs:
@@ -1564,9 +1645,42 @@ class SearchEngine:
         its program, the output packing and the copies of the two packed
         arrays to the host, all enqueued; nothing here waits for the
         device. A captured program runs under ``compiled.LOCK`` up to its
-        copies (see query/compiled.py)."""
-        with LOCK if self.graphs else contextlib.nullcontext():
-            return PendingFetch(self._packed(q, exps, ann, local, k))
+        copies (see query/compiled.py). Spans: ``query.dispatch``, and
+        ``query.lock`` inside it, the wait for the lock."""
+        host, locked = getattr(q, "host", q), self.graphs
+        with obs.span("query.dispatch", size=host["vec"].shape[0],
+                      union=getattr(host, "union", None)) as sent:
+            with obs.span("query.lock"):
+                if locked:
+                    LOCK.acquire()
+            try:
+                packed = self._packed(q, exps, ann, local, k)
+                fetch = PendingFetch(packed, getattr(packed, "marks", None), self._flight)
+            finally:
+                if locked:
+                    LOCK.release()
+        fetch.sent_start = sent.start
+        return fetch
+
+    def _send(self, reqs: Sequence[QueryRequest], ann, local, k: int, ready=None):
+        """One batch prepared (span ``query.prepare``) and dispatched, under
+        a new batch id that its spans share. Returns (its expansions, its
+        fetch)."""
+        bid = next(self._batch_ids)
+        obs.RECORDER.take_batch(bid)
+        with obs.span("query.prepare", size=len(reqs)) as prepared:
+            q, exps = self.prepare_host(reqs, ready)
+        fetch = self._dispatch(q, exps, ann, local, k)
+        fetch.batch, fetch.prepared_end = bid, prepared.end
+        return exps, fetch
+
+    def _collect(self, reqs, exps, fetch: PendingFetch, k: int):
+        """A dispatched batch fetched and finished (span ``query.finish``).
+        Returns (its output dict, the finish span)."""
+        fetched = fetch.wait()
+        with obs.span("query.finish") as finished:
+            out = self._finish(reqs, exps, fetched, k)
+        return out, finished
 
     def _finish(self, reqs, exps, fetched, k: int) -> dict[str, np.ndarray]:
         """The packed arrays of one batch, on the host → its output dict,
@@ -1592,25 +1706,31 @@ class SearchEngine:
         return ann, self._ensure_local_structs(ann)
 
     def _run(self, reqs: Sequence[QueryRequest], k: int):
-        ann, local = self._tables()
-        q, exps = self.prepare_host(reqs)
-        t_prep = time.perf_counter()
-        out = self._finish(reqs, exps, self._dispatch(q, exps, ann, local, k).wait(), k)
-        return exps, out, t_prep
+        """One batch through every stage but its assembly: (expansions,
+        output dict, timings_ms). The timings are ms per request, from the
+        batch's spans' stamps: "prepare" from the start of ``query.tables``
+        to the end of ``query.prepare``; "device" from the start of
+        ``query.dispatch`` to the end of ``query.finish``, so it holds the
+        device program, the copies, the host's unpack and, under host
+        residency, the exact host re-rank."""
+        with obs.span("query.tables") as tables:
+            ann, local = self._tables()
+        exps, fetch = self._send(reqs, ann, local, k)
+        out, finished = self._collect(reqs, exps, fetch, k)
+        n = len(reqs)
+        return exps, out, {"prepare": (fetch.prepared_end - tables.start) / 1e6 / n,
+                           "device": (finished.end - fetch.sent_start) / 1e6 / n}
 
     def search(self, reqs: Sequence[QueryRequest] | QueryRequest, k: int | None = None
                ) -> list[SearchResult]:
+        """One batch; each result's ``timings_ms`` as :meth:`_run` gives
+        them."""
         if isinstance(reqs, QueryRequest):
             reqs = [reqs]
         k = k or self.cfg.default_k
-        t0 = time.perf_counter()
-        exps, out, t_prep = self._run(reqs, k)
-        t_dev = time.perf_counter()
-        timings = {
-            "prepare": (t_prep - t0) * 1e3 / len(reqs),
-            "device": (t_dev - t_prep) * 1e3 / len(reqs),
-        }
-        return self._assemble(list(reqs), exps, out, k, timings)
+        exps, out, timings = self._run(reqs, k)
+        with obs.span("query.assemble"):
+            return self._assemble(list(reqs), exps, out, k, timings)
 
     def search_pipelined(self, batches: Sequence[Sequence[QueryRequest]],
                          k: int | None = None) -> list[list[SearchResult]]:
@@ -1620,18 +1740,24 @@ class SearchEngine:
         module docstring), so on a card the host's fetch, re-rank and
         assembly of one batch overlap the device work of the later ones."""
         k = k or self.cfg.default_k
-        ann, local = self._tables()
+        with obs.span("query.tables"):
+            ann, local = self._tables()
         ready = None
         if self.device.type == "cuda":  # the index as it stands before the first batch
             ready = torch.cuda.Event()
             ready.record()
-        pending = []
-        for batch in batches:
-            q, exps = self.prepare_host(batch, ready)
-            pending.append((batch, exps, self._dispatch(q, exps, ann, local, k)))
-        return [self._assemble(list(batch), exps,
-                               self._finish(batch, exps, fetch.wait(), k), k)
-                for batch, exps, fetch in pending]
+        pending, results = [], []
+        try:
+            for batch in batches:
+                pending.append((batch, *self._send(batch, ann, local, k, ready)))
+            for batch, exps, fetch in pending:
+                out, _ = self._collect(batch, exps, fetch, k)
+                with obs.span("query.assemble"):
+                    results.append(self._assemble(list(batch), exps, out, k))
+        finally:  # a failed batch: the later ones leave the flight unfetched
+            for _, _, fetch in pending:
+                fetch.leave()
+        return results
 
     # Neighbor-expansion caps (per hit, per document).
     MAX_NEIGHBORS_PER_HIT = 2

@@ -20,11 +20,17 @@ Engine calls run in a single worker thread: the engine's device
 dispatch is not re-entrant by contract (one serving stream), and the
 waits that dominate wall time (a CUDA event, a device-to-host copy)
 release the GIL, so the event loop stays live while a batch executes.
+
+``stats`` counts batches, queries, the largest batch, requests shed, and
+the queue wait: each request's time from its arrival to its batch's
+hand-off to the engine (``queue_wait_ms_sum``, ``queue_wait_count``,
+``queue_wait_ms_max``), served by ``GET /admin/microbatch``.
 """
 from __future__ import annotations
 
 import asyncio
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
 
@@ -61,12 +67,14 @@ class MicroBatcher:
         # default 16 full batches of headroom
         self.max_queue = max_queue or int(
             os.getenv("MRAG_MICROBATCH_MAX_QUEUE", str(self.max_batch * 16)))
-        self._queue: list[tuple[QueryRequest, int, asyncio.Future]] = []
+        # (request, k, future, arrival ns on time.time_ns's clock)
+        self._queue: list[tuple[QueryRequest, int, asyncio.Future, int]] = []
         self._running = False
         self._pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="mrag-microbatch")
         self.stats = {"batches": 0, "queries": 0, "max_batch_seen": 0,
-                      "shed": 0}
+                      "shed": 0, "queue_wait_ms_sum": 0.0, "queue_wait_count": 0,
+                      "queue_wait_ms_max": 0.0}
 
     async def search_one(self, req: QueryRequest, k: int) -> SearchResult:
         if len(self._queue) >= self.max_queue:
@@ -75,7 +83,7 @@ class MicroBatcher:
                 f"query queue full ({self.max_queue} waiting); retry later")
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
-        self._queue.append((req, int(k), fut))
+        self._queue.append((req, int(k), fut, time.time_ns()))
         if not self._running:
             self._running = True
             asyncio.ensure_future(self._drain(loop))
@@ -112,6 +120,7 @@ class MicroBatcher:
                     pad = self._bucket(len(reqs))
                     padded_groups.append(
                         list(reqs) + [reqs[-1]] * (pad - len(reqs)))
+                self._handed_off(groups)
                 try:
                     if len(padded_groups) == 1:
                         results_groups = [await loop.run_in_executor(
@@ -124,7 +133,7 @@ class MicroBatcher:
                                 padded_groups, k=k))
                 except Exception as e:
                     for items in groups:
-                        for _, _, fut in items:
+                        for _, _, fut, _ in items:
                             if not fut.done():
                                 fut.set_exception(_clone_exc(e))
                     continue
@@ -133,7 +142,7 @@ class MicroBatcher:
                     self.stats["queries"] += len(items)
                     self.stats["max_batch_seen"] = max(
                         self.stats["max_batch_seen"], len(items))
-                    for (req, want_k, fut), res in zip(items, results):
+                    for (req, want_k, fut, _), res in zip(items, results):
                         if fut.done():
                             continue
                         if want_k < len(res.hits):
@@ -145,6 +154,17 @@ class MicroBatcher:
             if self._queue:
                 self._running = True
                 asyncio.ensure_future(self._drain(loop))
+
+    def _handed_off(self, groups: list[list[tuple]]) -> None:
+        """The queue waits of `groups`, handed to the engine now, each
+        request's into ``stats``."""
+        now = time.time_ns()
+        st = self.stats
+        for items in groups:
+            waits = [(now - it[3]) / 1e6 for it in items]
+            st["queue_wait_ms_sum"] += sum(waits)
+            st["queue_wait_count"] += len(waits)
+            st["queue_wait_ms_max"] = max(st["queue_wait_ms_max"], *waits)
 
 
 def _clone_exc(e: Exception) -> Exception:

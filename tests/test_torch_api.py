@@ -33,11 +33,14 @@ VOLATILE = {"agent_id", "run_id", "job_id", "chunking_job", "id", "ts", "ts_ms",
             "decision_id", "trace_id", "total_ms", "device_ms", "wall_ms", "timings_ms",
             "ms", "latency_ms_median", "latency_ms_p95", "calib_id"}
 # uuids under a key that elsewhere holds stable ids; the stage profiler's
-# timings, its id and its note (which says how each package's stages run)
+# timings, its id and its note (which says how each package's stages run);
+# the port's micro-batcher's queue wait, which the JAX app does not serve
+# (test_scenario_known_answers checks it)
 VOLATILE_IN = {"curator_add": {"source_id"},
                "profile": {"profile_id", "note", "host_prepare_ms", "host_assemble_ms",
                            "signals_ms", "fusion_rerank_ms", "filters", "vector",
-                           "lexical", "dtag", "arms", "full_pipeline"}}
+                           "lexical", "dtag", "arms", "full_pipeline"},
+               "microbatch": {"queue_wait_ms_sum", "queue_wait_count", "queue_wait_ms_max"}}
 
 _MANUAL = (b"SUNSHINE HEALTH MANUAL\n\nTIMELY FILING\n"
            b"Participating providers must submit claims within 180 days.\n\n"
@@ -230,6 +233,10 @@ def test_scenario_known_answers(responses):
     assert port["trace"][1]["decision"]["strategy"] in "abcds"
     assert port["search_events"][1]["events"]
     assert port["retag"][1]["retagged_chunks"] >= 2
+    mb = port["microbatch"][1]
+    if mb["enabled"]:  # every request the batcher served waited once in its queue
+        assert mb["queue_wait_count"] == mb["queries"] > 0
+        assert 0 <= mb["queue_wait_ms_max"] <= mb["queue_wait_ms_sum"]
     assert port["llm_list"][1]["configs"][0]["secrets"]["api_key"] == "***"
     assert port["delete"][1]["deleted_chunks"] >= 2
     doc_id = port["upload"][1]["doc_id"]
