@@ -5,10 +5,13 @@ query path (``mobius_rag_tpu_torch.query.engine.SearchEngine.search``):
 on a 70,000-chunk x 1536-dim corpus with the exact backend over float32
 rows (phase 3) and over int8 rows (phase 3b), on a 1,000,000-chunk
 corpus with the proj ANN backend under dense and candidate-local filter
-gating (phase 4), and on the 10M-chunk host-residency configuration:
-proj codes on the card, int8 rows in host RAM, the funnel and the exact
-host re-rank (phase 5; N is cut to 5M or 2M when the time or the host's
-RAM would not hold 10M, and the cut is printed). Every engine serves its
+gating (phase 4, which also holds the sparse lexical arm's kernels,
+``ops/csrc/lexical.cu``, bitwise against the plain version at path A's
+batches, with their times and bound), and on the 10M-chunk
+host-residency configuration: proj codes on the card, int8 rows in host
+RAM, the funnel and the exact host re-rank (phase 5; N is cut to 5M or
+2M when the time or the host's RAM would not hold 10M, and the cut is
+printed). Every engine serves its
 batches as captured CUDA graphs, one per batch shape
 (``query/compiled.py``); phases 3, 3b and 4's path A also run the eager
 program on the same engine, in turns with the captured one (eager,
@@ -97,6 +100,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import time
@@ -114,6 +118,9 @@ KERNEL_REPLACES = "mobius_rag_tpu/ops/topk.py:151"  # _topk_kernel
 PROJ_SOURCE = "mobius_rag_tpu_torch/ops/csrc/proj_scan.cu"
 PROJ_REPLACES = "mobius_rag_tpu/ops/pallas_proj.py:41"  # _kernel
 GATED_REPLACES = "mobius_rag_tpu/ops/pallas_proj.py:141"  # _gated_kernel
+LEX_SOURCE = "mobius_rag_tpu_torch/ops/csrc/lexical.cu"
+# no TPU kernel: the JAX package's lexical_raw (plain jnp) and lax.top_k
+LEX_REPLACES = "none: mobius_rag_tpu/query/engine.py:224 lexical_raw, plain jnp"
 TOL_VALS = 1e-4  # float32 summation order over D=1536
 TIE_GAP = 1e-5  # ids must agree wherever neighbouring values differ by more
 # Phase 4: bench_1m_e2e.py's corpus and the proj backend's 1M operating
@@ -152,16 +159,17 @@ def phase1_build() -> None:
     together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from mobius_rag_tpu_torch.ops import proj_scan, topk
+    from mobius_rag_tpu_torch.ops import lexical, proj_scan, topk
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
+    with ThreadPoolExecutor(max_workers=3) as ex:
         futs = {src: ex.submit(mod.build_kernel)
-                for src, mod in ((KERNEL_SOURCE, topk), (PROJ_SOURCE, proj_scan))}
+                for src, mod in ((KERNEL_SOURCE, topk), (PROJ_SOURCE, proj_scan),
+                                 (LEX_SOURCE, lexical))}
         seconds = {src: fut.result()[1] for src, fut in futs.items()}
     for src, sec in seconds.items():
         log(f"phase 1: built {src} with nvcc in {sec:.2f} s")
-    log(f"phase 1: both builds and loads took {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1: the builds and loads took {time.perf_counter() - t0:.2f} s")
 
 
 def _compare(kv, ki, rv, ri) -> float:
@@ -833,7 +841,8 @@ def phase3_slice(smi: str, vector_dtype: str = "float32", dev: str = "cuda",
            "graphs": turns}
     if vector_dtype == "float32":
         pool = [hybrid_req(i) for i in range(nq)]
-        out["launches_served"] = phase6_served(engine, pool, "70k exact", masked_topk, smi, dev)
+        out["launches_served"] = phase6_served(engine, pool, "70k exact", (masked_topk,), smi,
+                                               dev)["masked_topk"]
         out["launches_agent"] = phase6_agent(store, lexicon, cfg, smi, dev)
         out["phase10"] = phase10_70k(smi, engine, bench_reqs, pipe_batches, dev)
         out["phase11"] = phase11_profile(smi, engine, bench_reqs, dev)
@@ -852,6 +861,26 @@ _HYBRID_1M = [("timely filing deadline for sunshine_health claims", "sunshine_he
               ("prior authorization requirements for molina claims", "molina"),
               ("behavioral health outpatient therapy for aetna", "aetna"),
               ("timely filing deadline for molina claims", "molina")]
+
+
+def _backlog_texts(n: int) -> list[tuple[str, str]]:
+    """n distinct (query text, payer filter) pairs made as the benchmark's
+    backlog traffic makes them (``port_bench/traffic/backlog.json``: a
+    template with two distinct topics, a payer's word and a year filled
+    in), so that a batch's lexical union is as wide as the benchmark's."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_bench", "traffic",
+                        "backlog.json")
+    with open(path) as f:
+        q = json.load(f)["queries"]
+    tpl, topics, payers, years = q["templates"], q["topics"], q["payers"], q["years"]
+    out = []
+    for i in range(n):
+        a = (3 * i) % len(topics)
+        b = (a + 1 + i // len(topics)) % len(topics)
+        word, payer = payers[i % len(payers)]
+        out.append((tpl[i % len(tpl)].format(a=topics[a], b=topics[b], payer=word,
+                                             year=years[i % len(years)]), payer))
+    return out
 
 
 def _sync(dev) -> None:
@@ -1282,10 +1311,12 @@ def _drive_path(engine, recall_reqs, exact, self_reqs, self_rows, bench_reqs,
     """The counted run of one path: recall, self-hit, hybrid, qps rounds,
     single queries and the pipelined check and rounds over `pipe_batches`.
     Returns its numbers, its results and the launch counts."""
+    from mobius_rag_tpu_torch.ops.lexical import lexical_topk
     from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_gated_blocks
     from mobius_rag_tpu_torch.ops.topk import masked_topk
 
     proj_blocks.launches = proj_gated_blocks.launches = masked_topk.launches = 0
+    lexical_topk.launches = 0
     batches = 0
     recalls = []
     for off in range(0, len(recall_reqs), BATCH):
@@ -1323,7 +1354,8 @@ def _drive_path(engine, recall_reqs, exact, self_reqs, self_rows, bench_reqs,
             "pipe_rounds": pipe_rounds,
             "launches": {"proj_blocks": proj_blocks.launches,
                          "proj_gated_blocks": proj_gated_blocks.launches,
-                         "masked_topk": masked_topk.launches}}
+                         "masked_topk": masked_topk.launches,
+                         "lexical_topk": lexical_topk.launches}}
 
 
 def _hits(res):
@@ -1411,15 +1443,16 @@ async def _offer(batcher, pool, rate: float, rng) -> list:
     return out, time.thread_time() - c0, loop.time() - t0
 
 
-def phase6_served(engine, pool, name: str, kernel, smi: str, dev) -> int:
+def phase6_served(engine, pool, name: str, kernels, smi: str, dev) -> dict:
     """Phase 6, the micro-batcher at offered load: `engine` behind a
     MicroBatcher (default max_batch 32, max_queue 512) under open-loop
     Poisson arrivals of batch-of-1 requests from `pool` at SERVED_RATES,
     1 s of warm-up then a 4 s window each. Prints achieved q/s, p50/p99
     latency, batches, the largest batch, shed requests and the drains that
-    took the pipelined path; checks that `kernel` launched once per engine
-    batch and that a seeded sample of answers equals a search of each
-    request alone. Returns the kernel's launches under load.
+    took the pipelined path; checks that each of `kernels` launched once
+    per engine batch and that a seeded sample of answers equals a search
+    of each request alone. Returns each kernel's launches under load, by
+    name.
 
     The store's per-row records are frozen out of the garbage collector
     for the run, as a server does once its store is loaded: a full
@@ -1435,14 +1468,15 @@ def phase6_served(engine, pool, name: str, kernel, smi: str, dev) -> int:
         f"out of the collector for the served runs")
     gc.freeze()
     try:
-        return sum(_served_rate(engine, pool, name, kernel, smi, on_card, rate)
-                   for rate in SERVED_RATES)
+        by_rate = [_served_rate(engine, pool, name, kernels, smi, on_card, rate)
+                   for rate in SERVED_RATES]
+        return {kn: sum(r[kn] for r in by_rate) for kn in by_rate[0]}
     finally:
         gc.unfreeze()
 
 
-def _served_rate(engine, pool, name: str, kernel, smi: str, on_card: bool, rate: int) -> int:
-    """One offered rate of phase6_served. Returns the kernel's launches."""
+def _served_rate(engine, pool, name: str, kernels, smi: str, on_card: bool, rate: int) -> dict:
+    """One offered rate of phase6_served. Returns the kernels' launches."""
     import asyncio
 
     from mobius_rag_tpu_torch.query.microbatch import MicroBatcher
@@ -1450,15 +1484,16 @@ def _served_rate(engine, pool, name: str, kernel, smi: str, on_card: bool, rate:
     calls = _Calls(engine)
     batcher = MicroBatcher(calls)
     rng = np.random.default_rng(rate)
-    kernel.launches = 0
+    for kernel in kernels:
+        kernel.launches = 0
     try:
         out, loop_cpu, wall = asyncio.run(_offer(batcher, pool, rate, rng))
     finally:
         batcher._pool.shutdown()
-    counted = kernel.launches
-    if on_card and counted != calls.batches:
-        raise AssertionError(f"{name} at {rate} q/s: {kernel.__name__} launched "
-                             f"{counted} times for {calls.batches} engine batches")
+    counted = {kernel.__name__: kernel.launches for kernel in kernels}
+    if on_card and any(n != calls.batches for n in counted.values()):
+        raise AssertionError(f"{name} at {rate} q/s: launches {counted} for "
+                             f"{calls.batches} engine batches")
     window = [x for x in out if x[0] >= SERVED_WARMUP_S]
     done = [x for x in window if x[1] is not None]
     if not done:
@@ -1485,8 +1520,8 @@ def _served_rate(engine, pool, name: str, kernel, smi: str, on_card: bool, rate:
         f"{st['max_batch_seen']}, {st['queries']} queries, {shed} shed, "
         f"{calls.pipelined} drains through search_pipelined; over the {wall:.2f} s run "
         f"the engine thread spent {calls.wall_s:.2f} s in engine calls ({calls.cpu_s:.2f} "
-        f"s of CPU) and the event loop thread {loop_cpu:.2f} s of CPU; {counted} "
-        f"{kernel.__name__} launches == {calls.batches} engine batches; "
+        f"s of CPU) and the event loop thread {loop_cpu:.2f} s of CPU; launches "
+        f"{counted}, each == {calls.batches} engine batches; "
         f"{min(SERVED_SAMPLE, len(answered))} sampled answers equal a search "
         f"alone (ids; scores within {SERVED_TOL}) on {smi}")
     return counted
@@ -1605,6 +1640,119 @@ def config_1m():
         proj_p=256, ivf_nlist=0, ivf_nprobe=64, ann_reserve_slabs=2, over_fetch=4)
 
 
+NEG_ZERO_BITS = -(2 ** 63)  # -0.0 as int64: the lexical accumulator's untouched rows
+
+
+def phase4_lexical(smi: str, engine, batches, dev) -> dict:
+    """Phase 4's lexical check: the sparse lexical arm under the dense gate
+    (``ops.lexical.lexical_topk``; on a card the kernels of LEX_SOURCE) at
+    the path-A engine's own batches on the 1M store and one batch of the
+    benchmark's kind (_backlog_texts) (B 32, C 1,000,192, P 8,192, the
+    union at the width a card reads, m = K x over_fetch, the inputs as the
+    device program forms them): values, ids (dead entries
+    included) and the lexical signal at the three arms' candidate rows (the
+    exact vector arm's, the lexical arm's, the d-tag arm's) against the
+    plain version, bitwise, with one launch a call. On a card, medians of
+    CUDA-event times of the kernel route (the top-m and three signal reads)
+    and of the plain route ([B, U·P] products, index_add_ into [B, C + 1]
+    float64, the stable sort, three gathers), the device time of each
+    kernel of the route (profiler), and the route's bound at HBM's rate
+    from the batch's own inputs: the live pairs' filled postings (4 + 2
+    bytes each), the touched accumulator entries (8 bytes written, 8
+    read), the penalty at the touched rows (4), the touched list (8
+    written, 8 read), the outputs (12 bytes an entry) and the signals (20
+    bytes each). What the design reads beyond that (each live pair's whole
+    postings row, the accumulator's fill) is printed beside it."""
+    from mobius_rag_tpu_torch.ops.lexical import (lexical_signals, lexical_topk,
+                                                  lexical_topk_reference)
+    from mobius_rag_tpu_torch.ops.topk import masked_topk, topk_stable
+    from mobius_rag_tpu_torch.query import engine as eng
+
+    on_card = torch.device(dev).type == "cuda"
+    index = engine.store.index
+    m = min(K * engine.cfg.over_fetch, index.capacity)
+    per, kernel_ms, plain_ms = [], [], []
+    with torch.inference_mode():
+        for reqs in batches:
+            q = engine._device_batch(engine.prepare_host(reqs)[0])
+            q = dict(q, vec=q["vec"].float())
+            strict, relaxed, open_mask, meta_ok = eng.filter_masks(index, q)
+            pen = eng.gate_penalty(strict, relaxed, open_mask, q, K)
+            del strict, relaxed, open_mask
+            vec_idx = masked_topk(q["vec"], index.vectors, pen, q["min_sim"], m)[1].long()
+            dtag_idx = topk_stable(eng.dtag_raw(index, q, meta_ok), m)[1]
+            weights, buckets = q["lex_weights"], q["lex_buckets"]
+            args = (weights, buckets, index.lex_cols, index.lex_wts, pen)
+            before = lexical_topk.launches
+            vals, idx, acc = lexical_topk(*args, m)
+            if on_card and lexical_topk.launches != before + 1:
+                raise AssertionError("phase 4: lexical_topk did not count its launch")
+            rv, ri, lex = lexical_topk_reference(*args, m)
+            rows = torch.cat([vec_idx, ri, dtag_idx], dim=1)
+            got, want = lexical_signals(acc, rows), lexical_signals(lex, rows)
+            if not (torch.equal(vals.view(torch.int32), rv.view(torch.int32))
+                    and torch.equal(idx, ri)
+                    and torch.equal(got.view(torch.int32), want.view(torch.int32))):
+                raise AssertionError("phase 4: the lexical kernels' values, ids or signals "
+                                     "differ from the plain version's")
+            b, u = weights.shape
+            live = weights != 0
+            fills = (index.lex_cols[buckets.long()] >= 0).sum(dim=1)  # [U]
+            one = {"U": u, "live_pairs": int(live.sum()), "pairs_read": b * u,
+                   "live_rows": int((rv > 0).sum()),
+                   "postings": int((live * fills[None]).sum()),
+                   "rows_read_bytes": int(live.sum()) * index.lex_cols.shape[1] * 4,
+                   "fill_bytes": b * pen.shape[1] * 8}
+            if on_card:
+                touched = int((acc.view(torch.int64) != NEG_ZERO_BITS).sum())
+                one.update(touched_rows=touched, bound_bytes=(
+                    one["postings"] * 6 + touched * (16 + 4 + 16) + b * m * 12
+                    + rows.numel() * 20))
+
+                def kernel_route():
+                    _, ki, ka = lexical_topk(*args, m)
+                    for r in (vec_idx, ki, dtag_idx):
+                        lexical_signals(ka, r)
+
+                def plain_route():
+                    _, pi, pl = lexical_topk_reference(*args, m)
+                    for r in (vec_idx, pi, dtag_idx):
+                        lexical_signals(pl, r)
+
+                kernel_ms.append(_median_ms(kernel_route))
+                plain_ms.append(_median_ms(plain_route, runs=5))
+            per.append(one)
+        by_kernel = _device_ms_by_kernel(kernel_route) if on_card else {}
+    share = sum(p["live_pairs"] for p in per) / sum(p["pairs_read"] for p in per)
+    c, p_ = index.capacity, index.lex_cols.shape[1]
+    out = {"batches": len(per), "shape": f"B={BATCH} C={c} P={p_} "
+           f"U={sorted({x['U'] for x in per})} m={m}", "live_pair_share": share,
+           "launches": len(per) if on_card else 0, "per_batch": per}
+    if not on_card:
+        log(f"phase 4: lexical arm over {len(per)} batches ({out['shape']}): the plain "
+            f"version alone off the card; live pair share {share:.4f}")
+        return out
+    med = float(np.median([x["bound_bytes"] for x in per]))
+    out.update(ms=float(np.median(kernel_ms)), plain_ms=float(np.median(plain_ms)),
+               device_ms=sum(by_kernel.values()), by_kernel=by_kernel,
+               **_bound(med, 0.0, "float32"),
+               fill_ms_at_peak=float(np.median([x["fill_bytes"] for x in per])) / PEAK_BYTES * 1e3,
+               rows_read_ms_at_peak=float(np.median([x["rows_read_bytes"] for x in per]))
+               / PEAK_BYTES * 1e3)
+    log(f"phase 4: lexical arm, {len(per)} batches ({out['shape']}): values, ids (dead "
+        f"entries included) and the signals at the three arms' {3 * m} candidate rows "
+        f"bitwise the plain version's; live (query, bucket) pairs {share:.4f} of those read, "
+        f"touched rows a batch (median) {int(np.median([x['touched_rows'] for x in per]))}; "
+        f"route {out['ms']:.4f} ms event (median of the batches' medians of 20), device "
+        f"{out['device_ms']:.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items())
+        + f"), plain route (index_add_ + stable sort) {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms by {out['bound_by']} (share of the device time "
+        f"{out['bound_ms'] / out['device_ms']:.3f}); beyond it the accumulator's fill "
+        f"{out['fill_ms_at_peak']:.4f} ms and the live pairs' whole postings rows "
+        f"{out['rows_read_ms_at_peak']:.4f} ms at peak, on {smi}")
+    return out
+
+
 def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
     import dataclasses
     import tempfile
@@ -1695,9 +1843,12 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
         r = _drive_path(engine, recall_reqs, exact, self_reqs, self_rows, bench_reqs,
                         pipe_batches)
         other = "proj_gated_blocks" if kernel == "proj_blocks" else "proj_blocks"
+        # the lexical kernels serve dense gating alone (path A)
+        lex_want = r["batches"] if path == "A" else 0
         on_card = torch.device(dev).type == "cuda"  # the CPU runs the plain versions
         if on_card and (r["launches"][kernel] != r["batches"] or r["launches"][other]
-                        or r["launches"]["masked_topk"]):
+                        or r["launches"]["masked_topk"]
+                        or r["launches"]["lexical_topk"] != lex_want):
             raise AssertionError(f"path {path}: launches {r['launches']} for "
                                  f"{r['batches']} search batches")
         runs[path] = r
@@ -1782,6 +1933,10 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
         f"{sorted(set(int(x) for x in admitted))} rows")
     log("phase 4: each path's vector-arm candidates with the kernel equal the plain "
         "version's on one batch (ids identical, values bitwise on live entries)")
+    # and a batch of the benchmark's kind: every text distinct, the union wide
+    wide_reqs = [QueryRequest(query=text, payer=payer, embedding=q_np[i % nq])
+                 for i, (text, payer) in enumerate(_backlog_texts(BATCH))]
+    lexical = phase4_lexical(smi, engine_a, [bench_reqs, wide_reqs] + pipe_batches, dev)
 
     for path, engine in (("A", engine_a), ("B", engine_b)):
         r = runs[path]
@@ -1801,10 +1956,11 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
             + ", ".join(f"{k} {v:.3f}" for k, v in top.items()) + f" on {smi}")
         log(f"phase 4: path {path}: {busy_line} on {smi}")
     turns = _graph_turns(engine_a, bench_reqs, pipe_batches, "phase 4: path A", smi, dev)
+    from mobius_rag_tpu_torch.ops.lexical import lexical_topk
     from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks
 
     served_launches = phase6_served(engine_a, [hybrid_req(i) for i in range(nq)],
-                                    "1M proj path A", proj_blocks, smi, dev)
+                                    "1M proj path A", (proj_blocks, lexical_topk), smi, dev)
 
     # publish + delete through the incremental reserved-slab path
     rng = np.random.default_rng(5)
@@ -1852,8 +2008,11 @@ def phase4_proj(smi: str, dev: str = "cuda", n_rows: int = N_1M) -> dict:
     p10 = {"a": phase10a_sharded_exact(smi, store, lexicon, base, reqs, dev),
            "b": phase10b_sharded_ann(smi, store, lexicon, base, reqs, dev)}
     return {"launches": {"proj_blocks": ra["launches"]["proj_blocks"],
-                         "proj_blocks_served": served_launches,
-                         "proj_gated_blocks": rb["launches"]["proj_gated_blocks"]},
+                         "proj_blocks_served": served_launches["proj_blocks"],
+                         "proj_gated_blocks": rb["launches"]["proj_gated_blocks"],
+                         "lexical_topk": ra["launches"]["lexical_topk"],
+                         "lexical_topk_served": served_launches["lexical_topk"]},
+            "lexical": lexical,
             "build_s_per_m": (stages["records"] + stages["bulk_load"]) / (n_rows / 1e6),
             "phase8": p8, "phase10": p10, "graphs": turns}
 
@@ -2384,7 +2543,7 @@ def phase8_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -> dict:
         r = _drive_path(engine, reqs["recall"], reqs["exact"], reqs["self"],
                         reqs["self_rows"], reqs["bench"], reqs["pipe"])
         want = {"proj_blocks": r["batches"] if backend == "packed" else 0,
-                "proj_gated_blocks": 0, "masked_topk": 0}
+                "proj_gated_blocks": 0, "masked_topk": 0, "lexical_topk": r["batches"]}
         if on_card and r["launches"] != want:
             raise AssertionError(f"phase 8 {backend}: launches {r['launches']} for "
                                  f"{r['batches']} batches (want {want})")
@@ -3740,11 +3899,14 @@ def _sharded_path(name: str, ref: dict, serving, reqs, pipe, kernel, per_batch: 
     """The counted run of a sharded engine, captured on a card: search and
     search_pipelined held to the dense engine's results (_same_results);
     `kernel` must launch `per_batch` times a batch (once per shard and data
-    group; a replay adds its capture's launches). Then its program eager
-    against captured in turns (_graph_turns; at half depth, 4 + 4 batches
-    a turn, where `half`), beside the dense engine's queries/s and busy
-    share."""
-    kernel.launches = 0
+    group; a replay adds its capture's launches), and so must the lexical
+    kernels over sparse postings (_lexical_launches). Then its program
+    eager against captured in turns (_graph_turns; at half depth, 4 + 4
+    batches a turn, where `half`), beside the dense engine's queries/s and
+    busy share."""
+    from mobius_rag_tpu_torch.ops.lexical import lexical_topk
+
+    kernel.launches = lexical_topk.launches = 0
     got = serving.search(reqs, k=K)
     got_pipe = serving.search_pipelined(pipe, k=K)
     batches = 1 + len(pipe)
@@ -3752,6 +3914,7 @@ def _sharded_path(name: str, ref: dict, serving, reqs, pipe, kernel, per_batch: 
     if torch.device(dev).type == "cuda" and launches != per_batch * batches:
         raise AssertionError(f"{name}: {launches} launches of {kernel.__name__} for "
                              f"{batches} batches x {per_batch}")
+    lexical = _lexical_launches(name, serving, per_batch * batches, dev)
     worst = _same_results(name, got, ref["want"])
     for g, w in zip(got_pipe, ref["want_pipe"]):
         worst = max(worst, _same_results(name + " pipelined", g, w))
@@ -3762,7 +3925,22 @@ def _sharded_path(name: str, ref: dict, serving, reqs, pipe, kernel, per_batch: 
         f"on {smi}")
     turns = (_graph_turns(serving, reqs, pipe[:N_BATCHES // 2], name, smi, dev, N_BATCHES // 2)
              if half else _graph_turns(serving, reqs, pipe, name, smi, dev))
-    return {"launches": launches, "max_score_gap": worst, "graphs": turns}
+    return {"launches": launches, "lexical_launches": lexical, "max_score_gap": worst,
+            "graphs": turns}
+
+
+def _lexical_launches(name: str, serving, want: int, dev) -> int:
+    """The lexical kernels' launches since their count was reset: on a card
+    `want` (one a shard and a batch) over sparse postings, none over the
+    dense layout, which never runs them."""
+    from mobius_rag_tpu_torch.ops.lexical import lexical_topk
+
+    launches = lexical_topk.launches
+    if "lex_cols" not in serving.store.index.fields:
+        want = 0
+    if torch.device(dev).type == "cuda" and launches != want:
+        raise AssertionError(f"{name}: {launches} launches of lexical_topk, not {want}")
+    return launches
 
 
 def _release_sharded(tse) -> None:
@@ -3814,7 +3992,9 @@ def _staged_path(name: str, one, reqs, pipe, kernel, per_batch: int, smi: str, d
     on_card = torch.device(dev).type == "cuda"
     if on_card and not isinstance(staged.programs, ProgramsByDevice):
         raise AssertionError(f"{name}: not the staged route")
-    kernel.launches = 0
+    from mobius_rag_tpu_torch.ops.lexical import lexical_topk
+
+    kernel.launches = lexical_topk.launches = 0
     got = staged.search(reqs, k=K)
     got_pipe = staged.search_pipelined(pipe, k=K)
     launches = kernel.launches
@@ -3822,6 +4002,7 @@ def _staged_path(name: str, one, reqs, pipe, kernel, per_batch: int, smi: str, d
     if on_card and launches != per_batch * batches:
         raise AssertionError(f"{name}: {launches} launches of {kernel.__name__} for "
                              f"{batches} batches x {per_batch}")
+    lexical = _lexical_launches(name, staged, per_batch * batches, dev)
     if [_hits(r) for r in got] != [_hits(r) for r in one.search(reqs, k=K)] or \
             [[_hits(r) for r in b] for b in got_pipe] != \
             [[_hits(r) for r in b] for b in one.search_pipelined(pipe, k=K)]:
@@ -3846,7 +4027,7 @@ def _staged_path(name: str, one, reqs, pipe, kernel, per_batch: int, smi: str, d
     _release_sharded(tse)
     one.store.listeners.remove(staged._on_store_mutation)
     log(f"{name}: {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches, "graphs": turns}
+    return {"launches": launches, "lexical_launches": lexical, "graphs": turns}
 
 
 def phase10_70k(smi: str, engine, reqs, pipe, dev) -> dict:
@@ -3922,6 +4103,7 @@ def phase10b_sharded_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -
     for ivf a live refresh: a published document found among the hits."""
     import dataclasses
 
+    from mobius_rag_tpu_torch.ops.lexical import lexical_topk
     from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks
     from mobius_rag_tpu_torch.ops.topk import masked_topk
     from mobius_rag_tpu_torch.parallel import ShardedEngine, make_mesh
@@ -3945,7 +4127,7 @@ def phase10b_sharded_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -
         serving = SearchEngine(store, lexicon, cfg=cfg, device=dev, sharded=tse)
         name = f"phase 10b: 1M {backend} S={SHARDS_1M}"
         # ---- the counted run ----
-        proj_blocks.launches = masked_topk.launches = 0
+        proj_blocks.launches = masked_topk.launches = lexical_topk.launches = 0
         batches = 0
         recalls = []
         for off in range(0, len(reqs["recall"]), BATCH):
@@ -3963,7 +4145,8 @@ def phase10b_sharded_ann(smi: str, store, lexicon, base, reqs: dict, dev: str) -
                     raise AssertionError(f"{name}: bad rerank score {h.score}")
         piped = serving.search_pipelined(reqs["pipe"], k=K)
         batches += len(reqs["pipe"])
-        launches = {"proj_blocks": proj_blocks.launches, "masked_topk": masked_topk.launches}
+        launches = {"proj_blocks": proj_blocks.launches, "masked_topk": masked_topk.launches,
+                    "lexical_topk": _lexical_launches(name, serving, SHARDS_1M * batches, dev)}
         # ---- end of the counted run ----
         want = SHARDS_1M * batches if backend in ("packed", "proj") else 0
         if on_card and (launches["proj_blocks"] != want or launches["masked_topk"]):
@@ -4734,6 +4917,27 @@ def main() -> None:
                          device_ms_packed=sc["device_ms"], plain_ms_packed=sc["plain_ms"],
                          bound_ms_packed=sc["bound_ms"], bound_by_packed=sc["bound_by"])
         kernels.append(entry)
+    # the sparse lexical arm: phase 4's check at the 1M store's batches, and
+    # every path over the 1M store's sparse postings under dense gating
+    lx, p10 = p4["lexical"], p4["phase10"]
+    by_path["lexical_topk"] = {
+        "phase 4 path A": p4["launches"]["lexical_topk"],
+        "phase 4 lexical check": lx["launches"],
+        "phase 6 served 1M": p4["launches"]["lexical_topk_served"],
+        **{f"phase 8 {b}": p4["phase8"][b]["launches"]["lexical_topk"] for b in ANN_BACKENDS},
+        **{f"phase 10a sharded 1M S={n}": p10["a"][n]["lexical_launches"]
+           for n in (1, SHARDS_1M)},
+        f"phase 10a sharded 1M S={SHARDS_1M} staged":
+            p10["a"][f"{SHARDS_1M} staged"]["lexical_launches"],
+        **{f"phase 10b {b} S={SHARDS_1M}": p10["b"][b]["launches"]["lexical_topk"]
+           for b in ("ivf", "packed", "pq", "proj")}}
+    kernels.append({"name": "lexical_topk", "route": "cuda", "source": LEX_SOURCE,
+                    "replaces": LEX_REPLACES, "launches": sum(by_path["lexical_topk"].values()),
+                    "launches_by_path": by_path["lexical_topk"],
+                    "max_abs_err": 0.0,  # values, ids and signals bitwise
+                    **{key: lx[key] for key in keys}, "library_ms": None,
+                    "device_ms": lx["device_ms"], "device_ms_by_kernel": lx["by_kernel"],
+                    "shape": lx["shape"], "live_pair_share": lx["live_pair_share"]})
     shutil.rmtree(data_dir, ignore_errors=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -538,7 +538,8 @@ class Recorder:
     to the second.)
 
     Counters (:attr:`counts`) are plain integers: the batches whose stage
-    marks were read and skipped (:meth:`read_stages`)."""
+    marks were read and skipped (:meth:`read_stages`), and what the query
+    path adds while tracing (:meth:`count`)."""
 
     def __init__(self, size: int = RING):
         self._lock = threading.Lock()
@@ -606,6 +607,12 @@ class Recorder:
         """The ring's records, oldest first."""
         with self._lock:
             return [SpanRecord(*r[:7], dict(zip(r[8::2], r[9::2])), r[7]) for r in self.ring]
+
+    def count(self, name: str, n: int) -> None:
+        """Add `n` to counter `name` while tracing; nothing otherwise."""
+        if tracing():
+            with self._lock:
+                self.counts[name] += n
 
     def take_batch(self, batch: int | None) -> None:
         """The batch id this thread's spans take when given none outside

@@ -35,7 +35,7 @@ from typing import Any, Iterator, Sequence
 import torch
 
 from mobius_rag_tpu_torch.observability import RECORDER
-from mobius_rag_tpu_torch.ops.topk import NEG_INF, masked_topk, topk_stable
+from mobius_rag_tpu_torch.ops.topk import masked_topk, topk_stable
 from mobius_rag_tpu_torch.query import compiled
 from mobius_rag_tpu_torch.query import engine as eng
 
@@ -97,8 +97,7 @@ def _arm_prefix(index, q: dict, k: int, m: int, which: str):
         return masked_topk(q["vec"], index.vectors, penalty, q["min_sim"], m,
                            row_scales=scales)
     if which == "lexical":
-        lex = eng.lexical_raw(index, q)
-        return topk_stable(torch.where(lex > 0, lex, NEG_INF) + penalty, m)
+        return eng.lexical_candidates(index, q, penalty, m)[:2]
     return topk_stable(eng.dtag_raw(index, q, meta_ok), m)
 
 

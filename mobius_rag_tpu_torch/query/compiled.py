@@ -149,11 +149,12 @@ import numpy as np
 import torch
 
 from mobius_rag_tpu_torch.observability import span
+from mobius_rag_tpu_torch.ops.lexical import lexical_topk
 from mobius_rag_tpu_torch.ops.proj_scan import proj_blocks, proj_gated_blocks
 from mobius_rag_tpu_torch.ops.topk import masked_topk
 
 # The kernel wrappers whose launch counts a replay must add.
-COUNTED = (masked_topk, proj_blocks, proj_gated_blocks)
+COUNTED = (masked_topk, proj_blocks, proj_gated_blocks, lexical_topk)
 # Held across a captured batch's upload, replay or capture, and the enqueue
 # of its output copies, by every engine of the process (module docstring).
 LOCK = threading.Lock()

@@ -14,7 +14,9 @@ Per batch of queries:
                pq (residual PQ codes, ADC), proj (int8 projected
                residuals, the Hopper kernels of ops.proj_scan)
   lexical arm  [B, U] × [U, C] over the batch's union of hashed buckets
-               (dense layout) or a scatter-add over their postings (sparse)
+               (dense layout) or a scatter-add over their postings (sparse;
+               on a card the Hopper kernels of ops.lexical, which scatter
+               each query's own buckets and rank the rows they touch)
   d-tag arm    d-tag bitset overlap, authority-scored
   signals      per-candidate gathers + bit tests
   fusion       RRF k=60 over the candidate union, v1.3 weighted rerank
@@ -129,6 +131,8 @@ from mobius_rag_tpu_torch.index.ivf import (IVFIndex, PackedIVF, calibrate_nprob
                                             ivf_search, ivf_search_packed)
 from mobius_rag_tpu_torch.index.store import ChunkStore, DeviceIndex, pack_bits
 from mobius_rag_tpu_torch.ingest.featurize import query_lexical_weights
+from mobius_rag_tpu_torch.ops.lexical import (lexical_scores_reference, lexical_signals,
+                                              lexical_topk)
 from mobius_rag_tpu_torch.ops.pq import PackedPQ, effective_m, pq_search_packed
 from mobius_rag_tpu_torch.ops.proj import (PackedProj, ProjGate, encode_qmeta,
                                            encode_reserved, invalidate_slots,
@@ -318,18 +322,27 @@ def lexical_raw(index: DeviceIndex, q: dict) -> torch.Tensor:
     weights [B, U]. Sparse layout: scatter-add the union buckets'
     postings [U, P] into per-row scores, summed in float64 and rounded
     once (the same value query.gating's local arm computes)."""
-    buckets = q["lex_buckets"].long()
     if "lex_cols" in index.fields:
-        c = index.capacity
-        cols = index.lex_cols[buckets]  # [U, P]
-        wts = index.lex_wts[buckets]
-        seg = torch.where(cols >= 0, cols, c).reshape(-1).long()  # pads → bin c
-        vals = (q["lex_weights"][:, :, None] * wts[None].float()).reshape(
-            q["lex_weights"].shape[0], -1)
-        out = torch.zeros((vals.shape[0], c + 1), dtype=torch.float64, device=vals.device)
-        return out.index_add_(1, seg, vals.double())[:, :c].float()
-    bucket_rows = index.lexical[buckets].float()  # [U, C]
+        return lexical_scores_reference(q["lex_weights"], q["lex_buckets"], index.lex_cols,
+                                        index.lex_wts, index.capacity)
+    bucket_rows = index.lexical[q["lex_buckets"].long()].float()  # [U, C]
     return q["lex_weights"] @ bucket_rows
+
+
+def lexical_candidates(index: DeviceIndex, q: dict, penalty: torch.Tensor, m: int):
+    """The lexical arm's top-m under the dense gate's `penalty` [B, C]:
+    (vals [B, m], idx [B, m] int64, signal_of), signal_of(rows [B, n]) the
+    rows' raw lexical scores. Sparse layout: ops.lexical.lexical_topk (the
+    Hopper kernels on a card: only the live (query, bucket) pairs'
+    postings are scattered and only the rows they touch are ranked);
+    dense layout: lexical_raw and a stable sort of every row."""
+    if "lex_cols" in index.fields:
+        vals, idx, scores = lexical_topk(q["lex_weights"], q["lex_buckets"], index.lex_cols,
+                                         index.lex_wts, penalty, m)
+        return vals, idx, lambda rows: lexical_signals(scores, rows)
+    lex = lexical_raw(index, q)
+    vals, idx = topk_stable(torch.where(lex > 0, lex, NEG_INF) + penalty, m)
+    return vals, idx, lambda rows: torch.gather(lex, 1, rows)
 
 
 def dtag_raw(index: DeviceIndex, q: dict, meta_ok) -> torch.Tensor:
@@ -490,14 +503,10 @@ def arm_candidates(index: DeviceIndex, q: dict, k: int, m: int, *,
             vec_vals, vec_idx = ann_search(index, ann, q["vec"], penalty, m, nprobe, approx)
             vec_vals = _min_sim_filter(vec_vals, q)
         obs.mark("vector")
-        lex = lexical_raw(index, q)
-        lex_vals, lex_idx = topk_stable(torch.where(lex > 0, lex, NEG_INF) + penalty, m_oth)
+        lex_vals, lex_idx, lex_sig_of = lexical_candidates(index, q, penalty, m_oth)
         obs.mark("lexical")
         dtag_vals, dtag_idx = topk_stable(dtag_raw(index, q, meta_ok), m_oth)
         obs.mark("dtag")
-
-        def lex_sig_of(idx):
-            return torch.gather(lex, 1, idx)
 
     # No dense rows on the device (host residency): the vector arm's
     # approximate score, clipped to [0, 1], stands in for its candidates'
@@ -1399,7 +1408,12 @@ class SearchEngine:
         normalized float32 queries. Returns (dict, expansions). Nothing
         here waits for work already enqueued on the device; ``ready`` (a
         CUDA event after the index's last write, default now) orders the
-        strict counts of local gating after the index."""
+        strict counts of local gating after the index. While tracing, where
+        the lexical arm runs the kernels (:meth:`_lexical_kernel_route`),
+        it counts over the union columns the device program reads the
+        nonzero weights (``lex_pairs_live``: the (query, bucket) pairs
+        whose postings the kernel scatters) and B times the columns
+        (``lex_pairs_read``)."""
         with obs.span("query.embeddings"):
             vecs = self._embeddings(reqs)
         prepared = [self.prepare_query(r) for r in reqs]
@@ -1423,7 +1437,12 @@ class SearchEngine:
         if self._local_gating_active() and self._ann is not None:
             host["strict_total"] = self._strict_totals(prepared, ready)
         host["vec"] = vecs
-        return PreparedBatch(host, len(union)), [p[1] for p in prepared]
+        prep = PreparedBatch(host, len(union))
+        if obs.tracing() and self._lexical_kernel_route():  # live pairs of those read
+            w = self._union_read(prep)
+            obs.RECORDER.count("lex_pairs_live", int(np.count_nonzero(weights[:, :w])))
+            obs.RECORDER.count("lex_pairs_read", len(reqs) * w)
+        return prep, [p[1] for p in prepared]
 
     def prepare_batch(self, reqs: Sequence[QueryRequest], ready=None):
         """The batched query dict on the device: :meth:`prepare_host`'s
@@ -1432,6 +1451,14 @@ class SearchEngine:
         expansions)."""
         host, exps = self.prepare_host(reqs, ready)
         return DeviceBatch(_bf16(to_device(host, self.device)), host), exps
+
+    def _lexical_kernel_route(self) -> bool:
+        """Whether this engine's lexical arm runs ops.lexical's kernels: the
+        sparse layout under dense gating (:func:`lexical_candidates`), on a
+        card."""
+        local = self._local_gating_active() and isinstance(self._ann, PackedProj)
+        return (self.device.type == "cuda" and "lex_cols" in self.store.index.fields
+                and not local)
 
     def _union_read(self, q: PreparedBatch) -> int:
         """The lexical union columns this engine's device program reads.

@@ -1,4 +1,6 @@
-"""Run the port's `cuda`-marked tests (the kernels, the pipelined engine's
+"""Run the port's `cuda`-marked tests (the kernels, the sparse lexical arm's
+kernels at the benchmark's shapes and under the captured and sharded
+engines against the plain version, the pipelined engine's
 dispatch without a device-to-host wait, the captured search programs
 bitwise against the eager ones, the captured encoder and cross-encoder
 forwards bitwise against the eager ones, an ingesting, a searching and a
@@ -65,8 +67,9 @@ def main() -> int:
     return pytest.main(["-q", "-p", "no:cacheprovider", "--noconftest", "-m", "cuda",
                         "-k", f"on_card{narrow}", "-rs",
                         *(os.path.join(ROOT, "tests", f"test_torch_{m}.py")
-                          for m in ("topk", "quant", "proj", "pipelined", "compiled", "encoder",
-                                    "cross_encoder", "train", "train_grid", "sharded"))])
+                          for m in ("topk", "lexical", "quant", "proj", "pipelined", "compiled",
+                                    "encoder", "cross_encoder", "train", "train_grid",
+                                    "sharded"))])
 
 
 if __name__ == "__main__":

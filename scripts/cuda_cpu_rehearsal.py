@@ -6,6 +6,7 @@ shapes. It checks indexing, fragment layouts and arithmetic, not speed.
 
     python3 scripts/cuda_cpu_rehearsal.py proj        # ops/csrc/proj_scan.cu
     python3 scripts/cuda_cpu_rehearsal.py topk        # ops/csrc/topk.cu
+    python3 scripts/cuda_cpu_rehearsal.py lexical     # ops/csrc/lexical.cu
     python3 scripts/cuda_cpu_rehearsal.py topk --source other.cu
     python3 scripts/cuda_cpu_rehearsal.py topk --bf16 # the bf16-row cases alone
     python3 scripts/cuda_cpu_rehearsal.py topk --f32-int8  # the float32/int8-row cases
@@ -301,20 +302,143 @@ def rehearse_topk(lib, cases=TOPK_CASES) -> None:
         print(f"topk {name} B={b} C={c} m={m}: max_abs_err {err:.2e}, ids agree", flush=True)
 
 
+# (name, B, C, H, P, U, live columns, m, special). Every case names a
+# bucket with fill P and one with fill 0, puts row 7 in three of query 0's
+# buckets, gives every query zero weights on some live columns, pads the
+# union past its live columns (bucket 0 at weight 0) and gates as
+# engine.gate_penalty does (-0.0 open, NEG_INF gated). Specials: "ties"
+# (every posting and query weight 1: rows with the same buckets tie), "few"
+# (fewer live rows than m), "gated" (query 1 all gated: its scored rows,
+# then the rest, in row order), "dead" (query 1 names no bucket), "holes"
+# (scrubbed postings, -1 between filled ones), "cancel" (a row's +x and -x
+# sum to 0: touched, unscored), "plus0" (open rows +0.0), "late" (only
+# rows past the dead fill's first 8,192 pass the gate).
+LEX_CASES = [
+    ("U=16", 3, 300, 40, 32, 16, 12, 10, None),
+    ("U=64", 3, 600, 100, 16, 64, 50, 20, None),
+    ("U=128", 2, 900, 160, 8, 128, 128, 40, None),
+    ("ties", 3, 400, 40, 32, 16, 10, 40, "ties"),
+    ("few live", 3, 2000, 30, 8, 16, 4, 40, "few"),
+    ("all gated", 3, 500, 40, 16, 16, 8, 40, "gated"),
+    ("no live bucket", 3, 300, 40, 16, 16, 8, 10, "dead"),
+    ("holes", 2, 300, 40, 32, 16, 10, 10, "holes"),
+    ("cancel", 2, 200, 20, 16, 16, 6, 10, "cancel"),
+    ("open +0.0", 2, 300, 40, 16, 16, 10, 10, "plus0"),
+    ("m=C", 2, 60, 20, 8, 16, 10, 60, None),
+    ("m=700", 2, 3000, 64, 64, 64, 40, 700, None),
+    ("m=2500 (three rounds)", 2, 6000, 80, 256, 64, 64, 2500, None),
+    ("many touched", 2, 5000, 64, 256, 16, 16, 5, None),
+    ("late fill", 2, 20000, 20, 8, 16, 4, 40, "late"),
+]
+
+
+def lexical_case(case, g):
+    """One LEX_CASES case's inputs: (weights [B, U], buckets [U] int32,
+    cols [H, P] int32, wts [H, P] bf16, penalty [B, C], m)."""
+    from mobius_rag_tpu_torch.ops.topk import NEG_INF
+
+    name, b, c, h, p, u, live_u, m, special = case
+    fill = torch.randint(0, p + 1, (h,), generator=g)
+    fill[1], fill[2] = p, 0
+    if special == "few":
+        fill.clamp_(max=2)
+        fill[1] = 2
+    cols = torch.full((h, p), -1, dtype=torch.int32)
+    wts = torch.zeros((h, p))
+    for bk in range(h):
+        n = int(fill[bk])
+        cols[bk, :n] = torch.randperm(c, generator=g)[:n].to(torch.int32)
+        wts[bk, :n] = torch.rand(n, generator=g) * 2 + 0.01
+    perm = torch.randperm(h - 1, generator=g)[:live_u] + 1
+    perm[:2] = torch.tensor([1, 2])  # fill P and fill 0 are live
+    live = perm[:live_u]
+    for bk in live[2:5].tolist():  # row 7 in three of query 0's buckets
+        cols[bk, 0], wts[bk, 0] = 7, 0.5
+    if special == "holes":
+        hole = torch.rand((h, p), generator=g) < 0.3
+        cols[hole], wts[hole] = -1, 0.0
+        cols[1, p // 2:] = -1  # a run of holes, then postings past it
+        cols[1, -1], wts[1, -1] = 11, 0.75
+    if special == "ties":
+        wts = (cols >= 0).float()
+    if special == "cancel":
+        cols[live[2], 1], wts[live[2], 1] = 13, 0.5
+        cols[live[3], 1], wts[live[3], 1] = 13, -0.5
+    buckets = torch.zeros(u, dtype=torch.int32)
+    buckets[:live_u] = live.to(torch.int32)
+    weights = torch.zeros((b, u))
+    weights[:, :live_u] = torch.rand((b, live_u), generator=g) * 3 + 0.1
+    weights[:, :live_u][torch.rand((b, live_u), generator=g) < 0.3] = 0.0
+    weights[0, :5] = torch.rand(5, generator=g) + 0.5  # row 7's buckets and fill P
+    if special == "ties":
+        weights = (weights > 0).float()
+    if special == "cancel":
+        weights[:, 2:4] = 1.0
+    if special == "dead":
+        weights[1] = 0.0
+    gate = (torch.rand((b, c), generator=g) > 0.3).float()
+    if special == "gated":
+        gate[1] = 0.0
+    if special == "late":
+        gate[:, :15000] = 0.0
+    penalty = (1.0 - gate) * NEG_INF
+    if special == "plus0":
+        penalty = torch.where(gate > 0, 0.0, NEG_INF)
+    return weights, buckets, cols, wts.to(torch.bfloat16), penalty.contiguous(), m
+
+
+def rehearse_lexical(lib, cases=LEX_CASES) -> None:
+    from mobius_rag_tpu_torch.ops.lexical import lexical_signals, lexical_topk_reference
+
+    p_, i_, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mrag_lex_topk.argtypes = [p_, p_, p_, p_, p_, i_, i_, i_, ll, i_, p_, p_, p_, ll, p_, p_,
+                                  p_]
+    g = torch.Generator().manual_seed(0)
+    for case in cases:
+        name = case[0]
+        weights, buckets, cols, wts, pen, m = lexical_case(case, g)
+        b, u = weights.shape
+        c = pen.shape[1]
+        cap = min(c, u * cols.shape[1])
+        acc = torch.full((b, c), 7.0, dtype=torch.float64)
+        touched = torch.full((b, cap), -7, dtype=torch.int64)
+        counts = torch.full((b,), -7, dtype=torch.int32)
+        vals = torch.full((b, m), 7.0)
+        idx = torch.full((b, m), -7, dtype=torch.int64)
+        rc = lib.mrag_lex_topk(_p(weights), _p(buckets), _p(cols), _p(wts), _p(pen), b, u,
+                               cols.shape[1], c, m, _p(acc), _p(touched), _p(counts), cap,
+                               _p(vals), _p(idx), None)
+        assert rc == 0, f"{name}: rc {rc}"
+        rv, ri_, lex = lexical_topk_reference(weights, buckets, cols, wts, pen, m)
+        assert torch.equal(vals.view(torch.int32), rv.view(torch.int32)), f"{name}: values"
+        assert torch.equal(idx, ri_), f"{name}: ids"
+        first = torch.arange(min(c, 512)).expand(b, -1)  # rows 7 and 13 among them
+        rows = torch.cat([ri_, first, torch.randint(0, c, (b, 20), generator=g)],
+                         dim=1).contiguous()
+        sig = lexical_signals(acc, rows)
+        want = torch.gather(lex, 1, rows)
+        assert torch.equal(sig.view(torch.int32), want.view(torch.int32)), f"{name}: signals"
+        live = int((rv > 0).sum())
+        print(f"lexical {name} B={b} C={c} U={u} m={m}: {live} live of {b * m}, "
+              f"{int(counts.sum())} rows touched; values, ids and signals bitwise", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=["proj", "topk"])
+    ap.add_argument("kernel", choices=["proj", "topk", "lexical"])
     ap.add_argument("--source", help="the .cu file (default: the package's)")
     ap.add_argument("--bf16", action="store_true", help="topk: only the bf16-row cases")
     ap.add_argument("--f32-int8", action="store_true",
                     help="topk: only F32_INT8_CASES (float32 and int8 rows)")
     args = ap.parse_args()
     source = args.source or os.path.join(
-        CSRC, "proj_scan.cu" if args.kernel == "proj" else "topk.cu")
+        CSRC, {"proj": "proj_scan.cu", "topk": "topk.cu", "lexical": "lexical.cu"}[args.kernel])
     with tempfile.TemporaryDirectory() as tmp:
         lib = build(source, tmp)
         if args.kernel == "proj":
             rehearse_proj(lib)
+        elif args.kernel == "lexical":
+            rehearse_lexical(lib)
         else:
             rehearse_topk(lib, BF16_CASES if args.bf16 else
                           F32_INT8_CASES if args.f32_int8 else TOPK_CASES)

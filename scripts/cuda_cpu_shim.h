@@ -4,9 +4,11 @@
 // the blocks of a launch one after another; std::barrier for
 // __syncthreads and for each warp; warp collectives (shuffles, ballots,
 // ldmatrix, mma.sync m16n8k32 s8 and m16n8k16 bf16) exchange through a
-// per-warp buffer with the lane layouts of the PTX ISA; cp.async copies at once (commit and
-// wait are no-ops). Slow, and no model of timing or of memory ordering
-// beyond the barriers; it checks indexing, layouts and arithmetic.
+// per-warp buffer with the lane layouts of the PTX ISA; cp.async copies at
+// once (commit and wait are no-ops); atomics are the host's (float64
+// atomicAdd a compare-and-swap loop). Slow, and no model of timing or of
+// memory ordering beyond the barriers; it checks indexing, layouts and
+// arithmetic.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -91,6 +93,20 @@ template <class T>
 T __ldg(const T* p) { return *p; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline long long __double_as_longlong(double d) { long long u; memcpy(&u, &d, 8); return u; }
+inline double __longlong_as_double(long long u) { double d; memcpy(&d, &u, 8); return d; }
+inline float __double2float_rn(double d) { return static_cast<float>(d); }
+// Returns the old value, as the card's float64 atomicAdd does.
+inline double atomicAdd(double* p, double v) {
+  uint64_t* bits = reinterpret_cast<uint64_t*>(p);
+  uint64_t old = __atomic_load_n(bits, __ATOMIC_SEQ_CST), want;
+  do {
+    const double sum = __longlong_as_double(static_cast<long long>(old)) + v;
+    memcpy(&want, &sum, 8);
+  } while (!__atomic_compare_exchange_n(bits, &old, want, false, __ATOMIC_SEQ_CST,
+                                        __ATOMIC_SEQ_CST));
+  return __longlong_as_double(static_cast<long long>(old));
+}
 
 struct ShimWarp {
   std::barrier<> bar{32};

@@ -308,7 +308,9 @@ def _release(serving) -> None:
 def staged_path(name: str, over, one, reqs, pipe, cards, smi: str) -> dict:
     """`over` (a grid over the cards: the staged route) against itself eager
     and against `one` (the grid on cuda:0: one graph), bitwise; q/s, busy
-    share per card, the masked top-k's launches a batch."""
+    share per card, the masked top-k's and the lexical kernels' launches a
+    batch."""
+    from mobius_rag_tpu_torch.ops.lexical import lexical_topk
     from mobius_rag_tpu_torch.ops.topk import masked_topk
     from mobius_rag_tpu_torch.query.compiled import ProgramsByDevice
 
@@ -320,10 +322,11 @@ def staged_path(name: str, over, one, reqs, pipe, cards, smi: str) -> dict:
     for label, engine, graphs in (("staged", over, True), ("staged again", over, True),
                                   ("eager", over, False), ("one graph", one, True)):
         engine.graphs = graphs
-        before = masked_topk.launches
+        before, lex_before = masked_topk.launches, lexical_topk.launches
         runs[label] = (_hits(engine.search(reqs, k=K)),
                        [_hits(b) for b in engine.search_pipelined(pipe, k=K)],
-                       masked_topk.launches - before, _packed(engine, reqs))
+                       masked_topk.launches - before, _packed(engine, reqs),
+                       lexical_topk.launches - lex_before)
     want = runs["one graph"]
     for label in ("staged", "staged again", "eager"):
         got = runs[label]
@@ -338,6 +341,13 @@ def staged_path(name: str, over, one, reqs, pipe, cards, smi: str) -> dict:
     check(runs["staged"][2] == per * (1 + len(pipe)) or home.type != "cuda",
           f"{name}: masked_topk launched {runs['staged'][2]} times over the stages for "
           f"{1 + len(pipe)} batches (want {per} a batch)")
+    # the sparse lexical arm's kernels, once a shard and group (the packed
+    # outputs' batch above adds one more)
+    lex = (len(over.sharded.groups) * over.sharded.num_shards
+           if "lex_cols" in over.store.index.fields else 0)
+    check(runs["staged"][4] == lex * (2 + len(pipe)) or home.type != "cuda",
+          f"{name}: lexical_topk launched {runs['staged'][4]} times over the stages for "
+          f"{2 + len(pipe)} batches (want {lex} a batch)")
     out = {}
     for label, engine, graphs in (("staged", over, True), ("eager", over, False),
                                   ("one graph", one, True)):

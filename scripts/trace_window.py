@@ -4,13 +4,17 @@ recorder (``observability.RECORDER``) took while the window's profiler ran.
 
     python3 scripts/trace_window.py <cell> <seed> [seconds]
 
-Prints one JSON line: the run's ``correct``, its per-layer metrics and
-device seconds, and the recorder's readings (``readings``): per batch, the
+Prints one JSON line: the run's ``correct``, its per-layer metrics,
+device seconds and breakdown (the top device operations and the idle
+gaps), and the recorder's readings (``readings``): per batch, the
 host's preparation and assembly (``query.prepare``, ``query.assemble``)
 and each of the device program's five stages (its marks, over the batches
 whose marks were read) with their sum; the share of the window the engine
 starved the device (``query.starved``) and that time split by the spans
-under it; the batches whose marks were read and skipped; and the captured
+under it; the batches whose marks were read and skipped; the share of the
+lexical union's (query, bucket) pairs read whose weight is nonzero, whose
+postings the lexical kernel scatters (``lexical_live_pairs``; None where
+the lexical arm does not run the kernels); and the captured
 programs' count by key (``CapturedPrograms.captures_by_key``: warm-up's
 and the window's). Run it once a process, as the benchmark does. Needs
 one CUDA card.
@@ -54,6 +58,8 @@ def readings(summary: dict, window_s: float) -> dict:
     out["starved_share"] = 100.0 * starved / 1e3 / window_s if "query.dispatch" in spans else None
     out["starved_split_ms"] = summary["children"].get("query.starved", {})
     out["marks"] = {k: summary["counts"].get(k, 0) for k in ("marks_read", "marks_skipped")}
+    read = summary["counts"].get("lex_pairs_read", 0)
+    out["lexical_live_pairs"] = summary["counts"].get("lex_pairs_live", 0) / read if read else None
     return out
 
 
@@ -84,7 +90,8 @@ def main(argv: list[str]) -> int:
     print(json.dumps({
         "cell": name, "seed": seed, "card": card, "correct": res["correct"],
         "metrics": {k: v["value"] for k, v in res["metrics"].items()},
-        "device": res["device"], "window": res["notes"]["window"],
+        "device": res["device"], "breakdown": res.get("breakdown"),
+        "window": res["notes"]["window"],
         "collections": res["notes"]["collections"],
         "program": readings(obs.RECORDER.summary(), res["device"]["window_s"]),
         "captures_by_key": keys}), flush=True)

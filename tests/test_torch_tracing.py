@@ -327,6 +327,7 @@ def test_window_readings_are_the_recorders_totals_per_batch(recorder):
     spec.loader.exec_module(mod)
 
     engine = _toy_engine()
+    engine._lexical_kernel_route = lambda: True  # the pair counts, as on a card
     _traced(lambda: [engine.search_pipelined(_batches(), k=K) for _ in range(2)])
     summary = recorder.summary()
     got = mod.readings(summary, window_s=2.0)
@@ -339,7 +340,60 @@ def test_window_readings_are_the_recorders_totals_per_batch(recorder):
     assert got["starved_share"] == pytest.approx(spans["query.starved"]["total_ms"] / 20.0)
     assert got["starved_split_ms"] == summary["children"]["query.starved"]
     assert got["marks"] == {"marks_read": 8, "marks_skipped": 0}
+    counts = summary["counts"]
+    assert got["lexical_live_pairs"] == counts["lex_pairs_live"] / counts["lex_pairs_read"]
     recorder.reset()
     none = mod.readings(recorder.summary(), window_s=2.0)
     assert none["prepare_ms"] is None and none["stage_sum_ms"] is None
     assert none["starved_share"] is None and none["marks"] == {"marks_read": 0, "marks_skipped": 0}
+    assert none["lexical_live_pairs"] is None
+
+
+@pytest.mark.parametrize("as_card", [False, True])
+def test_lexical_pair_counts_are_the_weights_read(recorder, as_card):
+    """While tracing, an engine whose lexical arm runs the kernels adds per
+    prepared batch its nonzero (query, bucket) weights (``lex_pairs_live``)
+    and B times the union columns its device program reads
+    (``lex_pairs_read``: rounded up, as on a card); the CPU's engine, which
+    runs the plain version, counts nothing, nor does any engine with
+    tracing off."""
+    import numpy as np
+
+    from test_torch_compiled import _reads_as_card
+
+    engine = _toy_engine(lexical_format="sparse")
+    if as_card:  # the card's route and union width, on the CPU
+        _reads_as_card(engine)
+        engine._lexical_kernel_route = lambda: True
+    batches = _batches(3, 4)
+    batches[1] = _reqs(5, " " + " ".join(f"term{i}" for i in range(20)))
+    preps = _traced(lambda: [engine.prepare_host(reqs)[0] for reqs in batches])
+    counts = recorder.summary()["counts"]
+    if not as_card:
+        assert "lex_pairs_live" not in counts and "lex_pairs_read" not in counts
+        return
+    assert counts["lex_pairs_live"] == sum(int(np.count_nonzero(p["lex_weights"]))
+                                           for p in preps)
+    widths = [eng._union_width(p.union, p["lex_buckets"].shape[0]) for p in preps]
+    assert counts["lex_pairs_read"] == sum(len(r) * w for r, w in zip(batches, widths))
+    assert 0 < counts["lex_pairs_live"] < counts["lex_pairs_read"]
+    recorder.reset()
+    for reqs in batches:
+        engine.prepare_host(reqs)
+    assert recorder.summary()["counts"] == {}
+
+
+@pytest.mark.parametrize("case", ["card sparse", "cpu", "dense layout", "local gating"])
+def test_lexical_kernel_route_is_sparse_dense_gated_on_a_card(case):
+    """The route the pair counts follow is lexical_candidates' kernel
+    route: the sparse layout under dense gating, on a card (the device is
+    named, never used: the method reads no tensor)."""
+    from mobius_rag_tpu_torch.ops.proj import PackedProj
+
+    engine = _toy_engine(lexical_format="dense" if case == "dense layout" else "sparse")
+    if case != "cpu":
+        engine.device = torch.device("cuda")
+    if case == "local gating":
+        engine._local_gating_active = lambda: True
+        engine._ann = object.__new__(PackedProj)
+    assert engine._lexical_kernel_route() is (case == "card sparse")
